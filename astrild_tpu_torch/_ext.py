@@ -18,7 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "load", "check", "build_logs"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
+           "build_logs"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -33,6 +34,26 @@ _SIGNATURES = {
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
             ctypes.c_int),
+        "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "paint_windowed": {
+        # keys, frac (3, n), weights, n, npd, order, out, n_cells, stream
+        "astrild_paint_windowed": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_void_p],
+            ctypes.c_int),
+        "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "pairwise_accumulate": {
+        # pos, vel, hat (n, 3), n, n_valid, binwidth, nbins, partials,
+        # out (2, nbins), stream
+        "astrild_pairwise_accumulate": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int),
+        "astrild_pairwise_partials_rows": ([ctypes.c_int64], ctypes.c_int64),
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
@@ -56,22 +77,39 @@ def _nvcc() -> str:
                        "first use")
 
 
-def _build(name: str) -> Path:
+def _library_path(name: str) -> Path:
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / digest / f"lib{name}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
-    build_logs[name] = proc.stderr
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    return BUILD_DIR / digest / f"lib{name}.so"
+
+
+def build(names) -> dict[str, Path]:
+    """Build the libraries of kernels `names` that are not built yet, one
+    nvcc process per source, all started together; returns their paths.
+    Raises if any build fails (after every started build has ended)."""
+    paths = {name: _library_path(name) for name in names}
+    procs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {_CSRC / name}.cu:\n{stderr}")
+            continue
+        build_logs[name] = stderr
+        # atomic: a concurrent loader never sees half a file
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -79,7 +117,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build(name)))
+            lib = ctypes.CDLL(str(build([name])[name]))
             for sym, (argtypes, restype) in _SIGNATURES[name].items():
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes

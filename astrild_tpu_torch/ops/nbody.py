@@ -1,0 +1,360 @@
+"""Particle-mesh N-body: 2LPT initial conditions + KDK leapfrog evolution.
+
+Port of astrild_tpu/ops/nbody.py (the forward model: a linear P(k) becomes
+a nonlinear particle snapshot). The JAX package's `lax.scan` time loop is a
+plain Python loop here; each step paints the particles (`ops.paint.paint`,
+which sends CIC/TSC on the card through the windowed kernel K2), solves
+Poisson's equation with FFTs and gathers the forces back trilinearly
+(`ops.recon.sample_displacement`). `pm_evolve` updates its own copies of
+the particle buffers in place; the caller's tensors are left untouched.
+
+Randomness comes from an explicit `torch.Generator` where the JAX package
+takes a PRNG key (`lpt_catalog`, `pm_catalog`): the same seed gives a
+different realization than JAX's. The `*_from_modes` entry points take the
+linear modes themselves, so both packages can start from the same numpy
+field.
+
+Conventions (t in units of 1/H0, comoving lengths in Mpc/h):
+  momentum        p = a^2 dx/dt                     [Mpc/h]
+  kick            dp = F_hat * da / (a^2 E(a)),     grad^2 phi_hat =
+                  F_hat = -grad phi_hat             (3/2) Om0 delta
+  drift           dx = p * da / (a^3 E(a))
+  peculiar vel    v [km/s] = 100 * p / a
+2LPT displacement (Bouchet et al. 1995):
+  x = q + D1 psi1 + D2 psi2,  psi1 = -grad invlap(delta),
+  psi2 = +grad invlap(S2),    D2 = -(3/7) D1^2 Om(z)^(-1/143),
+  S2 = sum_{i<j} [phi,ii phi,jj - phi,ij^2],  f2 = 2 Om(z)^(6/11).
+
+Not ported yet: `pm_evolve_checkpointed` (needs core/checkpoint) and
+`pm_lightcone_planes` (needs ops/lens_planes).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .mocks import linear_modes
+from .paint import paint
+from .power import _mode_numbers
+from .power import delta_k as _delta_k
+from .recon import sample_displacement
+
+__all__ = ["lpt_displacements_from_modes", "lpt_catalog_from_modes",
+           "lpt_catalog", "lpt_growth", "pm_step_factors", "pm_evolve",
+           "pm_catalog", "velocities_kms"]
+
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+def _freqs(ngrid: int, boxsize, device=None):
+    """Angular wavenumbers of the fftn axis, from exact mode numbers."""
+    return _mode_numbers(ngrid, device) * (2.0 * math.pi / boxsize)
+
+
+def _nyquist_mask(ngrid: int, size: int, device):
+    mask = torch.ones(size, dtype=torch.float32, device=device)
+    mask[ngrid // 2] = 0.0
+    return mask
+
+
+def _safe_div_k2(field_k, k2):
+    """field_k / k2 with the k = 0 mode set to 0."""
+    zero = k2 == 0.0
+    out = field_k / torch.where(zero, torch.ones_like(k2), k2)
+    return out.masked_fill_(zero, 0)
+
+
+def _grad_invlap(field_k, ngrid: int, boxsize, sign: float):
+    """sign * grad(invlap(field)) as (3, n, n, n) real grids.
+
+    field_k: unnormalized fftn coefficients of the field. Odd (gradient)
+    transfers vanish on their Nyquist plane.
+    """
+    field_k = torch.as_tensor(field_k)
+    dev = field_k.device
+    f = _freqs(ngrid, boxsize, dev)
+    k2 = (f[:, None, None] ** 2 + f[None, :, None] ** 2
+          + f[None, None, :] ** 2)
+    # invlap: lap(phi) = field  =>  phi_k = -field_k / k^2
+    phi_k = _safe_div_k2(-field_k, k2)
+    del k2
+    mask = _nyquist_mask(ngrid, ngrid, dev)
+    out = torch.empty((3, ngrid, ngrid, ngrid), dtype=torch.float32,
+                      device=dev)
+    for axis in range(3):
+        shape = [1, 1, 1]
+        shape[axis] = ngrid
+        kv = (f * mask).reshape(shape)
+        out[axis] = torch.fft.ifftn((sign * 1j) * kv * phi_k).real
+    return out
+
+
+def _second_order_source(delta_k_full, ngrid: int, boxsize):
+    """2LPT source S2(x) = sum_{i<j} [phi,ii phi,jj - phi,ij^2] on the real
+    grid, from the unnormalized fftn coefficients of the linear field; the
+    second derivatives of the Zel'dovich potential are spectral:
+    phi,ij(k) = k_i k_j delta_k / k^2."""
+    delta_k_full = torch.as_tensor(delta_k_full)
+    f = _freqs(ngrid, boxsize, delta_k_full.device)
+    kv = [f.reshape(-1, 1, 1), f.reshape(1, -1, 1), f.reshape(1, 1, -1)]
+    t = _safe_div_k2(delta_k_full, kv[0] ** 2 + kv[1] ** 2 + kv[2] ** 2)
+
+    def d2(i, j):
+        return torch.fft.ifftn(kv[i] * kv[j] * t).real
+
+    dxx, dyy, dzz = d2(0, 0), d2(1, 1), d2(2, 2)
+    s2 = dxx * dyy + dxx * dzz + dyy * dzz
+    del dxx, dyy, dzz
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        s2 = s2 - d2(i, j) ** 2
+    return s2
+
+
+def lpt_displacements_from_modes(delta_k_full, ngrid: int, boxsize):
+    """(psi1, psi2) displacement grids, each (3, n, n, n), from the
+    unnormalized fftn coefficients of the z=0 linear density field.
+
+    psi1 = -grad invlap(delta) (Zel'dovich), psi2 = +grad invlap(S2);
+    apply growth as x = q + D1 psi1 + D2 psi2 (D2 < 0).
+    """
+    psi1 = _grad_invlap(delta_k_full, ngrid, boxsize, sign=-1.0)
+    s2 = _second_order_source(delta_k_full, ngrid, boxsize)
+    psi2 = _grad_invlap(torch.fft.fftn(s2), ngrid, boxsize, sign=+1.0)
+    return psi1, psi2
+
+
+def _lattice_comps(ngrid: int, boxsize, device=None):
+    cell = boxsize / ngrid
+    x = (torch.arange(ngrid, dtype=torch.float32, device=device) + 0.5) * cell
+    gx, gy, gz = torch.meshgrid(x, x, x, indexing="ij")
+    return gx.reshape(-1), gy.reshape(-1), gz.reshape(-1)
+
+
+def lpt_growth(cosmo, z_init: float, order: int = 2):
+    """Host scalars (D1, f1, D2, f2) at z_init (D2=f2=0 for order=1)."""
+    d1 = float(cosmo.growth_factor(z_init))
+    f1 = float(cosmo.growth_rate(z_init))
+    om_z = float(cosmo.Om(z_init))
+    if order == 1:
+        return d1, f1, 0.0, 0.0
+    d2 = -(3.0 / 7.0) * d1 ** 2 * om_z ** (-1.0 / 143.0)
+    f2 = 2.0 * om_z ** (6.0 / 11.0)
+    return d1, f1, d2, f2
+
+
+def lpt_catalog_from_modes(delta_k_full, ngrid: int, boxsize, cosmo,
+                           z_init: float, order: int = 2, growth=None):
+    """2LPT (or Zel'dovich, order=1) particle ICs at z_init from explicit
+    linear modes (unnormalized fftn coefficients of the z=0 field, a
+    complex tensor or numpy array).
+
+    growth: optional precomputed (d1, f1, d2, f2, e_init) host scalars.
+    Returns (comps, mom): flat position buffers (x, y, z) in [0, boxsize]
+    and canonical momenta (px, py, pz) = a^2 dx/dt.
+    """
+    if order not in (1, 2):
+        raise ValueError("order must be 1 (Zel'dovich) or 2 (2LPT)")
+    if growth is None:
+        d1, f1, d2, f2 = lpt_growth(cosmo, z_init, order)
+        e = float(cosmo.efunc(z_init))
+    else:
+        d1, f1, d2, f2, e = (float(g) for g in growth)
+    a = 1.0 / (1.0 + z_init)
+    delta_k_full = torch.as_tensor(delta_k_full)
+    psi1, psi2 = lpt_displacements_from_modes(delta_k_full, ngrid, boxsize)
+    lattice = _lattice_comps(ngrid, boxsize, delta_k_full.device)
+    comps, mom = [], []
+    for i, q in enumerate(lattice):
+        disp = d1 * psi1[i] + d2 * psi2[i]
+        comps.append(torch.remainder(q + disp.reshape(-1), boxsize))
+        # dx/dt = E (f1 D1 psi1 + f2 D2 psi2); p = a^2 dx/dt
+        dxdt = (a * a * e) * (f1 * d1 * psi1[i] + f2 * d2 * psi2[i])
+        mom.append(dxdt.reshape(-1))
+    return tuple(comps), tuple(mom)
+
+
+def lpt_catalog(generator: torch.Generator, ngrid: int, boxsize,
+                pk_fn: Callable, cosmo, z_init: float, order: int = 2):
+    """2LPT (or Zel'dovich, order=1) particle ICs at z_init for a Gaussian
+    realization of pk_fn drawn from `generator`, on the generator's
+    device. Returns (comps, mom) as `lpt_catalog_from_modes` does."""
+    if order not in (1, 2):
+        raise ValueError("order must be 1 (Zel'dovich) or 2 (2LPT)")
+    dk = linear_modes(generator, ngrid, boxsize, pk_fn)
+    return lpt_catalog_from_modes(dk, ngrid, boxsize, cosmo, z_init,
+                                  order=order)
+
+
+def velocities_kms(mom, a: float):
+    """Peculiar velocities [km/s] from canonical momenta at scale factor
+    a: v = 100 p / a."""
+    return tuple(100.0 * p / a for p in mom)
+
+
+def _a_edges(a_init: float, a_final: float, nsteps: int, spacing: str):
+    if spacing == "loga":
+        return np.exp(np.linspace(np.log(a_init), np.log(a_final),
+                                  nsteps + 1))
+    if spacing == "a":
+        return np.linspace(a_init, a_final, nsteps + 1)
+    raise ValueError("spacing must be 'loga' or 'a'")
+
+
+def _factors_from_edges(cosmo, edges, spacing: str = "loga",
+                        quad_points: int = 257):
+    """KDK integrals per step for an explicit scale-factor edge grid (host
+    float64): (nsteps, 3) rows [kick(a0->ah), drift(a0->a1),
+    kick(ah->a1)], kick integrand 1/(a^2 E), drift 1/(a^3 E)."""
+    edges = np.asarray(edges, np.float64)
+    nsteps = len(edges) - 1
+
+    def integral(lo, hi, power):
+        a = np.linspace(lo, hi, quad_points)
+        return _trapezoid(1.0 / (a ** power * cosmo.efunc_a(a)), a)
+
+    out = np.empty((nsteps, 3), np.float64)
+    for i in range(nsteps):
+        a0, a1 = edges[i], edges[i + 1]
+        ah = np.sqrt(a0 * a1) if spacing == "loga" else 0.5 * (a0 + a1)
+        out[i, 0] = integral(a0, ah, 2)
+        out[i, 1] = integral(a0, a1, 3)
+        out[i, 2] = integral(ah, a1, 2)
+    return out
+
+
+def pm_step_factors(cosmo, a_init: float, a_final: float, nsteps: int,
+                    spacing: str = "loga", quad_points: int = 257):
+    """Exact KDK drift/kick integrals per step (host, float64), numpy
+    (nsteps, 3) (Quinn et al. 1997), trapezoid-quadratured."""
+    return _factors_from_edges(cosmo, _a_edges(a_init, a_final, nsteps,
+                                               spacing),
+                               spacing=spacing, quad_points=quad_points)
+
+
+def _poisson_forces(grid, ngrid: int, boxsize, om0, window: str,
+                    compensate: bool = True, am2=math.inf):
+    """F_hat = -grad phi_hat with lap phi_hat = 1.5 Om0 (1 + mu_k) delta,
+    as (3, n, n, n) grids from a painted density: one rfftn and three
+    irfftn.
+
+    am2 = a^2 M^2(a), the comoving scalaron mass^2 of linearized
+    Hu-Sawicki f(R) [(h/Mpc)^2]; mu_k = k^2 / (3 (k^2 + am2)). am2 = inf
+    is exact GR: k^2 / inf == 0, so geff == 1 exactly.
+    """
+    dk = _delta_k(grid, window=window if compensate else None)
+    dev = grid.device
+    f = _freqs(ngrid, boxsize, dev)
+    fr = f[: ngrid // 2 + 1]
+    kv = [f.reshape(-1, 1, 1), f.reshape(1, -1, 1), fr.reshape(1, 1, -1)]
+    k2 = kv[0] ** 2 + kv[1] ** 2 + kv[2] ** 2
+    geff = 1.0 + k2 / (3.0 * (k2 + am2))
+    phik = _safe_div_k2(-1.5 * om0 * geff * dk, k2)
+    del dk, geff, k2
+    masks = [_nyquist_mask(ngrid, ngrid, dev).reshape(-1, 1, 1),
+             _nyquist_mask(ngrid, ngrid, dev).reshape(1, -1, 1),
+             _nyquist_mask(ngrid, ngrid // 2 + 1, dev).reshape(1, 1, -1)]
+    out = torch.empty((3, ngrid, ngrid, ngrid), dtype=torch.float32,
+                      device=dev)
+    for a in range(3):
+        out[a] = torch.fft.irfftn(-1j * kv[a] * masks[a] * phik,
+                                  s=(ngrid,) * 3) * float(ngrid) ** 3
+    return out
+
+
+# named profiler spans: a trace of the time loop groups its device time by
+# them (a few microseconds per span when no profiler runs)
+_span = torch.profiler.record_function
+
+
+def _force_grids(comps, ngrid: int, boxsize, om0, window: str,
+                 compensate: bool = True, am2=math.inf, deposit=None):
+    """Paint the particles and solve for the force grids (3, n, n, n).
+
+    One window deconvolution corrects the paint; the readout smoothing
+    remains. Keep ngrid == particles per side with lattice ICs: a finer
+    force mesh aliases the lattice's displacement sidebands coherently
+    onto the physical modes (the JAX package's `_force_grids` docstring;
+    tests pin both regimes).
+    """
+    with _span("pm.paint"):
+        grid = paint(comps, ngrid, boxsize, window=window, deposit=deposit)
+    with _span("pm.poisson"):
+        return _poisson_forces(grid, ngrid, boxsize, om0, window,
+                               compensate=compensate, am2=am2)
+
+
+def _pm_loop(comps, mom, factors, am2_edges, ngrid: int, boxsize, om0,
+             window: str, deposit=None):
+    """KDK leapfrog over the rows of `factors`, in place on comps/mom.
+
+    Each part runs in a profiler span: pm.paint and pm.poisson (in
+    `_force_grids`), pm.gather, pm.kick (twice per step) and pm.drift.
+    """
+    def forces(am2):
+        grids = _force_grids(comps, ngrid, boxsize, om0, window, am2=am2,
+                             deposit=deposit)
+        with _span("pm.gather"):
+            return sample_displacement(grids, boxsize, comps)
+
+    def kick(frc, k):
+        with _span("pm.kick"):
+            for p, f in zip(mom, frc):
+                p.add_(f, alpha=k)
+
+    frc = forces(am2_edges[0])
+    for (k1, dr, k2), am2 in zip(factors, am2_edges[1:]):
+        kick(frc, k1)
+        with _span("pm.drift"):
+            for c, p in zip(comps, mom):
+                c.add_(p, alpha=dr).remainder_(boxsize)
+        frc = forces(am2)
+        kick(frc, k2)
+    return comps, mom
+
+
+def pm_evolve(comps, mom, cosmo, ngrid: int, boxsize, a_init: float,
+              a_final: float, nsteps: int, window: str = "cic",
+              spacing: str = "loga"):
+    """Evolve (comps, mom) from a_init to a_final with nsteps KDK
+    leapfrog steps on an ngrid^3 force mesh.
+
+    comps/mom: flat per-component buffers (x, y, z) / (px, py, pz) as
+    produced by lpt_catalog. One paint + 4 FFTs + 3 gathers per step, plus
+    one force evaluation before the first step. Returns new (comps, mom);
+    the inputs are copied, not changed.
+
+    cosmo.fR0 != 0 turns on the linearized Hu-Sawicki fifth force
+    (per-step comoving scalaron mass^2 a^2 M^2(a) from the host, spectral
+    Geff(k) in the Poisson solve); fR0 = 0 is exact GR.
+    """
+    comps = tuple(torch.as_tensor(c).reshape(-1).clone() for c in comps)
+    mom = tuple(torch.as_tensor(p).reshape(-1).clone() for p in mom)
+    edges = _a_edges(a_init, a_final, nsteps, spacing)
+    factors = _factors_from_edges(cosmo, edges, spacing=spacing)
+    if float(getattr(cosmo, "fR0", 0.0)) != 0.0:
+        am2 = edges ** 2 * np.asarray(cosmo.scalaron_mass2(edges), np.float64)
+    else:
+        am2 = np.full(nsteps + 1, np.inf)
+    return _pm_loop(comps, mom, factors.tolist(), am2.tolist(), ngrid,
+                    float(boxsize), float(cosmo.Om0), window)
+
+
+def pm_catalog(generator: torch.Generator, cosmo, pk_fn: Callable,
+               ngrid_part: int, boxsize, z_init: float = 9.0,
+               z_final: float = 0.0, nsteps: int = 20,
+               ngrid_force: int | None = None, order: int = 2,
+               window: str = "cic"):
+    """Linear P(k) -> nonlinear snapshot: 2LPT ICs at z_init (drawn from
+    `generator`) evolved to z_final. Returns (comps, vel_kms), both flat
+    component tuples. ngrid_force defaults to ngrid_part (1:1)."""
+    if ngrid_force is None:
+        ngrid_force = ngrid_part
+    comps, mom = lpt_catalog(generator, ngrid_part, boxsize, pk_fn, cosmo,
+                             z_init, order=order)
+    a0, a1 = 1.0 / (1.0 + z_init), 1.0 / (1.0 + z_final)
+    comps, mom = pm_evolve(comps, mom, cosmo, ngrid_force, boxsize, a0, a1,
+                           nsteps, window=window)
+    return comps, velocities_kms(mom, a1)

@@ -3,8 +3,8 @@
 Port of astrild_tpu/ops/paint.py. The scatter painters deposit each
 particle's separable window weights with `index_add_` over the neighbour
 offsets; `deposit="kernel"` sends NGP through the sorted CUDA deposit
-(`paint_cuda.deposit_flat`, kernel K1). The CIC/TSC kernel (K2,
-`paint_windowed` in astrild_tpu/ops/paint_pallas.py) is not ported yet.
+(`paint_cuda.deposit_flat`, kernel K1) and CIC/TSC through the windowed
+CUDA painter (`paint_cuda.paint_windowed`, kernel K2).
 """
 from __future__ import annotations
 
@@ -102,28 +102,33 @@ def paint_tsc(pos, ngrid: int, boxsize, weights=None):
 _PAINTERS = {"ngp": paint_ngp, "cic": paint_cic, "tsc": paint_tsc}
 
 
-def _paint_one(pos, ngrid, boxsize, weights, window, deposit):
+def _paint_one(pos_flat, ngrid, boxsize, weights, window, deposit):
+    """pos_flat: (3n,) x, y and z concatenated; the scatter painters and
+    NGP read it through an (n, 3) view."""
+    device = pos_flat.device
     if deposit is None:
-        # the CIC/TSC kernel (K2) is not ported, and the JAX package never
+        # CIC/TSC take the kernel on the card at every size (the JAX
+        # package's size threshold is TPU tuning); the JAX package never
         # auto-selects a kernel for NGP
-        deposit = "scatter"
+        deposit = ("kernel" if window in ("cic", "tsc")
+                   and device.type == "cuda" else "scatter")
+    rows = pos_flat.view(3, pos_flat.shape[0] // 3).t()
     if deposit == "kernel":
-        if window != "ngp":
-            raise NotImplementedError(
-                f"deposit='kernel' for window={window!r} needs the CIC/TSC "
-                "painting kernel K2 (paint_windowed), which is not ported "
-                "yet; use deposit='scatter'")
-        if pos.device.type != "cuda":
+        if device.type != "cuda":
             raise ValueError("deposit='kernel' needs a CUDA tensor, got "
-                             f"{pos.device}")
-        from .paint_cuda import deposit_flat
+                             f"{device}")
+        from . import paint_cuda
         w = None if weights is None else weights.to(torch.float32)
-        dep = deposit_flat(_ngp_cells(pos, ngrid, boxsize), w, ngrid ** 3)
-        return dep.reshape(ngrid, ngrid, ngrid)
+        if window == "ngp":
+            dep = paint_cuda.deposit_flat(_ngp_cells(rows, ngrid, boxsize),
+                                          w, ngrid ** 3)
+            return dep.reshape(ngrid, ngrid, ngrid)
+        return paint_cuda.paint_windowed(pos_flat, w, ngrid, boxsize,
+                                         order=WINDOW_ORDER[window])
     if deposit != "scatter":
         raise ValueError(f"deposit must be None, 'scatter' or 'kernel', "
                          f"got {deposit!r}")
-    return _PAINTERS[window](pos, ngrid, boxsize, weights)
+    return _PAINTERS[window](rows, ngrid, boxsize, weights)
 
 
 def paint(pos, ngrid: int, boxsize, weights=None, window: str = "cic",
@@ -139,17 +144,22 @@ def paint(pos, ngrid: int, boxsize, weights=None, window: str = "cic",
       window: 'ngp' | 'cic' | 'tsc'.
       interlaced: if True, returns (grid, grid_shifted) where the second
         deposit is displaced by half a cell along each axis.
-      deposit: None (auto: 'scatter') | 'scatter' | 'kernel' (NGP through
-        the sorted CUDA deposit; CUDA tensors only).
+      deposit: None (auto: 'kernel' for CIC/TSC on a CUDA tensor,
+        'scatter' otherwise) | 'scatter' | 'kernel' (NGP through the sorted
+        CUDA deposit K1, CIC/TSC through the windowed CUDA painter K2;
+        CUDA tensors only).
     """
+    # one layout for every route: x, y and z concatenated (one copy)
     if isinstance(pos, (tuple, list)):
-        pos = torch.stack(list(pos), dim=-1)
-    g = _paint_one(pos, ngrid, boxsize, weights, window, deposit)
+        pos_flat = torch.cat([torch.as_tensor(c).reshape(-1) for c in pos])
+    else:
+        pos_flat = pos.t().reshape(-1)
+    g = _paint_one(pos_flat, ngrid, boxsize, weights, window, deposit)
     if not interlaced:
         return g
     half = 0.5 * boxsize / ngrid
-    g2 = _paint_one(torch.remainder(pos + half, boxsize), ngrid, boxsize,
-                    weights, window, deposit)
+    g2 = _paint_one(torch.remainder(pos_flat + half, boxsize), ngrid,
+                    boxsize, weights, window, deposit)
     return g, g2
 
 

@@ -1,16 +1,21 @@
-"""Sorted windowed deposit (K1) on the CUDA card, with its plain version.
+"""The painting kernels on the CUDA card, with their plain versions.
 
-Port of the sorted deposit of astrild_tpu/ops/paint_pallas.py
-(`deposit_sorted`, `deposit_flat`). The kernel is hand-written CUDA C++ in
-csrc/deposit_sorted.cu: one thread block per window of output cells,
-accumulated in shared memory (see the source for its design). The TPU
-version's window/chunk tuning table has no counterpart: the CUDA kernel
-fixes its own window.
+Port of astrild_tpu/ops/paint_pallas.py:
 
-On a CPU tensor the wrappers run the plain PyTorch version
-(`deposit_sorted_reference`); on a CUDA tensor they launch the kernel or
-raise. `LAUNCHES` counts kernel launches per wrapper, so a run can show
-that its main path went through the kernel.
+- K1, the sorted deposit (`deposit_sorted`, `deposit_flat`), in
+  csrc/deposit_sorted.cu;
+- K2, the windowed CIC/TSC painter (`paint_windowed`), in
+  csrc/paint_windowed.cu.
+
+Both kernels are hand-written CUDA C++: one thread block per window of
+output cells, accumulated in shared memory (see the sources for their
+design). The TPU version's window/chunk tuning table has no counterpart:
+each CUDA kernel fixes its own window.
+
+On a CPU tensor the wrappers run the plain PyTorch versions
+(`deposit_sorted_reference`, `paint_windowed_reference`); on a CUDA tensor
+they launch the kernel or raise. `LAUNCHES` counts kernel launches per
+wrapper, so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 from .. import _ext
 
 __all__ = ["deposit_sorted", "deposit_flat", "deposit_sorted_reference",
-           "LAUNCHES"]
+           "paint_windowed", "paint_windowed_reference", "LAUNCHES"]
 
 LAUNCHES: Counter = Counter()
 
@@ -104,3 +109,157 @@ def deposit_flat(flat_idx: torch.Tensor, weights: torch.Tensor | None,
         return deposit_sorted(keys, None, n_cells)
     vals = weights.reshape(-1).to(torch.float32)[order]
     return deposit_sorted(keys, vals, n_cells)
+
+
+# ---------------------------------------------------------------- K2
+def _axis_weight(f, a: int, order: int):
+    """Window weight along one axis for offset `a` (paint_pallas.py:601)."""
+    if order == 2:
+        return f if a else 1.0 - f
+    if a == 0:
+        return 0.75 - f * f
+    return 0.5 * (0.5 + a * f) ** 2
+
+
+def _offsets(order: int):
+    axis = (0, 1) if order == 2 else (-1, 0, 1)
+    return [(dx, dy, dz) for dx in axis for dy in axis for dz in axis]
+
+
+def _windowed_keys(pos_flat: torch.Tensor, ngrid: int, boxsize,
+                   order: int):
+    """Padded base keys (n,) int32 and fractions (3, n) float32 of
+    `paint_windowed` (paint_pallas.py:672-714).
+
+    Positions are wrapped first, so every base cell is in range and the
+    fold of the padded grid supplies the periodic wrap of the offsets. CIC
+    takes base cell floor(x/h - 0.5) + 1 with f = x/h - 0.5 - floor; TSC
+    takes the centre cell clipped to [0, n-1] with d = x/h - ic - 0.5 from
+    the CLIPPED index, so a particle whose x/h rounds to n gets centre n-1
+    with d = +0.5 (the same deposit as centre 0 with d = -0.5).
+    """
+    n = pos_flat.shape[0] // 3
+    npd = ngrid + 2
+    h = boxsize / ngrid
+    ip, frac = [], []
+    for c in pos_flat.reshape(3, n):
+        c = torch.remainder(c, boxsize)
+        if order == 2:
+            u = c / h - 0.5
+            i0 = torch.floor(u)
+            frac.append((u - i0).to(torch.float32))
+            ip.append(i0.to(torch.int32) + 1)
+        else:
+            u = c / h
+            ic = torch.clamp(torch.floor(u).to(torch.int32), 0, ngrid - 1)
+            frac.append((u - ic.to(torch.float32) - 0.5).to(torch.float32))
+            ip.append(ic + 1)
+    key = (ip[0] * npd + ip[1]) * npd + ip[2]
+    return key, torch.stack(frac)
+
+
+def _fold_pad(padded: torch.Tensor, ngrid: int) -> torch.Tensor:
+    """Fold the periodic pad of an (n+2)^3 grid back: padded index p ->
+    cell (p - 1) mod n (paint_pallas.py:800-807). Adds into `padded`."""
+    g = padded
+    for ax in range(3):
+        core = g.narrow(ax, 1, ngrid)
+        core.select(ax, ngrid - 1).add_(g.select(ax, 0))
+        core.select(ax, 0).add_(g.select(ax, ngrid + 1))
+        g = core
+    return g.contiguous()
+
+
+def _check_windowed(pos_flat, weights, ngrid: int, order: int) -> None:
+    if order not in (2, 3):
+        raise ValueError(f"paint_windowed: order must be 2 (CIC) or 3 "
+                         f"(TSC), got {order}")
+    if pos_flat.dim() != 1 or pos_flat.shape[0] % 3:
+        raise ValueError(f"paint_windowed: pos_flat must be flat (3n,), got "
+                         f"{tuple(pos_flat.shape)}")
+    if (ngrid + 2) ** 3 >= _MAX_CELLS:
+        raise ValueError(f"paint_windowed: ngrid={ngrid} gives a padded "
+                         f"grid of 2^31 cells or more")
+    n = pos_flat.shape[0] // 3
+    if weights is not None and (weights.shape != (n,)
+                                or weights.device != pos_flat.device):
+        raise ValueError(f"paint_windowed: weights must be ({n},) on "
+                         f"{pos_flat.device}, got {tuple(weights.shape)} on "
+                         f"{weights.device}")
+
+
+def paint_windowed_reference(pos_flat: torch.Tensor,
+                             weights: torch.Tensor | None, ngrid: int,
+                             boxsize, order: int = 3) -> torch.Tensor:
+    """Plain version of `paint_windowed`: the same keys, clip and fold,
+    with one `index_add_` per offset on the padded grid (order-free)."""
+    _check_windowed(pos_flat, weights, ngrid, order)
+    npd = ngrid + 2
+    key, frac = _windowed_keys(pos_flat.to(torch.float32), ngrid, boxsize,
+                               order)
+    grid = torch.zeros(npd ** 3, dtype=torch.float32, device=pos_flat.device)
+    for dx, dy, dz in _offsets(order):
+        w = (_axis_weight(frac[0], dx, order) * _axis_weight(frac[1], dy, order)
+             * _axis_weight(frac[2], dz, order))
+        if weights is not None:
+            w = w * weights.to(torch.float32)
+        grid.index_add_(0, (key + (dx * npd + dy) * npd + dz).long(), w)
+    return _fold_pad(grid.view(npd, npd, npd), ngrid)
+
+
+def _sorted_windowed_inputs(pos_flat, weights, ngrid: int, boxsize,
+                            order: int):
+    """Keys sorted ascending with their fractions (3, n) and weights
+    gathered in the same order: the kernel's inputs."""
+    key, frac = _windowed_keys(pos_flat.to(torch.float32), ngrid, boxsize,
+                               order)
+    keys_sorted, idx = torch.sort(key, stable=False)
+    del key
+    frac_sorted = frac[:, idx].contiguous()
+    del frac
+    w_sorted = (None if weights is None
+                else weights.to(torch.float32)[idx].contiguous())
+    return keys_sorted, frac_sorted, w_sorted
+
+
+def _launch_windowed(keys_sorted, frac_sorted, w_sorted, ngrid: int,
+                     order: int) -> torch.Tensor:
+    """Run K2 on sorted inputs; returns the padded flat grid."""
+    npd = ngrid + 2
+    lib = _ext.load("paint_windowed")
+    out = torch.empty(npd ** 3, dtype=torch.float32,
+                      device=keys_sorted.device)
+    with torch.cuda.device(keys_sorted.device):
+        stream = torch.cuda.current_stream(keys_sorted.device).cuda_stream
+        rc = lib.astrild_paint_windowed(
+            keys_sorted.data_ptr(), frac_sorted.data_ptr(),
+            None if w_sorted is None else w_sorted.data_ptr(),
+            keys_sorted.shape[0], npd, order, out.data_ptr(), npd ** 3,
+            stream)
+    _ext.check(lib, rc, "paint_windowed")
+    LAUNCHES["paint_windowed"] += 1
+    return out
+
+
+def paint_windowed(pos_flat: torch.Tensor, weights: torch.Tensor | None,
+                   ngrid: int, boxsize, order: int = 3) -> torch.Tensor:
+    """CIC (order 2) or TSC (order 3) deposit of flat positions, periodic.
+
+    pos_flat: (3n,) float32, x, y and z concatenated; weights: (n,) or
+    None. Returns (ngrid, ngrid, ngrid) float32: the deposit of
+    `paint_cic` / `paint_tsc` up to the order of the float sums.
+
+    On a CUDA tensor: wrap, key and sort once on the card (torch), run the
+    windowed kernel K2 on the padded grid, fold the pad (torch).
+    """
+    if pos_flat.device.type == "cpu":
+        return paint_windowed_reference(pos_flat, weights, ngrid, boxsize,
+                                        order)
+    if pos_flat.device.type != "cuda":
+        raise ValueError(f"paint_windowed: no kernel for device "
+                         f"{pos_flat.device}")
+    _check_windowed(pos_flat, weights, ngrid, order)
+    padded = _launch_windowed(*_sorted_windowed_inputs(
+        pos_flat, weights, ngrid, boxsize, order), ngrid, order)
+    npd = ngrid + 2
+    return _fold_pad(padded.view(npd, npd, npd), ngrid)

@@ -1,0 +1,181 @@
+"""Blocked O(N^2) mean-pairwise-velocity estimator.
+
+Port of `make_rsep`, `make_rsep_uneven_bins`, `_pad_blocks`,
+`_pairwise_accumulate` and `mean_pairwise_velocity` of
+astrild_tpu/ops/pairwise.py. The plain version processes pairs in (B x B)
+tiles (a Python loop over the upper-triangular tile pairs) and reduces
+each tile into distance bins with `binred.masked_bin_reduce`; on a CUDA
+tensor the estimator runs the pair-tile kernel K3
+(`pairwise_cuda.pairwise_accumulate`) instead.
+
+Estimator (Yasini et al. 2018, arxiv:1812.04241 Eq. 6):
+  v12(r) = sum_pairs (v_i - v_j) . q_ij / sum_pairs |q_ij|^2
+  q_ij = [2 rhat_ij - phat_i (rhat_ij.phat_i) - phat_j (rhat_ij.phat_j)] / 2
+
+Not ported yet: `pairwise_velocity_pdf`, the kSZ estimator
+(`pairwise_ksz_momentum`) and `mean_pv_from_tv`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import pairwise_cuda
+from .binred import masked_bin_reduce
+
+__all__ = ["mean_pairwise_velocity", "make_rsep", "make_rsep_uneven_bins"]
+
+
+def make_rsep(binnr: int, binwidth: float, device=None):
+    """Histogram bin centers (reference mean_pairwise_velocity.py:176-196)."""
+    return (torch.linspace(0.0, (binnr - 1) * binwidth, binnr, device=device)
+            + binwidth / 2.0)
+
+
+def make_rsep_uneven_bins(bin_edges, device=None):
+    """Centers of arbitrary bin edges (mean_pairwise_velocity.py:198-203)."""
+    bin_edges = torch.as_tensor(np.asarray(bin_edges), dtype=torch.float32,
+                                device=device)
+    return 0.5 * (bin_edges[1:] + bin_edges[:-1])
+
+
+def _pad_blocks(arr, block: int):
+    n = arr.shape[0]
+    nb = (n + block - 1) // block
+    pad = arr.new_zeros((nb * block - n,) + tuple(arr.shape[1:]))
+    return torch.cat([arr, pad]), nb
+
+
+def _pairwise_accumulate(pos, vel, n_valid, binnr: int, binwidth,
+                         block: int = 512, edges=None):
+    """Accumulate Yasini Eq. 6 numerator/denominator over all pairs i<j.
+
+    edges=None bins by uniform binwidth (bin b covers [b*w, (b+1)*w));
+    with a (binnr+1,) edges tensor pairs bin by searchsorted into the
+    half-open intervals [edges[b], edges[b+1]). Rows at and beyond n_valid
+    form no pairs. The float -> int bin cast is guarded: separations at or
+    beyond binnr * binwidth go to the drop bin before the cast.
+    """
+    posp, nb = _pad_blocks(torch.as_tensor(pos).to(torch.float32), block)
+    velp, _ = _pad_blocks(torch.as_tensor(vel).to(torch.float32), block)
+    dev = posp.device
+    pnorm = torch.linalg.vector_norm(posp, dim=1, keepdim=True)
+    phat = posp / pnorm.clamp_min(1e-12)
+    # the tiles' sums accumulate in float64, as the kernel's blocks do
+    nom = torch.zeros(binnr, dtype=torch.float64, device=dev)
+    den = torch.zeros(binnr, dtype=torch.float64, device=dev)
+    # a tensor divisor: true division, where a Python scalar divisor may be
+    # turned into a multiplication by its reciprocal on the card
+    width = torch.tensor(binwidth, dtype=torch.float32, device=dev)
+    ar = torch.arange(block, device=dev)
+    for a in range(nb):
+        for b in range(a, nb):
+            ia = a * block + ar
+            jb = b * block + ar
+            sa, sb = slice(a * block, (a + 1) * block), slice(
+                b * block, (b + 1) * block)
+            pi, pj = posp[sa], posp[sb]
+            hi, hj = phat[sa], phat[sb]
+            rij = pi[:, None, :] - pj[None, :, :]              # (B, B, 3)
+            # (x^2 + y^2) + z^2 in separate ops, rounded as the kernel does
+            r2 = rij[..., 0] * rij[..., 0] + rij[..., 1] * rij[..., 1]
+            rnorm = torch.sqrt(r2 + rij[..., 2] * rij[..., 2])
+            rhat = rij / rnorm.clamp_min(1e-12)[..., None]
+            di = torch.einsum("abk,ak->ab", rhat, hi)
+            dj = torch.einsum("abk,bk->ab", rhat, hj)
+            q = (2.0 * rhat - hi[:, None, :] * di[..., None]
+                 - hj[None, :, :] * dj[..., None]) * 0.5       # (B, B, 3)
+            vij = velp[sa][:, None, :] - velp[sb][None, :, :]
+            nom_ij = (vij * q).sum(-1)
+            den_ij = (q * q).sum(-1)
+            mask = ((ia[:, None] < jb[None, :])
+                    & (ia[:, None] < n_valid) & (jb[None, :] < n_valid))
+            if edges is None:
+                t = rnorm / width
+                binidx = torch.where(t < binnr,
+                                     t.to(torch.int64).clamp(0, binnr),
+                                     binnr)
+            else:
+                binidx = torch.searchsorted(edges, rnorm, right=True) - 1
+                binidx = torch.where(
+                    (rnorm >= edges[0]) & (binidx >= 0) & (binidx < binnr),
+                    binidx, binnr)
+            w = mask.to(torch.float32).reshape(-1)
+            bflat = torch.where(mask, binidx, binnr).reshape(-1)
+            inc = masked_bin_reduce(
+                torch.stack([w * nom_ij.reshape(-1), w * den_ij.reshape(-1)]),
+                bflat, binnr)
+            nom += inc[0]
+            den += inc[1]
+    return nom.to(torch.float32), den.to(torch.float32)
+
+
+def _resolve_backend(backend: str, device) -> bool:
+    """True if the kernel runs: 'auto' takes it on a CUDA tensor and the
+    plain tiles on the CPU; 'kernel' on a CPU tensor raises."""
+    if backend == "auto":
+        return device.type == "cuda"
+    if backend == "kernel":
+        if device.type != "cuda":
+            raise ValueError(f"backend='kernel' needs a CUDA tensor, got "
+                             f"{device}")
+        return True
+    if backend == "plain":
+        return False
+    raise ValueError(f"backend must be 'auto', 'kernel' or 'plain', got "
+                     f"{backend!r}")
+
+
+def mean_pairwise_velocity(pos_cart, vel_cart, bins, n_valid=None,
+                           block: int = 512, backend: str = "auto"):
+    """Mean pairwise velocity estimate from cartesian velocities.
+
+    Args:
+      pos_cart: (n, 3) positions [Mpc/h] (lightcone frame, observer at 0).
+      vel_cart: (n, 3) velocities [km/s].
+      bins: (binnr,) distance bin edges starting at 0 with uniform width
+        (reference make_rsep convention), OR arbitrary ascending edges —
+        non-uniform spacing (or a nonzero first edge) bins pairs into the
+        half-open intervals [bins[b], bins[b+1]) (len(bins)-1 bins).
+      n_valid: number of valid rows (for padded catalogs).
+      backend: 'auto' (the pair-tile kernel K3 on a CUDA tensor, the plain
+        tiles on the CPU), 'kernel' (CUDA tensors and uniform bins only)
+        or 'plain'. Uneven edges take the plain searchsorted path under
+        'auto'; 'kernel' raises on them.
+
+    Returns (rsep, v12): bin centers and the estimate (NaN on empty bins).
+    """
+    pos_cart = torch.as_tensor(pos_cart)
+    vel_cart = torch.as_tensor(vel_cart)
+    dev = pos_cart.device
+    bins_np = (bins.detach().cpu().numpy() if isinstance(bins, torch.Tensor)
+               else np.asarray(bins))
+    edges_np = bins_np.astype(np.float64)
+    diffs = np.diff(edges_np)
+    if diffs.size and np.any(diffs <= 0):
+        raise ValueError("bins must be strictly ascending")
+    use_kernel = _resolve_backend(backend, dev)
+    n = pos_cart.shape[0] if n_valid is None else int(n_valid)
+    if diffs.size and (not np.allclose(diffs, diffs[0], rtol=1e-5, atol=1e-8)
+                       or edges_np[0] != 0.0):
+        if backend == "kernel":
+            raise ValueError("backend='kernel' needs uniform bins starting "
+                             "at 0; uneven edges take the plain path "
+                             "(backend='auto' or 'plain')")
+        binnr = edges_np.size - 1
+        edges = torch.as_tensor(edges_np, dtype=torch.float32, device=dev)
+        nom, den = _pairwise_accumulate(pos_cart, vel_cart, n, binnr, 0.0,
+                                        block=block, edges=edges)
+        v12 = torch.where(den > 0, nom / den.clamp_min(1e-30),
+                          torch.nan)
+        return make_rsep_uneven_bins(edges_np, device=dev), v12
+    binnr = int(bins_np.shape[0])
+    binwidth = float(bins_np[1] - bins_np[0])
+    if use_kernel:
+        nom, den = pairwise_cuda.pairwise_accumulate(pos_cart, vel_cart, n,
+                                                     binwidth, binnr)
+    else:
+        nom, den = _pairwise_accumulate(pos_cart, vel_cart, n, binnr,
+                                        binwidth, block=block)
+    v12 = torch.where(den > 0, nom / den.clamp_min(1e-30), torch.nan)
+    return make_rsep(binnr, binwidth, device=dev), v12

@@ -6,3 +6,8 @@ Unit system: lengths in Mpc/h, velocities in km/s, H0 = 100 h km/s/Mpc.
 
 # Speed of light
 C_LIGHT_KMS = 299792.458  # km/s
+
+# Hubble constant in h-units
+H0_HUNITS = 100.0  # km/s / (Mpc/h)
+
+H0_OVER_C_HMPC = 1.0 / 2997.92458  # H0/c in h/Mpc (c = 1 units)

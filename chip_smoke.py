@@ -7,40 +7,81 @@ Phases, each printing its own lines; a failure in any phase raises and
 exits non-zero before the final line:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the sorted-deposit kernel K1 from csrc/ (nvcc) and load it;
+  2. build the kernels K1 (sorted deposit), K2 (windowed CIC/TSC painter)
+     and K3 (pair tiles) from csrc/, one nvcc each, all started together;
+     print each kernel's registers, shared memory and spills;
   3. hold K1 against its plain PyTorch version on the card: 2^24 keys into
      2^24 cells (counts and weighted) and the edge cases (empty windows,
      all keys in one cell, N not a multiple of the block size, a partly
      filled last window). Counts must be equal, weighted sums within
      2e-5 * max;
-  4. drive the z=0 analysis suite at bench size (512^3 particles, a 256^3
+  4. hold K2 against its plain version, CIC and TSC, with and without
+     weights: 2^24 particles onto 256^3, an odd 97^3 grid, positions at
+     0, box, -0.0 and a third shifted by +-box, all particles in one cell,
+     N not a multiple of the block. Max |kernel - plain| <= 2e-5 * max,
+     total mass to rtol 1e-5;
+  5. hold K3 against its plain version: 2^15 tracers in a 500 Mpc/h box
+     with the halos.py default bins (rtol 1e-4 in bins of >= 1000 pairs,
+     1e-4 of the largest bin elsewhere), and the edge cases (n not a
+     multiple of the tile, junk rows past n_valid, coincident particles,
+     every pair beyond the last bin);
+  6. drive the z=0 analysis suite at bench size (512^3 particles, a 256^3
      grid over 2^27 fine cells, 64 lens planes, 2048^2 maps): one warm-up
      and N timed runs, the per-stage split and the matter sub-stages, then
      check the outputs (finite, shapes, P(k) of the kernel deposit equal to
      the scatter deposit's to rtol 1e-5, P(k) of uniform particles at the
      shot-noise level, the deposit conserving the particle count);
-  5. time K1 against the plain `index_add_` deposit at bench size.
+  7. drive the forward model at the pm_catalog defaults: 512^3 particles
+     on a 512^3 mesh in a 500 Mpc/h box, EH98 P(k), 2LPT at z=9, 20 log-a
+     KDK steps to z=0 in GR and in f(R) (fR0=1e-5) from the same ICs, the
+     P(k) of both snapshots and v12 of a 2^17-tracer subsample; check the
+     launches, finiteness, momentum, linear growth, the f(R) enhancement,
+     infall, K3 against its plain version on those 2^17 tracers (and the
+     path's v12 against the plain version's), and the kernel paint's P(k)
+     against the scatter paint's; split a step's device time by the time
+     loop's profiler spans (3 traced steps);
+  8. time K1, K2 and K3 against their plain versions at the main paths'
+     shapes, in turns (plain, kernel, kernel, plain).
 
-The last two lines are a JSON object describing each kernel and the
-`{"ok": true, "device": ...}` result line.
+The last lines are a JSON object describing each kernel, the card's name
+and power limit, and the `{"ok": true, "device": ...}` result line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_SIDE, NGRID, NPIX, BOX, NPLANES = 512, 256, 2048, 500.0, 64
-# K1 weighted sums: max|kernel - plain| <= WEIGHTED_TOL * max|plain|
+# forward model: particles per side (= force mesh), steps, redshifts,
+# v12 subsample and bins (halos.py defaults)
+PM_SIDE, PM_STEPS, Z_INIT, FR0 = 512, 20, 9.0, 1e-5
+V12_N, V12_BINS = 1 << 17, (0.0, 50.0, 25)
+K3_N = 1 << 15       # uniform tracers of the K3 check
+K3_PLAIN_BLOCK = 2048  # tile rows of K3's plain version at the v12 size
+# K1/K2 sums: max|kernel - plain| <= WEIGHTED_TOL * max|plain|
 WEIGHTED_TOL = 2e-5
+MASS_RTOL = 1e-5     # K2 total mass against N (or the summed weights)
+K3_RTOL, K3_MIN_PAIRS = 1e-4, 1000
 PK_RTOL = 1e-5       # P(k), kernel deposit vs scatter deposit
-K1_SOURCE = "astrild_tpu_torch/csrc/deposit_sorted.cu"
-K1_REPLACES = "astrild_tpu/ops/paint_pallas.py:163"
+GROWTH_TOL = 0.05    # same-realization growth vs D(0)/D(z_init)
+MOMENTUM_TOL = 1e-3  # |sum p| / sum |p| after the evolution
+KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate")
+SOURCES = {
+    "deposit_sorted": ("astrild_tpu_torch/csrc/deposit_sorted.cu",
+                       "astrild_tpu/ops/paint_pallas.py:163"),
+    "paint_windowed": ("astrild_tpu_torch/csrc/paint_windowed.cu",
+                       "astrild_tpu/ops/paint_pallas.py:651"),
+    "pairwise_accumulate": ("astrild_tpu_torch/csrc/pairwise_accumulate.cu",
+                            "astrild_tpu/ops/pallas_pairwise.py:103"),
+}
 
 
 def log(msg: str) -> None:
@@ -67,12 +108,15 @@ def phase_build() -> None:
     from astrild_tpu_torch import _ext
 
     t0 = time.perf_counter()
-    _ext.load("deposit_sorted")
-    log(f"# phase build: deposit_sorted ready in "
+    _ext.build(KERNELS)
+    for name in KERNELS:
+        _ext.load(name)
+    log(f"# phase build: {', '.join(KERNELS)} ready in "
         f"{time.perf_counter() - t0:.3f} s")
-    for line in _ext.build_logs.get("deposit_sorted", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"#   {line.strip()}")
+    for name in KERNELS:
+        for line in _ext.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"#   {name}: {line.strip()}")
 
 
 def _sorted_pair(keys, gen):
@@ -283,6 +327,416 @@ def phase_timing(dev, seed: int) -> tuple[float, float, float]:
     return err, mean["kernel"], mean["plain"]
 
 
+# ------------------------------------------------------------------ K2
+def compare_k2(pf, w, ngrid: int, box: float, order: int) -> float:
+    """K2 vs its plain version on the same flat positions; raises on a
+    mismatch, returns max |kernel - plain|."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    got = paint_cuda.paint_windowed(pf, w, ngrid, box, order=order)
+    want = paint_cuda.paint_windowed_reference(pf, w, ngrid, box,
+                                               order=order)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if err > WEIGHTED_TOL * scale:
+        raise AssertionError(f"K2 order {order} differs from the plain "
+                             f"painter: max err {err} > {WEIGHTED_TOL} * "
+                             f"{scale}")
+    mass = float(pf.shape[0] // 3) if w is None else float(w.double().sum())
+    total = float(got.double().sum())
+    if abs(total - mass) > MASS_RTOL * mass:
+        raise AssertionError(f"K2 order {order} holds mass {total}, not "
+                             f"{mass}")
+    return err
+
+
+def phase_k2_check(dev, seed: int) -> None:
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    def uniform(n, box=BOX):
+        return torch.rand(3 * n, generator=gen, device=dev) * box
+
+    edges = uniform(1 << 20)
+    xyz = edges.view(3, 1 << 20)
+    n3 = (1 << 20) // 3
+    xyz[:, :n3] -= BOX            # a third of the particles below the box
+    xyz[:, n3:2 * n3] += BOX      # a third above it
+    xyz[:, 0] = torch.tensor([0.0, BOX, -0.0], device=dev)
+    # 20,000 particles in one cell: a lost particle (1/N = 5e-5) stays
+    # above the mass bar, while float32 sums of ~10^4 per cell stay below
+    cell = BOX / 64
+    one = (torch.rand(3 * 20000, generator=gen, device=dev) * cell
+           + 5 * cell)
+    cases = {
+        "2^24 particles onto 256^3": (uniform(1 << 24), 256),
+        "odd grid 97^3": (uniform(1 << 20), 97),
+        "edges 0, box, -0.0 and +-box shifts": (edges, 64),
+        "all particles in one cell": (one, 64),
+        "N not a multiple of the block": (uniform(1000003), 128),
+    }
+    for name, (pf, ngrid) in cases.items():
+        n = pf.shape[0] // 3
+        w = torch.rand(n, generator=gen, device=dev) + 0.5
+        errs = {f"{'cic' if order == 2 else 'tsc'}"
+                f"{'_w' if wt is not None else ''}":
+                compare_k2(pf, wt, ngrid, BOX, order)
+                for order in (2, 3) for wt in (None, w)}
+        torch.cuda.synchronize()
+        log(f"# phase k2: {name}: max err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+# ------------------------------------------------------------------ K3
+def _pair_counts(pos, n_valid: int, binwidth: float, nbins: int,
+                 rows: int = 1024):
+    """Pairs i < j < n_valid per bin (for choosing the bins the bar
+    applies to)."""
+    p = pos[:n_valid]
+    counts = torch.zeros(nbins + 1, dtype=torch.int64, device=pos.device)
+    for a in range(0, n_valid, rows):
+        d = torch.linalg.vector_norm(p[a:a + rows, None, :] - p[None, :, :],
+                                     dim=-1)
+        t = d / binwidth
+        b = torch.where(t < nbins, t.to(torch.int64).clamp(0, nbins), nbins)
+        i = torch.arange(a, min(a + rows, n_valid), device=pos.device)
+        upper = i[:, None] < torch.arange(n_valid, device=pos.device)[None]
+        counts += torch.bincount(b[upper], minlength=nbins + 1)
+    return counts[:nbins]
+
+
+def compare_k3(pos, vel, n_valid: int, binwidth: float, nbins: int,
+               block: int = 512):
+    """K3 vs its plain version (tiles of `block` rows): rtol K3_RTOL in
+    bins of >= K3_MIN_PAIRS pairs (nom, a sum of random-sign terms that can
+    cancel, also gets an absolute floor of 1e-6 of its largest |bin|:
+    float32 rounding of a sum that size), K3_RTOL of the largest |bin|
+    elsewhere. Returns the max abs error, the kernel's and the plain
+    version's (nom, den), and the mask of the bins of >= K3_MIN_PAIRS
+    pairs."""
+    from astrild_tpu_torch.ops import pairwise_cuda
+
+    got = pairwise_cuda.pairwise_accumulate(pos, vel, n_valid, binwidth,
+                                            nbins)
+    want = pairwise_cuda.pairwise_accumulate_reference(pos, vel, n_valid,
+                                                       binwidth, nbins,
+                                                       block=block)
+    full = _pair_counts(pos, n_valid, binwidth, nbins) >= K3_MIN_PAIRS
+    err = 0.0
+    for what, g, w in zip(("nom", "den"), got, want):
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        scale = w.abs().max()
+        bound = torch.where(full, K3_RTOL * w.abs() + 1e-6 * scale,
+                            K3_RTOL * scale)
+        if bool((diff > bound).any()):
+            raise AssertionError(f"K3 {what} differs from the plain tiles: "
+                                 f"kernel {g.tolist()} plain {w.tolist()}")
+    return err, got, want, full
+
+
+def phase_k3_check(dev, seed: int) -> None:
+    """K3 on uniform tracers and the edge cases (the main path's clustered
+    tracers are compared in phase_forward)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    lo, hi, nb = V12_BINS
+    binw = float(np.linspace(lo, hi, nb)[1])
+
+    def cat(n, box):
+        return (torch.rand((n, 3), generator=gen, device=dev) * box,
+                torch.randn((n, 3), generator=gen, device=dev) * 300.0)
+
+    pos, vel = cat(K3_N, BOX)
+    junk_p, junk_v = cat(3000, 100.0)
+    junk_p[2900:] = 50.0
+    junk_v[2900:] = 1e6
+    dup_p, dup_v = cat(3000, 100.0)
+    dup_p[1500:] = dup_p[:1500]
+    far_p, far_v = cat(2000, 100.0)
+    beyond = "every pair beyond the last bin"
+    cases = {
+        "2^15 tracers, 500 Mpc/h box": (pos, vel, K3_N, binw),
+        "n = 3077, not a multiple of the tile": (*cat(3077, 100.0), 3077,
+                                                 binw),
+        "junk rows past n_valid = 2900": (junk_p, junk_v, 2900, binw),
+        "coincident particles": (dup_p, dup_v, 3000, binw),
+        beyond: (far_p, far_v, 2000, 1e-5),
+    }
+    for name, (p, v, n_valid, w) in cases.items():
+        err, (nom, den), _, _ = compare_k3(p, v, n_valid, w, nb)
+        if name == beyond and (float(nom.abs().sum())
+                               or float(den.abs().sum())):
+            raise AssertionError("K3 binned pairs beyond the last bin")
+        torch.cuda.synchronize()
+        log(f"# phase k3: {name}: max err {err:.3e}")
+
+
+# -------------------------------------------------------- forward model
+def _low_mode_power(grid) -> float:
+    """Mean |delta_k|^2 of the CIC-compensated modes with 0 < |m| <= 3."""
+    from astrild_tpu_torch.ops import power
+
+    n = grid.shape[-1]
+    dk = power.delta_k(grid, window="cic")
+    ix = power._mode_numbers(n, grid.device)
+    iz = power._mode_numbers(n, grid.device, real=True)
+    m2 = ix[:, None, None] ** 2 + ix[None, :, None] ** 2 + iz ** 2
+    sel = (m2 > 0) & (m2 <= 9.0)
+    return float((dk.abs() ** 2)[sel].double().mean())
+
+
+def _step_split(comps, mom, cosmo, nsteps: int = 3) -> dict:
+    """Device milliseconds per step of each part of the real time loop:
+    `pm_evolve` over nsteps steps from the snapshot under torch.profiler,
+    grouped by the loop's spans (paint, poisson and gather once per step,
+    kick twice, drift once); with K2's own kernel time, the device's busy
+    time and the host time of the traced call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from astrild_tpu_torch.ops import nbody
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        nbody.pm_evolve(comps, mom, cosmo, PM_SIDE, BOX, 0.9, 1.0, nsteps)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    per_step = {"pm.paint": 1, "pm.poisson": 1, "pm.gather": 1,
+                "pm.kick": 2, "pm.drift": 1}
+    split = {}
+    for e in rows:
+        if e.key in per_step:
+            split[e.key] = e.device_time_total / 1e3 / e.count * per_step[e.key]
+    # the spans also appear on the device's timeline: count kernels only
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.key not in per_step]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k2_ms = sum(e.self_device_time_total for e in kernels
+                if "paint_windowed_kernel" in e.key) / 1e3
+    # pm_evolve runs nsteps + 1 force evaluations
+    return {"ms_per_step": split,
+            "k2_kernel_ms_per_paint": k2_ms / (nsteps + 1),
+            "device_busy_ms": busy_ms, "host_ms": host_ms,
+            "idle_share": 1.0 - busy_ms / host_ms, "nsteps": nsteps}
+
+
+def phase_forward(dev, seed: int):
+    """The forward path at the pm_catalog defaults, GR and f(R) from the
+    same ICs, then P(k) and v12. Returns the main path's launch counts,
+    the GR snapshot (for the K2 timing) and the v12 tracers with their
+    bins and K3's max error on them (for the K3 timing)."""
+    from astrild_tpu_torch.ops import (linear_power, nbody, paint_cuda,
+                                       pairwise, pairwise_cuda, power)
+    from astrild_tpu_torch.ops.paint import paint
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    gr = Cosmology(Om0=0.3, h=0.7)
+    fr = Cosmology(Om0=0.3, h=0.7, fR0=FR0)
+    amp = linear_power.normalization(gr)
+
+    def pk_fn(k):
+        return linear_power.linear_power(k, gr, 0.0, amplitude=amp)
+
+    def clock(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    evolve_paints = {}
+    # the launch counts cover exactly the forward path's run
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    comps, mom = nbody.lpt_catalog(gen, PM_SIDE, BOX, pk_fn, gr, Z_INIT)
+    times["ics_s"] = clock(t0)
+    p_init = _low_mode_power(paint(comps, PM_SIDE, BOX, window="cic"))
+    a0 = 1.0 / (1.0 + Z_INIT)
+    snaps = {}
+    for name, cosmo in (("gr", gr), ("fofr", fr)):
+        before = paint_cuda.LAUNCHES["paint_windowed"]
+        t0 = time.perf_counter()
+        snaps[name] = nbody.pm_evolve(comps, mom, cosmo, PM_SIDE, BOX, a0,
+                                      1.0, PM_STEPS)
+        times[f"evolve_{name}_s"] = clock(t0)
+        evolve_paints[name] = paint_cuda.LAUNCHES["paint_windowed"] - before
+    del comps, mom
+    results = {}
+    grids = {}
+    for name in snaps:
+        t0 = time.perf_counter()
+        grids[name] = paint(snaps[name][0], PM_SIDE, BOX, window="cic")
+        results[name] = power.auto_power(grids[name], BOX, window="cic")
+        times[f"pk_{name}_s"] = clock(t0)
+    out_gr, mom_gr = snaps["gr"]
+    vel_gr = nbody.velocities_kms(mom_gr, 1.0)
+    sub = torch.randperm(PM_SIDE ** 3, generator=gen, device=dev)[:V12_N]
+    tracers = (torch.stack([c[sub] for c in out_gr], dim=1),
+               torch.stack([v[sub] for v in vel_gr], dim=1))
+    del vel_gr
+    bins = np.linspace(*V12_BINS)
+    k3_before = pairwise_cuda.LAUNCHES["pairwise_accumulate"]
+    t0 = time.perf_counter()
+    rsep, v12 = pairwise.mean_pairwise_velocity(*tracers, bins)
+    times["v12_s"] = clock(t0)
+    k3_launches = pairwise_cuda.LAUNCHES["pairwise_accumulate"] - k3_before
+    launches = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+    times["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- checks
+    for name, n_paint in evolve_paints.items():
+        if n_paint < PM_STEPS + 1:
+            raise AssertionError(f"{name} evolution launched K2 {n_paint} "
+                                 f"times, not >= {PM_STEPS + 1}")
+    if k3_launches != 1:
+        raise AssertionError(f"v12 launched K3 {k3_launches} times")
+    for name, (c, p) in snaps.items():
+        if not all(bool(torch.isfinite(t).all()) for t in c + p):
+            raise AssertionError(f"{name} snapshot is not finite")
+    has_modes = results["gr"].nmodes > 0
+    for name, res in results.items():
+        if not bool(torch.isfinite(res.power[has_modes]).all()):
+            raise AssertionError(f"{name} P(k) is not finite")
+    net = [abs(float(p.double().sum())) / float(p.double().abs().sum())
+           for p in mom_gr]
+    if max(net) > MOMENTUM_TOL:
+        raise AssertionError(f"GR momentum not conserved: |sum p|/sum|p| "
+                             f"{net}")
+    growth = math.sqrt(_low_mode_power(grids["gr"]) / p_init)
+    d_ratio = float(gr.growth_factor(0.0) / gr.growth_factor(Z_INIT))
+    if abs(growth / d_ratio - 1.0) > GROWTH_TOL:
+        raise AssertionError(f"large-scale growth {growth} vs D(0)/D(9) "
+                             f"{d_ratio}")
+    ratio = (results["fofr"].power / results["gr"].power)[has_modes][:16]
+    ratio = ratio.double().cpu().numpy()
+    if ratio.min() < 1.0 or np.any(np.diff(ratio) < 0.0):
+        raise AssertionError(f"P_fR/P_GR over the first 16 bins is not >= 1 "
+                             f"and rising: {ratio.tolist()}")
+    v12_in = v12[:3].cpu().numpy()
+    if not np.all(v12_in < 0.0):
+        raise AssertionError(f"v12 in the innermost bins is not infall: "
+                             f"{v12_in.tolist()}")
+    # K3 against its plain version on the main path's own tracers, and the
+    # main path's v12 against the plain version's nom / den (the bound
+    # follows from compare_k3's on nom and den)
+    binw = float(bins[1] - bins[0])
+    k3_err, _, (nom_p, den_p), full = compare_k3(
+        *tracers, V12_N, binw, len(bins), block=K3_PLAIN_BLOCK)
+    v12_p = nom_p / den_p
+    v12_bound = (2 * K3_RTOL * v12_p.abs()
+                 + 1e-6 * nom_p.abs().max() / den_p)
+    v12_diff = float((v12 - v12_p).abs()[full].max())
+    k3_scale = max(float(nom_p.abs().max()), float(den_p.abs().max()))
+    if bool(((v12 - v12_p).abs() > v12_bound)[full].any()):
+        raise AssertionError(f"v12 of the main path differs from the plain "
+                             f"version's: {v12.tolist()} vs "
+                             f"{v12_p.tolist()}")
+    scatter = power.auto_power(paint(out_gr, PM_SIDE, BOX, window="cic",
+                                     deposit="scatter"), BOX, window="cic")
+    pk_k, pk_s = results["gr"].power[has_modes], scatter.power[has_modes]
+    pk_rel = float(((pk_k - pk_s).abs() / pk_s.abs()).max())
+    if pk_rel > PK_RTOL:
+        raise AssertionError(f"P(k) kernel paint vs scatter paint: max rel "
+                             f"diff {pk_rel}")
+    del grids, scatter
+    split = _step_split(out_gr, mom_gr, gr)
+    del snaps
+    log(f"# phase forward: finite; K2 launches per evolution "
+        f"{evolve_paints}; K3 launches {k3_launches}; |sum p|/sum|p| "
+        f"{max(net):.2e}; growth {growth:.5f} vs D(0)/D(9) {d_ratio:.5f}; "
+        f"P_fR/P_GR first 16 bins {ratio[0]:.5f} .. {ratio[-1]:.5f}; "
+        f"v12 innermost {v12_in.tolist()}; K3 vs plain on the {V12_N} "
+        f"tracers max err {k3_err:.3e} on bin sums up to {k3_scale:.3e}, "
+        f"v12 max diff {v12_diff:.3e} km/s; "
+        f"P(k) kernel vs scatter max rel diff {pk_rel:.2e}")
+    result = {
+        **times,
+        "step_s_mean": {k: times[f"evolve_{k}_s"] / PM_STEPS
+                        for k in evolve_paints},
+        "step_split_s": split, "launches": launches,
+        "growth": growth, "d_ratio": d_ratio, "momentum": net,
+        "pk_ratio_first16": ratio.tolist(),
+        "k_first16": results["gr"].k[has_modes][:16].tolist(),
+        "k3_max_abs_err": k3_err, "k3_bin_sum_max": k3_scale,
+        "v12": v12.tolist(), "v12_plain": v12_p.tolist(),
+        "rsep": rsep.tolist(), "pk_gr": results["gr"].power.tolist()[:64],
+    }
+    log("# forward " + json.dumps(result))
+    return launches, out_gr, (*tracers, binw, len(bins), k3_err)
+
+
+def phase_k2_timing(out_gr) -> dict:
+    """K2 vs its plain version at the forward path's shape (the evolved GR
+    snapshot, 512^3 particles onto 512^3), CIC and TSC, in turns; plus
+    the parts of the kernel path."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    pf = torch.cat(out_gr)
+    stats = {}
+    for order, label in ((2, "cic"), (3, "tsc")):
+        err = compare_k2(pf, None, PM_SIDE, BOX, order)
+        key, frac = paint_cuda._windowed_keys(pf, PM_SIDE, BOX, order)
+        sorted_in = paint_cuda._sorted_windowed_inputs(pf, None, PM_SIDE,
+                                                       BOX, order)
+        padded = paint_cuda._launch_windowed(*sorted_in, PM_SIDE, order)
+        npd = PM_SIDE + 2
+        fns = {
+            "kernel": lambda: paint_cuda.paint_windowed(pf, None, PM_SIDE,
+                                                        BOX, order),
+            "plain": lambda: paint_cuda.paint_windowed_reference(
+                pf, None, PM_SIDE, BOX, order),
+            "keys": lambda: paint_cuda._windowed_keys(pf, PM_SIDE, BOX,
+                                                      order),
+            "sort": lambda: torch.sort(key, stable=False),
+            "kernel_only": lambda: paint_cuda._launch_windowed(
+                *sorted_in, PM_SIDE, order),
+            "fold": lambda: paint_cuda._fold_pad(
+                padded.view(npd, npd, npd), PM_SIDE),
+        }
+        order_ = ["plain", "kernel", "keys", "sort", "kernel_only", "fold"]
+        ms = {k: [] for k in fns}
+        for turn in (order_, order_[::-1]):
+            for name in turn:
+                ms[name].append(_event_ms(fns[name], 3))
+        stats[label] = {"max_abs_err": err,
+                        "mean": {k: sum(v) / len(v) for k, v in ms.items()},
+                        "turns": ms}
+        del key, frac, sorted_in, padded
+    log("# k2_timing_ms " + json.dumps({"n": PM_SIDE ** 3,
+                                        "ngrid": PM_SIDE, **stats}))
+    return stats
+
+
+def phase_k3_timing(pos, vel, binw: float, nbins: int, err: float) -> dict:
+    """K3 vs its plain version on the main path's tracers (2^17 drawn from
+    the GR snapshot), in turns."""
+    from astrild_tpu_torch.ops import pairwise_cuda
+
+    n = pos.shape[0]
+    fns = {
+        "kernel": lambda: pairwise_cuda.pairwise_accumulate(pos, vel, n,
+                                                            binw, nbins),
+        "plain": lambda: pairwise_cuda.pairwise_accumulate_reference(
+            pos, vel, n, binw, nbins, block=K3_PLAIN_BLOCK),
+    }
+    reps = {"kernel": 3, "plain": 1}
+    ms = {k: [] for k in fns}
+    for turn in (["plain", "kernel"], ["kernel", "plain"]):
+        for name in turn:
+            ms[name].append(_event_ms(fns[name], reps[name]))
+    stats = {"max_abs_err": err,
+             "mean": {k: sum(v) / len(v) for k, v in ms.items()},
+             "turns": ms}
+    log("# k3_timing_ms " + json.dumps({"n": n, "nbins": nbins,
+                                        "plain_block": K3_PLAIN_BLOCK,
+                                        **stats}))
+    return stats
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -295,14 +749,29 @@ def main() -> None:
     torch.cuda.set_device(dev)
     phase_build()
     phase_kernel_check(dev, args.seed)
-    launches = phase_suite(dev, args.seed, args.runs)
+    phase_k2_check(dev, args.seed)
+    phase_k3_check(dev, args.seed)
+    suite_launches = phase_suite(dev, args.seed, args.runs)
     err_bench, k_ms, p_ms = phase_timing(dev, args.seed)
+    fwd_launches, out_gr, k3_inputs = phase_forward(dev, args.seed)
+    k2 = phase_k2_timing(out_gr)["cic"]
+    del out_gr
+    k3 = phase_k3_timing(*k3_inputs)
 
-    # max_abs_err, ms and plain_ms are taken at the main path's shapes
-    kernels = [{"name": "deposit_sorted", "route": "cuda",
-                "source": K1_SOURCE, "replaces": K1_REPLACES,
-                "launches": launches["deposit_sorted"],
-                "max_abs_err": err_bench, "ms": k_ms, "plain_ms": p_ms}]
+    # max_abs_err, ms and plain_ms are taken at the main paths' shapes
+    measured = {
+        "deposit_sorted": (suite_launches["deposit_sorted"], err_bench,
+                           k_ms, p_ms),
+        "paint_windowed": (fwd_launches["paint_windowed"], k2["max_abs_err"],
+                           k2["mean"]["kernel"], k2["mean"]["plain"]),
+        "pairwise_accumulate": (fwd_launches["pairwise_accumulate"],
+                                k3["max_abs_err"], k3["mean"]["kernel"],
+                                k3["mean"]["plain"]),
+    }
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1], "launches": n,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain}
+               for name, (n, err, ms, plain) in measured.items()]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

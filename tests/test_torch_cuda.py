@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and its callers on the card (marker `cuda`).
+"""The port's CUDA kernels and their callers on the card (marker `cuda`).
 
 These tests need a CUDA card and skip without one. They import no JAX, so
 they also run on a machine without it:
@@ -14,7 +14,11 @@ torch = pytest.importorskip("torch")
 from astrild_tpu_torch import suite  # noqa: E402
 from astrild_tpu_torch.ops import paint as TP  # noqa: E402
 from astrild_tpu_torch.ops import paint_cuda as TPC  # noqa: E402
+from astrild_tpu_torch.ops import nbody as TN  # noqa: E402
+from astrild_tpu_torch.ops import pairwise as TPW  # noqa: E402
+from astrild_tpu_torch.ops import pairwise_cuda as TPWC  # noqa: E402
 from astrild_tpu_torch.ops import power as TPS  # noqa: E402
+from astrild_tpu_torch.utils.cosmology import Cosmology  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +124,144 @@ def test_small_suite_on_card_matches_cpu(cuda):
     torch.testing.assert_close(kappa_g, kappa_c, rtol=1e-4,
                                atol=1e-5 * float(kappa_c.abs().max()))
     assert bool(torch.isfinite(gpu[5]).all())
+
+
+# ------------------------------------------------------------------ K2
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", ["uniform", "odd_grid", "edges",
+                                  "one_cell"])
+def test_k2_matches_plain(cuda, order, weighted, case):
+    """K2 vs its plain version on the same inputs: max |kernel - plain| <=
+    2e-5 * max(plain) (float sums in another order), mass to rtol 1e-5."""
+    rng = np.random.default_rng(4)
+    n, ng, box = {"uniform": ((1 << 18) + 333, 64, BOX),
+                  "odd_grid": (100003, 37, BOX),
+                  "edges": (30000, 16, BOX),
+                  "one_cell": (50000, 16, BOX)}[case]
+    pos = rng.uniform(0, box, (n, 3))
+    if case == "edges":
+        pos[: n // 3] -= box
+        pos[n // 3: 2 * n // 3] += box
+        pos[:3] = [[0.0, box, -0.0], [box, 0.0, box], [-1e-8, box, 0.0]]
+    if case == "one_cell":
+        pos = 3.0 * box / ng + rng.uniform(0, box / ng, (n, 3))
+    pf = torch.from_numpy(np.concatenate(pos.T).astype(np.float32)).to(cuda)
+    w = (torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+         .to(cuda) if weighted else None)
+    before = TPC.LAUNCHES["paint_windowed"]
+    got = TPC.paint_windowed(pf, w, ng, box, order=order)
+    assert TPC.LAUNCHES["paint_windowed"] == before + 1
+    want = TPC.paint_windowed_reference(pf, w, ng, box, order=order)
+    torch.cuda.synchronize()
+    assert got.shape == (ng, ng, ng)
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.max())
+    mass = float(w.double().sum()) if weighted else float(n)
+    assert abs(float(got.double().sum()) - mass) <= 1e-5 * mass
+
+
+def test_k2_paint_dispatch(cuda):
+    rng = np.random.default_rng(8)
+    pos = torch.from_numpy(rng.uniform(0, BOX, (20000, 3)).astype(
+        np.float32)).to(cuda)
+    before = TPC.LAUNCHES["paint_windowed"]
+    a = TP.paint(pos, 16, BOX, window="tsc")
+    b = TP.paint(tuple(pos.unbind(-1)), 16, BOX, window="cic")
+    assert TPC.LAUNCHES["paint_windowed"] == before + 2
+    sa = TP.paint(pos, 16, BOX, window="tsc", deposit="scatter")
+    sb = TP.paint(pos, 16, BOX, window="cic", deposit="scatter")
+    assert TPC.LAUNCHES["paint_windowed"] == before + 2
+    torch.testing.assert_close(a, sa, rtol=0, atol=2e-5 * float(sa.max()))
+    torch.testing.assert_close(b, sb, rtol=0, atol=2e-5 * float(sb.max()))
+
+
+# ------------------------------------------------------------------ K3
+@pytest.mark.parametrize("case", ["uniform", "ragged_valid", "coincident",
+                                  "beyond"])
+def test_k3_matches_plain(cuda, case):
+    """K3 vs its plain version: rtol 1e-4 on nom and den, with atol 1e-4
+    of each output's max for bins that hold few pairs."""
+    rng = np.random.default_rng(6)
+    n, box, binw, nbins = 3000 + 77, 60.0, 2.0, 25
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    vel = rng.normal(0, 300, (n, 3)).astype(np.float32)
+    n_valid = n
+    if case == "ragged_valid":
+        n_valid = n - 200
+        pos[n_valid:] = 30.0
+        vel[n_valid:] = 1e6
+    if case == "coincident":
+        pos[n // 2:] = pos[: n - n // 2]
+    if case == "beyond":
+        binw = 1e-4
+    p = torch.from_numpy(pos).to(cuda)
+    v = torch.from_numpy(vel).to(cuda)
+    before = TPWC.LAUNCHES["pairwise_accumulate"]
+    nom, den = TPWC.pairwise_accumulate(p, v, n_valid, binw, nbins)
+    assert TPWC.LAUNCHES["pairwise_accumulate"] == before + 1
+    pnom, pden = TPWC.pairwise_accumulate_reference(p, v, n_valid, binw,
+                                                    nbins)
+    for got, want in ((nom, pnom), (den, pden)):
+        torch.testing.assert_close(
+            got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    if case == "beyond":
+        assert float(nom.abs().sum()) == 0.0 == float(den.abs().sum())
+
+
+def test_k3_mean_pairwise_velocity_auto(cuda):
+    rng = np.random.default_rng(2)
+    pos = torch.from_numpy(rng.uniform(400, 600, (2000, 3)).astype(
+        np.float32)).to(cuda)
+    vel = torch.from_numpy(rng.normal(0, 200, (2000, 3)).astype(
+        np.float32)).to(cuda)
+    bins = np.linspace(0, 50, 25)
+    before = TPWC.LAUNCHES["pairwise_accumulate"]
+    r, v = TPW.mean_pairwise_velocity(pos, vel, bins)
+    assert TPWC.LAUNCHES["pairwise_accumulate"] == before + 1
+    _, vp = TPW.mean_pairwise_velocity(pos, vel, bins, backend="plain")
+    torch.testing.assert_close(v, vp, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
+
+
+def test_k3_uneven_edges_never_plain_under_kernel(cuda):
+    """Uneven edges have no kernel: 'auto' takes the plain searchsorted
+    tiles, an explicit 'kernel' raises rather than run them."""
+    rng = np.random.default_rng(4)
+    pos = torch.from_numpy(rng.uniform(0, 60, (500, 3)).astype(
+        np.float32)).to(cuda)
+    vel = torch.from_numpy(rng.normal(0, 200, (500, 3)).astype(
+        np.float32)).to(cuda)
+    bins = np.array([0.0, 2.0, 5.0, 10.0, 20.0])
+    before = TPWC.LAUNCHES["pairwise_accumulate"]
+    _, v = TPW.mean_pairwise_velocity(pos, vel, bins)
+    assert TPWC.LAUNCHES["pairwise_accumulate"] == before
+    assert v.shape == (4,)
+    with pytest.raises(ValueError, match="uniform bins"):
+        TPW.mean_pairwise_velocity(pos, vel, bins, backend="kernel")
+
+
+# ------------------------------------------------------- forward model
+def test_pm_evolve_on_card_matches_cpu(cuda):
+    """2LPT + 2 KDK steps at 32^3 on a 32^3 mesh: the card (K2 paints) vs
+    the CPU port (scatter paints). Positions to 1e-3 Mpc/h (cell 3.9),
+    momenta to 1e-3 of their max (float sums in other orders)."""
+    tc = Cosmology(Om0=0.3, h=0.7)
+    n, box = 32, 125.0
+    gen = torch.Generator().manual_seed(5)
+
+    def pk(k):
+        return 300.0 * torch.ones_like(k)
+
+    comps, mom = TN.lpt_catalog(gen, n, box, pk, tc, 9.0)
+    before = TPC.LAUNCHES["paint_windowed"]
+    out_g, mom_g = TN.pm_evolve(tuple(c.to(cuda) for c in comps),
+                                tuple(p.to(cuda) for p in mom), tc, n, box,
+                                0.1, 0.4, 2)
+    assert TPC.LAUNCHES["paint_windowed"] == before + 3
+    out_c, mom_c = TN.pm_evolve(comps, mom, tc, n, box, 0.1, 0.4, 2)
+    for g, c in zip(out_g, out_c):
+        d = (g.cpu() - c).abs()
+        assert float(torch.minimum(d, box - d).max()) < 1e-3
+    for g, c in zip(mom_g, mom_c):
+        torch.testing.assert_close(g.cpu(), c, rtol=0,
+                                   atol=1e-3 * float(c.abs().max()))

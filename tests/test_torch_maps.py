@@ -90,6 +90,8 @@ def test_constants_match_jax():
     from astrild_tpu_torch.utils import constants as TC
 
     assert TC.C_LIGHT_KMS == JC.C_LIGHT_KMS
+    assert TC.H0_HUNITS == JC.H0_HUNITS
+    assert TC.H0_OVER_C_HMPC == JC.H0_OVER_C_HMPC
 
 
 def test_born_convergence_matches_jax(rng):

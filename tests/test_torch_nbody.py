@@ -1,0 +1,399 @@
+"""PyTorch port vs JAX package on the CPU: the forward model (cosmology,
+linear power, linear modes, 2LPT, the PM force solve and the KDK
+evolution).
+
+Inputs are made with numpy from a seed and handed to both packages; the
+port's paints run the plain painters, which its wrappers use for CPU
+tensors. The JAX cosmology tables are float32 and the port's float64, so
+table-derived values agree to float32 rounding. Each tolerance is stated
+where it is checked.
+"""
+import dataclasses
+
+import numpy as np
+import numpy.testing as npt
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from astrild_tpu.ops import linear_power as JL  # noqa: E402
+from astrild_tpu.ops import mocks as JM  # noqa: E402
+from astrild_tpu.ops import nbody as JN  # noqa: E402
+from astrild_tpu.ops import recon as JR  # noqa: E402
+from astrild_tpu.utils.cosmology import Cosmology as JCosmology  # noqa: E402
+from astrild_tpu_torch.ops import linear_power as TL  # noqa: E402
+from astrild_tpu_torch.ops import mocks as TM  # noqa: E402
+from astrild_tpu_torch.ops import nbody as TN  # noqa: E402
+from astrild_tpu_torch.ops import recon as TR  # noqa: E402
+from astrild_tpu_torch.ops.paint import paint as tpaint  # noqa: E402
+from astrild_tpu_torch.ops.power import delta_k as tdelta_k  # noqa: E402
+from astrild_tpu_torch.utils.cosmology import Cosmology  # noqa: E402
+
+COSMOS = {
+    "planck": {},
+    "lcdm": {"Om0": 0.3, "h": 0.7},
+    "w0wa": {"Om0": 0.28, "w0": -0.9, "wa": 0.2},
+    "fofr": {"Om0": 0.3, "h": 0.7, "fR0": 1e-5},
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _both(kw):
+    return JCosmology(**kw), Cosmology(**kw)
+
+
+def _pk_flat(amp):
+    def pk(k):
+        return amp * (torch.ones_like(k) if isinstance(k, torch.Tensor)
+                      else jnp.ones_like(k))
+    return pk
+
+
+def _modes(rng, n, box, amp=50.0):
+    """Unnormalized fftn linear modes (complex64 numpy) of a flat P(k) from
+    a numpy white-noise field, through the JAX package."""
+    white = rng.standard_normal((n, n, n)).astype(np.float32)
+    return np.array(JM.modes_from_white(jnp.asarray(white), n, box,
+                                        _pk_flat(amp)))
+
+
+def _tensors(arrs):
+    return tuple(torch.from_numpy(np.array(a)) for a in arrs)
+
+
+# ------------------------------------------------------------ cosmology
+@pytest.mark.parametrize("name", sorted(COSMOS))
+def test_cosmology_matches_jax(name):
+    """Background, distances and growth agree to the JAX tables' float32
+    rounding: rtol 1e-5 (growth rate 3e-5: the JAX table's f = dlnE/dlna +
+    integrand/I is a difference of float32 terms)."""
+    jc, tc = _both(COSMOS[name])
+    z = np.array([0.0, 0.1, 0.5, 1.0, 2.5, 5.0, 9.0, 30.0])
+    a = 1.0 / (1.0 + z)
+    zj = jnp.asarray(z, jnp.float32)
+    checks = [("efunc", z, 1e-6), ("Om", z, 1e-6),
+              ("comoving_distance", z, 1e-5), ("growth_factor", z, 1e-5),
+              ("growth_rate", z, 3e-5)]
+    for meth, arg, rtol in checks:
+        want = np.asarray(getattr(jc, meth)(zj))
+        npt.assert_allclose(getattr(tc, meth)(arg), want, rtol=rtol,
+                            err_msg=meth)
+    npt.assert_allclose(tc.efunc_a(a), np.asarray(jc.efunc_a(
+        jnp.asarray(a, jnp.float32))), rtol=1e-6)
+    chi = np.array([10.0, 500.0, 2300.0, 6000.0])
+    npt.assert_allclose(tc.redshift_at_comoving_distance(chi), np.asarray(
+        jc.redshift_at_comoving_distance(jnp.asarray(chi, jnp.float32))),
+        rtol=1e-5, atol=1e-6)
+    if tc.fR0:
+        npt.assert_allclose(tc.scalaron_mass2(a), np.asarray(
+            jc.scalaron_mass2(jnp.asarray(a, jnp.float32))), rtol=1e-5)
+
+
+def test_cosmology_from_jax_fields_and_unported_mu0():
+    jc = JCosmology(Om0=0.31, h=0.68, fR0=1e-6, w0=-0.95)
+    fields = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)}
+    tc = Cosmology.from_jax_fields(fields)
+    assert (tc.Om0, tc.h, tc.fR0, tc.w0) == (0.31, 0.68, 1e-6, -0.95)
+    assert tc == Cosmology(Om0=0.31, h=0.68, fR0=1e-6, w0=-0.95)
+    npt.assert_allclose(tc.growth_factor(1.0), np.asarray(
+        jc.growth_factor(1.0)), rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="mu0"):
+        Cosmology(mu0=0.1)
+
+
+def test_linear_power_matches_jax():
+    """EH98 P(k) and its sigma8 normalization: rtol 1e-4 (the JAX
+    sigma_r integral is a float32 trapezoid; the port's is float64)."""
+    for kw in (COSMOS["planck"], COSMOS["lcdm"]):
+        jc, tc = _both(kw)
+        k = np.geomspace(1e-4, 20.0, 200).astype(np.float32)
+        npt.assert_allclose(
+            TL.eh98_transfer(torch.from_numpy(k), tc).numpy(),
+            np.asarray(JL.eh98_transfer(jnp.asarray(k), jc)), rtol=2e-5)
+        amp_j = float(JL.normalization(jc))
+        npt.assert_allclose(TL.normalization(tc), amp_j, rtol=1e-4)
+        npt.assert_allclose(float(TL.sigma_r(8.0, tc, TL.normalization(tc))),
+                            tc.sigma8, rtol=1e-12)
+        for z in (0.0, 2.0):
+            got = TL.linear_power(torch.from_numpy(k), tc, z,
+                                  amplitude=amp_j).numpy()
+            want = np.asarray(JL.linear_power(jnp.asarray(k), jc, z,
+                                              amplitude=amp_j))
+            npt.assert_allclose(got, want, rtol=5e-5)
+
+
+# ------------------------------------------------------- modes, gather
+@pytest.mark.parametrize("n", [8, 15])
+def test_modes_from_white_matches_jax(rng, n):
+    """Same white noise -> the same modes (float32 FFT rounding: atol
+    1e-5 of the largest mode)."""
+    box = 120.0
+    white = rng.standard_normal((n, n, n)).astype(np.float32)
+    jc, tc = _both(COSMOS["lcdm"])
+    amp = float(JL.normalization(jc))
+
+    def pk_j(k):
+        return JL.linear_power(k, jc, 0.0, amplitude=amp)
+
+    def pk_t(k):
+        return TL.linear_power(k, tc, 0.0, amplitude=amp)
+
+    want = np.asarray(JM.modes_from_white(jnp.asarray(white), n, box, pk_j))
+    got = TM.modes_from_white(torch.from_numpy(white), n, box, pk_t).numpy()
+    npt.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+
+
+def test_linear_modes_from_generator():
+    """The generator replaces the PRNG key: the same seed gives the same
+    modes, another seed other modes; the DC mode is zero."""
+    def draw(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return TM.linear_modes(gen, 8, 50.0, _pk_flat(10.0))
+
+    a, b, c = draw(3), draw(3), draw(4)
+    assert a.shape == (8, 8, 8) and a.dtype == torch.complex64
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert a[0, 0, 0] == 0
+
+
+def test_sample_displacement_matches_jax(rng):
+    """Trilinear periodic gather, (n, 3) and tuple positions, including
+    positions on and past the box edges: atol 1e-6 of the grid's range."""
+    n, box = 12, 60.0
+    grids = rng.standard_normal((3, n, n, n)).astype(np.float32)
+    pos = rng.uniform(0, box, (500, 3)).astype(np.float32)
+    pos[0] = [0.0, box, -0.0]
+    pos[1] = [box - 1e-4, -1.0, box + 3.0]
+    want = np.asarray(JR.sample_displacement(jnp.asarray(grids), box,
+                                             jnp.asarray(pos)))
+    for p in (torch.from_numpy(pos), _tensors(pos.T)):
+        got = TR.sample_displacement(torch.from_numpy(grids), box, p)
+        npt.assert_allclose(got.numpy(), want, atol=1e-6 * 4.0)
+
+
+# ------------------------------------------------------------------ 2LPT
+@pytest.mark.parametrize("n", [9, 16])
+def test_lpt_displacements_from_modes_matches_jax(rng, n):
+    """psi1 and psi2 from the same modes: atol 2e-5 of each field's max
+    (float32 FFTs; psi2 is a product of second derivatives)."""
+    box = 100.0
+    dk = _modes(rng, n, box)
+    j1, j2 = JN.lpt_displacements_from_modes(jnp.asarray(dk), n, box)
+    t1, t2 = TN.lpt_displacements_from_modes(torch.from_numpy(dk), n, box)
+    for got, want in ((t1, j1), (t2, j2)):
+        want = np.asarray(want)
+        npt.assert_allclose(got.numpy(), want, atol=2e-5 * np.abs(want).max())
+    s2j = np.asarray(JN._second_order_source(jnp.asarray(dk), n, box))
+    s2t = TN._second_order_source(torch.from_numpy(dk), n, box).numpy()
+    npt.assert_allclose(s2t, s2j, atol=2e-5 * np.abs(s2j).max())
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("pass_growth", [False, True])
+def test_lpt_catalog_from_modes_matches_jax(rng, order, pass_growth):
+    """IC positions and momenta from the same modes. With growth= both
+    sides take the same host scalars: positions to 1e-4 Mpc/h (float32
+    positions of order 100), momenta to 1e-5 of their max. Without it
+    each side uses its own growth tables (rtol ~2e-5 apart)."""
+    n, box, z_init = 16, 100.0, 9.0
+    jc, tc = _both(COSMOS["lcdm"])
+    dk = _modes(rng, n, box, amp=200.0)
+    growth = None
+    if pass_growth:
+        growth = (*TN.lpt_growth(tc, z_init, order), float(tc.efunc(z_init)))
+    jcomps, jmom = JN.lpt_catalog_from_modes(jnp.asarray(dk), n, box, jc,
+                                             z_init, order=order,
+                                             growth=growth)
+    tcomps, tmom = TN.lpt_catalog_from_modes(dk, n, box, tc, z_init,
+                                             order=order, growth=growth)
+    rel = 1e-5 if pass_growth else 5e-5
+    for got, want in zip(tcomps, jcomps):
+        d = np.abs(got.numpy() - np.asarray(want))
+        npt.assert_array_less(np.minimum(d, box - d), 1e-4)
+    for got, want in zip(tmom, jmom):
+        want = np.asarray(want)
+        npt.assert_allclose(got.numpy(), want, atol=rel * np.abs(want).max())
+    if not pass_growth:
+        npt.assert_allclose(TN.lpt_growth(tc, z_init, order),
+                            JN.lpt_growth(jc, z_init, order), rtol=2e-5)
+
+
+def test_lpt_catalog_from_generator_and_velocities():
+    gen = torch.Generator().manual_seed(1)
+    tc = Cosmology(Om0=0.3, h=0.7)
+    comps, mom = TN.lpt_catalog(gen, 8, 80.0, _pk_flat(30.0), tc, 9.0)
+    assert [c.shape for c in comps + mom] == [(512,)] * 6
+    assert all(bool(((c >= 0) & (c <= 80.0)).all()) for c in comps)
+    vel = TN.velocities_kms(mom, 0.5)
+    torch.testing.assert_close(vel[1], 200.0 * mom[1])
+    with pytest.raises(ValueError, match="order"):
+        TN.lpt_catalog(gen, 8, 80.0, _pk_flat(30.0), tc, 9.0, order=3)
+
+
+# -------------------------------------------------------------- PM pieces
+@pytest.mark.parametrize("spacing", ["loga", "a"])
+def test_factors_from_edges_matches_jax(spacing):
+    """KDK integrals: rtol 1e-6 (JAX evaluates E(a) in float32)."""
+    jc, tc = _both(COSMOS["lcdm"])
+    want = JN.pm_step_factors(jc, 0.1, 1.0, 7, spacing=spacing)
+    got = TN.pm_step_factors(tc, 0.1, 1.0, 7, spacing=spacing)
+    npt.assert_allclose(got, want, rtol=1e-6)
+    edges = TN._a_edges(0.1, 1.0, 7, spacing)
+    npt.assert_array_equal(edges, JN._a_edges(0.1, 1.0, 7, spacing))
+    npt.assert_array_equal(TN._factors_from_edges(tc, edges[2:5], spacing),
+                           got[2:4])
+
+
+@pytest.mark.parametrize("gravity", ["gr", "fofr"])
+def test_force_grids_matches_jax(rng, gravity):
+    """Painted density -> force grids, GR (am2 = inf) and f(R) (finite
+    am2): atol 1e-5 of the largest force (float32 FFTs)."""
+    n, box = 16, 100.0
+    pos = rng.uniform(0, box, (3000, 3)).astype(np.float32)
+    tc = Cosmology(**COSMOS["fofr"])
+    am2 = (float(0.5 ** 2 * tc.scalaron_mass2(0.5)) if gravity == "fofr"
+           else np.inf)
+    want = np.asarray(JN._force_grids(tuple(jnp.asarray(c) for c in pos.T),
+                                      n, box, 0.3, "cic", am2=am2))
+    got = TN._force_grids(_tensors(pos.T), n, box, 0.3, "cic", am2=am2)
+    npt.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max())
+
+
+def test_pm_evolve_matches_jax(rng):
+    """The forward path as a whole: the same modes -> 2LPT at z=9 -> 4
+    KDK steps to z=0 on a 16^3 mesh, GR and f(R). Positions agree to
+    2e-3 Mpc/h (cell 6.25 Mpc/h; float32 rounding grows over the steps)
+    and momenta to 1e-3 of their max."""
+    n, box = 16, 100.0
+    dk = _modes(rng, n, box, amp=400.0)
+    for kw in (COSMOS["lcdm"], COSMOS["fofr"]):
+        jc, tc = _both(kw)
+        growth = (*TN.lpt_growth(tc, 9.0), float(tc.efunc(9.0)))
+        jcomps, jmom = JN.lpt_catalog_from_modes(jnp.asarray(dk), n, box,
+                                                 jc, 9.0, growth=growth)
+        tcomps, tmom = TN.lpt_catalog_from_modes(dk, n, box, tc, 9.0,
+                                                 growth=growth)
+        jout, jp = JN.pm_evolve(jcomps, jmom, jc, n, box, 0.1, 1.0, 4)
+        tout, tp = TN.pm_evolve(tcomps, tmom, tc, n, box, 0.1, 1.0, 4)
+        for got, want in zip(tout, jout):
+            d = np.abs(got.numpy() - np.asarray(want))
+            npt.assert_array_less(np.minimum(d, box - d), 2e-3)
+        for got, want in zip(tp, jp):
+            want = np.asarray(want)
+            npt.assert_allclose(got.numpy(), want,
+                                atol=1e-3 * np.abs(want).max())
+
+
+def test_pm_evolve_leaves_inputs_untouched(rng):
+    n, box = 8, 50.0
+    tc = Cosmology(**COSMOS["lcdm"])
+    comps, mom = TN.lpt_catalog_from_modes(_modes(rng, n, box), n, box, tc,
+                                           9.0)
+    before = [c.clone() for c in comps + mom]
+    out, p = TN.pm_evolve(comps, mom, tc, n, box, 0.1, 0.5, 2)
+    assert all(torch.equal(a, b) for a, b in zip(before, comps + mom))
+    assert not torch.equal(out[0], comps[0])
+
+
+def test_pm_catalog_from_generator():
+    gen = torch.Generator().manual_seed(2)
+    tc = Cosmology(**COSMOS["lcdm"])
+    comps, vel = TN.pm_catalog(gen, tc, _pk_flat(100.0), 8, 64.0, nsteps=3)
+    assert [c.shape for c in comps + vel] == [(512,)] * 6
+    assert all(bool(torch.isfinite(c).all()) for c in comps + vel)
+
+
+# ------------------------------------- the JAX package's own N-body tests
+def test_force_accuracy_and_lattice_alias_regimes():
+    """Port of tests/test_nbody.py::test_force_accuracy_...: the
+    single-mode force at a 1:1 mesh matches -1.5 eps/k sin(kx) damped by
+    one CIC window; a 2x-finer force mesh with lattice ICs boosts it."""
+    box, eps = 500.0, 1e-3
+    kf = 2 * np.pi / box
+
+    def ratio(npart, nforce, m):
+        cell = box / npart
+        q = (np.arange(npart) + 0.5) * cell
+        qx, qy, qz = np.meshgrid(q, q, q, indexing="ij")
+        psi = -eps / (m * kf) * np.sin(m * kf * qx)
+        comps = tuple(torch.from_numpy(c.ravel().astype(np.float32))
+                      for c in ((qx + psi) % box, qy, qz))
+        grids = TN._force_grids(comps, nforce, box, 1.0, "cic")
+        frc = TR.sample_displacement(grids, box, comps).numpy()
+        th = -1.5 * eps / (m * kf) * np.sin(m * kf * comps[0].numpy())
+        return float((frc[0] * th).sum() / (th * th).sum())
+
+    def w_cic(m, n):
+        return float(np.sinc(m / n) ** 2)
+
+    assert abs(ratio(32, 32, 1) - w_cic(1, 32)) < 4e-3
+    assert abs(ratio(32, 32, 2) - w_cic(2, 32)) < 8e-3
+    r1, r4 = ratio(32, 64, 1), ratio(32, 64, 4)
+    assert r1 > 1.02 and r4 > r1
+
+
+def test_pm_momentum_conservation(rng):
+    """Port of tests/test_nbody.py::test_pm_momentum_conservation: the
+    net force on random particles vanishes to 5e-3 of rms * N."""
+    n, box, npar = 32, 100.0, 5000
+    comps = _tensors((rng.uniform(0, box, (npar, 3)).astype(np.float32)).T)
+    frc = TR.sample_displacement(TN._force_grids(comps, n, box, 0.3, "cic"),
+                                 box, comps)
+    net = frc.sum(dim=1).abs()
+    rms = torch.sqrt((frc ** 2).mean(dim=1)) * npar
+    assert float((net / rms).max()) < 5e-3
+
+
+def test_fifth_force_single_mode_geff():
+    """Port of tests/test_nbody.py::test_fifth_force_single_mode_geff: the
+    f(R)/GR force ratio of grid mode m is 1 + mu_k(a, k_m) to 2e-4, and
+    the GR default (am2 = inf) is bit-exact GR."""
+    n, box, eps, m = 32, 400.0, 1e-3, 2
+    kf = 2 * np.pi / box
+    q = (np.arange(n) + 0.5) * (box / n)
+    qx, qy, qz = np.meshgrid(q, q, q, indexing="ij")
+    psi = -eps / (m * kf) * np.sin(m * kf * qx)
+    comps = tuple(torch.from_numpy(c.ravel().astype(np.float32))
+                  for c in ((qx + psi) % box, qy, qz))
+    cosmo = Cosmology(Om0=0.3, h=0.7, fR0=1e-5)
+    a = 0.8
+    am2 = float(a ** 2 * cosmo.scalaron_mass2(a))
+    g_gr = TN._force_grids(comps, n, box, 0.3, "cic")
+    g_fr = TN._force_grids(comps, n, box, 0.3, "cic", am2=am2)
+    fk_gr = complex(torch.fft.fftn(g_gr[0])[m, 0, 0])
+    fk_fr = complex(torch.fft.fftn(g_fr[0])[m, 0, 0])
+    k2 = (m * kf) ** 2
+    expect = 1.0 + k2 / (3.0 * (k2 + am2))
+    assert abs((fk_fr / fk_gr).real - expect) < 2e-4
+    assert torch.equal(g_gr, TN._force_grids(comps, n, box, 0.3, "cic",
+                                             am2=float("inf")))
+
+
+def test_pm_linear_growth_lcdm_small():
+    """The growth bar of tests/test_nbody.py::test_pm_linear_growth_lcdm
+    (same-realization sqrt(P1/P0) over |m| <= 3 within 5% of D ratio),
+    at 16^3 particles on a 16^3 mesh, 8 steps."""
+    tc = Cosmology(Om0=0.3, h=0.7)
+    n, box, z_i = 16, 500.0, 5.6667
+    gen = torch.Generator().manual_seed(7)
+    comps, mom = TN.lpt_catalog(gen, n, box, _pk_flat(50.0), tc, z_i)
+    dk0 = tdelta_k(tpaint(comps, n, box, window="cic"), window="cic")
+    out, _ = TN.pm_evolve(comps, mom, tc, n, box, 1 / (1 + z_i), 1.0, 8)
+    dk1 = tdelta_k(tpaint(out, n, box, window="cic"), window="cic")
+    f = np.fft.fftfreq(n) * n
+    m2 = (f[:, None, None] ** 2 + f[None, :, None] ** 2
+          + f[: n // 2 + 1][None, None, :] ** 2)
+    sel = torch.from_numpy((m2 > 0) & (m2 <= 9.0))
+    measured = np.sqrt(float((dk1.abs() ** 2)[sel].mean())
+                       / float((dk0.abs() ** 2)[sel].mean()))
+    d_ratio = float(tc.growth_factor(0.0) / tc.growth_factor(z_i))
+    assert abs(measured / d_ratio - 1.0) < 0.05, (measured, d_ratio)

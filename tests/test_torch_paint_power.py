@@ -148,10 +148,9 @@ def test_paint_interlaced_tuple_input_matches_jax(rng):
 
 def test_paint_kernel_deposit_rules(rng):
     pos = T(_positions(rng, 100))
-    with pytest.raises(NotImplementedError, match="K2"):
-        TP.paint(pos, 8, BOX, window="cic", deposit="kernel")
-    with pytest.raises(ValueError, match="CUDA"):
-        TP.paint(pos, 8, BOX, window="ngp", deposit="kernel")
+    for window in ("ngp", "cic", "tsc"):
+        with pytest.raises(ValueError, match="CUDA"):
+            TP.paint(pos, 8, BOX, window=window, deposit="kernel")
     with pytest.raises(ValueError, match="deposit"):
         TP.paint(pos, 8, BOX, window="ngp", deposit="pallas")
 
