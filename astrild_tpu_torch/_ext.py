@@ -36,6 +36,15 @@ _SIGNATURES = {
             ctypes.c_int),
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "deposit_segmented": {
+        # keys (n_seg, seg_len), vals, n_seg, seg_len, out, n_cells, stream
+        "astrild_deposit_segmented": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p],
+            ctypes.c_int),
+        "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
     "paint_windowed": {
         # keys, frac (3, n), weights, n, npd, order, out, n_cells, stream
         "astrild_paint_windowed": (

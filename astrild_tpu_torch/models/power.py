@@ -1,0 +1,243 @@
+"""Spectra pipeline classes: PowerSpectrum3D, Bispectrum3D, PowMes.
+
+Port of astrild_tpu/models/power.py. The facades take numpy arrays or
+tensors and return numpy arrays, as the JAX facades do. Work runs on the
+device of the input tensors; numpy input goes to the facade's `device=`
+(the CPU by default). `AngularPowerSpectrum`, `LinearPowerSpectrum`,
+`LinearAngularPowerSpectrum` and `Bispectrum2D` wait for their ops
+(`angular_power`, `nonlinear_power`, `p_dpdp`,
+`bispectrum_2d_equilateral`).
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..io import columnar_h5
+from ..ops import bispectrum as bs_ops
+from ..ops import paint as paint_ops
+from ..ops import power as power_ops
+
+__all__ = ["PowerSpectrum3D", "Bispectrum3D", "PowMes"]
+
+
+def _as_tensor(arr, device=None) -> torch.Tensor:
+    """A tensor of `arr`: float input as float32 (the JAX package's
+    jnp.asarray without x64), on `device` if given, else where a tensor
+    already lies (numpy input: the CPU)."""
+    if isinstance(arr, np.ndarray) and not arr.flags.writeable:
+        arr = arr.copy()
+    t = torch.as_tensor(arr)
+    if t.is_floating_point():
+        t = t.to(torch.float32)
+    return t if device is None else t.to(device)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class PowerSpectrum3D:
+    """Auto & cross P(k) of gridded or point-set quantities."""
+
+    def __init__(self, sim_type: str = "particles", simulation=None,
+                 window: str = "cic", device=None):
+        self.sim = simulation
+        self.sim_type = sim_type
+        self.window = window
+        self.device = device
+
+    def _t(self, arr) -> torch.Tensor:
+        return _as_tensor(arr, self.device)
+
+    # ------------------------------------------------------- low-level API
+    def power_from_grid(self, grid, boxsize: float, nbins: int = 0,
+                        shotnoise: float = 0.0, window=None):
+        res = power_ops.auto_power(self._t(grid), boxsize, nbins=nbins,
+                                   window=window, shotnoise=shotnoise)
+        return _host(res.k), _host(res.power)
+
+    def multipoles_from_grid(self, grid, boxsize: float, nbins: int = 0,
+                             ells=(0, 2, 4), los: int = 2,
+                             shotnoise: float = 0.0, window=None):
+        """Redshift-space multipoles P_ell(k). Returns (k, {ell: P})."""
+        res = power_ops.auto_power_multipoles(
+            self._t(grid), boxsize, nbins=nbins, ells=tuple(ells), los=los,
+            shotnoise=shotnoise, window=window)
+        return (_host(res.k),
+                {ell: _host(res.p_ell[i]) for i, ell in enumerate(ells)})
+
+    def power_from_points(self, pos, boxsize: float, ngrid: int,
+                          weights=None, nbins: int = 0,
+                          interlaced: bool = False, method: str = "window",
+                          mesh=None):
+        """Point set -> paint -> P(k).
+
+        method='fast' uses the folded fine-grid NGP estimator
+        (ops.power.auto_power_fast, through the sorted deposit K1 on a
+        card); 'window' paints with self.window (cic/tsc) and deconvolves.
+        mesh (the JAX package's distributed estimator) waits for the
+        distributed layer and raises NotImplementedError.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "power_from_points(mesh=...) needs the distributed P(k) "
+                "estimator, which astrild_tpu_torch does not port yet")
+        pos = self._t(pos)
+        w = None if weights is None else self._t(weights).to(pos.device)
+        if method == "fast":
+            res = power_ops.auto_power_fast(pos, ngrid, boxsize,
+                                            nbins=nbins, weights=w)
+            return _host(res.k), _host(res.power)
+        painted = paint_ops.paint(pos, ngrid, boxsize, weights=w,
+                                  window=self.window, interlaced=interlaced)
+        if interlaced:
+            g, g2 = painted
+        else:
+            g, g2 = painted, None
+        if weights is None:
+            shot = boxsize ** 3 / pos.shape[0]
+        else:
+            # weighted tracers: V sum(w^2)/(sum w)^2
+            wh = np.asarray(_host(w), np.float64)
+            shot = boxsize ** 3 * float(np.sum(wh * wh)) \
+                / max(float(np.sum(wh)) ** 2, 1e-300)
+        res = power_ops.auto_power(g, boxsize, nbins=nbins,
+                                   window=self.window, grid_shifted=g2,
+                                   interlaced=interlaced, shotnoise=shot)
+        return _host(res.k), _host(res.power)
+
+    def _as_grid(self, arr, boxsize: float, ngrid: int):
+        """(grid, painted): paint a point set with self.window, pass a
+        pre-gridded field through."""
+        if arr.ndim == 2 and arr.shape[1] == 3:
+            g = paint_ops.paint(self._t(arr), ngrid, boxsize,
+                                window=self.window)
+            return g, True
+        return self._t(arr), False
+
+    def cross_power_from_grids(self, grid1, grid2, boxsize: float,
+                               nbins: int = 0, window=None):
+        """Window-compensated cross spectrum of two grids."""
+        g1 = self._t(grid1)
+        res = power_ops.cross_power(g1, self._t(grid2).to(g1.device),
+                                    boxsize, nbins=nbins, window=window)
+        return _host(res.k), _host(res.power)
+
+    # ---------------------------------------------------------- file-driven
+    def compute(self, quantities: Sequence[str], file_dsc: Sequence[dict],
+                snap_nrs=None, dir_out=None, save: bool = True,
+                boxsize: Optional[float] = None, ngrid: int = 256):
+        """File-driven pipeline: reads h5 point sets or npy grids per
+        snapshot; auto (1 file_dsc) or cross (2 file_dscs)."""
+        boxsize = boxsize or getattr(self.sim, "boxsize", 500.0)
+        fd = dict(file_dsc[0])
+        path = fd.pop("path", None)
+        snap_ids = self.sim.get_file_nrs(fd, path, "max")
+        paths1 = self.sim.get_file_paths(fd, path, "max")
+        paths2 = None
+        if len(file_dsc) > 1:
+            fd2 = dict(file_dsc[1])
+            path2 = fd2.pop("path", None)
+            paths2 = self.sim.get_file_paths(fd2, path2, "max")
+        if snap_nrs is not None:
+            keep = [i for i, s in enumerate(np.sort(snap_ids))
+                    if s in set(snap_nrs)]
+            paths1 = [paths1[i] for i in keep]
+            if paths2 is not None:
+                paths2 = [paths2[i] for i in keep]
+            snap_ids = [np.sort(snap_ids)[i] for i in keep]
+        pk = {"k": {}, "P": {}}
+        for i, (snap_nr, p1) in enumerate(
+                zip(np.sort(np.asarray(snap_ids)), paths1)):
+            arr = self._read_data(p1, quantities)
+            if paths2 is not None:
+                # point sets are painted with self.window, whose aliasing
+                # is then deconvolved; pre-gridded fields carry no
+                # assignment window
+                g1, painted1 = self._as_grid(arr, boxsize, ngrid)
+                g2, painted2 = self._as_grid(
+                    self._read_data(paths2[i], quantities), boxsize, ngrid)
+                win = self.window if (painted1 and painted2) else None
+                k, P = self.cross_power_from_grids(g1, g2, boxsize,
+                                                   window=win)
+            elif arr.ndim == 2 and arr.shape[1] == 3:
+                k, P = self.power_from_points(arr, boxsize, ngrid)
+            else:
+                k, P = self.power_from_grid(arr, boxsize)
+            pk["k"][f"snap_{snap_nr}"] = k
+            pk["P"][f"snap_{snap_nr}"] = P
+        if save and dir_out and pk["k"]:
+            os.makedirs(dir_out, exist_ok=True)
+            cols = {"k": next(iter(pk["k"].values()))}
+            cols.update(pk["P"])
+            columnar_h5.write_table(
+                os.path.join(dir_out, f"pk_{'_'.join(quantities)}.h5"), cols)
+        return pk
+
+    def _read_data(self, path: str, quantities) -> np.ndarray:
+        """h5 point set (x,y,z columns) -> positions; npy -> grid."""
+        if path.endswith(".npy"):
+            return np.load(path)
+        cols = columnar_h5.read_table(path)
+        return np.stack([cols["x"], cols["y"], cols["z"]], axis=-1)
+
+
+class Bispectrum3D:
+    """B(k1,k2,k3) estimator over all shell triples (ops.bispectrum)."""
+
+    @staticmethod
+    def compute(grid, boxsize: float, nbins: int = 8, m_min: float = 1.0,
+                m_max=None, device=None):
+        res = bs_ops.bispectrum_3d(_as_tensor(grid, device), boxsize,
+                                   nbins=nbins, m_min=m_min, m_max=m_max)
+        return {k: _host(v) for k, v in res._asdict().items()}
+
+    @staticmethod
+    def from_points(pos, boxsize: float, ngrid: int, nbins: int = 8,
+                    window: str = "cic", device=None):
+        grid = paint_ops.paint(_as_tensor(pos, device), ngrid, boxsize,
+                               window=window)
+        return Bispectrum3D.compute(grid, boxsize, nbins=nbins)
+
+
+class PowMes:
+    """Reader for POWMES output files. The estimator itself is replaced by
+    PowerSpectrum3D."""
+
+    @staticmethod
+    def read_pk_file(path, boxsize: float):
+        """POWMES .ascii table: columns (i, P(i), ...) with k = i * 2pi/L;
+        returns (k, P)."""
+        tab = np.loadtxt(path, comments="#", ndmin=2)
+        k = tab[:, 0] * 2.0 * np.pi / boxsize
+        return k, tab[:, 1]
+
+    @staticmethod
+    def to_table(paths: Dict[int, str], boxsize: float, dir_out=None):
+        cols = {}
+        for snap, p in paths.items():
+            k, P = PowMes.read_pk_file(p, boxsize)
+            cols.setdefault("k", k)
+            cols[f"snap_{snap}"] = P
+        if dir_out:
+            columnar_h5.write_table(os.path.join(dir_out, "powmes_pk.h5"),
+                                    cols)
+        return cols
+
+    @staticmethod
+    def align_lin_nonlin(lin, nonlin, k, band=(1e-2, 1e-1)):
+        """Additive offset aligning a nonlinear P(k) to the linear one at
+        large scales: the linear spectrum's first (largest-scale) value
+        minus the nonlinear band average over k in `band` [h/Mpc]. Add the
+        returned offset to `nonlin`."""
+        lin = np.asarray(lin)
+        nonlin = np.asarray(nonlin)
+        k = np.asarray(k)
+        sel = (band[0] < k) & (k < band[1])
+        if not sel.any():
+            raise ValueError(f"no modes inside the k band {band}")
+        return lin[0] - np.mean(nonlin[sel])

@@ -5,17 +5,21 @@ Port of astrild_tpu/ops/paint_pallas.py:
 - K1, the sorted deposit (`deposit_sorted`, `deposit_flat`), in
   csrc/deposit_sorted.cu;
 - K2, the windowed CIC/TSC painter (`paint_windowed`), in
-  csrc/paint_windowed.cu.
+  csrc/paint_windowed.cu;
+- K4, the segment-sorted deposit (`deposit_flat_segmented`), in
+  csrc/deposit_segmented.cu.
 
-Both kernels are hand-written CUDA C++: one thread block per window of
+The kernels are hand-written CUDA C++: one thread block per window of
 output cells, accumulated in shared memory (see the sources for their
-design). The TPU version's window/chunk tuning table has no counterpart:
-each CUDA kernel fixes its own window.
+design). The TPU version's window/chunk tuning (`_auto_deposit_params`,
+`_fit_seg_params`) has no counterpart: each CUDA kernel fixes its own
+window.
 
 On a CPU tensor the wrappers run the plain PyTorch versions
-(`deposit_sorted_reference`, `paint_windowed_reference`); on a CUDA tensor
-they launch the kernel or raise. `LAUNCHES` counts kernel launches per
-wrapper, so a run can show that its main path went through the kernel.
+(`deposit_sorted_reference`, `paint_windowed_reference`,
+`deposit_flat_segmented_reference`); on a CUDA tensor they launch the
+kernel or raise. `LAUNCHES` counts kernel launches per wrapper, so a run
+can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from .. import _ext
 
 __all__ = ["deposit_sorted", "deposit_flat", "deposit_sorted_reference",
+           "deposit_flat_segmented", "deposit_flat_segmented_reference",
            "paint_windowed", "paint_windowed_reference", "LAUNCHES"]
 
 LAUNCHES: Counter = Counter()
@@ -109,6 +114,94 @@ def deposit_flat(flat_idx: torch.Tensor, weights: torch.Tensor | None,
         return deposit_sorted(keys, None, n_cells)
     vals = weights.reshape(-1).to(torch.float32)[order]
     return deposit_sorted(keys, vals, n_cells)
+
+
+# ---------------------------------------------------------------- K4
+def _segment_layout(flat_idx: torch.Tensor, weights: torch.Tensor | None,
+                    n_cells: int, n_seg: int):
+    """The (n_seg, seg_len) input of K4 and of its plain version
+    (paint_pallas.py:455-481): the keys padded at the tail with the
+    sentinel n_cells (the weights with 0) and sorted within each row, the
+    weights gathered with their keys. Returns (keys (n_seg, seg_len)
+    int32, weights in the same layout or None)."""
+    if n_seg < 1:
+        raise ValueError(f"deposit_flat_segmented: n_seg must be >= 1, got "
+                         f"{n_seg}")
+    if not 0 <= n_cells < _MAX_CELLS:
+        raise ValueError(f"deposit_flat_segmented: n_cells={n_cells} "
+                         f"outside [0, 2^31)")
+    flat = flat_idx.reshape(-1).to(torch.int32)
+    n = flat.shape[0]
+    if weights is not None and (weights.numel() != n
+                                or weights.device != flat.device):
+        raise ValueError(f"deposit_flat_segmented: weights must hold {n} "
+                         f"values on {flat.device}, got "
+                         f"{tuple(weights.shape)} on {weights.device}")
+    seg_len = max(1, -(-n // n_seg))
+    pad = n_seg * seg_len - n
+    keys = torch.cat([flat, flat.new_full((pad,), n_cells)])
+    keys_s, order = torch.sort(keys.view(n_seg, seg_len), dim=1,
+                               stable=False)
+    del keys
+    if weights is None:
+        return keys_s, None
+    w = weights.reshape(-1).to(torch.float32)
+    vals = torch.cat([w, w.new_zeros(pad)]).view(n_seg, seg_len)
+    return keys_s, torch.gather(vals, 1, order)
+
+
+def deposit_flat_segmented_reference(flat_idx: torch.Tensor,
+                                     weights: torch.Tensor | None,
+                                     n_cells: int,
+                                     n_seg: int = 64) -> torch.Tensor:
+    """Plain version of `deposit_flat_segmented`: the same padded,
+    row-sorted layout, then one `index_add_` into n_cells + 1 slots whose
+    last (the sentinel's) is dropped."""
+    keys_s, vals_s = _segment_layout(flat_idx, weights, n_cells, n_seg)
+    w = (torch.ones(keys_s.numel(), dtype=torch.float32,
+                    device=keys_s.device) if vals_s is None
+         else vals_s.reshape(-1))
+    out = torch.zeros(n_cells + 1, dtype=torch.float32, device=keys_s.device)
+    out.index_add_(0, keys_s.reshape(-1).long(), w)
+    return out[:n_cells]
+
+
+def _launch_segmented(keys_s: torch.Tensor, vals_s: torch.Tensor | None,
+                      n_cells: int) -> torch.Tensor:
+    """Run K4 on the row-sorted (n_seg, seg_len) layout."""
+    n_seg, seg_len = keys_s.shape
+    lib = _ext.load("deposit_segmented")
+    out = torch.empty(n_cells, dtype=torch.float32, device=keys_s.device)
+    with torch.cuda.device(keys_s.device):
+        stream = torch.cuda.current_stream(keys_s.device).cuda_stream
+        rc = lib.astrild_deposit_segmented(
+            keys_s.data_ptr(), None if vals_s is None else vals_s.data_ptr(),
+            n_seg, seg_len, out.data_ptr(), n_cells, stream)
+    _ext.check(lib, rc, "deposit_flat_segmented")
+    LAUNCHES["deposit_segmented"] += 1
+    return out
+
+
+def deposit_flat_segmented(flat_idx: torch.Tensor,
+                           weights: torch.Tensor | None, n_cells: int,
+                           n_seg: int = 64) -> torch.Tensor:
+    """Segment sort + deposit: drop-in for
+    `zeros(n_cells).index_add_(0, flat, w)` like `deposit_flat`, sorting
+    the keys only within n_seg equal segments.
+
+    flat_idx: (N,) integer cell indices in [0, n_cells); weights: (N,) or
+    None for unit weights (counts, exact below 2^24 per cell). Returns
+    (n_cells,) float32 on the keys' device. On a CUDA tensor: the segment
+    sort in torch (`torch.sort` along the rows, unstable), then K4.
+    """
+    if flat_idx.device.type == "cpu":
+        return deposit_flat_segmented_reference(flat_idx, weights, n_cells,
+                                                n_seg)
+    if flat_idx.device.type != "cuda":
+        raise ValueError(f"deposit_flat_segmented: no kernel for device "
+                         f"{flat_idx.device}")
+    return _launch_segmented(
+        *_segment_layout(flat_idx, weights, n_cells, n_seg), n_cells)
 
 
 # ---------------------------------------------------------------- K2

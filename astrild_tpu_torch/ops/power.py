@@ -6,7 +6,8 @@ every mode's bin are bit-identical between the two packages. The fast
 estimator `auto_power_fast` deposits NGP counts on a fine_factor-finer grid
 in subgrid-major layout and folds the fine_factor^3 subgrid FFTs; on a CUDA
 tensor the deposit is the hand-written sorted kernel K1
-(`paint_cuda.deposit_flat`), on the CPU an `index_add_` scatter.
+(`paint_cuda.deposit_flat`), or on request the segment-sorted kernel K4
+(`paint_cuda.deposit_flat_segmented`), on the CPU an `index_add_` scatter.
 """
 from __future__ import annotations
 
@@ -19,15 +20,17 @@ import torch
 
 from ..utils.tables import tables_from_numpy
 from .paint import compensation_kernel
-from .paint_cuda import deposit_flat, deposit_sorted_reference
+from .paint_cuda import (deposit_flat, deposit_flat_segmented,
+                         deposit_sorted_reference)
 
 # last auto-selected deposit path ('kernel' | 'scatter'); diagnostics only
 last_auto_deposit: Optional[str] = None
 
 __all__ = [
-    "PowerResult", "mode_radius_rfft", "hermitian_weights", "delta_k",
-    "shell_average", "auto_power", "auto_power_fast", "get_shell_binning",
-    "get_fast_binning",
+    "PowerResult", "MultipoleResult", "mode_radius_rfft", "kmag_rfft",
+    "hermitian_weights", "delta_k", "delta_k_parts", "shell_average",
+    "auto_power", "auto_power_fast", "auto_power_multipoles", "cross_power",
+    "position_dependent_power", "get_shell_binning", "get_fast_binning",
 ]
 
 
@@ -54,6 +57,12 @@ def mode_radius_rfft(ngrid: int, dtype=torch.float32, device=None):
     m2 = (ix[:, None, None] ** 2 + ix[None, :, None] ** 2
           + iz[None, None, :] ** 2)
     return torch.sqrt(m2)
+
+
+def kmag_rfft(ngrid: int, boxsize: float, dtype=torch.float32, device=None):
+    """|k| on the rfftn grid, shape (n, n, n//2+1), units h/Mpc."""
+    kf = 2.0 * math.pi / boxsize
+    return mode_radius_rfft(ngrid, dtype, device) * kf
 
 
 def hermitian_weights(ngrid: int, dtype=torch.float32, device=None):
@@ -100,6 +109,13 @@ def delta_k(grid, grid_shifted=None, window: Optional[str] = None,
     if window is not None:
         dk = dk * compensation_kernel(n, window, device=grid.device)
     return dk
+
+
+def delta_k_parts(grid, grid_shifted=None, window: Optional[str] = None,
+                  interlaced: bool = False):
+    """delta_k as a (re, im) float32 pair."""
+    dk = delta_k(grid, grid_shifted, window=window, interlaced=interlaced)
+    return dk.real, dk.imag
 
 
 _SHELL_CACHE = {}
@@ -268,6 +284,58 @@ def auto_power(grid, boxsize: float, nbins: int = 0,
     return PowerResult(k, p - shotnoise, nm)
 
 
+class MultipoleResult(NamedTuple):
+    k: torch.Tensor        # (nbins,) mean |k| per shell
+    p_ell: torch.Tensor    # (nell, nbins) multipoles in requested order
+    nmodes: torch.Tensor   # (nbins,) hermitian-weighted mode counts
+
+
+def _legendre_even(ell: int, mu2):
+    """Even Legendre polynomials as functions of mu^2."""
+    if ell == 0:
+        return torch.ones_like(mu2)
+    if ell == 2:
+        return 0.5 * (3.0 * mu2 - 1.0)
+    if ell == 4:
+        return 0.125 * ((35.0 * mu2 - 30.0) * mu2 + 3.0)
+    raise ValueError("auto-spectrum multipoles exist for even ell<=4 "
+                     f"(got {ell})")
+
+
+def auto_power_multipoles(grid, boxsize: float, nbins: int = 0,
+                          ells=(0, 2, 4), los: int = 2,
+                          window: Optional[str] = None, grid_shifted=None,
+                          interlaced: bool = False, shotnoise: float = 0.0,
+                          kmin=None, kmax=None,
+                          binning=None) -> MultipoleResult:
+    """Plane-parallel redshift-space power multipoles
+    P_ell(k) = (2 ell + 1) < |delta_k|^2 V L_ell(mu) >_shell with
+    mu = k_los/|k|. shotnoise (V/N) is subtracted from the monopole only.
+    """
+    n = grid.shape[-1]
+    nbins = nbins or (n // 2)
+    dk = delta_k(grid, grid_shifted, window=window, interlaced=interlaced)
+    pk3d = (dk.abs() ** 2) * (boxsize ** 3)
+    f = _mode_numbers(n, grid.device)
+    fz = _mode_numbers(n, grid.device, real=True)
+    ax = (f[:, None, None], f[None, :, None], fz[None, None, :])
+    m2 = ax[0] ** 2 + ax[1] ** 2 + ax[2] ** 2
+    mu2 = torch.where(m2 == 0.0, torch.zeros_like(m2),
+                      ax[los] ** 2 / torch.clamp(m2, min=1e-12))
+    if binning is None:
+        binning = get_shell_binning(n, nbins, kmin, kmax, device=grid.device)
+    binidx, wf, nm, kmean = binning
+    kf = 2.0 * math.pi / boxsize
+    rows = []
+    for ell in ells:
+        vals = pk3d * ((2 * ell + 1) * _legendre_even(ell, mu2))
+        p = _shell_reduce(vals.reshape(-1), binidx, wf, nm)
+        if ell == 0:
+            p = p - shotnoise
+        rows.append(p)
+    return MultipoleResult(kmean * kf, torch.stack(rows), nm)
+
+
 def _components(pos):
     if isinstance(pos, (tuple, list)):
         return tuple(pos)
@@ -289,8 +357,12 @@ def auto_power_fast(pos, ngrid: int, boxsize: float, nbins: int = 0,
 
     pos: (n, 3) tensor or a tuple of flat (n,) components (x, y, z).
     deposit: None (auto: 'kernel' on a CUDA tensor, 'scatter' on the CPU;
-      recorded in `last_auto_deposit`) | 'kernel' (the sorted CUDA deposit;
-      CUDA tensors only) | 'scatter' (`index_add_`).
+      recorded in `last_auto_deposit`) | 'kernel' (the sorted CUDA deposit
+      K1) | 'kernel_seg' (the segment-sorted CUDA deposit K4, the
+      counterpart of the JAX package's opt-in 'pallas_seg', meant for
+      input whose order is spatially coherent, such as a snapshot read in
+      file order; never auto-selected) | 'scatter' (`index_add_`). The
+      kernels take CUDA tensors only.
 
     Returns the same binning as auto_power(grid(ngrid), nbins).
     """
@@ -303,12 +375,12 @@ def auto_power_fast(pos, ngrid: int, boxsize: float, nbins: int = 0,
     if deposit is None:
         deposit = "kernel" if x.device.type == "cuda" else "scatter"
         last_auto_deposit = deposit
-    elif deposit == "kernel" and x.device.type != "cuda":
-        raise ValueError(f"deposit='kernel' needs a CUDA tensor, got "
+    elif deposit not in ("kernel", "kernel_seg", "scatter"):
+        raise ValueError(f"deposit must be None, 'kernel', 'kernel_seg' or "
+                         f"'scatter', got {deposit!r}")
+    elif deposit != "scatter" and x.device.type != "cuda":
+        raise ValueError(f"deposit={deposit!r} needs a CUDA tensor, got "
                          f"{x.device}")
-    elif deposit not in ("kernel", "scatter"):
-        raise ValueError(f"deposit must be None, 'kernel' or 'scatter', "
-                         f"got {deposit!r}")
     return _auto_power_fast_impl((x, y, z), boxsize, weights, binning,
                                  ngrid=ngrid, fine_factor=fine_factor,
                                  return_coarse_grid=return_coarse_grid,
@@ -344,6 +416,8 @@ def _auto_power_fast_impl(pos, boxsize, weights, binning, *, ngrid: int,
     n_cells = fine_factor ** 3 * ngrid ** 3
     if deposit == "kernel":
         dep = deposit_flat(flat, w32, n_cells)
+    elif deposit == "kernel_seg":
+        dep = deposit_flat_segmented(flat, w32, n_cells)
     else:
         dep = deposit_sorted_reference(flat, w32, n_cells)
     # discrete-tracer shot noise: V * sum(w^2) / (sum w)^2, which reduces
@@ -404,3 +478,70 @@ def _fold_fft_bin(dep_flat, total, shot, binning, boxsize, *, ngrid: int,
     if return_coarse_grid:
         return res, coarse
     return res
+
+
+def cross_power(grid1, grid2, boxsize: float, nbins: int = 0,
+                window: Optional[str] = None, grids_shifted=(None, None),
+                interlaced: bool = False, kmin=None, kmax=None) -> PowerResult:
+    """Cross power spectrum of two painted grids (no shot noise)."""
+    n = grid1.shape[-1]
+    nbins = nbins or (n // 2)
+    dk1 = delta_k(grid1, grids_shifted[0], window=window,
+                  interlaced=interlaced)
+    dk2 = delta_k(grid2, grids_shifted[1], window=window,
+                  interlaced=interlaced)
+    pk3d = (dk1 * dk2.conj()).real * (boxsize ** 3)
+    k, p, nm = shell_average(pk3d, n, boxsize, nbins, kmin, kmax)
+    return PowerResult(k, p, nm)
+
+
+def position_dependent_power(delta, boxsize, n_sub: int = 4,
+                             nbins: int = 8):
+    """Position-dependent power spectrum and integrated bispectrum
+    (Chiang et al. 2014, arXiv:1403.3411).
+
+    The box splits into n_sub^3 subvolumes; each measures its local mean
+    overdensity delta_b and its local P(k | subvolume) (FFT of the
+    subvolume, periodic within the subvolume). The integrated bispectrum is
+    iB(k) = < P_sub(k) delta_b >, and its normalized form d ln P/d delta_b
+    the separate-universe power response.
+
+    Args:
+      delta: (n, n, n) density contrast; n must be divisible by n_sub.
+    Returns (k, ib (nbins,), response (nbins,), p_mean (nbins,),
+    delta_b (n_sub^3,)).
+    """
+    n = delta.shape[-1]
+    ns = n // n_sub
+    if ns * n_sub != n:
+        raise ValueError("ngrid must divide by n_sub")
+    sub_box = boxsize / n_sub
+    # (n_sub^3, ns, ns, ns) subvolumes
+    d = delta.reshape(n_sub, ns, n_sub, ns, n_sub, ns)
+    d = d.permute(0, 2, 4, 1, 3, 5).reshape(-1, ns, ns, ns)
+    delta_b = d.mean(dim=(1, 2, 3))
+    # every subvolume's fluctuation about its own mean, one batched FFT
+    local = d - delta_b[:, None, None, None]
+    dk = torch.fft.rfftn(local, dim=(-3, -2, -1)) / float(ns) ** 3
+    pk3d = (dk.abs() ** 2) * (sub_box ** 3)
+    binidx, wf, nm, kmean = get_shell_binning(ns, nbins,
+                                              device=delta.device)
+    # one shell reduction over all subvolumes: subvolume b's bins are
+    # slots b * (nbins + 1) + [0, nbins]
+    nb = d.shape[0]
+    slot = (binidx[None, :] + (nbins + 1) * torch.arange(
+        nb, device=delta.device)[:, None]).reshape(-1)
+    acc = torch.bincount(slot, weights=(pk3d.reshape(nb, -1) * wf)
+                         .reshape(-1).to(torch.float64),
+                         minlength=nb * (nbins + 1))
+    denom = torch.where(nm > 0, nm, torch.ones_like(nm))
+    p_sub = acc.view(nb, nbins + 1)[:, :nbins].to(torch.float32) / denom
+    k = kmean * (2.0 * math.pi / sub_box)
+    p_mean = p_sub.mean(dim=0)
+    db = delta_b - delta_b.mean()
+    ib = (p_sub * db[:, None]).mean(dim=0)
+    var_b = (db ** 2).mean()
+    response = torch.where(p_mean * var_b > 0,
+                           ib / torch.clamp(p_mean * var_b, min=1e-30),
+                           torch.full_like(ib, float("nan")))
+    return k, ib, response, p_mean, delta_b

@@ -7,14 +7,19 @@ Phases, each printing its own lines; a failure in any phase raises and
 exits non-zero before the final line:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels K1 (sorted deposit), K2 (windowed CIC/TSC painter)
-     and K3 (pair tiles) from csrc/, one nvcc each, all started together;
-     print each kernel's registers, shared memory and spills;
+  2. build the kernels K1 (sorted deposit), K2 (windowed CIC/TSC painter),
+     K3 (pair tiles) and K4 (segment-sorted deposit) from csrc/, one nvcc
+     each, all started together; print each kernel's registers, shared
+     memory and spills;
   3. hold K1 against its plain PyTorch version on the card: 2^24 keys into
      2^24 cells (counts and weighted) and the edge cases (empty windows,
      all keys in one cell, N not a multiple of the block size, a partly
      filled last window). Counts must be equal, weighted sums within
-     2e-5 * max;
+     2e-5 * max; then K4 against its plain version: 2^24 keys into 2^24
+     cells in random, coherent (lattice) and one-cell orders, and the edge
+     cases (fewer keys than segments, N not a multiple of the segments, one
+     segment, empty windows, a partly filled last window, shuffled and
+     globally sorted keys), with the same bars;
   4. hold K2 against its plain version, CIC and TSC, with and without
      weights: 2^24 particles onto 256^3, an odd 97^3 grid, positions at
      0, box, -0.0 and a third shifted by +-box, all particles in one cell,
@@ -40,8 +45,18 @@ exits non-zero before the final line:
      path's v12 against the plain version's), and the kernel paint's P(k)
      against the scatter paint's; split a step's device time by the time
      loop's profiler spans (3 traced steps);
-  8. time K1, K2 and K3 against their plain versions at the main paths'
-     shapes, in turns (plain, kernel, kernel, plain).
+  8. the file lane, on the GR z=0 snapshot of phase 7: write its 512^3
+     particles (positions, velocities in km/s, ids) in the PM code's own
+     (lattice) order as an 8-file Gadget snapshot under build/, read it
+     back (bit-identical), move the flat components to the card, and
+     measure P(k) (256^3, 64 bins, 2^27 fine cells) through K4
+     (`deposit="kernel_seg"`) and K1 on the file order and on a shuffled
+     order, and through the `PowerSpectrum3D` facade; then the TSC density,
+     velocity and divergence grids through `Ecosmog.density_fields` (K2).
+     The four fine deposits must be equal, every P(k) within rtol 1e-5 of
+     the scatter deposit's, the density's mass N to rtol 1e-5;
+  9. time K1, K2, K3 and K4 against their plain versions at the main
+     paths' shapes, in turns (plain, kernel, kernel, plain).
 
 The last lines are a JSON object describing each kernel, the card's name
 and power limit, and the `{"ok": true, "device": ...}` result line.
@@ -51,10 +66,13 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,10 +91,15 @@ K3_RTOL, K3_MIN_PAIRS = 1e-4, 1000
 PK_RTOL = 1e-5       # P(k), kernel deposit vs scatter deposit
 GROWTH_TOL = 0.05    # same-realization growth vs D(0)/D(z_init)
 MOMENTUM_TOL = 1e-3  # |sum p| / sum |p| after the evolution
-KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate")
+# the file lane: Gadget files of the GR snapshot, P(k) grid and bins
+LANE_FILES, LANE_NGRID, LANE_BINS = 8, 256, 64
+KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
+           "deposit_segmented")
 SOURCES = {
     "deposit_sorted": ("astrild_tpu_torch/csrc/deposit_sorted.cu",
                        "astrild_tpu/ops/paint_pallas.py:163"),
+    "deposit_segmented": ("astrild_tpu_torch/csrc/deposit_segmented.cu",
+                          "astrild_tpu/ops/paint_pallas.py:426"),
     "paint_windowed": ("astrild_tpu_torch/csrc/paint_windowed.cu",
                        "astrild_tpu/ops/paint_pallas.py:651"),
     "pairwise_accumulate": ("astrild_tpu_torch/csrc/pairwise_accumulate.cu",
@@ -174,6 +197,93 @@ def phase_kernel_check(dev, seed: int) -> None:
         torch.cuda.synchronize()
         log(f"# phase kernel: {name}: counts equal, weighted max err "
             f"{err:.3e}")
+
+
+def compare_k4(keys, n_cells: int, n_seg: int, gen,
+               weighted: bool = True) -> float:
+    """K4 vs its plain version on the same keys (counts, and unless told
+    otherwise random weights in [0.5, 1.5)); raises on a mismatch, returns
+    max |kernel - plain| of the weighted deposit (0 without weights)."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    got = paint_cuda.deposit_flat_segmented(keys, None, n_cells, n_seg)
+    want = paint_cuda.deposit_flat_segmented_reference(keys, None, n_cells,
+                                                       n_seg)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 counts differ from the plain deposit "
+                             f"(n={keys.numel()}, n_cells={n_cells}, "
+                             f"n_seg={n_seg})")
+    if not weighted:
+        return 0.0
+    w = torch.rand(keys.shape[0], generator=gen, device=keys.device) + 0.5
+    gotw = paint_cuda.deposit_flat_segmented(keys, w, n_cells, n_seg)
+    wantw = paint_cuda.deposit_flat_segmented_reference(keys, w, n_cells,
+                                                        n_seg)
+    err = float((gotw - wantw).abs().max()) if n_cells else 0.0
+    scale = float(wantw.abs().max()) if n_cells else 0.0
+    if err > WEIGHTED_TOL * scale:
+        raise AssertionError(f"K4 weighted sums differ: max err {err} > "
+                             f"{WEIGHTED_TOL} * {scale}")
+    return err
+
+
+def lattice_fine_keys(side: int, ngrid: int, dev):
+    """Fine NGP keys (fine factor 2, subgrid-major) of the cell centres of
+    a side^3 lattice (side = 2 ngrid) in lattice order: the key order of a
+    snapshot that keeps its particles where the PM code put them."""
+    i = torch.arange(side ** 3, device=dev)
+    ux, uy, uz = i // (side * side), (i // side) % side, i % side
+    sid = ((ux % 2) * 2 + uy % 2) * 2 + uz % 2
+    return ((((sid * ngrid + ux // 2) * ngrid + uy // 2) * ngrid + uz // 2)
+            .to(torch.int32))
+
+
+def phase_k4_check(dev, seed: int) -> None:
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+
+    def rand_keys(n, n_cells):
+        return torch.randint(0, n_cells, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    coherent = lattice_fine_keys(256, 128, dev)
+    big = 1 << 24
+    last = 5 * 8192 + 77
+
+    def one_cell(n):
+        return torch.full((n,), 4321, dtype=torch.int32, device=dev)
+
+    # (keys, n_cells, n_seg, weighted). 2^24 weights summed in one cell
+    # round by ~2^12 in float32 in both versions (2e-4 of the sum, above
+    # the bar), so that case deposits counts, and the weighted one-cell
+    # case holds 10^5 keys, as K1's does
+    cases = {
+        "2^24 random keys into 2^24 cells": (rand_keys(big, big), big, 64,
+                                             True),
+        "2^24 coherent (lattice-order) keys": (coherent, big, 64, True),
+        "2^24 keys in one cell, counts": (one_cell(big), big, 64, False),
+        "10^5 keys in one cell": (one_cell(100000), big, 64, True),
+        "coherent keys shuffled": (
+            coherent[torch.randperm(big, generator=gen, device=dev)], big,
+            64, True),
+        "globally sorted keys": (torch.sort(rand_keys(big, big))[0], big,
+                                 64, True),
+        "fewer keys (40) than segments": (rand_keys(40, 5000), 5000, 64,
+                                          True),
+        "N not a multiple of the segments": (
+            rand_keys((1 << 20) + 12345, 1 << 20), 1 << 20, 64, True),
+        "one segment": (rand_keys(1 << 20, 1 << 20), 1 << 20, 1, True),
+        "empty windows (1000 keys, 2^22 cells)": (rand_keys(1000, 1 << 22),
+                                                  1 << 22, 64, True),
+        "last window partly filled": (rand_keys(100000, last), last, 16,
+                                      True),
+        "no keys": (torch.zeros(0, dtype=torch.int32, device=dev), 1000, 64,
+                    True),
+    }
+    for name, (keys, n_cells, n_seg, weighted) in cases.items():
+        err = compare_k4(keys, n_cells, n_seg, gen, weighted)
+        torch.cuda.synchronize()
+        log(f"# phase k4: {name} (n_seg {n_seg}): counts equal, weighted "
+            f"max err {err:.3e}")
 
 
 def phase_suite(dev, seed: int, runs: int) -> dict:
@@ -666,7 +776,7 @@ def phase_forward(dev, seed: int):
         "rsep": rsep.tolist(), "pk_gr": results["gr"].power.tolist()[:64],
     }
     log("# forward " + json.dumps(result))
-    return launches, out_gr, (*tracers, binw, len(bins), k3_err)
+    return launches, (out_gr, mom_gr), (*tracers, binw, len(bins), k3_err)
 
 
 def phase_k2_timing(out_gr) -> dict:
@@ -711,6 +821,220 @@ def phase_k2_timing(out_gr) -> dict:
     return stats
 
 
+# ------------------------------------------------------------ file lane
+def _write_snapshot(directory: Path, pos, vel, ids) -> None:
+    """The particles as LANE_FILES Gadget files snap_000.0 .. .7 (one
+    slice of the given order each; SnapFormat 2)."""
+    from astrild_tpu_torch.io.gadget_binary import write_gadget
+
+    bounds = np.linspace(0, len(pos), LANE_FILES + 1).astype(np.int64)
+    for f in range(LANE_FILES):
+        sl = slice(bounds[f], bounds[f + 1])
+        write_gadget(directory / f"snap_000.{f}", pos[sl], vel[sl], ids[sl],
+                     BOX, redshift=0.0, omega_m=0.3, omega_l=0.7,
+                     hubble=0.7, snap_format=2)
+
+
+def phase_file_lane(dev, seed: int, comps, mom) -> tuple:
+    """The file-driven P(k) lane on the GR z=0 snapshot. Returns the
+    lane's launch counts, K4's max error against its plain version on the
+    file-order keys, and the file-order and shuffled keys (for the K4
+    timing)."""
+    from astrild_tpu_torch.io.gadget_binary import read_gadget_multi
+    from astrild_tpu_torch.models import Ecosmog, PowerSpectrum3D
+    from astrild_tpu_torch.ops import nbody, paint_cuda, power
+
+    n = comps[0].shape[0]
+    n_cells = 8 * LANE_NGRID ** 3
+    times = {}
+    t0 = time.perf_counter()
+    pos = torch.stack(comps, dim=1).cpu().numpy()
+    vel = torch.stack(nbody.velocities_kms(mom, 1.0), dim=1).cpu().numpy()
+    ids = np.arange(n, dtype=np.uint32)
+    times["d2h_s"] = time.perf_counter() - t0
+
+    lane_dir = (Path(__file__).resolve().parent / "build"
+                / f"file_lane_{os.getpid()}")
+    lane_dir.mkdir(parents=True, exist_ok=False)
+    try:
+        need = pos.nbytes + vel.nbytes + ids.nbytes + LANE_FILES * 1024
+        free = shutil.disk_usage(lane_dir).free
+        if free < need + (1 << 30):
+            raise RuntimeError(
+                f"file lane: {lane_dir} has {free / 1e9:.2f} GB free; the "
+                f"8-file snapshot needs {need / 1e9:.2f} GB and 1 GB spare")
+        t0 = time.perf_counter()
+        _write_snapshot(lane_dir, pos, vel, ids)
+        times["write_s"] = time.perf_counter() - t0
+        times["bytes_written"] = sum(
+            p.stat().st_size for p in lane_dir.iterdir())
+
+        t0 = time.perf_counter()
+        header, data = read_gadget_multi(str(lane_dir / "snap_000"))
+        # host split into flat components, as bench.py's file lane does
+        xyz = [np.ascontiguousarray(data["pos"][:, i]) for i in range(3)]
+        times["load_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(lane_dir)
+    if int(header["npart"].sum()) != n or header["BoxSize"] != BOX:
+        raise AssertionError(f"file lane: header npart {header['npart']} "
+                             f"BoxSize {header['BoxSize']}")
+    for key, want in (("pos", pos), ("vel", vel), ("ids", ids)):
+        if not np.array_equal(data[key].view(np.uint32),
+                              want.view(np.uint32)):
+            raise AssertionError(f"file lane: {key} read back differs from "
+                                 f"what was written")
+    vel_read = data["vel"]
+    del data, pos, vel
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    file_xyz = tuple(torch.from_numpy(c).to(dev) for c in xyz)
+    torch.cuda.synchronize()
+    times["transfer_s"] = time.perf_counter() - t0
+    del xyz
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    shuf_xyz = tuple(c[perm] for c in file_xyz)
+    binning = power.get_fast_binning(LANE_NGRID, LANE_BINS, 2, device=dev)
+
+    def pk(xyz, deposit):
+        return power.auto_power_fast(xyz, LANE_NGRID, BOX, nbins=LANE_BINS,
+                                     binning=binning, deposit=deposit).power
+
+    # the lane's own run: the launch counts cover exactly these calls
+    paint_cuda.LAUNCHES.clear()
+    spectra = {}
+    for order, xyz in (("file", file_xyz), ("shuffled", shuf_xyz)):
+        for deposit in ("kernel_seg", "kernel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spectra[f"{deposit}_{order}"] = pk(xyz, deposit)
+            torch.cuda.synchronize()
+            times[f"compute_{deposit}_{order}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, facade_pk = PowerSpectrum3D().power_from_points(
+        torch.stack(file_xyz, dim=1), BOX, LANE_NGRID, nbins=LANE_BINS,
+        method="fast")
+    times["facade_s"] = time.perf_counter() - t0
+    vel_dev = tuple(torch.from_numpy(np.ascontiguousarray(vel_read[:, i]))
+                    .to(dev) for i in range(3))
+    del vel_read
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = Ecosmog(dir_sim=str(Path(__file__).resolve().parent),
+                     boxsize=BOX, domain_level=LANE_NGRID).density_fields(
+        file_xyz, vel_dev, window="tsc",
+        fields=("density", "velocity", "divergence"))
+    torch.cuda.synchronize()
+    times["density_fields_s"] = time.perf_counter() - t0
+    launches = dict(paint_cuda.LAUNCHES)
+    times["compute_s"] = times["compute_kernel_seg_file_s"]
+
+    # ---- checks
+    expect = {"deposit_segmented": 2, "deposit_sorted": 3,
+              "paint_windowed": 4}
+    if any(launches.get(k, 0) != v for k, v in expect.items()):
+        raise AssertionError(f"file lane launches {launches}, expected "
+                             f"{expect}")
+    keys_file = power._fast_keys(file_xyz, BOX, ngrid=LANE_NGRID,
+                                 fine_factor=2)
+    keys_shuf = keys_file[perm]
+    deps = {f"{name}_{order}": fn(keys, None, n_cells)
+            for order, keys in (("file", keys_file), ("shuffled", keys_shuf))
+            for name, fn in (("k4", paint_cuda.deposit_flat_segmented),
+                             ("k1", paint_cuda.deposit_flat))}
+    ref = deps["k1_file"]
+    for name, dep in deps.items():
+        if not torch.equal(dep, ref):
+            raise AssertionError(f"file lane: fine deposit {name} differs "
+                                 f"from k1_file")
+    if int(ref.double().sum()) != n:
+        raise AssertionError("file lane: the fine deposit does not hold N")
+    del deps, ref
+    k4_err = compare_k4(keys_file, n_cells, 64, gen)
+    scatter = pk(file_xyz, "scatter")
+    has = binning[2] > 0
+    rel = {}
+    for name, p in {**spectra, "facade": torch.from_numpy(facade_pk)
+                    .to(dev)}.items():
+        rel[name] = float(((p - scatter).abs()
+                           / scatter.abs().clamp_min(1e-30))[has].max())
+        if not bool(torch.isfinite(p[has]).all()) or rel[name] > PK_RTOL:
+            raise AssertionError(f"file lane: P(k) {name} vs the scatter "
+                                 f"deposit's: max rel diff {rel[name]}")
+    for name, t in fields.items():
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"file lane: {name} grid is not finite")
+    cell = (BOX / LANE_NGRID) ** 3
+    mass = float(fields["density"].double().sum()) * cell
+    if abs(mass - n) > MASS_RTOL * n:
+        raise AssertionError(f"file lane: density holds mass {mass}, not "
+                             f"{n}")
+    log(f"# phase file lane: {LANE_FILES} files read back bit for bit; K4 "
+        f"{launches['deposit_segmented']}, K1 {launches['deposit_sorted']}, "
+        f"K2 {launches['paint_windowed']} launches; four fine deposits "
+        f"equal; P(k) max rel diff vs scatter "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f"; density mass {mass:.1f} of {n}; K4 vs plain on the file "
+        f"order max err {k4_err:.3e}")
+    result = {**times, "n": n, "files": LANE_FILES, "ngrid": LANE_NGRID,
+              "nbins": LANE_BINS, "launches": launches,
+              "pk_max_rel_diff_vs_scatter": rel, "k4_max_abs_err": k4_err,
+              "pk_file_kernel_seg": spectra["kernel_seg_file"].tolist()}
+    log("# file_lane " + json.dumps(result))
+    del fields, vel_dev, shuf_xyz, file_xyz
+    return launches, k4_err, (keys_file, keys_shuf)
+
+
+def phase_k4_timing(keys_file, keys_shuf) -> dict:
+    """K4 against its plain version and K1 at the lane's shape (2^27 keys
+    into 2^27 cells) on the file order and the shuffled order, in turns:
+    the segment sort and K4 separately, the whole K4 wrapper, K1 with its
+    full sort, the plain deposit of the row-sorted layout (the plain
+    version's own step after its sort) and `index_add_` of the keys as they
+    come."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    n_cells = 8 * LANE_NGRID ** 3
+    stats = {}
+    for label, keys in (("file", keys_file), ("shuffled", keys_shuf)):
+        layout = paint_cuda._segment_layout(keys, None, n_cells, 64)[0]
+        flat = layout.reshape(-1).long()
+        ones = torch.ones(flat.shape[0], device=flat.device)
+
+        def plain_layout():
+            out = torch.zeros(n_cells + 1, device=flat.device)
+            return out.index_add_(0, flat, ones)[:n_cells]
+
+        fns = {
+            "plain": plain_layout,
+            "kernel": lambda: paint_cuda._launch_segmented(layout, None,
+                                                           n_cells),
+            "segment_sort": lambda: paint_cuda._segment_layout(
+                keys, None, n_cells, 64),
+            "k4_sort_plus_kernel": lambda: paint_cuda.deposit_flat_segmented(
+                keys, None, n_cells),
+            "k1_sort_plus_kernel": lambda: paint_cuda.deposit_flat(
+                keys, None, n_cells),
+            "index_add_unsorted": lambda: paint_cuda.deposit_sorted_reference(
+                keys, None, n_cells),
+        }
+        order = ["plain", "kernel", "segment_sort", "k4_sort_plus_kernel",
+                 "k1_sort_plus_kernel", "index_add_unsorted"]
+        ms = {k: [] for k in fns}
+        for turn in (order, order[::-1]):
+            for name in turn:
+                ms[name].append(_event_ms(fns[name], 5))
+        stats[label] = {"mean": {k: sum(v) / len(v) for k, v in ms.items()},
+                        "turns": ms}
+        del layout, flat, ones
+    log("# k4_timing_ms " + json.dumps({"n_keys": keys_file.numel(),
+                                        "n_cells": n_cells, "n_seg": 64,
+                                        **stats}))
+    return stats
+
+
 def phase_k3_timing(pos, vel, binw: float, nbins: int, err: float) -> dict:
     """K3 vs its plain version on the main path's tracers (2^17 drawn from
     the GR snapshot), in turns."""
@@ -751,11 +1075,16 @@ def main() -> None:
     phase_kernel_check(dev, args.seed)
     phase_k2_check(dev, args.seed)
     phase_k3_check(dev, args.seed)
+    phase_k4_check(dev, args.seed)
     suite_launches = phase_suite(dev, args.seed, args.runs)
     err_bench, k_ms, p_ms = phase_timing(dev, args.seed)
-    fwd_launches, out_gr, k3_inputs = phase_forward(dev, args.seed)
+    fwd_launches, (out_gr, mom_gr), k3_inputs = phase_forward(dev, args.seed)
     k2 = phase_k2_timing(out_gr)["cic"]
-    del out_gr
+    lane_launches, k4_err, lane_keys = phase_file_lane(dev, args.seed,
+                                                       out_gr, mom_gr)
+    del out_gr, mom_gr
+    k4 = phase_k4_timing(*lane_keys)["file"]
+    del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
 
     # max_abs_err, ms and plain_ms are taken at the main paths' shapes
@@ -767,6 +1096,8 @@ def main() -> None:
         "pairwise_accumulate": (fwd_launches["pairwise_accumulate"],
                                 k3["max_abs_err"], k3["mean"]["kernel"],
                                 k3["mean"]["plain"]),
+        "deposit_segmented": (lane_launches["deposit_segmented"], k4_err,
+                              k4["mean"]["kernel"], k4["mean"]["plain"]),
     }
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": n,

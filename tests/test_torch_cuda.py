@@ -99,6 +99,147 @@ def test_auto_power_fast_kernel_matches_scatter(cuda):
     torch.testing.assert_close(aw.power, bw.power, rtol=1e-4, atol=0)
 
 
+# ------------------------------------------------------------------ K4
+def _k4_case(case, rng):
+    """(keys, n_cells, n_seg) of one K4 edge case."""
+    n_cells = 1 << 18
+    # fine NGP keys (fine factor 2, subgrid-major) of a 64^3 lattice in
+    # lattice order: the coherent key order of a snapshot in PM order
+    side = 64
+    ux, uy, uz = np.unravel_index(np.arange(side ** 3), (side,) * 3)
+    sid = ((ux % 2) * 2 + uy % 2) * 2 + uz % 2
+    lattice = ((sid * 32 + ux // 2) * 32 + uy // 2) * 32 + uz // 2
+    return {
+        "random": (rng.integers(0, n_cells, 1 << 18), n_cells, 64),
+        "file_order": (lattice, side ** 3, 64),
+        "shuffled": (rng.permutation(lattice), side ** 3, 64),
+        "sorted": (np.sort(rng.integers(0, n_cells, 1 << 18)), n_cells, 64),
+        "n_below_n_seg": (rng.integers(0, 5000, 40), 5000, 64),
+        "n_not_multiple": (rng.integers(0, n_cells, 100003), n_cells, 64),
+        "one_segment": (rng.integers(0, n_cells, 50000), n_cells, 1),
+        "one_cell": (np.full(100000, 12345), 1 << 16, 64),
+        "empty_windows": (rng.integers(0, 1 << 22, 1000), 1 << 22, 64),
+        "ragged_last_window": (rng.integers(0, 5 * 8192 + 77, 60000),
+                               5 * 8192 + 77, 16),
+        "many_segments": (rng.integers(0, n_cells, 1 << 18), n_cells, 1500),
+        "no_keys": (np.zeros(0), 1000, 64),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["random", "file_order", "shuffled",
+                                  "sorted", "n_below_n_seg",
+                                  "n_not_multiple", "one_segment",
+                                  "one_cell", "empty_windows",
+                                  "ragged_last_window", "many_segments",
+                                  "no_keys"])
+def test_k4_matches_plain(cuda, case):
+    """K4 vs its plain version on the same keys: counts equal, weighted
+    sums within 2e-5 * max (float sums in another order); one launch per
+    call."""
+    rng = np.random.default_rng(7)
+    keys, n_cells, n_seg = _k4_case(case, rng)
+    flat = torch.from_numpy(np.asarray(keys, np.int32)).to(cuda)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, flat.shape[0]).astype(
+        np.float32)).to(cuda)
+    before = TPC.LAUNCHES["deposit_segmented"]
+    got = TPC.deposit_flat_segmented(flat, None, n_cells, n_seg=n_seg)
+    assert TPC.LAUNCHES["deposit_segmented"] == before + 1
+    want = TPC.deposit_flat_segmented_reference(flat, None, n_cells,
+                                                n_seg=n_seg)
+    assert torch.equal(got, want)
+    assert float(got.double().sum()) == flat.shape[0]
+    gotw = TPC.deposit_flat_segmented(flat, w, n_cells, n_seg=n_seg)
+    wantw = TPC.deposit_flat_segmented_reference(flat, w, n_cells,
+                                                 n_seg=n_seg)
+    torch.cuda.synchronize()
+    scale = float(wantw.abs().max()) if n_cells else 0.0
+    assert float((gotw - wantw).abs().max()) <= 2e-5 * scale
+    # the same sum as K1 and its full sort
+    assert torch.equal(got, TPC.deposit_flat(flat, None, n_cells))
+
+
+def test_k4_rejects_bad_inputs(cuda):
+    keys = torch.arange(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="n_seg"):
+        TPC.deposit_flat_segmented(keys, None, 64, n_seg=0)
+    with pytest.raises(ValueError, match="weights"):
+        TPC.deposit_flat_segmented(keys, keys.float()[:10], 64)
+    with pytest.raises(ValueError, match="2\\^31"):
+        TPC.deposit_flat_segmented(keys, None, 1 << 31)
+
+
+def test_auto_power_fast_kernel_seg_matches_kernel(cuda):
+    """deposit='kernel_seg' (K4) gives the P(k) of 'kernel' (K1): the
+    fine counts are equal, so the spectra agree to float32 rounding."""
+    rng = np.random.default_rng(11)
+    side = 64
+    q = (np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                  -1).reshape(-1, 3) + 0.5) * (BOX / side)
+    pos = np.mod(q + rng.normal(0, 0.4, q.shape), BOX).astype(np.float32)
+    for order in (np.arange(side ** 3), rng.permutation(side ** 3)):
+        xyz = tuple(torch.from_numpy(np.ascontiguousarray(pos[order, i]))
+                    .to(cuda) for i in range(3))
+        before = dict(TPC.LAUNCHES)
+        a = TPS.auto_power_fast(xyz, 32, BOX, nbins=12, deposit="kernel_seg")
+        assert TPC.LAUNCHES["deposit_segmented"] == \
+            before.get("deposit_segmented", 0) + 1
+        assert TPC.LAUNCHES["deposit_sorted"] == \
+            before.get("deposit_sorted", 0)
+        b = TPS.auto_power_fast(xyz, 32, BOX, nbins=12, deposit="kernel")
+        torch.testing.assert_close(a.power, b.power, rtol=1e-5, atol=0)
+
+
+def test_file_lane_small_on_card(cuda, tmp_path):
+    """The file lane at 64^3: an 8-file Gadget snapshot in lattice order,
+    read back, P(k) through K4 equal to K1's and the facade's (rtol 1e-5),
+    the density fields through K2 (4 launches) equal to the CPU's scatter
+    paints within K2's bar (atol 2e-5 of each field's largest value) with
+    the mass kept."""
+    from astrild_tpu_torch.io.gadget_binary import (read_gadget_multi,
+                                                    write_gadget)
+    from astrild_tpu_torch.models import Ecosmog, PowerSpectrum3D
+
+    rng = np.random.default_rng(12)
+    side = 64
+    q = (np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                  -1).reshape(-1, 3) + 0.5) * (BOX / side)
+    disp = rng.normal(0, 0.5, q.shape)
+    pos = np.mod(q + disp, BOX).astype(np.float32)
+    vel = (100.0 * disp).astype(np.float32)
+    ids = np.arange(side ** 3, dtype=np.uint32)
+    bounds = np.linspace(0, side ** 3, 9).astype(int)
+    for f in range(8):
+        sl = slice(bounds[f], bounds[f + 1])
+        write_gadget(tmp_path / f"snap_000.{f}", pos[sl], vel[sl], ids[sl],
+                     BOX)
+    _, data = read_gadget_multi(str(tmp_path / "snap_000"))
+    assert np.array_equal(data["pos"].view(np.uint32), pos.view(np.uint32))
+    xyz = tuple(torch.from_numpy(np.ascontiguousarray(data["pos"][:, i]))
+                .to(cuda) for i in range(3))
+    seg = TPS.auto_power_fast(xyz, 32, BOX, nbins=12, deposit="kernel_seg")
+    ref = TPS.auto_power_fast(xyz, 32, BOX, nbins=12, deposit="kernel")
+    torch.testing.assert_close(seg.power, ref.power, rtol=1e-5, atol=0)
+    _, facade = PowerSpectrum3D().power_from_points(
+        torch.stack(xyz, dim=1), BOX, 32, nbins=12, method="fast")
+    np.testing.assert_allclose(facade, ref.power.cpu().numpy(), rtol=1e-5)
+    fields = ("density", "velocity", "divergence")
+    vel_dev = tuple(torch.from_numpy(np.ascontiguousarray(
+        data["vel"][:, i])).to(cuda) for i in range(3))
+    sim = Ecosmog(dir_sim=str(tmp_path), boxsize=BOX, domain_level=32)
+    before = TPC.LAUNCHES["paint_windowed"]
+    got = sim.density_fields(xyz, vel_dev, window="tsc", fields=fields)
+    assert TPC.LAUNCHES["paint_windowed"] == before + 4
+    want = sim.density_fields(data["pos"], data["vel"], window="tsc",
+                              fields=fields)
+    for name in fields:
+        g, w = got[name].cpu(), want[name]
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=2e-5 * float(w.abs().max()))
+    mass = float(got["density"].double().sum()) * (BOX / 32) ** 3
+    assert abs(mass - side ** 3) <= 1e-5 * side ** 3
+
+
 def test_paint_ngp_kernel_matches_scatter(cuda):
     rng = np.random.default_rng(9)
     pos = torch.from_numpy(rng.uniform(-10, BOX + 10, (50000, 3)).astype(

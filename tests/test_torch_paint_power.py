@@ -24,6 +24,18 @@ from astrild_tpu_torch.utils.tables import tables_from_numpy  # noqa: E402
 
 BOX = 100.0
 
+# The JAX package's position_dependent_power is jitted and fetches its
+# shell binning inside the trace, so the binning lands in the package's
+# module-level cache as tracers; a later un-jitted call with the same
+# (ngrid, nbins) in that process then fails with UnexpectedTracerError
+# (tests/test_multihost.py's auto_power(16 grid, 6 bins) after
+# tests/test_spectra.py's position_dependent_power on one xdist worker).
+# Every test process collects this file, so filling the entries the suite
+# calls position_dependent_power with (here and in tests/test_spectra.py)
+# outside any trace keeps them concrete in every process.
+for _ngrid, _nbins in ((16, 6), (8, 4), (4, 3)):
+    JPS.get_shell_binning(_ngrid, _nbins)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _two_threads():
@@ -117,6 +129,73 @@ def test_deposit_sorted_rejects_devices_without_kernel():
     keys = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         TPC.deposit_sorted(keys, None, 8)
+
+
+# ----------------------------------------------------------------- K4
+def _seg_orders(rng, n, n_cells):
+    return {
+        "random": rng.integers(0, n_cells, n),
+        "coherent": np.sort(rng.integers(0, n_cells, n)),
+        "clustered": np.full(n, 7, dtype=np.int64),
+    }
+
+
+@pytest.mark.parametrize("order", ["random", "coherent", "clustered"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_deposit_flat_segmented_matches_pallas(rng, order, weighted):
+    """K4's plain version (the port's CPU path) vs the JAX segmented Pallas
+    deposit in interpret mode, as the JAX package tests it: counts exact,
+    weighted sums within 2e-5 * max."""
+    n_cells, n = 128 * 256, 100000
+    keys = _seg_orders(rng, n, n_cells)[order]
+    w = rng.normal(1, 0.2, n).astype(np.float32) if weighted else None
+    want = np.asarray(JPP.deposit_flat_segmented(
+        jnp.asarray(keys, jnp.int32), None if w is None else jnp.asarray(w),
+        n_cells, n_seg=8, window=4096, chunk_rows=4, interpret=True))
+    got = TPC.deposit_flat_segmented(
+        T(keys.astype(np.int32)), None if w is None else T(w), n_cells,
+        n_seg=8).numpy()
+    if weighted:
+        npt.assert_allclose(got, want, rtol=0,
+                            atol=2e-5 * np.abs(want).max())
+    else:
+        npt.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,n_seg", [(1003, 8), (5, 8), (1000, 1),
+                                     (0, 4)])
+def test_deposit_flat_segmented_padding(rng, n, n_seg):
+    """The sentinel padding: n not a multiple of n_seg, n below n_seg, one
+    segment, no keys. Counts equal JAX's and numpy's exactly; the padded
+    layout holds every key once, each row sorted, the sentinel at the
+    rows' tails."""
+    n_cells = 4096 + 77
+    keys = rng.integers(0, n_cells, n)
+    want = np.bincount(keys, minlength=n_cells)
+    got = TPC.deposit_flat_segmented(T(keys.astype(np.int32)), None,
+                                     n_cells, n_seg=n_seg).numpy()
+    npt.assert_array_equal(got, want)
+    if n:
+        npt.assert_array_equal(got, np.asarray(JPP.deposit_flat_segmented(
+            jnp.asarray(keys, jnp.int32), None, 4096 * 2, n_seg=n_seg,
+            window=4096, chunk_rows=1, interpret=True))[:n_cells])
+    layout, _ = TPC._segment_layout(T(keys.astype(np.int32)), None, n_cells,
+                                    n_seg)
+    lay = layout.numpy()
+    assert lay.shape == (n_seg, max(1, -(-n // n_seg)))
+    assert np.all(np.diff(lay, axis=1) >= 0)
+    npt.assert_array_equal(np.sort(lay[lay < n_cells]), np.sort(keys))
+    assert np.sum(lay == n_cells) == lay.size - n
+
+
+def test_deposit_flat_segmented_rules():
+    keys = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n_seg"):
+        TPC.deposit_flat_segmented(keys, None, 8, n_seg=0)
+    with pytest.raises(ValueError, match="weights"):
+        TPC.deposit_flat_segmented(keys, torch.ones(3), 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        TPC.deposit_flat_segmented(keys.to("meta"), None, 8)
 
 
 # ------------------------------------------------------------ painters
@@ -267,10 +346,134 @@ def test_auto_power_fast_deposit_selection(rng):
     TPS.last_auto_deposit = None
     TPS.auto_power_fast(pos, 8, BOX, nbins=4)
     assert TPS.last_auto_deposit == "scatter"  # CPU tensor
-    with pytest.raises(ValueError, match="CUDA"):
-        TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit="kernel")
-    with pytest.raises(ValueError, match="deposit"):
-        TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit="pallas")
+    for kernel in ("kernel", "kernel_seg"):
+        with pytest.raises(ValueError, match="CUDA"):
+            TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit=kernel)
+    for jax_name in ("pallas", "pallas_seg"):
+        with pytest.raises(ValueError, match="deposit"):
+            TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit=jax_name)
+
+
+def test_auto_power_fast_matches_pallas_seg(rng):
+    """The port's scatter P(k) vs the JAX segmented deposit
+    ('pallas_seg_interpret'): rtol 1e-5, the JAX package's own bar
+    against its scatter. The particles are clustered, so P(k) stands well
+    clear of the shot noise it has subtracted."""
+    pos = _clustered(rng, 60, 500)
+    want = JPS.auto_power_fast(jnp.asarray(pos), 16, BOX, nbins=6,
+                               deposit="pallas_seg_interpret")
+    got = TPS.auto_power_fast(T(pos), 16, BOX, nbins=6, deposit="scatter")
+    npt.assert_allclose(got.power.numpy(), np.asarray(want.power),
+                        rtol=1e-5)
+    npt.assert_array_equal(got.nmodes.numpy(), np.asarray(want.nmodes))
+
+
+@pytest.mark.parametrize("ngrid", [16, 15])
+def test_kmag_rfft_matches_jax(ngrid):
+    npt.assert_allclose(TPS.kmag_rfft(ngrid, BOX).numpy(),
+                        np.asarray(JPS.kmag_rfft(ngrid, BOX)), rtol=1e-6)
+
+
+def _tsc_grids(rng, n=5000, ngrid=16):
+    pos = _positions(rng, n)
+    g = np.asarray(JP.paint(jnp.asarray(pos), ngrid, BOX, window="tsc"))
+    g2 = np.asarray(JP.paint(jnp.asarray((pos + 0.5 * BOX / ngrid) % BOX),
+                             ngrid, BOX, window="tsc"))
+    return g, g2
+
+
+@pytest.mark.parametrize("window,interlaced", [(None, False),
+                                               ("tsc", True)])
+def test_delta_k_parts_matches_jax(rng, window, interlaced):
+    """float32 FFTs in both packages: atol 1e-5 of the largest mode. The
+    k = 0 mode is the mean of delta, zero up to the float32 rounding of a
+    mean of values near 1 in either package: atol 1e-5 there."""
+    g, g2 = _tsc_grids(rng)
+    want = JPS.delta_k_parts(jnp.asarray(g), jnp.asarray(g2), window=window,
+                             interlaced=interlaced)
+    got = TPS.delta_k_parts(T(g), T(g2), window=window,
+                            interlaced=interlaced)
+    scale = max(np.abs(np.asarray(w)).max() for w in want)
+    for a, b in zip(got, want):
+        a, b = a.numpy(), np.array(b)
+        assert a.dtype == np.float32
+        assert abs(a[0, 0, 0] - b[0, 0, 0]) <= 1e-5
+        a[0, 0, 0] = b[0, 0, 0] = 0.0
+        npt.assert_allclose(a, b, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("window,interlaced", [(None, False), ("cic", False),
+                                               ("tsc", True)])
+def test_cross_power_matches_jax(rng, window, interlaced):
+    g, g2 = _tsc_grids(rng)
+    h, h2 = _tsc_grids(np.random.default_rng(3))
+    # a correlated second field: half of g, half of an independent one
+    f, f2 = 0.5 * (g + h), 0.5 * (g2 + h2)
+    want = JPS.cross_power(jnp.asarray(g), jnp.asarray(f), BOX, nbins=8,
+                           window=window,
+                           grids_shifted=(jnp.asarray(g2), jnp.asarray(f2)),
+                           interlaced=interlaced)
+    got = TPS.cross_power(T(g), T(f), BOX, nbins=8, window=window,
+                          grids_shifted=(T(g2), T(f2)),
+                          interlaced=interlaced)
+    npt.assert_allclose(got.power.numpy(), np.asarray(want.power), rtol=1e-5)
+    npt.assert_allclose(got.k.numpy(), np.asarray(want.k), rtol=1e-6)
+    npt.assert_array_equal(got.nmodes.numpy(), np.asarray(want.nmodes))
+
+
+@pytest.mark.parametrize("los", [0, 2])
+@pytest.mark.parametrize("ells", [(0, 2, 4), (2,)])
+def test_auto_power_multipoles_matches_jax(rng, los, ells):
+    """Monopole rtol 1e-5; the quadrupole and hexadecapole are sums of
+    terms of both signs, so they also get an atol of 1e-5 of the
+    monopole's largest bin."""
+    pos = _clustered(rng, 40, 300)
+    g = np.asarray(JP.paint(jnp.asarray(pos), 16, BOX, window="cic"))
+    want = JPS.auto_power_multipoles(jnp.asarray(g), BOX, nbins=8, ells=ells,
+                                     los=los, window="cic", shotnoise=3.0)
+    got = TPS.auto_power_multipoles(T(g), BOX, nbins=8, ells=ells, los=los,
+                                    window="cic", shotnoise=3.0)
+    w = np.asarray(want.p_ell)
+    mono = np.asarray(JPS.auto_power(jnp.asarray(g), BOX, nbins=8,
+                                     window="cic").power)
+    assert got.p_ell.shape == w.shape
+    npt.assert_allclose(got.p_ell.numpy(), w, rtol=1e-5,
+                        atol=1e-5 * np.abs(mono).max())
+    npt.assert_allclose(got.k.numpy(), np.asarray(want.k), rtol=1e-6)
+    npt.assert_array_equal(got.nmodes.numpy(), np.asarray(want.nmodes))
+
+
+def test_auto_power_multipoles_rejects_odd_ell():
+    with pytest.raises(ValueError, match="even"):
+        TPS.auto_power_multipoles(torch.ones(8, 8, 8), BOX, ells=(1,))
+
+
+@pytest.mark.parametrize("n_sub,nbins", [(2, 4), (4, 3)])
+def test_position_dependent_power_matches_jax(rng, n_sub, nbins):
+    """k, iB, the response, the mean P and delta_b against JAX: float32
+    FFTs, rtol 1e-5 (iB, a mean of terms of both signs, with an atol of
+    1e-5 of |P_mean| * std(delta_b))."""
+    pos = _clustered(rng, 30, 400)
+    g = np.asarray(JP.paint(jnp.asarray(pos), 16, BOX, window="cic"))
+    delta = g / g.mean() - 1.0
+    want = [np.asarray(a) for a in JPS.position_dependent_power(
+        jnp.asarray(delta), BOX, n_sub=n_sub, nbins=nbins)]
+    got = [a.numpy() for a in TPS.position_dependent_power(
+        T(delta), BOX, n_sub=n_sub, nbins=nbins)]
+    k, ib, resp, p_mean, delta_b = got
+    npt.assert_allclose(k, want[0], rtol=1e-6)
+    npt.assert_allclose(p_mean, want[3], rtol=1e-5)
+    npt.assert_allclose(delta_b, want[4], rtol=1e-5, atol=1e-6)
+    ib_atol = 1e-5 * np.abs(want[3]).max() * np.std(want[4])
+    npt.assert_allclose(ib, want[1], rtol=1e-5, atol=ib_atol)
+    finite = np.isfinite(want[2])
+    npt.assert_array_equal(np.isfinite(resp), finite)
+    npt.assert_allclose(resp[finite], want[2][finite], rtol=1e-4)
+
+
+def test_position_dependent_power_rejects_uneven_split():
+    with pytest.raises(ValueError, match="n_sub"):
+        TPS.position_dependent_power(torch.zeros(10, 10, 10), BOX, n_sub=4)
 
 
 # ------------------------------------------- analytic anchors (port only)
