@@ -37,20 +37,29 @@ _SIGNATURES = {
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "deposit_segmented": {
-        # keys (n_seg, seg_len), vals, n_seg, seg_len, out, n_cells, stream
+        # keys, vals, n, out (zeroed), n_cells, stream
         "astrild_deposit_segmented": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p],
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
             ctypes.c_int),
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "paint_windowed": {
-        # keys, frac (3, n), weights, n, npd, order, out, n_cells, stream
+        # pos (3, n), weights, n, ngrid, box, h, order, tile_of, ids,
+        # offsets (2 n_tiles + 1), n_tiles, out (zeroed), stream
         "astrild_paint_windowed": (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_void_p],
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int),
+        # pos, n, ngrid, box, h, order, tile_of, counts, n_tiles, keys,
+        # frac (3, n), stream
+        "astrild_paint_windowed_bins": (
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+             ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p],
             ctypes.c_int),
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },

@@ -1,147 +1,154 @@
-// Segment-sorted windowed deposit for Hopper (sm_90a).
+// Chunk-sorted deposit for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 // astrild_tpu/ops/paint_pallas.py:deposit_flat_segmented (body
 // _kernel_seg). It computes the same sum as deposit_sorted.cu (K1),
 //
-//     out[c] = sum_p w_p * [key_p == c],   c in [0, n_cells),
+//     out[c] += sum_p w_p * [key_p == c],   c in [0, n_cells),
 //
-// with unit weights when `vals` is null, but from keys that are sorted only
-// within n_seg equal segments: row s of a (n_seg, seg_len) array, each row
-// ascending, the tail of the last rows padded with the sentinel n_cells.
+// with unit weights when `vals` is null, into an output the caller has
+// zeroed, from keys in any order.
 //
-// The TPU version gridded over (window, segment) pairs, carrying the
-// window's output block across the sequential segment axis, with the
-// per-pair ranges computed ahead in XLA and scalar-prefetched. On the GPU
-// blocks run in no order, so one block owns one window of kWindow cells in
-// shared memory (K1's design) and walks the segments itself. Per pass over
-// up to kThreads segments, thread t binary-searches segment s0 + t for the
-// window's key range [base, min(base + kWindow, n_cells)); the sentinel
-// never falls inside it. A block scan of the range lengths turns the ranges
-// into one concatenated index space, which the block sweeps as K1 sweeps
-// its single range: item j goes to thread j mod kThreads, neighbouring
-// threads read neighbouring keys, and a per-thread cursor walks forward
-// through the ranges. Counts accumulate as unsigned integers, so they are
-// exact; the window is written out once, coalesced.
+// The TPU version sorted the keys within n_seg long segments (a monotone
+// sort being cheaper than a full one there) and then walked (window,
+// segment) pairs. On this card a row-wise device sort costs more than a
+// full one and more than the deposit itself, so the sort moves into the
+// kernel and shrinks to what shared memory holds: one block takes a
+// contiguous chunk of kChunk keys (and weights) in their given order, sorts
+// it in shared memory (cub::BlockRadixSort over the bits that n_cells
+// needs), reduces each run of equal keys to one sum, and issues one global
+// atomicAdd per distinct key. After the sort neighbouring threads hold
+// neighbouring keys, so a warp's atomics fall on few L2 sectors. Keys in a
+// spatially coherent file order (a snapshot kept in the PM code's particle
+// order) fall into a few compact ranges per chunk; shuffled keys degrade to
+// one scattered atomic per key, as a plain index_add_ does. No device-wide
+// sort and no index array exist, and the result does not depend on how the
+// input would have been cut into segments.
 //
-// Bound: device-memory bandwidth on the keys and weights (each read once,
-// 4 B each) and the output (4 B a cell), plus 2 * n_seg binary searches of
-// log2(seg_len) dependent probes per window. An empty (window, segment)
-// range costs its two searches and nothing else: on input whose file order
-// is spatially coherent most ranges are empty.
+// Counts accumulate as unsigned integers within a run and land as
+// integer-valued float atomics, so they are exact below 2^24 per cell.
+//
+// Bound: device-memory bandwidth. Each key is read once (4 B), each weight
+// once (4 B), and each output cell is written at least once (4 B, the
+// caller's zeroing); 2^27 keys into 2^27 cells move 1.07 GB (counts) or
+// 1.61 GB (weighted), 0.32 or 0.48 ms at 3.35 TB/s. The atomics read and
+// write each touched L2 sector of the output on top of that; the in-block
+// sort keeps them to one per distinct key and groups them by sector.
 //
 // Plain C interface (no PyTorch headers): loaded with ctypes by
 // astrild_tpu_torch/_ext.py and launched on the caller's stream.
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cub/block/block_scan.cuh>
+#include <cub/block/block_radix_sort.cuh>
 #include <type_traits>
 
 namespace {
 
-constexpr int kWindow = 8192;  // cells per block: 32 KB of shared memory
-constexpr int kThreads = 512;  // also the segments searched per pass
+constexpr int kThreads = 256;
+constexpr int kItems = 16;
+constexpr int kChunk = kThreads * kItems;  // keys per block
+constexpr uint32_t kPad = 0xffffffffu;     // past the chunk's end; >= n_cells
 
-__device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ keys,
-                                               int64_t n, int64_t value) {
-  int64_t lo = 0;
-  int64_t hi = n;
-  while (lo < hi) {
-    const int64_t mid = lo + ((hi - lo) >> 1);
-    if (static_cast<int64_t>(__ldg(keys + mid)) < value) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
+struct RunCounts {
+  uint32_t key[kChunk];
+};
+struct RunWeighted {
+  uint32_t key[kChunk];
+  float val[kChunk];
+};
 
 template <bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
-    deposit_segmented_kernel(const int32_t* __restrict__ keys,
-                             const float* __restrict__ vals, int64_t n_seg,
-                             int64_t seg_len, float* __restrict__ out,
-                             int64_t n_cells) {
-  using Acc = typename std::conditional<kWeighted, float, unsigned int>::type;
-  using Scan = cub::BlockScan<int64_t, kThreads>;
-  __shared__ Acc acc[kWindow];
-  __shared__ typename Scan::TempStorage scan_tmp;
-  __shared__ int64_t start[kThreads];        // first key of each range
-  __shared__ int64_t offset[kThreads + 1];   // exclusive prefix of lengths
+    deposit_chunk_kernel(const int32_t* __restrict__ keys,
+                         const float* __restrict__ vals, int64_t n,
+                         float* __restrict__ out, int64_t n_cells,
+                         int end_bit) {
+  using Val = typename std::conditional<kWeighted, float, cub::NullType>::type;
+  using Sort = cub::BlockRadixSort<uint32_t, kThreads, kItems, Val>;
+  using Run = typename std::conditional<kWeighted, RunWeighted, RunCounts>::type;
+  __shared__ union {
+    typename Sort::TempStorage sort;
+    Run run;  // the sorted chunk in rank order
+  } smem;
 
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kWindow;
-  const int64_t stop = base + kWindow < n_cells ? base + kWindow : n_cells;
-  for (int i = threadIdx.x; i < kWindow; i += kThreads) acc[i] = Acc(0);
-
-  for (int64_t s0 = 0; s0 < n_seg; s0 += kThreads) {
-    const int64_t s = s0 + threadIdx.x;
-    int64_t len = 0;
-    if (s < n_seg) {
-      const int32_t* seg = keys + s * seg_len;
-      const int64_t lo = lower_bound(seg, seg_len, base);
-      len = lower_bound(seg + lo, seg_len - lo, stop);
-      start[threadIdx.x] = s * seg_len + lo;
-    }
-    int64_t excl = 0;
-    int64_t total = 0;
-    Scan(scan_tmp).ExclusiveSum(len, excl, total);
-    offset[threadIdx.x] = excl;
-    if (threadIdx.x == 0) offset[kThreads] = total;
-    __syncthreads();
-
-    // ranges past the last segment have length 0, so offset[r + 1] > j
-    // stops the cursor at a range that holds item j
-    int r = 0;
-    for (int64_t j = threadIdx.x; j < total; j += kThreads) {
-      while (offset[r + 1] <= j) ++r;
-      const int64_t p = start[r] + (j - offset[r]);
-      const int64_t rel = static_cast<int64_t>(keys[p]) - base;
-      // the searches keep every key inside the window; the guard only keeps
-      // unsorted rows from writing outside shared memory
-      if (rel < 0 || rel >= kWindow) continue;
-      if constexpr (kWeighted) {
-        atomicAdd(&acc[rel], vals[p]);
-      } else {
-        atomicAdd(&acc[rel], 1u);
-      }
-    }
-    // the next pass rewrites start, offset and the scan's storage
-    __syncthreads();
+  // striped load: neighbouring threads read neighbouring keys. The sort
+  // takes the items as they come; which thread holds which key before it
+  // does not matter. A negative key reads as >= 2^31 and is dropped below.
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kChunk;
+  uint32_t k[kItems];
+  Val v[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int64_t p = base + i * kThreads + threadIdx.x;
+    k[i] = p < n ? static_cast<uint32_t>(__ldg(keys + p)) : kPad;
+    if constexpr (kWeighted) v[i] = p < n ? __ldg(vals + p) : 0.0f;
   }
+  // item i of thread t comes back holding rank i * kThreads + t
+  if constexpr (kWeighted) {
+    Sort(smem.sort).SortBlockedToStriped(k, v, 0, end_bit);
+  } else {
+    Sort(smem.sort).SortBlockedToStriped(k, 0, end_bit);
+  }
+  __syncthreads();  // the run arrays reuse the sort's storage
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int r = i * kThreads + threadIdx.x;
+    smem.run.key[r] = k[i];
+    if constexpr (kWeighted) smem.run.val[r] = v[i];
+  }
+  __syncthreads();
 
-  for (int i = threadIdx.x; i < kWindow; i += kThreads) {
-    const int64_t c = base + i;
-    if (c < n_cells) out[c] = static_cast<float>(acc[i]);
+  // the head of each run of equal keys sums the run and adds it once.
+  // Keys equal in the sorted bits but not in full (the padding) only split
+  // a run in two, which adds the same total.
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int r = i * kThreads + threadIdx.x;
+    const uint32_t key = k[i];
+    if (static_cast<int64_t>(key) >= n_cells) continue;
+    if (r > 0 && smem.run.key[r - 1] == key) continue;
+    if constexpr (kWeighted) {
+      float sum = v[i];
+      for (int e = r + 1; e < kChunk && smem.run.key[e] == key; ++e) {
+        sum += smem.run.val[e];
+      }
+      atomicAdd(out + key, sum);
+    } else {
+      unsigned int count = 1;
+      for (int e = r + 1; e < kChunk && smem.run.key[e] == key; ++e) ++count;
+      atomicAdd(out + key, static_cast<float>(count));
+    }
   }
 }
 
 }  // namespace
 
-// Deposits the n_seg * seg_len keys of a row-sorted (n_seg, seg_len) array
-// (and optional weights in the same layout) into out[0, n_cells); keys equal
-// to n_cells are padding. All pointers are device pointers; `stream` is a
-// cudaStream_t. Returns the cudaError_t of the launch (0 on success).
+// Adds n keys (and optional weights), in any order, into out[0, n_cells),
+// which the caller has zeroed; keys outside [0, n_cells) are dropped. All
+// pointers are device pointers; `stream` is a cudaStream_t. Returns the
+// cudaError_t of the launch (0 on success). n == 0 still launches one
+// block, which adds nothing.
 extern "C" int astrild_deposit_segmented(const int32_t* keys,
-                                         const float* vals, int64_t n_seg,
-                                         int64_t seg_len, float* out,
-                                         int64_t n_cells, void* stream) {
-  if (n_seg < 1 || seg_len < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_cells <= 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (n_cells + kWindow - 1) / kWindow;
+                                         const float* vals, int64_t n,
+                                         float* out, int64_t n_cells,
+                                         void* stream) {
+  if (n < 0 || n_cells < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_cells == 0) return static_cast<int>(cudaSuccess);
+  int64_t blocks = (n + kChunk - 1) / kChunk;
+  if (blocks == 0) blocks = 1;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // the fewest low bits that tell every key in [0, n_cells) apart
+  int end_bit = 1;
+  while (end_bit < 32 && (int64_t{1} << end_bit) < n_cells) ++end_bit;
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto nb = static_cast<unsigned int>(blocks);
   if (vals != nullptr) {
-    deposit_segmented_kernel<true>
-        <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-            keys, vals, n_seg, seg_len, out, n_cells);
+    deposit_chunk_kernel<true>
+        <<<nb, kThreads, 0, s>>>(keys, vals, n, out, n_cells, end_bit);
   } else {
-    deposit_segmented_kernel<false>
-        <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-            keys, nullptr, n_seg, seg_len, out, n_cells);
+    deposit_chunk_kernel<false>
+        <<<nb, kThreads, 0, s>>>(keys, nullptr, n, out, n_cells, end_bit);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
 """Spectra pipeline classes: PowerSpectrum3D, Bispectrum3D, PowMes.
 
 Port of astrild_tpu/models/power.py. The facades take numpy arrays or
-tensors and return numpy arrays, as the JAX facades do. Work runs on the
-device of the input tensors; numpy input goes to the facade's `device=`
-(the CPU by default). `AngularPowerSpectrum`, `LinearPowerSpectrum`,
+tensors and return numpy arrays, as the JAX facades do. Tensors stay on
+their own device unless `device=` is given; numpy input goes to `device=`,
+by default the CUDA card (as the JAX facades put it on the default
+device). With no card and no `device=` numpy input raises: pass
+`device="cpu"` to run on the CPU. `AngularPowerSpectrum`, `LinearPowerSpectrum`,
 `LinearAngularPowerSpectrum` and `Bispectrum2D` wait for their ops
 (`angular_power`, `nonlinear_power`, `p_dpdp`,
 `bispectrum_2d_equilateral`).
@@ -24,10 +26,24 @@ from ..ops import power as power_ops
 __all__ = ["PowerSpectrum3D", "Bispectrum3D", "PowMes"]
 
 
+def default_device(device=None) -> torch.device:
+    """Where the facades put numpy input: `device` if given, else the CUDA
+    card; raises if neither is there (no silent CPU run)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("astrild_tpu_torch facades run numpy input on the "
+                           "CUDA card by default, and no card is available; "
+                           "pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def _as_tensor(arr, device=None) -> torch.Tensor:
     """A tensor of `arr`: float input as float32 (the JAX package's
     jnp.asarray without x64), on `device` if given, else where a tensor
-    already lies (numpy input: the CPU)."""
+    already lies (numpy input: the CUDA card, see `default_device`)."""
+    if not isinstance(arr, torch.Tensor):
+        device = default_device(device)
     if isinstance(arr, np.ndarray) and not arr.flags.writeable:
         arr = arr.copy()
     t = torch.as_tensor(arr)

@@ -154,8 +154,14 @@ class Simulation:
 
 def _components(arr, device):
     """Flat (n,) float32 components (x, y, z) of an (n, 3) array or tensor
-    or of a tuple of components; numpy input goes to `device` (the CPU by
-    default), a tensor stays where it is unless `device` is given."""
+    or of a tuple of components; numpy input goes to `device` (the CUDA
+    card by default, see `models.power.default_device`), a tensor stays
+    where it is unless `device` is given."""
+    from .power import default_device
+
+    parts = arr if isinstance(arr, (tuple, list)) else [arr]
+    if not all(isinstance(p, torch.Tensor) for p in parts):
+        device = default_device(device)
     if isinstance(arr, (tuple, list)):
         comps = [torch.as_tensor(c) for c in arr]
     else:
@@ -170,7 +176,7 @@ class Ecosmog(Simulation):
     The reference astrild's external DTFE shell-out becomes native
     painting: `density_fields` estimates density (and optionally velocity)
     grids with CIC/TSC windows via ops.paint, on the device of the input
-    tensors (through the CUDA painter K2 on a card).
+    tensors or, for numpy input, on the card (through the CUDA painter K2).
     """
 
     def __init__(self, config=None, dir_sim: str = ".", dir_out=None,
@@ -193,8 +199,9 @@ class Ecosmog(Simulation):
         """Grid fields from particles.
 
         pos, vel: (n, 3) arrays or tensors, or tuples of flat (x, y, z)
-        components. device: where numpy input is painted (tensors stay on
-        their own device unless it is given).
+        components. device: where numpy input is painted, by default the
+        CUDA card (raises without one); tensors stay on their own device
+        unless it is given.
         Returns {field: (ngrid,)*3 tensor (+component axis for velocity)}.
         """
         from ..ops import paint as paint_ops

@@ -3,17 +3,18 @@
 Port of astrild_tpu/ops/paint_pallas.py:
 
 - K1, the sorted deposit (`deposit_sorted`, `deposit_flat`), in
-  csrc/deposit_sorted.cu;
+  csrc/deposit_sorted.cu: one block per window of output cells;
 - K2, the windowed CIC/TSC painter (`paint_windowed`), in
-  csrc/paint_windowed.cu;
-- K4, the segment-sorted deposit (`deposit_flat_segmented`), in
-  csrc/deposit_segmented.cu.
+  csrc/paint_windowed.cu: particles binned by output tile with a counting
+  sort, one block per tile;
+- K4, the chunk-sorted deposit (`deposit_flat_segmented`), in
+  csrc/deposit_segmented.cu: one block per chunk of input keys, sorted in
+  shared memory.
 
-The kernels are hand-written CUDA C++: one thread block per window of
-output cells, accumulated in shared memory (see the sources for their
-design). The TPU version's window/chunk tuning (`_auto_deposit_params`,
-`_fit_seg_params`) has no counterpart: each CUDA kernel fixes its own
-window.
+The kernels are hand-written CUDA C++ that accumulate in shared memory
+(see the sources for their design). The TPU version's window/chunk tuning
+(`_auto_deposit_params`, `_fit_seg_params`) has no counterpart: each CUDA
+kernel fixes its own tiling.
 
 On a CPU tensor the wrappers run the plain PyTorch versions
 (`deposit_sorted_reference`, `paint_windowed_reference`,
@@ -23,6 +24,7 @@ can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
+import math
 from collections import Counter
 
 import torch
@@ -117,26 +119,32 @@ def deposit_flat(flat_idx: torch.Tensor, weights: torch.Tensor | None,
 
 
 # ---------------------------------------------------------------- K4
-def _segment_layout(flat_idx: torch.Tensor, weights: torch.Tensor | None,
-                    n_cells: int, n_seg: int):
-    """The (n_seg, seg_len) input of K4 and of its plain version
-    (paint_pallas.py:455-481): the keys padded at the tail with the
-    sentinel n_cells (the weights with 0) and sorted within each row, the
-    weights gathered with their keys. Returns (keys (n_seg, seg_len)
-    int32, weights in the same layout or None)."""
+def _check_segmented(flat: torch.Tensor, weights: torch.Tensor | None,
+                     n_cells: int, n_seg: int) -> None:
     if n_seg < 1:
         raise ValueError(f"deposit_flat_segmented: n_seg must be >= 1, got "
                          f"{n_seg}")
     if not 0 <= n_cells < _MAX_CELLS:
         raise ValueError(f"deposit_flat_segmented: n_cells={n_cells} "
                          f"outside [0, 2^31)")
-    flat = flat_idx.reshape(-1).to(torch.int32)
-    n = flat.shape[0]
+    n = flat.numel()
     if weights is not None and (weights.numel() != n
                                 or weights.device != flat.device):
         raise ValueError(f"deposit_flat_segmented: weights must hold {n} "
                          f"values on {flat.device}, got "
                          f"{tuple(weights.shape)} on {weights.device}")
+
+
+def _segment_layout(flat_idx: torch.Tensor, weights: torch.Tensor | None,
+                    n_cells: int, n_seg: int):
+    """The (n_seg, seg_len) input of the plain version (and of the TPU
+    kernel, paint_pallas.py:455-481): the keys padded at the tail with the
+    sentinel n_cells (the weights with 0) and sorted within each row, the
+    weights gathered with their keys. Returns (keys (n_seg, seg_len)
+    int32, weights in the same layout or None)."""
+    _check_segmented(flat_idx, weights, n_cells, n_seg)
+    flat = flat_idx.reshape(-1).to(torch.int32)
+    n = flat.shape[0]
     seg_len = max(1, -(-n // n_seg))
     pad = n_seg * seg_len - n
     keys = torch.cat([flat, flat.new_full((pad,), n_cells)])
@@ -154,7 +162,7 @@ def deposit_flat_segmented_reference(flat_idx: torch.Tensor,
                                      weights: torch.Tensor | None,
                                      n_cells: int,
                                      n_seg: int = 64) -> torch.Tensor:
-    """Plain version of `deposit_flat_segmented`: the same padded,
+    """Plain version of `deposit_flat_segmented`: the TPU kernel's padded,
     row-sorted layout, then one `index_add_` into n_cells + 1 slots whose
     last (the sentinel's) is dropped."""
     keys_s, vals_s = _segment_layout(flat_idx, weights, n_cells, n_seg)
@@ -166,33 +174,20 @@ def deposit_flat_segmented_reference(flat_idx: torch.Tensor,
     return out[:n_cells]
 
 
-def _launch_segmented(keys_s: torch.Tensor, vals_s: torch.Tensor | None,
-                      n_cells: int) -> torch.Tensor:
-    """Run K4 on the row-sorted (n_seg, seg_len) layout."""
-    n_seg, seg_len = keys_s.shape
-    lib = _ext.load("deposit_segmented")
-    out = torch.empty(n_cells, dtype=torch.float32, device=keys_s.device)
-    with torch.cuda.device(keys_s.device):
-        stream = torch.cuda.current_stream(keys_s.device).cuda_stream
-        rc = lib.astrild_deposit_segmented(
-            keys_s.data_ptr(), None if vals_s is None else vals_s.data_ptr(),
-            n_seg, seg_len, out.data_ptr(), n_cells, stream)
-    _ext.check(lib, rc, "deposit_flat_segmented")
-    LAUNCHES["deposit_segmented"] += 1
-    return out
-
-
 def deposit_flat_segmented(flat_idx: torch.Tensor,
                            weights: torch.Tensor | None, n_cells: int,
                            n_seg: int = 64) -> torch.Tensor:
-    """Segment sort + deposit: drop-in for
-    `zeros(n_cells).index_add_(0, flat, w)` like `deposit_flat`, sorting
-    the keys only within n_seg equal segments.
+    """Deposit of keys in any order: drop-in for
+    `zeros(n_cells).index_add_(0, flat, w)` like `deposit_flat`, for keys
+    whose given order is already spatially coherent.
 
     flat_idx: (N,) integer cell indices in [0, n_cells); weights: (N,) or
     None for unit weights (counts, exact below 2^24 per cell). Returns
-    (n_cells,) float32 on the keys' device. On a CUDA tensor: the segment
-    sort in torch (`torch.sort` along the rows, unstable), then K4.
+    (n_cells,) float32 on the keys' device. n_seg is the JAX signature's
+    segment count: the plain version (the CPU path) sorts within n_seg
+    segments as the TPU kernel does; on a CUDA tensor K4 sorts each chunk
+    of 4096 keys in shared memory instead, with no device-wide sort and no
+    index array, and its result does not depend on n_seg.
     """
     if flat_idx.device.type == "cpu":
         return deposit_flat_segmented_reference(flat_idx, weights, n_cells,
@@ -200,8 +195,20 @@ def deposit_flat_segmented(flat_idx: torch.Tensor,
     if flat_idx.device.type != "cuda":
         raise ValueError(f"deposit_flat_segmented: no kernel for device "
                          f"{flat_idx.device}")
-    return _launch_segmented(
-        *_segment_layout(flat_idx, weights, n_cells, n_seg), n_cells)
+    _check_segmented(flat_idx, weights, n_cells, n_seg)
+    keys = flat_idx.reshape(-1).to(torch.int32).contiguous()
+    vals = (None if weights is None
+            else weights.reshape(-1).to(torch.float32).contiguous())
+    lib = _ext.load("deposit_segmented")
+    out = torch.zeros(n_cells, dtype=torch.float32, device=keys.device)
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        rc = lib.astrild_deposit_segmented(
+            keys.data_ptr(), None if vals is None else vals.data_ptr(),
+            keys.shape[0], out.data_ptr(), n_cells, stream)
+    _ext.check(lib, rc, "deposit_flat_segmented")
+    LAUNCHES["deposit_segmented"] += 1
+    return out
 
 
 # ---------------------------------------------------------------- K2
@@ -229,11 +236,14 @@ def _windowed_keys(pos_flat: torch.Tensor, ngrid: int, boxsize,
     takes base cell floor(x/h - 0.5) + 1 with f = x/h - 0.5 - floor; TSC
     takes the centre cell clipped to [0, n-1] with d = x/h - ic - 0.5 from
     the CLIPPED index, so a particle whose x/h rounds to n gets centre n-1
-    with d = +0.5 (the same deposit as centre 0 with d = -0.5).
+    with d = +0.5 (the same deposit as centre 0 with d = -0.5). h is a
+    tensor on the positions' device: a Python scalar divisor becomes a
+    multiplication by its reciprocal on the card, and K2 divides.
     """
     n = pos_flat.shape[0] // 3
     npd = ngrid + 2
-    h = boxsize / ngrid
+    h = torch.tensor(boxsize / ngrid, dtype=torch.float32,
+                     device=pos_flat.device)
     ip, frac = [], []
     for c in pos_flat.reshape(3, n):
         c = torch.remainder(c, boxsize)
@@ -300,38 +310,62 @@ def paint_windowed_reference(pos_flat: torch.Tensor,
     return _fold_pad(grid.view(npd, npd, npd), ngrid)
 
 
-def _sorted_windowed_inputs(pos_flat, weights, ngrid: int, boxsize,
-                            order: int):
-    """Keys sorted ascending with their fractions (3, n) and weights
-    gathered in the same order: the kernel's inputs."""
-    key, frac = _windowed_keys(pos_flat.to(torch.float32), ngrid, boxsize,
-                               order)
-    keys_sorted, idx = torch.sort(key, stable=False)
-    del key
-    frac_sorted = frac[:, idx].contiguous()
-    del frac
-    w_sorted = (None if weights is None
-                else weights.to(torch.float32)[idx].contiguous())
-    return keys_sorted, frac_sorted, w_sorted
+# base cells per K2 tile along x, y, z: csrc/paint_windowed.cu's kTX, kTY,
+# kTZ (the kernel refuses a tile count that does not match its own)
+_TILE = (16, 16, 32)
 
 
-def _launch_windowed(keys_sorted, frac_sorted, w_sorted, ngrid: int,
-                     order: int) -> torch.Tensor:
-    """Run K2 on sorted inputs; returns the padded flat grid."""
+def _tile_grid(ngrid: int) -> tuple[int, int, int]:
+    """Tiles along x, y and z that cover an ngrid^3 grid of base cells."""
+    return tuple(-(-ngrid // t) for t in _TILE)
+
+
+def _tile_ids(key: torch.Tensor, ngrid: int, order: int) -> torch.Tensor:
+    """K2's tile of each particle from the plain version's padded keys
+    (`_windowed_keys`): the base cell, wrapped into [0, n), divided by the
+    tile shape. Plain torch, for checking the bin pass."""
     npd = ngrid + 2
+    k = key.long()
+    ip = torch.stack([k // (npd * npd), (k // npd) % npd, k % npd])
+    base = torch.remainder(ip - 1, ngrid)  # CIC's -1 wraps to n-1
+    _, nty, ntz = _tile_grid(ngrid)
+    t = [base[ax] // _TILE[ax] for ax in range(3)]
+    return ((t[0] * nty + t[1]) * ntz + t[2]).to(torch.int32)
+
+
+def _windowed_args(pos_flat, ngrid: int, boxsize):
+    n = pos_flat.shape[0] // 3
+    n_tiles = math.prod(_tile_grid(ngrid))
+    # the float32 values the plain version's remainder and division see
+    return n, n_tiles, float(boxsize), float(boxsize / ngrid)
+
+
+def windowed_bins(pos_flat: torch.Tensor, ngrid: int, boxsize,
+                  order: int = 3):
+    """K2's bin pass alone, for checking it on the card: (tile of each
+    particle (n,) int32, particles per tile (n_tiles,) int32, the plain
+    version's padded keys (n,) int32 and fractions (3, n) float32 as the
+    kernel computes them). Not a launch of the painter."""
+    if pos_flat.device.type != "cuda":
+        raise ValueError(f"windowed_bins: needs a CUDA tensor, got "
+                         f"{pos_flat.device}")
+    _check_windowed(pos_flat, None, ngrid, order)
+    pos = pos_flat.to(torch.float32).contiguous()
+    n, n_tiles, box, h = _windowed_args(pos, ngrid, boxsize)
+    dev = pos.device
+    tiles = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    keys = torch.empty(n, dtype=torch.int32, device=dev)
+    frac = torch.empty(3, n, dtype=torch.float32, device=dev)
     lib = _ext.load("paint_windowed")
-    out = torch.empty(npd ** 3, dtype=torch.float32,
-                      device=keys_sorted.device)
-    with torch.cuda.device(keys_sorted.device):
-        stream = torch.cuda.current_stream(keys_sorted.device).cuda_stream
-        rc = lib.astrild_paint_windowed(
-            keys_sorted.data_ptr(), frac_sorted.data_ptr(),
-            None if w_sorted is None else w_sorted.data_ptr(),
-            keys_sorted.shape[0], npd, order, out.data_ptr(), npd ** 3,
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.astrild_paint_windowed_bins(
+            pos.data_ptr(), n, ngrid, box, h, order, tiles.data_ptr(),
+            counts.data_ptr(), n_tiles, keys.data_ptr(), frac.data_ptr(),
             stream)
-    _ext.check(lib, rc, "paint_windowed")
-    LAUNCHES["paint_windowed"] += 1
-    return out
+    _ext.check(lib, rc, "windowed_bins")
+    return tiles, counts, keys, frac
 
 
 def paint_windowed(pos_flat: torch.Tensor, weights: torch.Tensor | None,
@@ -342,8 +376,9 @@ def paint_windowed(pos_flat: torch.Tensor, weights: torch.Tensor | None,
     None. Returns (ngrid, ngrid, ngrid) float32: the deposit of
     `paint_cic` / `paint_tsc` up to the order of the float sums.
 
-    On a CUDA tensor: wrap, key and sort once on the card (torch), run the
-    windowed kernel K2 on the padded grid, fold the pad (torch).
+    On a CUDA tensor K2 bins the particles by 16 x 16 x 32-cell output
+    tile (a counting sort of int32 ids, the keys computed in one pass) and
+    paints each tile in shared memory, straight into the periodic grid.
     """
     if pos_flat.device.type == "cpu":
         return paint_windowed_reference(pos_flat, weights, ngrid, boxsize,
@@ -352,7 +387,22 @@ def paint_windowed(pos_flat: torch.Tensor, weights: torch.Tensor | None,
         raise ValueError(f"paint_windowed: no kernel for device "
                          f"{pos_flat.device}")
     _check_windowed(pos_flat, weights, ngrid, order)
-    padded = _launch_windowed(*_sorted_windowed_inputs(
-        pos_flat, weights, ngrid, boxsize, order), ngrid, order)
-    npd = ngrid + 2
-    return _fold_pad(padded.view(npd, npd, npd), ngrid)
+    pos = pos_flat.to(torch.float32).contiguous()
+    w = (None if weights is None
+         else weights.to(torch.float32).contiguous())
+    n, n_tiles, box, h = _windowed_args(pos, ngrid, boxsize)
+    dev = pos.device
+    tile_of = torch.empty(n, dtype=torch.int32, device=dev)
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    offsets = torch.zeros(2 * n_tiles + 1, dtype=torch.int32, device=dev)
+    out = torch.zeros(ngrid, ngrid, ngrid, dtype=torch.float32, device=dev)
+    lib = _ext.load("paint_windowed")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.astrild_paint_windowed(
+            pos.data_ptr(), None if w is None else w.data_ptr(), n, ngrid,
+            box, h, order, tile_of.data_ptr(), ids.data_ptr(),
+            offsets.data_ptr(), n_tiles, out.data_ptr(), stream)
+    _ext.check(lib, rc, "paint_windowed")
+    LAUNCHES["paint_windowed"] += 1
+    return out

@@ -7,10 +7,10 @@ Phases, each printing its own lines; a failure in any phase raises and
 exits non-zero before the final line:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels K1 (sorted deposit), K2 (windowed CIC/TSC painter),
-     K3 (pair tiles) and K4 (segment-sorted deposit) from csrc/, one nvcc
-     each, all started together; print each kernel's registers, shared
-     memory and spills;
+  2. build the kernels K1 (sorted deposit), K2 (tile-binned CIC/TSC
+     painter), K3 (pair tiles) and K4 (chunk-sorted deposit) from csrc/,
+     one nvcc each, all started together; print each kernel's registers,
+     shared memory and spills;
   3. hold K1 against its plain PyTorch version on the card: 2^24 keys into
      2^24 cells (counts and weighted) and the edge cases (empty windows,
      all keys in one cell, N not a multiple of the block size, a partly
@@ -23,8 +23,11 @@ exits non-zero before the final line:
   4. hold K2 against its plain version, CIC and TSC, with and without
      weights: 2^24 particles onto 256^3, an odd 97^3 grid, positions at
      0, box, -0.0 and a third shifted by +-box, all particles in one cell,
-     N not a multiple of the block. Max |kernel - plain| <= 2e-5 * max,
-     total mass to rtol 1e-5;
+     N not a multiple of the block, particles on and an ulp beside tile
+     borders, every particle in one tile, most tiles empty. Max |kernel -
+     plain| <= 2e-5 * max, total mass to rtol 1e-5; count the particles
+     whose base cell the kernel's bin pass puts elsewhere than the plain
+     version's keys (on a boundary-heavy input) and print the count;
   5. hold K3 against its plain version: 2^15 tracers in a 500 Mpc/h box
      with the halos.py default bins (rtol 1e-4 in bins of >= 1000 pairs,
      1e-4 of the largest bin elsewhere), and the edge cases (n not a
@@ -54,12 +57,17 @@ exits non-zero before the final line:
      order, and through the `PowerSpectrum3D` facade; then the TSC density,
      velocity and divergence grids through `Ecosmog.density_fields` (K2).
      The four fine deposits must be equal, every P(k) within rtol 1e-5 of
-     the scatter deposit's, the density's mass N to rtol 1e-5;
-  9. time K1, K2, K3 and K4 against their plain versions at the main
-     paths' shapes, in turns (plain, kernel, kernel, plain).
+     the scatter deposit's, the density's mass N to rtol 1e-5; the facade
+     given the positions as read (numpy, no `device`) must run on the card
+     (one more K1 launch) and give the same P(k);
+  9. time K1, K2, K3 and K4 against their plain versions and, for K1 and
+     K4, against `index_add_` at the main paths' shapes, in turns (plain,
+     kernel, kernel, plain).
 
-The last lines are a JSON object describing each kernel, the card's name
-and power limit, and the `{"ok": true, "device": ...}` result line.
+The last lines are a JSON object describing each kernel (launches on its
+main path, error, times, and the least time the card could take for the
+same work), the card's name and power limit, and the `{"ok": true,
+"device": ...}` result line.
 """
 from __future__ import annotations
 
@@ -391,8 +399,25 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def phase_timing(dev, seed: int) -> tuple[float, float, float]:
-    """K1 vs plain at bench size, in turns (plain, kernel, kernel, plain)."""
+def _index_add(keys, n_cells: int):
+    """The library yardstick of a deposit: one `index_add_` of unit
+    weights at the int32 keys into a grid zeroed first (the ones and the
+    grid made ahead)."""
+    ones = torch.ones(keys.shape[0], device=keys.device)
+    out = torch.empty(n_cells, device=keys.device)
+
+    def run():
+        out.zero_()
+        return out.index_add_(0, keys, ones)
+    return run
+
+
+def phase_timing(dev, seed: int) -> tuple[float, dict]:
+    """K1 vs plain at bench size, in turns (plain, kernel, kernel, plain);
+    with `index_add_` alone on the sorted keys (the kernel's inputs) and on
+    the suite's uniform keys as they come (`index_add_unsorted`; with the
+    plain deposit's int64 cast and ones, `scatter_unsorted`). Returns the
+    weighted error and the mean times."""
     from astrild_tpu_torch import suite
     from astrild_tpu_torch.ops import paint_cuda, power
 
@@ -423,9 +448,12 @@ def phase_timing(dev, seed: int) -> tuple[float, float, float]:
                                                             n_cells),
         "scatter_unsorted": lambda: paint_cuda.deposit_sorted_reference(
             keys, None, n_cells),
+        "index_add": _index_add(keys_sorted, n_cells),
+        "index_add_unsorted": _index_add(keys, n_cells),
     }
     order = ["plain", "kernel", "plain_weighted", "kernel_weighted",
-             "scatter_unsorted", "sort", "sort_plus_kernel"]
+             "index_add", "index_add_unsorted", "scatter_unsorted", "sort",
+             "sort_plus_kernel"]
     ms = {k: [] for k in fns}
     for turn in (order, order[::-1]):
         for name in turn:
@@ -434,7 +462,7 @@ def phase_timing(dev, seed: int) -> tuple[float, float, float]:
     log("# k1_timing_ms " + json.dumps({"n_keys": n, "n_cells": n_cells,
                                         "reps": reps, "mean": mean,
                                         "turns": ms}))
-    return err, mean["kernel"], mean["plain"]
+    return err, mean
 
 
 # ------------------------------------------------------------------ K2
@@ -477,12 +505,33 @@ def phase_k2_check(dev, seed: int) -> None:
     cell = BOX / 64
     one = (torch.rand(3 * 20000, generator=gen, device=dev) * cell
            + 5 * cell)
+    # K2's tiles hold 16 x 16 x 32 base cells (paint_cuda._TILE). On a
+    # 128^3 grid: positions on the cell edges where a base cell can change
+    # tile (CIC at (k + 0.5) h, TSC at k h, k a multiple of 16) and an ulp
+    # to either side; 20,000 particles inside one tile; and a slab 1/20 of
+    # the box thick, which leaves most tiles empty
+    ng_t, h_t = 128, BOX / 128
+    k = torch.arange(0, ng_t + 1, 16, device=dev, dtype=torch.float64)
+    on = torch.cat([k, k + 0.5]) * h_t
+    pick = on[torch.randint(0, on.numel(), (3 << 20,), generator=gen,
+                            device=dev)].to(torch.float32)
+    step = torch.randint(-1, 2, pick.shape, generator=gen, device=dev)
+    borders = torch.where(step == 0, pick, torch.nextafter(
+        pick, torch.where(step < 0, -torch.inf, torch.inf).to(pick)))
+    in_tile = (torch.rand(3, 20000, generator=gen, device=dev)
+               * torch.tensor([[15.0], [15.0], [31.0]], device=dev)
+               + torch.tensor([[16.5], [48.5], [0.5]], device=dev)) * h_t
+    slab = uniform(1 << 20).view(3, -1)
+    slab[0] = slab[0] * 0.05 + 0.4 * BOX
     cases = {
         "2^24 particles onto 256^3": (uniform(1 << 24), 256),
         "odd grid 97^3": (uniform(1 << 20), 97),
         "edges 0, box, -0.0 and +-box shifts": (edges, 64),
         "all particles in one cell": (one, 64),
         "N not a multiple of the block": (uniform(1000003), 128),
+        "particles on tile borders": (borders, ng_t),
+        "every particle in one tile": (in_tile.reshape(-1), ng_t),
+        "empty tiles (a slab)": (slab.reshape(-1), ng_t),
     }
     for name, (pf, ngrid) in cases.items():
         n = pf.shape[0] // 3
@@ -494,6 +543,31 @@ def phase_k2_check(dev, seed: int) -> None:
         torch.cuda.synchronize()
         log(f"# phase k2: {name}: max err " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items()))
+    for order in (2, 3):
+        bad = k2_key_mismatches(borders, ng_t, order)
+        log(f"# phase k2: bin pass vs the plain keys on the tile borders, "
+            f"order {order}: {bad['keys']} base-cell and {bad['fractions']} "
+            f"fraction mismatches of {borders.shape[0] // 3} particles; "
+            f"tiles and counts "
+            f"{'equal' if bad['tiles_equal'] else 'differ'}")
+
+
+def k2_key_mismatches(pf, ngrid: int, order: int) -> dict:
+    """K2's bin pass against the plain version's keys on the same
+    positions: particles whose base cell (or fractions) differ, and whether
+    the tiles and per-tile counts agree with the plain keys' (a base cell
+    an ulp away that stays in its tile moves no mass out of the tile)."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    tiles, counts, keys, frac = paint_cuda.windowed_bins(pf, ngrid, BOX,
+                                                         order)
+    want_key, want_frac = paint_cuda._windowed_keys(pf, ngrid, BOX, order)
+    want_tiles = paint_cuda._tile_ids(want_key, ngrid, order)
+    want_counts = torch.bincount(want_tiles.long(), minlength=counts.numel())
+    return {"keys": int((keys != want_key).sum()),
+            "fractions": int((frac != want_frac).any(dim=0).sum()),
+            "tiles_equal": bool(torch.equal(tiles, want_tiles)
+                                and torch.equal(counts.long(), want_counts))}
 
 
 # ------------------------------------------------------------------ K3
@@ -623,11 +697,19 @@ def _step_split(comps, mom, cosmo, nsteps: int = 3) -> dict:
     kernels = [e for e in rows if e.device_type == DeviceType.CUDA
                and e.key not in per_step]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k2_ms = sum(e.self_device_time_total for e in kernels
-                if "paint_windowed_kernel" in e.key) / 1e3
-    # pm_evolve runs nsteps + 1 force evaluations
+    # K2 is four kernels (csrc/paint_windowed.cu): paint_windowed_bin,
+    # _scan, _scatter and _deposit; pm_evolve runs nsteps + 1 force
+    # evaluations
+    k2_parts = {}
+    for e in kernels:
+        for part in ("bin", "scan", "scatter", "deposit"):
+            if f"paint_windowed_{part}" in e.key:
+                k2_parts[part] = (k2_parts.get(part, 0.0)
+                                  + e.self_device_time_total / 1e3
+                                  / (nsteps + 1))
     return {"ms_per_step": split,
-            "k2_kernel_ms_per_paint": k2_ms / (nsteps + 1),
+            "k2_kernel_ms_per_paint": sum(k2_parts.values()),
+            "k2_parts_ms_per_paint": k2_parts,
             "device_busy_ms": busy_ms, "host_ms": host_ms,
             "idle_share": 1.0 - busy_ms / host_ms, "nsteps": nsteps}
 
@@ -781,41 +863,46 @@ def phase_forward(dev, seed: int):
 
 def phase_k2_timing(out_gr) -> dict:
     """K2 vs its plain version at the forward path's shape (the evolved GR
-    snapshot, 512^3 particles onto 512^3), CIC and TSC, in turns; plus
-    the parts of the kernel path."""
+    snapshot, 512^3 particles onto 512^3), CIC and TSC, in turns (plain,
+    kernel, kernel, plain); with the device time of each of K2's four
+    kernels in one traced call, the bin pass's mismatches against the
+    plain keys on that snapshot and the per-tile particle counts (the
+    deposit's load balance)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from astrild_tpu_torch.ops import paint_cuda
 
     pf = torch.cat(out_gr)
     stats = {}
     for order, label in ((2, "cic"), (3, "tsc")):
         err = compare_k2(pf, None, PM_SIDE, BOX, order)
-        key, frac = paint_cuda._windowed_keys(pf, PM_SIDE, BOX, order)
-        sorted_in = paint_cuda._sorted_windowed_inputs(pf, None, PM_SIDE,
-                                                       BOX, order)
-        padded = paint_cuda._launch_windowed(*sorted_in, PM_SIDE, order)
-        npd = PM_SIDE + 2
+        bad = k2_key_mismatches(pf, PM_SIDE, order)
+        counts = paint_cuda.windowed_bins(pf, PM_SIDE, BOX, order)[1]
         fns = {
-            "kernel": lambda: paint_cuda.paint_windowed(pf, None, PM_SIDE,
-                                                        BOX, order),
             "plain": lambda: paint_cuda.paint_windowed_reference(
                 pf, None, PM_SIDE, BOX, order),
-            "keys": lambda: paint_cuda._windowed_keys(pf, PM_SIDE, BOX,
-                                                      order),
-            "sort": lambda: torch.sort(key, stable=False),
-            "kernel_only": lambda: paint_cuda._launch_windowed(
-                *sorted_in, PM_SIDE, order),
-            "fold": lambda: paint_cuda._fold_pad(
-                padded.view(npd, npd, npd), PM_SIDE),
+            "kernel": lambda: paint_cuda.paint_windowed(pf, None, PM_SIDE,
+                                                        BOX, order),
         }
-        order_ = ["plain", "kernel", "keys", "sort", "kernel_only", "fold"]
         ms = {k: [] for k in fns}
-        for turn in (order_, order_[::-1]):
+        for turn in (list(fns), list(fns)[::-1]):
             for name in turn:
                 ms[name].append(_event_ms(fns[name], 3))
-        stats[label] = {"max_abs_err": err,
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fns["kernel"]()
+            torch.cuda.synchronize()
+        parts = {part: sum(e.self_device_time_total for e in
+                           prof.key_averages()
+                           if f"paint_windowed_{part}" in e.key) / 1e3
+                 for part in ("bin", "scan", "scatter", "deposit")}
+        stats[label] = {"max_abs_err": err, "mismatches": bad,
+                        "kernel_parts_ms": parts,
+                        "tile_particles_max": int(counts.max()),
+                        "tiles_empty": int((counts == 0).sum()),
+                        "tiles": counts.numel(),
                         "mean": {k: sum(v) / len(v) for k, v in ms.items()},
                         "turns": ms}
-        del key, frac, sorted_in, padded
+        del counts
     log("# k2_timing_ms " + json.dumps({"n": PM_SIDE ** 3,
                                         "ngrid": PM_SIDE, **stats}))
     return stats
@@ -884,7 +971,7 @@ def phase_file_lane(dev, seed: int, comps, mom) -> tuple:
                               want.view(np.uint32)):
             raise AssertionError(f"file lane: {key} read back differs from "
                                  f"what was written")
-    vel_read = data["vel"]
+    pos_read, vel_read = data["pos"], data["vel"]
     del data, pos, vel
 
     torch.cuda.synchronize()
@@ -930,6 +1017,15 @@ def phase_file_lane(dev, seed: int, comps, mom) -> tuple:
     times["density_fields_s"] = time.perf_counter() - t0
     launches = dict(paint_cuda.LAUNCHES)
     times["compute_s"] = times["compute_kernel_seg_file_s"]
+    # the facade given the positions as read (numpy, no `device=`) runs on
+    # the card: one more K1 launch, the same P(k)
+    t0 = time.perf_counter()
+    _, facade_numpy_pk = PowerSpectrum3D().power_from_points(
+        pos_read, BOX, LANE_NGRID, nbins=LANE_BINS, method="fast")
+    times["facade_numpy_s"] = time.perf_counter() - t0
+    numpy_launches = (paint_cuda.LAUNCHES["deposit_sorted"]
+                      - launches["deposit_sorted"])
+    del pos_read
 
     # ---- checks
     expect = {"deposit_segmented": 2, "deposit_sorted": 3,
@@ -937,6 +1033,9 @@ def phase_file_lane(dev, seed: int, comps, mom) -> tuple:
     if any(launches.get(k, 0) != v for k, v in expect.items()):
         raise AssertionError(f"file lane launches {launches}, expected "
                              f"{expect}")
+    if numpy_launches != 1:
+        raise AssertionError(f"the facade given numpy positions launched "
+                             f"K1 {numpy_launches} times, not once")
     keys_file = power._fast_keys(file_xyz, BOX, ngrid=LANE_NGRID,
                                  fine_factor=2)
     keys_shuf = keys_file[perm]
@@ -956,8 +1055,9 @@ def phase_file_lane(dev, seed: int, comps, mom) -> tuple:
     scatter = pk(file_xyz, "scatter")
     has = binning[2] > 0
     rel = {}
-    for name, p in {**spectra, "facade": torch.from_numpy(facade_pk)
-                    .to(dev)}.items():
+    facades = {"facade": facade_pk, "facade_numpy": facade_numpy_pk}
+    for name, p in {**spectra, **{k: torch.from_numpy(v).to(dev)
+                                  for k, v in facades.items()}}.items():
         rel[name] = float(((p - scatter).abs()
                            / scatter.abs().clamp_min(1e-30))[has].max())
         if not bool(torch.isfinite(p[has]).all()) or rel[name] > PK_RTOL:
@@ -988,51 +1088,59 @@ def phase_file_lane(dev, seed: int, comps, mom) -> tuple:
 
 
 def phase_k4_timing(keys_file, keys_shuf) -> dict:
-    """K4 against its plain version and K1 at the lane's shape (2^27 keys
-    into 2^27 cells) on the file order and the shuffled order, in turns:
-    the segment sort and K4 separately, the whole K4 wrapper, K1 with its
-    full sort, the plain deposit of the row-sorted layout (the plain
-    version's own step after its sort) and `index_add_` of the keys as they
-    come."""
+    """K4 against its plain version at the lane's shape (2^27 keys into
+    2^27 cells) on the file order and the shuffled order, in turns (plain,
+    kernel, ..., kernel, plain): the whole K4 wrapper (counts and
+    weighted), `index_add_` of the same keys (alone, and with the plain
+    deposit's int64 cast and ones) and K1 with its full sort."""
     from astrild_tpu_torch.ops import paint_cuda
 
     n_cells = 8 * LANE_NGRID ** 3
     stats = {}
     for label, keys in (("file", keys_file), ("shuffled", keys_shuf)):
-        layout = paint_cuda._segment_layout(keys, None, n_cells, 64)[0]
-        flat = layout.reshape(-1).long()
-        ones = torch.ones(flat.shape[0], device=flat.device)
-
-        def plain_layout():
-            out = torch.zeros(n_cells + 1, device=flat.device)
-            return out.index_add_(0, flat, ones)[:n_cells]
-
+        w = torch.rand(keys.shape[0], device=keys.device) + 0.5
         fns = {
-            "plain": plain_layout,
-            "kernel": lambda: paint_cuda._launch_segmented(layout, None,
-                                                           n_cells),
-            "segment_sort": lambda: paint_cuda._segment_layout(
-                keys, None, n_cells, 64),
-            "k4_sort_plus_kernel": lambda: paint_cuda.deposit_flat_segmented(
+            "plain": lambda: paint_cuda.deposit_flat_segmented_reference(
+                keys, None, n_cells),
+            "kernel": lambda: paint_cuda.deposit_flat_segmented(
+                keys, None, n_cells),
+            "kernel_weighted": lambda: paint_cuda.deposit_flat_segmented(
+                keys, w, n_cells),
+            "index_add": _index_add(keys, n_cells),
+            "index_add_with_cast": lambda: paint_cuda.deposit_sorted_reference(
                 keys, None, n_cells),
             "k1_sort_plus_kernel": lambda: paint_cuda.deposit_flat(
                 keys, None, n_cells),
-            "index_add_unsorted": lambda: paint_cuda.deposit_sorted_reference(
-                keys, None, n_cells),
         }
-        order = ["plain", "kernel", "segment_sort", "k4_sort_plus_kernel",
-                 "k1_sort_plus_kernel", "index_add_unsorted"]
         ms = {k: [] for k in fns}
-        for turn in (order, order[::-1]):
+        for turn in (list(fns), list(fns)[::-1]):
             for name in turn:
                 ms[name].append(_event_ms(fns[name], 5))
         stats[label] = {"mean": {k: sum(v) / len(v) for k, v in ms.items()},
                         "turns": ms}
-        del layout, flat, ones
+        del w, fns
     log("# k4_timing_ms " + json.dumps({"n_keys": keys_file.numel(),
-                                        "n_cells": n_cells, "n_seg": 64,
-                                        **stats}))
+                                        "n_cells": n_cells, **stats}))
     return stats
+
+
+# the least time of a kernel's work: its bytes over the card's memory rate,
+# its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
+# data sheet); the larger bounds it
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# K2's float32 operations per particle: CIC / TSC key and fraction
+# arithmetic (~6-7 a coordinate), the axis weights, their products and one
+# add per deposited cell (8 or 27); K3's per pair (the distance, its bin,
+# the radial velocity and the two sums)
+K2_OPS = {2: 44, 3: 111}
+K3_OPS_PER_PAIR = 20
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_k3_timing(pos, vel, binw: float, nbins: int, err: float) -> dict:
@@ -1077,7 +1185,7 @@ def main() -> None:
     phase_k3_check(dev, args.seed)
     phase_k4_check(dev, args.seed)
     suite_launches = phase_suite(dev, args.seed, args.runs)
-    err_bench, k_ms, p_ms = phase_timing(dev, args.seed)
+    err_bench, k1 = phase_timing(dev, args.seed)
     fwd_launches, (out_gr, mom_gr), k3_inputs = phase_forward(dev, args.seed)
     k2 = phase_k2_timing(out_gr)["cic"]
     lane_launches, k4_err, lane_keys = phase_file_lane(dev, args.seed,
@@ -1087,22 +1195,40 @@ def main() -> None:
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
 
-    # max_abs_err, ms and plain_ms are taken at the main paths' shapes
+    # max_abs_err, ms, plain_ms and library_ms are taken at the main paths'
+    # shapes, the bounds from the same inputs: K1 counts of 2^27 sorted
+    # keys into 2^27 cells (the suite), K2 CIC of 2^27 particles onto 512^3
+    # (a PM force paint), K3 v12 of 2^17 tracers, K4 counts of the lane's
+    # 2^27 file-order keys into 2^27 cells
+    n_keys, n_fine = N_SIDE ** 3, 8 * NGRID ** 3
+    n_pm, n_tr = PM_SIDE ** 3, V12_N
     measured = {
-        "deposit_sorted": (suite_launches["deposit_sorted"], err_bench,
-                           k_ms, p_ms),
-        "paint_windowed": (fwd_launches["paint_windowed"], k2["max_abs_err"],
-                           k2["mean"]["kernel"], k2["mean"]["plain"]),
-        "pairwise_accumulate": (fwd_launches["pairwise_accumulate"],
-                                k3["max_abs_err"], k3["mean"]["kernel"],
-                                k3["mean"]["plain"]),
-        "deposit_segmented": (lane_launches["deposit_segmented"], k4_err,
-                              k4["mean"]["kernel"], k4["mean"]["plain"]),
+        "deposit_sorted": (
+            suite_launches["deposit_sorted"], err_bench, k1["kernel"],
+            k1["plain"], bound_ms(4 * n_keys + 4 * n_fine, n_keys),
+            k1["index_add"]),
+        "paint_windowed": (
+            fwd_launches["paint_windowed"], k2["max_abs_err"],
+            k2["mean"]["kernel"], k2["mean"]["plain"],
+            bound_ms(12 * n_pm + 4 * PM_SIDE ** 3, K2_OPS[2] * n_pm), None),
+        "pairwise_accumulate": (
+            fwd_launches["pairwise_accumulate"], k3["max_abs_err"],
+            k3["mean"]["kernel"], k3["mean"]["plain"],
+            bound_ms(24 * n_tr, K3_OPS_PER_PAIR * n_tr * (n_tr - 1) / 2),
+            None),
+        "deposit_segmented": (
+            lane_launches["deposit_segmented"], k4_err, k4["mean"]["kernel"],
+            k4["mean"]["plain"],
+            bound_ms(4 * n_pm + 4 * 8 * LANE_NGRID ** 3, n_pm),
+            k4["mean"]["index_add"]),
     }
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": n,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain}
-               for name, (n, err, ms, plain) in measured.items()]
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library}
+               for name, (n, err, ms, plain, bound, library)
+               in measured.items()]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

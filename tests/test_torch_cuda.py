@@ -123,6 +123,19 @@ def _k4_case(case, rng):
                                5 * 8192 + 77, 16),
         "many_segments": (rng.integers(0, n_cells, 1 << 18), n_cells, 1500),
         "no_keys": (np.zeros(0), 1000, 64),
+        # the chunk-sorted design: n one past a whole number of 4096-key
+        # chunks; the largest key 2^16 - 1, whose sorted bits equal the
+        # padding's, spread over a ragged last chunk; one run of equal keys
+        # crossing many chunks; keys that fill no whole chunk
+        "chunk_edges": (rng.integers(0, n_cells, 3 * 4096 + 1), n_cells, 64),
+        "max_key_and_padding": (
+            np.concatenate([np.full(5000, (1 << 16) - 1),
+                            rng.integers(0, 1 << 16, 3001)]), 1 << 16, 64),
+        "run_across_chunks": (
+            np.concatenate([rng.integers(0, n_cells, 3000),
+                            np.full(5 * 4096, 777),
+                            rng.integers(0, n_cells, 3000)]), n_cells, 64),
+        "short_chunk": (rng.integers(0, 100, 17), 100, 64),
     }[case]
 
 
@@ -131,7 +144,9 @@ def _k4_case(case, rng):
                                   "n_not_multiple", "one_segment",
                                   "one_cell", "empty_windows",
                                   "ragged_last_window", "many_segments",
-                                  "no_keys"])
+                                  "no_keys", "chunk_edges",
+                                  "max_key_and_padding", "run_across_chunks",
+                                  "short_chunk"])
 def test_k4_matches_plain(cuda, case):
     """K4 vs its plain version on the same keys: counts equal, weighted
     sums within 2e-5 * max (float sums in another order); one launch per
@@ -230,7 +245,7 @@ def test_file_lane_small_on_card(cuda, tmp_path):
     got = sim.density_fields(xyz, vel_dev, window="tsc", fields=fields)
     assert TPC.LAUNCHES["paint_windowed"] == before + 4
     want = sim.density_fields(data["pos"], data["vel"], window="tsc",
-                              fields=fields)
+                              fields=fields, device="cpu")
     for name in fields:
         g, w = got[name].cpu(), want[name]
         assert bool(torch.isfinite(g).all())
@@ -271,15 +286,24 @@ def test_small_suite_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("order", [2, 3])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("case", ["uniform", "odd_grid", "edges",
-                                  "one_cell"])
+                                  "one_cell", "tile_borders", "one_tile",
+                                  "empty_tiles", "odd_97"])
 def test_k2_matches_plain(cuda, order, weighted, case):
     """K2 vs its plain version on the same inputs: max |kernel - plain| <=
-    2e-5 * max(plain) (float sums in another order), mass to rtol 1e-5."""
+    2e-5 * max(plain) (float sums in another order), mass to rtol 1e-5.
+    The last four cases aim at the 16 x 16 x 32-cell tiles: positions on
+    and an ulp beside tile borders, every particle in one tile, particles
+    in a slab that leaves most tiles empty, and a grid (97) that no tile
+    side divides."""
     rng = np.random.default_rng(4)
     n, ng, box = {"uniform": ((1 << 18) + 333, 64, BOX),
                   "odd_grid": (100003, 37, BOX),
                   "edges": (30000, 16, BOX),
-                  "one_cell": (50000, 16, BOX)}[case]
+                  "one_cell": (50000, 16, BOX),
+                  "tile_borders": (60000, 64, BOX),
+                  "one_tile": (40000, 64, BOX),
+                  "empty_tiles": (50000, 64, BOX),
+                  "odd_97": (200003, 97, BOX)}[case]
     pos = rng.uniform(0, box, (n, 3))
     if case == "edges":
         pos[: n // 3] -= box
@@ -287,6 +311,22 @@ def test_k2_matches_plain(cuda, order, weighted, case):
         pos[:3] = [[0.0, box, -0.0], [box, 0.0, box], [-1e-8, box, 0.0]]
     if case == "one_cell":
         pos = 3.0 * box / ng + rng.uniform(0, box / ng, (n, 3))
+    if case == "tile_borders":
+        # CIC's base cell changes at (k + 0.5) h, TSC's at k h
+        h = box / ng
+        edges = np.concatenate([np.arange(0, ng + 1, 16) * h,
+                                (np.arange(0, ng + 1, 16) + 0.5) * h])
+        on = edges[rng.integers(0, len(edges), (n, 3))].astype(np.float32)
+        step = rng.integers(-1, 2, (n, 3))
+        pos = np.nextafter(on, np.where(step < 0, -np.inf, np.inf)
+                           ).astype(np.float32)
+        pos[step == 0] = on[step == 0]
+    if case == "one_tile":
+        h = box / ng
+        pos = (np.array([16, 32, 0]) + 1.5) * h + rng.uniform(
+            0, 13 * h, (n, 3)) * np.array([1.0, 1.0, 2.0])
+    if case == "empty_tiles":
+        pos[:, 0] = rng.uniform(0.3 * box, 0.35 * box, n)
     pf = torch.from_numpy(np.concatenate(pos.T).astype(np.float32)).to(cuda)
     w = (torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
          .to(cuda) if weighted else None)
@@ -314,6 +354,71 @@ def test_k2_paint_dispatch(cuda):
     assert TPC.LAUNCHES["paint_windowed"] == before + 2
     torch.testing.assert_close(a, sa, rtol=0, atol=2e-5 * float(sa.max()))
     torch.testing.assert_close(b, sb, rtol=0, atol=2e-5 * float(sb.max()))
+
+
+@pytest.mark.parametrize("order", [2, 3])
+def test_k2_bins_match_windowed_keys(cuda, order):
+    """K2's bin pass computes the plain version's keys and fractions bit
+    for bit (true division by h, TSC clip before d) on a boundary-heavy
+    input: positions on cell and tile edges, an ulp beside them, on the
+    box edges and a box outside; its tiles and per-tile counts are those
+    of the plain keys."""
+    rng = np.random.default_rng(13)
+    ng, box, n = 97, 500.0, 300000
+    h = box / ng
+    edges = np.concatenate([np.arange(-1, ng + 2) * h,
+                            (np.arange(-1, ng + 2) + 0.5) * h])
+    on = edges[rng.integers(0, len(edges), (n, 3))].astype(np.float32)
+    pos = np.nextafter(on, rng.choice([-np.inf, np.inf], (n, 3))
+                       ).astype(np.float32)
+    pos[: n // 3] = on[: n // 3]
+    pos[n // 3: n // 2] += np.float32(box) * rng.choice([-1, 1], (
+        n // 2 - n // 3, 3)).astype(np.float32)
+    pos[:4] = [[0.0, box, -0.0], [-1e-8, 1e-8, box], [box, box, box],
+               [-box, 2 * box, -2e-8]]
+    pf = torch.from_numpy(np.concatenate(pos.T).astype(np.float32)).to(cuda)
+    tiles, counts, keys, frac = TPC.windowed_bins(pf, ng, box, order)
+    want_key, want_frac = TPC._windowed_keys(pf, ng, box, order)
+    assert int((keys != want_key).sum()) == 0
+    assert torch.equal(frac, want_frac)
+    want_tiles = TPC._tile_ids(want_key, ng, order)
+    assert torch.equal(tiles, want_tiles)
+    assert torch.equal(counts, torch.bincount(
+        want_tiles.long(), minlength=counts.numel()).to(torch.int32))
+
+
+def test_facades_numpy_input_runs_on_the_card(cuda, tmp_path):
+    """numpy input with no `device` runs on the card: the P(k) facade
+    launches K1, `density_fields` K2, and `Bispectrum3D` returns the CPU's
+    numbers to float32 rounding."""
+    from astrild_tpu_torch.models import (Bispectrum3D, Ecosmog,
+                                          PowerSpectrum3D)
+
+    rng = np.random.default_rng(14)
+    pos = rng.uniform(0, BOX, (50000, 3)).astype(np.float32)
+    before = dict(TPC.LAUNCHES)
+    _, p_card = PowerSpectrum3D().power_from_points(pos, BOX, 32, nbins=8,
+                                                    method="fast")
+    assert TPC.LAUNCHES["deposit_sorted"] == before.get("deposit_sorted",
+                                                        0) + 1
+    _, p_cpu = PowerSpectrum3D(device="cpu").power_from_points(
+        pos, BOX, 32, nbins=8, method="fast")
+    # uniform points: P(k) sits near zero after shot-noise subtraction, so
+    # compare at 1e-5 of the shot level
+    shot = BOX ** 3 / pos.shape[0]
+    np.testing.assert_allclose(p_card, p_cpu, rtol=0, atol=1e-5 * shot)
+    sim = Ecosmog(dir_sim=str(tmp_path), boxsize=BOX, domain_level=16)
+    rho = sim.density_fields(pos)["density"]
+    assert rho.device.type == "cuda"
+    assert TPC.LAUNCHES["paint_windowed"] == before.get("paint_windowed",
+                                                        0) + 1
+    b_card = Bispectrum3D.from_points(pos, BOX, 16, nbins=3)
+    b_cpu = Bispectrum3D.from_points(pos, BOX, 16, nbins=3, device="cpu")
+    for key, w in b_cpu.items():
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(b_card[key][fin], w[fin], rtol=1e-3,
+                                   atol=1e-4 * np.abs(w[fin]).max(
+                                       initial=0.0))
 
 
 # ------------------------------------------------------------------ K3

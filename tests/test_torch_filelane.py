@@ -103,7 +103,8 @@ def test_ecosmog_density_fields_matches_jax(tmp_path, rng, window):
                        domain_level=16).density_fields(
         jnp.asarray(pos), jnp.asarray(vel), window=window, fields=fields)
     sim = TMS.Ecosmog(dir_sim=str(tmp_path), boxsize=BOX, domain_level=16)
-    got = sim.density_fields(pos, vel, window=window, fields=fields)
+    got = sim.density_fields(pos, vel, window=window, fields=fields,
+                             device="cpu")
     as_tuple = sim.density_fields(
         tuple(torch.from_numpy(pos[:, i].copy()) for i in range(3)),
         tuple(torch.from_numpy(vel[:, i].copy()) for i in range(3)),
@@ -123,10 +124,10 @@ def test_ecosmog_density_fields_matches_jax(tmp_path, rng, window):
 def test_ecosmog_density_only_and_rules(tmp_path, rng):
     pos = _clustered(rng, 5, 100)
     sim = TMS.Ecosmog(dir_sim=str(tmp_path), boxsize=BOX, domain_level=8)
-    out = sim.density_fields(pos)
+    out = sim.density_fields(pos, device="cpu")
     assert set(out) == {"density"} and out["density"].shape == (8, 8, 8)
     with pytest.raises(ValueError, match="vel"):
-        sim.density_fields(pos, fields=("velocity",))
+        sim.density_fields(pos, fields=("velocity",), device="cpu")
 
 
 # ------------------------------------------------------ PowerSpectrum3D
@@ -143,7 +144,8 @@ def test_power_from_points_matches_jax(rng, method, interlaced, weighted):
     kw = dict(nbins=6, method=method, interlaced=interlaced)
     kj, pj = JMP.PowerSpectrum3D(window="tsc").power_from_points(
         pos, BOX, 16, weights=w, **kw)
-    kt, pt = TMP.PowerSpectrum3D(window="tsc").power_from_points(
+    kt, pt = TMP.PowerSpectrum3D(window="tsc",
+                                 device="cpu").power_from_points(
         pos, BOX, 16, weights=w, **kw)
     assert isinstance(pt, np.ndarray) and pt.dtype == np.float32
     npt.assert_allclose(kt, kj, rtol=1e-6)
@@ -161,11 +163,40 @@ def test_power_from_points_takes_tensors_and_device(rng):
         ps.power_from_points(pos, BOX, 16, method="fast", mesh=object())
 
 
+def test_facades_put_numpy_input_on_the_card(tmp_path, rng):
+    """numpy input with no `device` goes to the CUDA card; with no card the
+    facades raise instead of running on the CPU. Tensors keep their
+    device."""
+    pos = _clustered(rng, 5, 100)
+    grid = rng.normal(1, 0.3, (8, 8, 8)).astype(np.float32)
+    sim = TMS.Ecosmog(dir_sim=str(tmp_path), boxsize=BOX, domain_level=8)
+    calls = {
+        "PowerSpectrum3D": lambda: TMP.PowerSpectrum3D().power_from_points(
+            pos, BOX, 8, nbins=4, method="fast"),
+        "Bispectrum3D.compute": lambda: TMP.Bispectrum3D.compute(
+            grid, BOX, nbins=2),
+        "Bispectrum3D.from_points": lambda: TMP.Bispectrum3D.from_points(
+            pos, BOX, 8, nbins=2),
+        "density_fields": lambda: sim.density_fields(pos),
+    }
+    if torch.cuda.is_available():
+        for call in calls.values():
+            call()
+        assert sim.density_fields(pos)["density"].device.type == "cuda"
+    else:
+        for call in calls.values():
+            with pytest.raises(RuntimeError, match="no card"):
+                call()
+    assert TMP.default_device("cpu") == torch.device("cpu")
+    on_cpu = sim.density_fields(torch.from_numpy(pos))["density"]
+    assert on_cpu.device.type == "cpu"
+
+
 def test_power_from_grid_and_cross_match_jax(rng):
     n = 16
     grid = rng.normal(1, 0.3, (n, n, n)).astype(np.float32)
     other = (grid + rng.normal(0, 0.3, (n, n, n))).astype(np.float32)
-    jps, tps = JMP.PowerSpectrum3D(), TMP.PowerSpectrum3D()
+    jps, tps = JMP.PowerSpectrum3D(), TMP.PowerSpectrum3D(device="cpu")
     for window in (None, "cic"):
         kj, pj = jps.power_from_grid(grid, BOX, nbins=8, window=window,
                                      shotnoise=0.5)
@@ -192,7 +223,7 @@ def test_multipoles_from_grid_matches_jax(rng):
                                           window="cic"))
     kj, pj = JMP.PowerSpectrum3D().multipoles_from_grid(
         grid, BOX, nbins=6, window="cic", shotnoise=2.0)
-    kt, pt = TMP.PowerSpectrum3D().multipoles_from_grid(
+    kt, pt = TMP.PowerSpectrum3D(device="cpu").multipoles_from_grid(
         grid, BOX, nbins=6, window="cic", shotnoise=2.0)
     assert set(pt) == set(pj) == {0, 2, 4}
     npt.assert_allclose(kt, kj, rtol=1e-6)
@@ -220,8 +251,10 @@ def snapshot_files(tmp_path, rng):
 def _compute(mod, sim_mod, path, dscs, **kw):
     sim = sim_mod.Simulation(path, None, {"root": "grav_out",
                                           "extension": "h5"})
-    return mod.PowerSpectrum3D("particles", sim).compute(
-        ["density"], dscs, boxsize=BOX, ngrid=32, **kw)
+    # the port's facade runs numpy input on the card unless told otherwise
+    ps = (TMP.PowerSpectrum3D("particles", sim, device="cpu") if mod is TMP
+          else mod.PowerSpectrum3D("particles", sim))
+    return ps.compute(["density"], dscs, boxsize=BOX, ngrid=32, **kw)
 
 
 @pytest.mark.parametrize("roots", [("grav_out",), ("grid_out",),
@@ -266,7 +299,7 @@ def test_bispectrum3d_matches_jax(rng):
     1e-4 of the largest |B| (open triangles are NaN in both)."""
     pos = _clustered(rng)
     want = JMP.Bispectrum3D.from_points(pos, BOX, 16, nbins=4)
-    got = TMP.Bispectrum3D.from_points(pos, BOX, 16, nbins=4)
+    got = TMP.Bispectrum3D.from_points(pos, BOX, 16, nbins=4, device="cpu")
     assert set(got) == set(want)
     for key, w in want.items():
         g = got[key]
@@ -354,7 +387,7 @@ def test_file_lane_matches_jax(tmp_path, rng):
                               ngrid, BOX, nbins=8, deposit="scatter")
     npt.assert_allclose(got.power.numpy(), np.asarray(want.power),
                         rtol=PK_RTOL)
-    k_f, p_f = TMP.PowerSpectrum3D().power_from_points(
+    k_f, p_f = TMP.PowerSpectrum3D(device="cpu").power_from_points(
         data["pos"], BOX, ngrid, nbins=8, method="fast")
     npt.assert_array_equal(p_f, got.power.numpy())
 
@@ -365,7 +398,8 @@ def test_file_lane_matches_jax(tmp_path, rng):
         fields=fields)
     dt = TMS.Ecosmog(dir_sim=str(tmp_path), boxsize=BOX,
                      domain_level=ngrid).density_fields(
-        data["pos"], data["vel"], window="tsc", fields=fields)
+        data["pos"], data["vel"], window="tsc", fields=fields,
+        device="cpu")
     for name in fields:
         w = np.asarray(dj[name])
         npt.assert_allclose(dt[name].numpy(), w, rtol=0,

@@ -306,6 +306,54 @@ def test_paint_windowed_tsc_edge_clip():
     npt.assert_allclose(got.numpy(), want, atol=1e-7)
 
 
+@pytest.mark.parametrize("ngrid", [1, 16, 37, 97, 512])
+def test_k2_tile_grid_brute_force(ngrid):
+    """K2's tiles per axis: as many as the distinct c // tile side over the
+    base cells c of an axis."""
+    got = TPC._tile_grid(ngrid)
+    for ax, side in enumerate(TPC._TILE):
+        assert got[ax] == len({c // side for c in range(ngrid)})
+
+
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("ng", [37, 64])
+def test_k2_tile_ids_brute_force(rng, order, ng):
+    """`_tile_ids` (the bin pass's tile of each particle, from the plain
+    version's keys) against a loop over the particles, on positions on and
+    next to tile borders, on the box edges and outside the box: tile ids
+    and per-tile counts equal, and every cell a particle deposits into lies
+    in its tile's halo block."""
+    box = 50.0
+    h = box / ng
+    n = 3000
+    pos = rng.uniform(-box, 2 * box, (n, 3)).astype(np.float32)
+    borders = np.array([16, 32, 48, 0, ng], np.float64) * h
+    pick = rng.integers(0, len(borders), (n // 2, 3))
+    nudge = rng.choice([-1e-5, 0.0, 1e-5], (n // 2, 3))
+    pos[: n // 2] = (borders[pick] + nudge).astype(np.float32)
+    pos[-3:] = [[0.0, box, -0.0], [-1e-8, box - 1e-6, 1e-8], [box, box, box]]
+    key, _ = TPC._windowed_keys(T(_flat(pos)), ng, box, order)
+    got = TPC._tile_ids(key, ng, order).numpy()
+    ntx, nty, ntz = TPC._tile_grid(ng)
+    npd = ng + 2
+    lo = 0 if order == 2 else -1
+    want = []
+    for i, k in enumerate(key.tolist()):
+        ip = (k // (npd * npd), (k // npd) % npd, k % npd)
+        base = [(c - 1) % ng for c in ip]
+        tile = [b // s for b, s in zip(base, TPC._TILE)]
+        want.append((tile[0] * nty + tile[1]) * ntz + tile[2])
+        for ax in range(3):
+            first = tile[ax] * TPC._TILE[ax] + lo
+            for a in range(order):
+                cell = base[ax] + lo + a
+                assert first <= cell < first + TPC._TILE[ax] + order - 1
+    npt.assert_array_equal(got, want)
+    counts = np.bincount(got, minlength=ntx * nty * ntz)
+    for t in set(want):
+        assert counts[t] == want.count(t)
+
+
 def test_paint_windowed_rejects_bad_inputs(rng):
     pf = T(_flat(rng.uniform(0, 10, (10, 3)).astype(np.float32)))
     with pytest.raises(ValueError, match="order"):
