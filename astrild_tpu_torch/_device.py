@@ -1,0 +1,39 @@
+"""Where the port puts input that is not a tensor yet.
+
+The JAX package computes on the default device, so the port's entry points
+put numpy input on the CUDA card unless the caller names a `device`; with
+no card and no `device` they raise rather than run on the CPU unasked.
+Tensors stay on their own device unless `device` is given.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["default_device", "as_tensor"]
+
+
+def default_device(device=None) -> torch.device:
+    """Where numpy input goes: `device` if given, else the CUDA card;
+    raises if neither is there (no silent CPU run)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("astrild_tpu_torch facades run numpy input on the "
+                           "CUDA card by default, and no card is available; "
+                           "pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def as_tensor(arr, device=None) -> torch.Tensor:
+    """A tensor of `arr`: float input as float32 (the JAX package's
+    jnp.asarray without x64), on `device` if given, else where a tensor
+    already lies (numpy input: the CUDA card, see `default_device`)."""
+    if not isinstance(arr, torch.Tensor):
+        device = default_device(device)
+    if isinstance(arr, np.ndarray) and not arr.flags.writeable:
+        arr = arr.copy()
+    t = torch.as_tensor(arr)
+    if t.is_floating_point():
+        t = t.to(torch.float32)
+    return t if device is None else t.to(device)

@@ -64,14 +64,20 @@ _SIGNATURES = {
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "pairwise_accumulate": {
-        # pos, vel, hat (n, 3), n, n_valid, binwidth, nbins, partials,
-        # out (2, nbins), stream
+        # pos4, vel4, hat4 (rows in tile order, float4 each), chunk boxes
+        # lo, hi and tile boxes lo, hi (float4 each), n_tiles, s_max,
+        # binwidth, nbins, grid, partials (grid * 2 * nbins), out
+        # (2, nbins), stream
         "astrild_pairwise_accumulate": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+             ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p],
             ctypes.c_int),
-        "astrild_pairwise_partials_rows": ([ctypes.c_int64], ctypes.c_int64),
+        "astrild_pairwise_grid": ([ctypes.c_int], ctypes.c_int64),
+        "astrild_pairwise_tile_rows": ([], ctypes.c_int),
+        "astrild_pairwise_chunk_rows": ([], ctypes.c_int),
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }

@@ -18,38 +18,13 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from .._device import as_tensor, default_device  # noqa: F401
 from ..io import columnar_h5
 from ..ops import bispectrum as bs_ops
 from ..ops import paint as paint_ops
 from ..ops import power as power_ops
 
 __all__ = ["PowerSpectrum3D", "Bispectrum3D", "PowMes"]
-
-
-def default_device(device=None) -> torch.device:
-    """Where the facades put numpy input: `device` if given, else the CUDA
-    card; raises if neither is there (no silent CPU run)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("astrild_tpu_torch facades run numpy input on the "
-                           "CUDA card by default, and no card is available; "
-                           "pass device='cpu' to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
-def _as_tensor(arr, device=None) -> torch.Tensor:
-    """A tensor of `arr`: float input as float32 (the JAX package's
-    jnp.asarray without x64), on `device` if given, else where a tensor
-    already lies (numpy input: the CUDA card, see `default_device`)."""
-    if not isinstance(arr, torch.Tensor):
-        device = default_device(device)
-    if isinstance(arr, np.ndarray) and not arr.flags.writeable:
-        arr = arr.copy()
-    t = torch.as_tensor(arr)
-    if t.is_floating_point():
-        t = t.to(torch.float32)
-    return t if device is None else t.to(device)
 
 
 def _host(t) -> np.ndarray:
@@ -67,7 +42,7 @@ class PowerSpectrum3D:
         self.device = device
 
     def _t(self, arr) -> torch.Tensor:
-        return _as_tensor(arr, self.device)
+        return as_tensor(arr, self.device)
 
     # ------------------------------------------------------- low-level API
     def power_from_grid(self, grid, boxsize: float, nbins: int = 0,
@@ -208,14 +183,14 @@ class Bispectrum3D:
     @staticmethod
     def compute(grid, boxsize: float, nbins: int = 8, m_min: float = 1.0,
                 m_max=None, device=None):
-        res = bs_ops.bispectrum_3d(_as_tensor(grid, device), boxsize,
+        res = bs_ops.bispectrum_3d(as_tensor(grid, device), boxsize,
                                    nbins=nbins, m_min=m_min, m_max=m_max)
         return {k: _host(v) for k, v in res._asdict().items()}
 
     @staticmethod
     def from_points(pos, boxsize: float, ngrid: int, nbins: int = 8,
                     window: str = "cic", device=None):
-        grid = paint_ops.paint(_as_tensor(pos, device), ngrid, boxsize,
+        grid = paint_ops.paint(as_tensor(pos, device), ngrid, boxsize,
                                window=window)
         return Bispectrum3D.compute(grid, boxsize, nbins=nbins)
 

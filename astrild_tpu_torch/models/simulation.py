@@ -20,6 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .._device import default_device
 from ..utils.cosmology import Cosmology
 
 __all__ = ["Simulation", "Ecosmog", "RayRamses"]
@@ -155,10 +156,8 @@ class Simulation:
 def _components(arr, device):
     """Flat (n,) float32 components (x, y, z) of an (n, 3) array or tensor
     or of a tuple of components; numpy input goes to `device` (the CUDA
-    card by default, see `models.power.default_device`), a tensor stays
+    card by default, see `_device.default_device`), a tensor stays
     where it is unless `device` is given."""
-    from .power import default_device
-
     parts = arr if isinstance(arr, (tuple, list)) else [arr]
     if not all(isinstance(p, torch.Tensor) for p in parts):
         device = default_device(device)

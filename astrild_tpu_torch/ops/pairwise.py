@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import as_tensor
 from . import pairwise_cuda
 from .binred import masked_bin_reduce
 
@@ -127,12 +128,16 @@ def _resolve_backend(backend: str, device) -> bool:
 
 
 def mean_pairwise_velocity(pos_cart, vel_cart, bins, n_valid=None,
-                           block: int = 512, backend: str = "auto"):
+                           block: int = 512, backend: str = "auto",
+                           device=None):
     """Mean pairwise velocity estimate from cartesian velocities.
 
     Args:
       pos_cart: (n, 3) positions [Mpc/h] (lightcone frame, observer at 0).
-      vel_cart: (n, 3) velocities [km/s].
+        A tensor stays on its device unless `device` is given; numpy input
+        goes to `device`, by default the CUDA card (it raises without one:
+        pass device="cpu" to run on the CPU).
+      vel_cart: (n, 3) velocities [km/s], placed as pos_cart.
       bins: (binnr,) distance bin edges starting at 0 with uniform width
         (reference make_rsep convention), OR arbitrary ascending edges —
         non-uniform spacing (or a nonzero first edge) bins pairs into the
@@ -145,8 +150,10 @@ def mean_pairwise_velocity(pos_cart, vel_cart, bins, n_valid=None,
 
     Returns (rsep, v12): bin centers and the estimate (NaN on empty bins).
     """
-    pos_cart = torch.as_tensor(pos_cart)
-    vel_cart = torch.as_tensor(vel_cart)
+    pos_cart = as_tensor(pos_cart, device)
+    # numpy velocities follow the positions
+    vel_cart = as_tensor(vel_cart, device if isinstance(vel_cart, torch.Tensor)
+                         else pos_cart.device)
     dev = pos_cart.device
     bins_np = (bins.detach().cpu().numpy() if isinstance(bins, torch.Tensor)
                else np.asarray(bins))

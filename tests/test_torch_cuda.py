@@ -422,11 +422,29 @@ def test_facades_numpy_input_runs_on_the_card(cuda, tmp_path):
 
 
 # ------------------------------------------------------------------ K3
+def _smoke():
+    """chip_smoke.py's catalog builders (the repository root's script)."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
 @pytest.mark.parametrize("case", ["uniform", "ragged_valid", "coincident",
-                                  "beyond"])
+                                  "beyond", "edge_pairs", "clumps_reach",
+                                  "negative", "nbins128", "lattice_beyond",
+                                  "one_cell"])
 def test_k3_matches_plain(cuda, case):
     """K3 vs its plain version: rtol 1e-4 on nom and den, with atol 1e-4
-    of each output's max for bins that hold few pairs."""
+    of each output's max for bins that hold few pairs. The cases of
+    chip_smoke.py phase 5 at a smaller size: pairs at the cut s_max of
+    the last and a middle edge and an ulp below, clumps just inside and
+    just outside reach, coordinates around the origin, 128 bins, a lattice
+    beyond reach (only diagonal tile pairs visited), one cell."""
     rng = np.random.default_rng(6)
     n, box, binw, nbins = 3000 + 77, 60.0, 2.0, 25
     pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
@@ -440,6 +458,26 @@ def test_k3_matches_plain(cuda, case):
         pos[n // 2:] = pos[: n - n // 2]
     if case == "beyond":
         binw = 1e-4
+    if case == "edge_pairs":
+        pos = _smoke().k3_edge_pairs(binw, (nbins, 7), per=32)
+    if case == "clumps_reach":
+        reach = float(np.sqrt(TPWC.s_max(binw, nbins)))
+        a = rng.uniform(0.0, 2.0, (256, 3)).astype(np.float32)
+        pos = np.concatenate([a, a + [2.0 + reach - 0.05, 0.0, 0.0],
+                              a + [0.0, 500.0, 0.0],
+                              a + [2.0 + reach + 0.05, 500.0, 0.0]])
+    if case == "negative":
+        pos -= box / 2
+    if case == "nbins128":
+        binw, nbins = 0.25, 128
+    if case == "lattice_beyond":
+        pos, binw = _smoke().k3_lattice(), 1e-5
+    if case == "one_cell":
+        pos = pos / box + 7.0
+    pos = pos.astype(np.float32)
+    if pos.shape[0] != n:
+        n_valid = pos.shape[0]
+        vel = rng.normal(0, 300, pos.shape).astype(np.float32)
     p = torch.from_numpy(pos).to(cuda)
     v = torch.from_numpy(vel).to(cuda)
     before = TPWC.LAUNCHES["pairwise_accumulate"]
@@ -450,8 +488,76 @@ def test_k3_matches_plain(cuda, case):
     for got, want in ((nom, pnom), (den, pden)):
         torch.testing.assert_close(
             got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
-    if case == "beyond":
+    if case in ("beyond", "lattice_beyond"):
         assert float(nom.abs().sum()) == 0.0 == float(den.abs().sum())
+    if case == "lattice_beyond":
+        plan = TPWC.plan(p, v, n_valid, binw, nbins)
+        items = TPWC.tile_pairs(plan.lo, plan.hi, plan.s_max).cpu()
+        assert items.tolist() == [[t, t] for t in range(items.shape[0])]
+
+
+def _peak_above_base(fn) -> int:
+    """Card memory that `fn` allocates at its peak above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def test_k3_scratch_with_every_tile_pair_in_reach(cuda):
+    """2^18 tracers with every pair in reach (binwidth 1e30, one bin): every
+    tile pair is visited, and the call allocates no more above its plan
+    (the tiled rows and boxes, O(n)) than its partial rows and output: no
+    list of the n_tiles^2 / 2 tile pairs. Prints the scratch; the bin's
+    sums are finite, den positive."""
+    n = 1 << 18
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    p = torch.rand((n, 3), generator=gen, device=cuda) * 500.0 - 250.0
+    v = torch.randn((n, 3), generator=gen, device=cuda) * 300.0
+    plan_peak = _peak_above_base(lambda: TPWC.plan(p, v, n, 1e30, 1))
+    out = []
+    call_peak = _peak_above_base(
+        lambda: out.extend(TPWC.pairwise_accumulate(p, v, n, 1e30, 1)))
+    st = TPWC.plan_stats(TPWC.plan(p, v, n, 1e30, 1), 1)
+    print(f"K3 at {n} tracers, every tile pair in reach: {st}; peak above "
+          f"base: plan {plan_peak} B, call {call_peak} B")
+    assert st["tile_pairs_visited"] == st["tile_pairs"] == 1024 * 1025 // 2
+    partials = st["grid"] * 2 * 4
+    assert call_peak - plan_peak <= partials + 4096
+    nom, den = out
+    assert bool(torch.isfinite(nom).all()) and float(den[0]) > 0.0
+
+
+def test_k3_runs_are_bit_identical(cuda):
+    """Two K3 calls on the same clustered tracers return the same bits."""
+    rng = np.random.default_rng(10)
+    pos = np.concatenate([rng.uniform(0, 300, (30000, 3)),
+                          rng.normal(150, 3.0, (10000, 3))])
+    p = torch.from_numpy(pos.astype(np.float32)).to(cuda)
+    v = torch.from_numpy(rng.normal(0, 300, pos.shape).astype(
+        np.float32)).to(cuda)
+    a = TPWC.pairwise_accumulate(p, v, p.shape[0], 50.0 / 24.0, 25)
+    b = TPWC.pairwise_accumulate(p, v, p.shape[0], 50.0 / 24.0, 25)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k3_numpy_input_runs_on_the_card(cuda):
+    """mean_pairwise_velocity given numpy arrays and no `device` runs on
+    the card: one K3 launch, the plain version's v12 to rtol 1e-4."""
+    rng = np.random.default_rng(12)
+    pos = rng.uniform(400, 600, (2000, 3)).astype(np.float32)
+    vel = rng.normal(0, 200, (2000, 3)).astype(np.float32)
+    bins = np.linspace(0, 50, 25)
+    before = TPWC.LAUNCHES["pairwise_accumulate"]
+    r, v = TPW.mean_pairwise_velocity(pos, vel, bins)
+    assert TPWC.LAUNCHES["pairwise_accumulate"] == before + 1
+    assert v.device.type == "cuda" and r.device.type == "cuda"
+    _, vp = TPW.mean_pairwise_velocity(pos, vel, bins, device="cpu")
+    torch.testing.assert_close(v.cpu(), vp, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
 
 
 def test_k3_mean_pairwise_velocity_auto(cuda):

@@ -133,7 +133,313 @@ def test_pairwise_accumulate_wrapper_rules(rng):
         TPWC.pairwise_accumulate(T(pos[:, :2]), T(vel[:, :2]), 64, 1.0, 4)
 
 
+def test_pairwise_accumulate_reference_permutation_invariant(rng):
+    """The sums over pairs do not depend on the order of the rows (the
+    invariance that lets K3 reorder them): shuffled rows give the same
+    nom and den to rtol 1e-5 (float32 sums in another order)."""
+    n = 700
+    pos, vel = _catalog(rng, n, -80.0, 80.0)
+    perm = rng.permutation(n)
+    a = TPWC.pairwise_accumulate_reference(T(pos), T(vel), n, 4.0, 25)
+    b = TPWC.pairwise_accumulate_reference(T(pos[perm]), T(vel[perm]), n,
+                                           4.0, 25)
+    for x, y in zip(a, b):
+        npt.assert_allclose(x.numpy(), y.numpy(), rtol=1e-5,
+                            atol=1e-5 * float(y.abs().max()))
+
+
+# ------------------------------------------ K3's cut, order and culling
+_BINWIDTHS = [float(np.float32(50.0 / 24.0)), 2.0, 7.3, 1e-5, 1e30]
+
+
+@pytest.mark.parametrize("nbins", [1, 25, 128])
+@pytest.mark.parametrize("binwidth", _BINWIDTHS)
+def test_s_max_matches_bruteforce(rng, binwidth, nbins):
+    """`s < s_max` equals float32 `sqrt(s) / binwidth < nbins` (torch's
+    CPU float32 ops, a tensor divisor) for every float within 2048 ulps of
+    s_max and for 10^5 random floats in [0, 4 s_max]; where s_max is +inf
+    (binwidth 1e30), +inf itself is dropped."""
+    smax = TPWC.s_max(binwidth, nbins)
+    bits = int(np.array([smax], np.float32).view(np.uint32)[0])
+    near = np.arange(max(bits - 2048, 0), min(bits + 2049, 0x7F800001),
+                     dtype=np.int64).astype(np.uint32).view(np.float32)
+    samples = [near]
+    if np.isfinite(smax):
+        samples.append((rng.uniform(0.0, 4.0, 100000) * np.float64(smax))
+                       .astype(np.float32))
+    else:
+        assert binwidth == 1e30
+        samples.append(np.array([np.inf], np.float32))
+    s = np.concatenate(samples)
+    bw = torch.tensor(binwidth, dtype=torch.float32)
+    ts = torch.from_numpy(s)
+    want = (torch.sqrt(ts) / bw) < nbins
+    got = ts < torch.tensor(float(smax), dtype=torch.float32)
+    assert torch.equal(got, want)
+    assert not bool(got[ts == np.inf].any())
+    assert bool(got[ts == 0.0].all())
+
+
+def _clumpy(rng, n, n_valid):
+    """Clumps (a Gaussian one at the origin, one straddling x = 0 and
+    y = 0, a tight one, two a little more than 10 apart) over a uniform
+    background in [-60, 60)^3, then junk rows past n_valid (far away, huge
+    velocities, a NaN)."""
+    pos = rng.uniform(-60.0, 60.0, (n, 3))
+    k = n_valid // 6
+    pos[:k] = rng.normal(0.0, 3.0, (k, 3))
+    pos[k:2 * k] = rng.normal([0.0, 0.0, 30.0], [20.0, 20.0, 1.0], (k, 3))
+    pos[2 * k:3 * k] = rng.normal([-40.0, 25.0, -10.0], 0.05, (k, 3))
+    pos[3 * k:4 * k] = rng.uniform([30.0, 30.0, 30.0], [31.0, 31.0, 31.0],
+                                   (k, 3))
+    pos[4 * k:5 * k] = rng.uniform([30.0, 30.0, 42.0], [31.0, 31.0, 43.0],
+                                   (k, 3))
+    vel = rng.normal(0.0, 200.0, (n, 3))
+    pos[n_valid:] = 1e6
+    vel[n_valid:] = 1e7
+    if n > n_valid:
+        pos[-1, 0] = np.nan
+    return pos.astype(np.float32), vel.astype(np.float32)
+
+
+def _f32_s(a, b):
+    """Squared separations of rows a (m, 3) and b (k, 3), every step a
+    float32 op rounded to nearest, in the kernel's order."""
+    r = a[:, None, :] - b[None, :, :]
+    return (r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]) \
+        + r[..., 2] * r[..., 2]
+
+
+@pytest.mark.parametrize("case", [(2600, 2600, 0.45, 25),
+                                  (2600, 2600, 0.43, 25),
+                                  (2600, 2311, 0.45, 25),
+                                  (3000, 2900, 1e-5, 25),
+                                  (1800, 1700, 0.1, 128)])
+def test_k3_culling_is_sound(rng, case):
+    """On clumpy catalogs (negative coordinates, clumps across x = 0 and
+    y = 0, two clumps just beyond reach of each other, junk rows past
+    n_valid): the ordering keeps the multiset of the first n_valid rows and
+    leaves the rest out; the list holds exactly the tile pairs whose box
+    gap is below s_max (the diagonal ones always, unless a tile is empty),
+    and no pair in a culled tile pair, nor in a chunk pair that the kernel
+    skips inside a listed one, has s < s_max (brute force in float32)."""
+    n, n_valid, binw, nbins = case
+    pos, vel = _clumpy(rng, n, n_valid)
+    p = TPWC.plan(T(pos), T(vel), n_valid, binw, nbins)
+    tile = TPWC.TILE
+    n_tiles = -(-n_valid // tile)
+    assert p.pos4.shape == (n_tiles * tile, 4)
+    got = np.hstack([p.pos4[:n_valid, :3].numpy(),
+                     p.vel4[:n_valid, :3].numpy()])
+    npt.assert_array_equal(_lexsorted(got), _lexsorted(
+        np.hstack([pos[:n_valid], vel[:n_valid]])))
+    assert np.isnan(p.pos4[n_valid:, :3].numpy()).all()
+    items = TPWC.tile_pairs(p.lo, p.hi, p.s_max)
+    visited = {tuple(x) for x in items.tolist()}
+    assert [tuple(x) for x in items.tolist()] == sorted(visited)
+    assert all((t, t) in visited for t in range(n_tiles))
+    smax = np.float32(p.s_max)
+    tiles = p.pos4[:, :3].numpy().reshape(n_tiles, tile, 3)
+    culled = 0
+    for a in range(n_tiles):
+        for b in range(a, n_tiles):
+            if (a, b) in visited:
+                continue
+            culled += 1
+            with np.errstate(invalid="ignore"):
+                s = _f32_s(tiles[a], tiles[b])
+            assert s.dtype == np.float32
+            assert not bool((s < smax).any()), (a, b)
+    assert culled > 0
+    chunk, k = TPWC.CHUNK, TPWC.TILE // TPWC.CHUNK
+    walked = TPWC.chunk_pairs(p, items).numpy()
+    skipped = 0
+    for (a, b), w in zip(items.tolist(), walked):
+        for ca in range(k):
+            for cb in range(ca if a == b else 0, k):
+                if w[ca, cb]:
+                    continue
+                skipped += 1
+                with np.errstate(invalid="ignore"):
+                    s = _f32_s(tiles[a, ca * chunk:(ca + 1) * chunk],
+                               tiles[b, cb * chunk:(cb + 1) * chunk])
+                assert not bool((s < smax).any()), (a, b, ca, cb)
+    assert skipped > 0
+
+
+def _lexsorted(a):
+    return a[np.lexsort(a.T[::-1])]
+
+
+def _smoke():
+    """chip_smoke.py's catalog builders (the repository root's script)."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def test_k3_every_pair_beyond_reach_visits_the_diagonal_only(rng):
+    """Every pair beyond the last bin (binwidth 1e-5 on a unit lattice):
+    only the diagonal tile pairs (box gap 0) are listed, and the emulated
+    sums are zeros."""
+    pos = _smoke().k3_lattice()[rng.permutation(16 ** 3 + 1)]
+    vel = rng.normal(0.0, 100.0, pos.shape).astype(np.float32)
+    p = TPWC.plan(T(pos), T(vel), pos.shape[0], 1e-5, 25)
+    n_tiles = p.lo.shape[0]
+    assert TPWC.tile_pairs(p.lo, p.hi, p.s_max).tolist() == [
+        [t, t] for t in range(n_tiles)]
+    nom, den = _plan_sums(p, 1e-5, 25)
+    assert float(nom.abs().sum()) == 0.0 == float(den.abs().sum())
+
+
+def _plan_sums(p, binwidth, nbins):
+    """The kernel's arithmetic on the listed tile pairs only, and in them
+    on the chunk pairs it walks (float32 torch ops on the CPU), summed in
+    float64."""
+    tile = TPWC.TILE
+    nom = torch.zeros(nbins, dtype=torch.float64)
+    den = torch.zeros(nbins, dtype=torch.float64)
+    bw = torch.tensor(binwidth, dtype=torch.float32)
+    items = TPWC.tile_pairs(p.lo, p.hi, p.s_max)
+    walked = TPWC.chunk_pairs(p, items).repeat_interleave(TPWC.CHUNK, dim=1) \
+        .repeat_interleave(TPWC.CHUNK, dim=2)
+    for (a, b), w in zip(items.tolist(), walked):
+        sa, sb = slice(a * tile, (a + 1) * tile), slice(b * tile,
+                                                       (b + 1) * tile)
+        pi, pj = p.pos4[sa, :3], p.pos4[sb, :3]
+        r = pi[:, None, :] - pj[None, :, :]
+        s = (r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1]) \
+            + r[..., 2] * r[..., 2]
+        keep = (s < p.s_max) & w
+        if a == b:
+            keep &= torch.ones_like(keep).triu(1)
+        dist = torch.sqrt(s)
+        t = dist / bw
+        assert bool((t[keep] < nbins).all())
+        u = r / dist.clamp_min(1e-12)[..., None]
+        hi, hj = p.hat4[sa, None, :3], p.hat4[None, sb, :3]
+        di = (u * hi).sum(-1, keepdim=True)
+        dj = (u * hj).sum(-1, keepdim=True)
+        q = 0.5 * (2.0 * u - hi * di - hj * dj)
+        v = p.vel4[sa, None, :3] - p.vel4[None, sb, :3]
+        b_of = t[keep].to(torch.int64)
+        nom.index_add_(0, b_of, (v * q).sum(-1)[keep].double())
+        den.index_add_(0, b_of, (q * q).sum(-1)[keep].double())
+    return nom.float(), den.float()
+
+
+@pytest.mark.parametrize("case", [(2600, 2311, 0.45, 25),
+                                  (1500, 1500, 4.0, 25),
+                                  (900, 850, 0.02, 128)])
+def test_k3_plan_sums_match_all_pairs(rng, case):
+    """The kernel's work, emulated on the CPU over the plan (reordered
+    rows, listed tile pairs, walked chunk pairs, the s < s_max cut, j > i
+    on the diagonal),
+    gives the plain all-pairs version's sums: rtol 1e-4 with atol 1e-4 of
+    each output's max (float32 terms summed in other orders)."""
+    n, n_valid, binw, nbins = case
+    pos, vel = _clumpy(rng, n, n_valid)
+    p = TPWC.plan(T(pos), T(vel), n_valid, binw, nbins)
+    got = _plan_sums(p, binw, nbins)
+    want = TPWC.pairwise_accumulate_reference(T(pos), T(vel), n_valid, binw,
+                                              nbins)
+    assert float(want[1].sum()) > 0.0
+    for g, w in zip(got, want):
+        npt.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                            atol=1e-4 * float(w.abs().max()))
+
+
+def test_k3_order_and_boxes_leave_out_non_finite_rows(rng):
+    """Rows with a NaN or infinite coordinate go last in the Morton order
+    (which stays a permutation of the first n_valid rows and is the same
+    on a second call) and stay out of their group's box; a group of such
+    rows only gets the empty box (lo = +inf, hi = -inf)."""
+    pos = rng.uniform(-5.0, 5.0, (64, 3)).astype(np.float32)
+    pos[[3, 17, 40], [0, 2, 1]] = [np.nan, np.inf, -np.inf]
+    order = TPWC.spatial_order(T(pos), 60)
+    assert sorted(order.tolist()) == list(range(60))
+    assert set(order[-3:].tolist()) == {3, 17, 40}
+    assert torch.equal(order, TPWC.spatial_order(T(pos), 60))
+    pos4 = np.zeros((64, 4), np.float32)
+    pos4[:, :3] = pos
+    pos4[32:, :3] = np.nan
+    lo, hi = TPWC.boxes(T(pos4), 32)
+    good = np.delete(pos[:32], [3, 17], axis=0)
+    npt.assert_array_equal(lo[0, :3].numpy(), good.min(axis=0))
+    npt.assert_array_equal(hi[0, :3].numpy(), good.max(axis=0))
+    assert float(lo[0, 3]) == 0.0 == float(hi[0, 3])
+    assert bool((lo[1, :3] == np.inf).all()) and bool((hi[1, :3] == -np.inf)
+                                                      .all())
+
+
+@pytest.mark.parametrize("n_tiles", [1, 2, 7, 64, 4096, 65536])
+def test_k3_triangle_walk(n_tiles):
+    """The kernel's in-place walk of the tile pairs: item k of the triangle
+    decodes (`triangle_item`, its plain version) to (ti, tj) in row-major
+    order, ti <= tj, every pair once: all items for a small triangle; for a
+    large one (2^24 tracers are 65,536 tiles) the first, last and
+    neighbouring items of every row, where a float64 estimate of the row
+    could miss."""
+    total = n_tiles * (n_tiles + 1) // 2
+    if total <= 1 << 12:
+        k = np.arange(total, dtype=np.int64)
+        ti, tj = TPWC.triangle_item(k, n_tiles)
+        want = [(a, b) for a in range(n_tiles) for b in range(a, n_tiles)]
+        assert list(zip(ti.tolist(), tj.tolist())) == want
+        return
+    t = np.arange(n_tiles, dtype=np.int64)
+    start = t * n_tiles - t * (t - 1) // 2
+    end = start + (n_tiles - t) - 1
+    k = np.concatenate([start, end, np.minimum(start + 1, end),
+                        np.maximum(end - 1, start)])
+    ti, tj = TPWC.triangle_item(k, n_tiles)
+    npt.assert_array_equal(ti, np.tile(t, 4))
+    npt.assert_array_equal(tj, np.concatenate([
+        t, np.full(n_tiles, n_tiles - 1), np.minimum(t + 1, n_tiles - 1),
+        np.maximum(n_tiles - 2, t)]))
+    assert int(end[-1]) == total - 1
+
+
+def test_k3_plan_stats_and_rejects(rng):
+    """`plan_stats` counts the pairs the visited tile pairs hold and the
+    pairs the kernel walks in them (all of them when nothing is culled); a
+    non-positive or non-finite binwidth raises."""
+    pos, vel = _catalog(rng, 600, 0.0, 10.0)
+    p = TPWC.plan(T(pos), T(vel), 600, 5.0, 25)
+    st = TPWC.plan_stats(p, 25)
+    assert st["tiles"] == 3 and st["tile_pairs_visited"] == 6
+    assert st["pairs_visited"] == st["pairs_walked"] == 600 * 599 // 2
+    assert st["scratch_bytes"] == 2 * (3 + 3 * 8) * 4 * 4
+    for bad in (0.0, -1.0, float("nan"), float("inf")):
+        with pytest.raises(ValueError, match="binwidth"):
+            TPWC.s_max(bad, 25)
+
+
 # ------------------------------------------------ mean_pairwise_velocity
+def test_mean_pairwise_velocity_numpy_input_placement(rng):
+    """numpy input goes to the CUDA card unless `device` is given, and
+    raises without a card (this machine has none); with device='cpu' it
+    matches the JAX package (rtol 1e-4, ratios of float32 sums)."""
+    pos, vel = _catalog(rng, 300, 450.0, 550.0)
+    bins = np.linspace(0, 50, 25)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TPW.mean_pairwise_velocity(pos, vel, bins)
+    before = dict(TPWC.LAUNCHES)
+    r, v = TPW.mean_pairwise_velocity(pos, vel, bins, device="cpu")
+    assert r.device.type == "cpu" and v.device.type == "cpu"
+    assert dict(TPWC.LAUNCHES) == before
+    jr, jv = JPW.mean_pairwise_velocity(jnp.asarray(pos), jnp.asarray(vel),
+                                        jnp.asarray(bins))
+    npt.assert_allclose(r.numpy(), np.asarray(jr), rtol=1e-6)
+    npt.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-4, atol=1e-3)
+
+
 @pytest.mark.parametrize("block", [64, 512])
 def test_mean_pairwise_velocity_matches_jax(rng, block):
     """Uniform make_rsep bins (the halos.py defaults): bin centres to
