@@ -1,9 +1,12 @@
 """Linear matter power spectrum (Eisenstein & Hu 1998), sigma8-normalized.
 
 Port of astrild_tpu/ops/linear_power.py (`eh98_transfer`,
-`_unnormalized_power`, `sigma_r`, `normalization`, `linear_power`). The
-k-dependent terms are torch ops in the dtype of `k`; the k-independent
-fit coefficients are host float64 scalars.
+`_unnormalized_power`, `sigma_r`, `normalization`, `linear_power`, and the
+halofit `_sigma2_gauss`, `nonlinear_power`). The k-dependent terms are
+torch ops in the dtype of `k`; the k-independent fit coefficients are host
+float64 scalars.
+
+Not ported yet: the no-wiggle transfer, `kaiser_multipoles` and `p_dpdp`.
 
 Units: k in h/Mpc, P in (Mpc/h)^3.
 """
@@ -11,25 +14,34 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from .._device import as_tensor
 from ..utils.cosmology import Cosmology
 
-__all__ = ["eh98_transfer", "linear_power", "sigma_r", "normalization"]
+__all__ = ["eh98_transfer", "linear_power", "sigma_r", "normalization",
+           "nonlinear_power", "halofit_parameters"]
 
 
-def _as_tensor(k):
-    return k if isinstance(k, torch.Tensor) else torch.as_tensor(
-        k, dtype=torch.float32)
+def _as_tensor(k, device=None):
+    """k as it is if a tensor (device and dtype kept; moved if `device` is
+    given), else a float32 tensor on `device`, by default the CUDA card
+    (`_device.as_tensor`: it raises without one)."""
+    if isinstance(k, torch.Tensor):
+        return k if device is None else k.to(device)
+    return as_tensor(k, device)
 
 
-def eh98_transfer(k_hmpc, cosmo: Cosmology):
+def eh98_transfer(k_hmpc, cosmo: Cosmology, device=None):
     """EH98 matter transfer function T(k) with baryon features.
 
-    k in h/Mpc; internally converted to 1/Mpc as the fit requires.
+    k in h/Mpc; internally converted to 1/Mpc as the fit requires. A
+    tensor keeps its device; other input goes to `device`, by default the
+    CUDA card (it raises without one: pass device="cpu").
     """
     h = cosmo.h
-    k = _as_tensor(k_hmpc) * h  # [1/Mpc]
+    k = _as_tensor(k_hmpc, device) * h  # [1/Mpc]
     om = cosmo.Om0 * h ** 2
     ob = cosmo.Ob0 * h ** 2
     oc = om - ob
@@ -96,7 +108,6 @@ def eh98_transfer(k_hmpc, cosmo: Cosmology):
 
 
 def _unnormalized_power(k, cosmo: Cosmology):
-    k = _as_tensor(k)
     return k ** cosmo.ns * eh98_transfer(k, cosmo) ** 2
 
 
@@ -123,10 +134,118 @@ def normalization(cosmo: Cosmology) -> float:
     return float((cosmo.sigma8 / sigma_r(8.0, cosmo, amplitude=1.0)) ** 2)
 
 
-def linear_power(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None):
+def linear_power(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
+                 device=None):
     """Linear matter P(k, z) [(Mpc/h)^3], sigma8-normalized at z=0 (z a
-    scalar)."""
+    scalar). k is placed as in `eh98_transfer`."""
     if amplitude is None:
         amplitude = normalization(cosmo)
     d = float(cosmo.growth_factor(z))
-    return float(amplitude) * _unnormalized_power(k_hmpc, cosmo) * d ** 2
+    k = _as_tensor(k_hmpc, device)
+    return float(amplitude) * _unnormalized_power(k, cosmo) * d ** 2
+
+
+# ----------------------------------------------------- halofit (nonlinear)
+def _sigma2_gauss(lnR, cosmo: Cosmology, amplitude, growth2, nk: int = 512):
+    """sigma^2(R) with a GAUSSIAN window (halofit convention) and its first
+    and second derivatives in ln R, on the host in float64.
+
+    lnR and growth2 are scalars or arrays of one shape (one entry per
+    redshift). The JAX package differentiates the trapezoid sum over
+    ln k in [1e-4, 1e3] twice by autodiff; the derivative of that sum is
+    the same sum over the differentiated integrand, which has a closed
+    form: with y = k^2 R^2, d/dlnR exp(-y) = -2y exp(-y) and
+    d2/dlnR2 exp(-y) = (4y^2 - 4y) exp(-y).
+    """
+    lnR = np.asarray(lnR, np.float64)[..., None]
+    growth2 = np.asarray(growth2, np.float64)[..., None]
+    lnk = torch.linspace(math.log(1e-4), math.log(1e3), nk,
+                         dtype=torch.float64)
+    k = torch.exp(lnk)
+    pk = (k ** 3 * _unnormalized_power(k, cosmo)).numpy()
+    d2l = float(amplitude) * growth2 * pk / (2.0 * math.pi ** 2)
+    y = k.numpy() ** 2 * np.exp(2.0 * lnR)
+    base = d2l * np.exp(-y)
+    dlnk = float(lnk[1] - lnk[0])
+
+    def trapz(f):
+        return np.sum(0.5 * (f[..., 1:] + f[..., :-1]), axis=-1) * dlnk
+
+    return (trapz(base), trapz(-2.0 * y * base),
+            trapz((4.0 * y * y - 4.0 * y) * base))
+
+
+def halofit_parameters(cosmo: Cosmology, z=0.0, amplitude=None) -> dict:
+    """The redshift-dependent halofit numbers (Takahashi+2012, arXiv
+    1208.2701 eqs. A1-A14) as host float64 values, one per entry of `z`:
+    the nonlinear scale `k_sigma` (sigma_G(1/k_sigma, z) = 1, by
+    bisection), the effective index `n_eff`, the curvature `C` and the fit
+    coefficients derived from them. They do not depend on k."""
+    if amplitude is None:
+        amplitude = normalization(cosmo)
+    z = np.asarray(z, np.float64)
+    g2 = np.asarray(cosmo.growth_factor(z), np.float64) ** 2
+
+    # bisection for sigma^2(R) = 1 on lnR in [ln 1e-3, ln 1e2]
+    lo = np.full(z.shape, math.log(1e-3))
+    hi = np.full(z.shape, math.log(1e2))
+    for _ in range(48):
+        mid = 0.5 * (lo + hi)
+        high = _sigma2_gauss(mid, cosmo, amplitude, g2)[0] > 1.0
+        lo, hi = np.where(high, mid, lo), np.where(high, hi, mid)
+    lnR_s = 0.5 * (lo + hi)
+    s2, ds2, d2s2 = _sigma2_gauss(lnR_s, cosmo, amplitude, g2)
+    dln = ds2 / s2                      # d ln sigma^2 / d ln R
+    n = -3.0 - dln
+    C = -(d2s2 / s2 - dln ** 2)
+
+    # Takahashi+12 coefficients (flat wCDM; w = w0 in the DE correction)
+    om_z = cosmo.Om0 * (1.0 + z) ** 3 / cosmo.efunc_a(1.0 / (1.0 + z)) ** 2
+    ode_z = 1.0 - om_z
+    w = cosmo.w0
+    n2, n3, n4 = n ** 2, n ** 3, n ** 4
+    return {
+        "k_sigma": np.exp(-lnR_s), "n_eff": n, "C": C, "growth2": g2,
+        "a_n": 10.0 ** (1.5222 + 2.8553 * n + 2.3706 * n2 + 0.9903 * n3
+                        + 0.2250 * n4 - 0.6038 * C
+                        + 0.1749 * ode_z * (1.0 + w)),
+        "b_n": 10.0 ** (-0.5642 + 0.5864 * n + 0.5716 * n2 - 1.5474 * C
+                        + 0.2279 * ode_z * (1.0 + w)),
+        "c_n": 10.0 ** (0.3698 + 2.0404 * n + 0.8161 * n2 + 0.5869 * C),
+        "gam": 0.1971 - 0.0843 * n + 0.8460 * C,
+        "alp": np.abs(6.0835 + 1.3373 * n - 0.1959 * n2 - 5.5274 * C),
+        "bet": (2.0379 - 0.7354 * n + 0.3157 * n2 + 1.2490 * n3
+                + 0.3980 * n4 - 0.1682 * C),
+        "nu_n": 10.0 ** (5.2105 + 3.6902 * n),
+        "f1": om_z ** -0.0307, "f2": om_z ** -0.0585, "f3": om_z ** 0.0743,
+    }
+
+
+def _halofit_power(k, cosmo: Cosmology, amplitude, par):
+    """Halofit P(k) from `halofit_parameters`: `par` holds Python floats
+    (one redshift) or tensors that broadcast against k (one redshift per
+    row)."""
+    d2l = (k ** 3 * float(amplitude) * par["growth2"]
+           * _unnormalized_power(k, cosmo) / (2.0 * math.pi ** 2))
+    y = k / par["k_sigma"]
+    d2q = d2l * ((1.0 + d2l) ** par["bet"] / (1.0 + par["alp"] * d2l)) \
+        * torch.exp(-y / 4.0 - y ** 2 / 8.0)
+    d2hp = par["a_n"] * y ** (3.0 * par["f1"]) / (
+        1.0 + par["b_n"] * y ** par["f2"]
+        + (par["c_n"] * par["f3"] * y) ** (3.0 - par["gam"]))
+    d2h = d2hp / (1.0 + par["nu_n"] / y ** 2)
+    return (d2q + d2h) * 2.0 * math.pi ** 2 / k ** 3
+
+
+def nonlinear_power(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
+                    device=None):
+    """Nonlinear matter P(k, z) via halofit (Takahashi+2012) on the EH98
+    linear spectrum, z a scalar. A tensor k keeps its device and dtype;
+    other input becomes float32 on `device`, by default the CUDA card (it
+    raises without one: pass device="cpu")."""
+    if amplitude is None:
+        amplitude = normalization(cosmo)
+    par = {name: float(v) for name, v in halofit_parameters(
+        cosmo, float(z), amplitude).items()}
+    return _halofit_power(_as_tensor(k_hmpc, device), cosmo, amplitude,
+                          par)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .._options import port_spelling
+
 __all__ = [
     "paint", "paint_ngp", "paint_cic", "paint_tsc",
     "compensation_kernel", "WINDOW_ORDER",
@@ -106,6 +108,7 @@ def _paint_one(pos_flat, ngrid, boxsize, weights, window, deposit):
     """pos_flat: (3n,) x, y and z concatenated; the scatter painters and
     NGP read it through an (n, 3) view."""
     device = pos_flat.device
+    deposit = port_spelling(deposit, {"pallas": "kernel"}, "deposit")
     if deposit is None:
         # CIC/TSC take the kernel on the card at every size (the JAX
         # package's size threshold is TPU tuning); the JAX package never
@@ -126,8 +129,8 @@ def _paint_one(pos_flat, ngrid, boxsize, weights, window, deposit):
         return paint_cuda.paint_windowed(pos_flat, w, ngrid, boxsize,
                                          order=WINDOW_ORDER[window])
     if deposit != "scatter":
-        raise ValueError(f"deposit must be None, 'scatter' or 'kernel', "
-                         f"got {deposit!r}")
+        raise ValueError(f"deposit must be None, 'scatter' or 'kernel' "
+                         f"('pallas'), got {deposit!r}")
     return _PAINTERS[window](rows, ngrid, boxsize, weights)
 
 
@@ -147,7 +150,8 @@ def paint(pos, ngrid: int, boxsize, weights=None, window: str = "cic",
       deposit: None (auto: 'kernel' for CIC/TSC on a CUDA tensor,
         'scatter' otherwise) | 'scatter' | 'kernel' (NGP through the sorted
         CUDA deposit K1, CIC/TSC through the windowed CUDA painter K2;
-        CUDA tensors only).
+        CUDA tensors only; the JAX package's spelling 'pallas' means the
+        same).
     """
     # one layout for every route: x, y and z concatenated (one copy)
     if isinstance(pos, (tuple, list)):

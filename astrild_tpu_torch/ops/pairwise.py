@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor
+from .._options import port_spelling
 from . import pairwise_cuda
 from .binred import masked_bin_reduce
 
@@ -113,7 +114,10 @@ def _pairwise_accumulate(pos, vel, n_valid, binnr: int, binwidth,
 
 def _resolve_backend(backend: str, device) -> bool:
     """True if the kernel runs: 'auto' takes it on a CUDA tensor and the
-    plain tiles on the CPU; 'kernel' on a CPU tensor raises."""
+    plain tiles on the CPU; 'kernel' on a CPU tensor raises. The JAX
+    package's 'pallas' and 'xla' mean 'kernel' and 'plain'."""
+    backend = port_spelling(backend, {"pallas": "kernel", "xla": "plain"},
+                            "backend")
     if backend == "auto":
         return device.type == "cuda"
     if backend == "kernel":
@@ -123,8 +127,8 @@ def _resolve_backend(backend: str, device) -> bool:
         return True
     if backend == "plain":
         return False
-    raise ValueError(f"backend must be 'auto', 'kernel' or 'plain', got "
-                     f"{backend!r}")
+    raise ValueError(f"backend must be 'auto', 'kernel' ('pallas') or "
+                     f"'plain' ('xla'), got {backend!r}")
 
 
 def mean_pairwise_velocity(pos_cart, vel_cart, bins, n_valid=None,
@@ -145,7 +149,8 @@ def mean_pairwise_velocity(pos_cart, vel_cart, bins, n_valid=None,
       n_valid: number of valid rows (for padded catalogs).
       backend: 'auto' (the pair-tile kernel K3 on a CUDA tensor, the plain
         tiles on the CPU), 'kernel' (CUDA tensors and uniform bins only)
-        or 'plain'. Uneven edges take the plain searchsorted path under
+        or 'plain'; the JAX package's 'pallas' and 'xla' mean 'kernel' and
+        'plain'. Uneven edges take the plain searchsorted path under
         'auto'; 'kernel' raises on them.
 
     Returns (rsep, v12): bin centers and the estimate (NaN on empty bins).
@@ -165,7 +170,7 @@ def mean_pairwise_velocity(pos_cart, vel_cart, bins, n_valid=None,
     n = pos_cart.shape[0] if n_valid is None else int(n_valid)
     if diffs.size and (not np.allclose(diffs, diffs[0], rtol=1e-5, atol=1e-8)
                        or edges_np[0] != 0.0):
-        if backend == "kernel":
+        if backend in ("kernel", "pallas"):
             raise ValueError("backend='kernel' needs uniform bins starting "
                              "at 0; uneven edges take the plain path "
                              "(backend='auto' or 'plain')")

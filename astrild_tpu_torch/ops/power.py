@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._options import port_spelling
 from ..utils.tables import tables_from_numpy
 from .paint import compensation_kernel
 from .paint_cuda import (deposit_flat, deposit_flat_segmented,
@@ -362,7 +363,8 @@ def auto_power_fast(pos, ngrid: int, boxsize: float, nbins: int = 0,
       counterpart of the JAX package's opt-in 'pallas_seg', meant for
       input whose order is spatially coherent, such as a snapshot read in
       file order; never auto-selected) | 'scatter' (`index_add_`). The
-      kernels take CUDA tensors only.
+      kernels take CUDA tensors only. The JAX package's spellings 'pallas'
+      and 'pallas_seg' mean 'kernel' and 'kernel_seg'.
 
     Returns the same binning as auto_power(grid(ngrid), nbins).
     """
@@ -372,12 +374,15 @@ def auto_power_fast(pos, ngrid: int, boxsize: float, nbins: int = 0,
     if binning is None:
         binning = get_fast_binning(ngrid, nbins, fine_factor, kmin, kmax,
                                    device=x.device)
+    deposit = port_spelling(deposit, {"pallas": "kernel",
+                                      "pallas_seg": "kernel_seg"}, "deposit")
     if deposit is None:
         deposit = "kernel" if x.device.type == "cuda" else "scatter"
         last_auto_deposit = deposit
     elif deposit not in ("kernel", "kernel_seg", "scatter"):
-        raise ValueError(f"deposit must be None, 'kernel', 'kernel_seg' or "
-                         f"'scatter', got {deposit!r}")
+        raise ValueError(f"deposit must be None, 'kernel' ('pallas'), "
+                         f"'kernel_seg' ('pallas_seg') or 'scatter', got "
+                         f"{deposit!r}")
     elif deposit != "scatter" and x.device.type != "cuda":
         raise ValueError(f"deposit={deposit!r} needs a CUDA tensor, got "
                          f"{x.device}")

@@ -11,3 +11,5 @@ C_LIGHT_KMS = 299792.458  # km/s
 H0_HUNITS = 100.0  # km/s / (Mpc/h)
 
 H0_OVER_C_HMPC = 1.0 / 2997.92458  # H0/c in h/Mpc (c = 1 units)
+
+DEG2RAD = 0.017453292519943295

@@ -67,7 +67,20 @@ exits non-zero before the final line:
      the scatter deposit's, the density's mass N to rtol 1e-5; the facade
      given the positions as read (numpy, no `device`) must run on the card
      (one more K1 launch) and give the same P(k);
-  9. time K1, K2, K3 and K4 against their plain versions and, for K1 and
+  9. the lightcone lane: `pm_lightcone_planes` at 512^3 particles on a
+     512^3 mesh (500 Mpc/h, fov 0.2 rad, 2048^2 pixels, 16 planes to
+     z = 1, a seeded randomize generator; K2 in every force evaluation, K1
+     once per plane), Born kappa, its C_ell against the halofit Limber
+     prediction, peaks, and the multi-plane ray trace of the same planes
+     against the Born map (at the pixel above a floor; above 0.99 on block
+     means, with the planes smoothed, and with the planes scaled down so
+     the rays stay on their Born lines; the rays' rms shift printed);
+     one plane through K1 against the per-plane scan on the card; then
+     five HEALPix shells (nside 1024, 150-650 Mpc/h, 27 box images) of the
+     GR z=0 snapshot through K1, their totals against a plain count, one
+     box image and a weighted call against `index_add_`, and Born kappa on
+     the sphere; K1 timed at the lane's two shapes;
+ 10. time K1, K2, K3 and K4 against their plain versions and, for K1 and
      K4, against `index_add_` at the main paths' shapes, in turns (plain,
      kernel, kernel, plain); K3's parts from a profiler trace, with the
      tile pairs it visits, the pairs they hold and the in-range pairs.
@@ -110,6 +123,23 @@ GROWTH_TOL = 0.05    # same-realization growth vs D(0)/D(z_init)
 MOMENTUM_TOL = 1e-3  # |sum p| / sum |p| after the evolution
 # the file lane: Gadget files of the GR snapshot, P(k) grid and bins
 LANE_FILES, LANE_NGRID, LANE_BINS = 8, 256, 64
+# the lightcone lane: field of view [rad], pixels, planes, source redshift,
+# KDK steps of the first leg and between planes; HEALPix shells
+LC_FOV, LC_NPIX, LC_PLANES, LC_Z_SOURCE = 0.2, 2048, 16, 1.0
+LC_STEPS_INIT, LC_STEPS_PLANE = 8, 2
+LC_NSIDE, LC_EDGES, LC_SHELL_SOURCE = 1024, (150.0, 650.0, 6), 700.0
+LC_WEIGHTED_N = 1 << 24
+# C_ell against halofit is held on bands below this multipole (k < 1.7
+# h/Mpc at the lensing kernel's peak, inside the 512^3 mesh's Nyquist
+# frequency of 3.2 h/Mpc). Born against ray-traced kappa: at the pixel the
+# planes' shot noise (1-2 particles a pixel a plane) decorrelates once a
+# ray leaves its Born line by a pixel, so the pixel-scale correlation is
+# held to a floor and the bar of 0.99 to block means of LC_BLOCK pixels a
+# side (5.5 arcmin), to planes smoothed over LC_SMOOTH pixels, and to the
+# same planes scaled by LC_WEAK, where the rays stay on their lines and
+# the trace must return the Born map pixel for pixel
+LC_ELL_MAX, LC_BLOCK = 2000.0, 16
+LC_PIXEL_CORR_FLOOR, LC_SMOOTH, LC_WEAK = 0.85, 4.0, 0.01
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -1267,6 +1297,401 @@ def phase_k4_timing(keys_file, keys_shuf) -> dict:
     return stats
 
 
+# ------------------------------------------------------------ lightcone
+def _span_ms(rows, names) -> dict:
+    """Device milliseconds and call counts of the named profiler spans."""
+    return {e.key: {"ms": e.device_time_total / 1e3, "count": e.count}
+            for e in rows if e.key in names}
+
+
+def _kernel_ms(rows, name: str) -> float:
+    """Device milliseconds of the kernels whose name holds `name`."""
+    return sum(e.self_device_time_total for e in rows
+               if name in e.key) / 1e3
+
+
+def _corr(a, b) -> float:
+    a = a.double() - a.double().mean()
+    b = b.double() - b.double().mean()
+    return float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
+
+
+def _mode_numbers_1d(n: int, dev):
+    """Integer FFT mode numbers of a length-n axis, float32."""
+    k = torch.arange(n, device=dev)
+    return ((k + n // 2) % n - n // 2).to(torch.float32)
+
+
+def _block_mean(img, f: int):
+    n = img.shape[-1] // f
+    return img.reshape(n, f, n, f).mean(dim=(1, 3))
+
+
+def _time_k1_against_index_add(keys, vals, n_cells: int) -> dict:
+    """K1 on sorted keys (weighted if `vals`) against `index_add_` of the
+    same keys and values, in turns; the byte bound of the same work."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    src = torch.ones(keys.shape[0], device=keys.device) if vals is None \
+        else vals
+    out = torch.empty(n_cells, device=keys.device)
+
+    def library():
+        out.zero_()
+        return out.index_add_(0, keys, src)
+
+    fns = {"kernel": lambda: paint_cuda.deposit_sorted(keys, vals, n_cells),
+           "plain": lambda: paint_cuda.deposit_sorted_reference(keys, vals,
+                                                                n_cells),
+           "index_add": library}
+    ms = {k: [] for k in fns}
+    for turn in (list(fns), list(fns)[::-1]):
+        for name in turn:
+            ms[name].append(_event_ms(fns[name], 5))
+    n = keys.shape[0]
+    bound = bound_ms((4 if vals is None else 8) * n + 4 * n_cells, n)
+    return {"n_keys": n, "n_cells": n_cells, "weighted": vals is not None,
+            "mean": {k: sum(v) / len(v) for k, v in ms.items()},
+            "turns": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def lightcone_planes(dev, seed: int, out_gr) -> dict:
+    """`pm_lightcone_planes` at full width under the profiler, its checks,
+    Born kappa, C_ell against halofit, peaks, the ray trace, and one plane
+    of the GR z=0 snapshot through K1 against the scan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from astrild_tpu_torch.ops import (angular_power, lens_planes, lensing,
+                                       linear_power, nbody, paint_cuda,
+                                       peaks, raytrace)
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    gr = Cosmology(Om0=0.3, h=0.7)
+    amp = linear_power.normalization(gr)
+
+    def pk_fn(k):
+        return linear_power.linear_power(k, gr, 0.0, amplitude=amp)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    rgen = torch.Generator(device=dev).manual_seed(seed + 104)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launch counts cover exactly the lightcone call
+    paint_cuda.LAUNCHES.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        delta, chis, dchi = nbody.pm_lightcone_planes(
+            gen, gr, pk_fn, PM_SIDE, BOX, LC_FOV, LC_NPIX, LC_PLANES,
+            z_source=LC_Z_SOURCE, z_init=Z_INIT, nsteps_init=LC_STEPS_INIT,
+            steps_per_plane=LC_STEPS_PLANE, randomize_generator=rgen)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+    launches = dict(paint_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = prof.key_averages()
+    pm_spans = ("pm.paint", "pm.poisson", "pm.gather", "pm.kick", "pm.drift")
+    spans = _span_ms(rows, ("lightcone.plane", "planes.keys",
+                            "planes.flush") + pm_spans)
+    evolve_s = sum(spans[k]["ms"] for k in pm_spans) / 1e3
+    k1_ms = _kernel_ms(rows, "deposit_sorted_kernel")
+    del prof, rows
+
+    # ---- checks
+    steps = LC_STEPS_INIT + (LC_PLANES - 1) * LC_STEPS_PLANE
+    # every pm_evolve call evaluates the force once before its first step
+    expect = {"deposit_sorted": LC_PLANES, "paint_windowed": steps + LC_PLANES}
+    if any(launches.get(k, 0) != v for k, v in expect.items()):
+        raise AssertionError(f"lightcone launches {launches}, expected "
+                             f"{expect}")
+    if spans["planes.flush"]["count"] != LC_PLANES:
+        raise AssertionError(f"lightcone flushed {spans['planes.flush']} "
+                             f"times, not once per plane")
+    if tuple(delta.shape) != (LC_PLANES, LC_NPIX, LC_NPIX) \
+            or not bool(torch.isfinite(delta).all()):
+        raise AssertionError("lightcone planes: wrong shape or not finite")
+    means = delta.mean(dim=(1, 2))
+    stds = delta.std(dim=(1, 2), correction=0)
+    if bool((means.abs() >= 0.5 * stds).any()):
+        raise AssertionError(f"lightcone planes: |mean| not below half the "
+                             f"std: {means.tolist()} vs {stds.tolist()}")
+    chi_s = float(gr.comoving_distance(LC_Z_SOURCE))
+    far = (LC_PLANES - 0.5) / LC_PLANES * chi_s
+    if abs(float(chis[-1]) - far) > 1e-2 * chi_s \
+            or abs(dchi * LC_PLANES - chi_s) > 1e-3 * chi_s:
+        raise AssertionError(f"lightcone geometry: chis[-1] {float(chis[-1])}"
+                             f", dchi {dchi}, chi_s {chi_s}")
+
+    z_pl = gr.redshift_at_comoving_distance(chis.cpu().numpy())
+    a_pl = torch.as_tensor(1.0 / (1.0 + z_pl), dtype=torch.float32,
+                           device=dev)
+    dchis = torch.full((LC_PLANES,), dchi, device=dev)
+    kappa = lensing.born_convergence(delta, chis, dchis, chi_s, gr.Om0,
+                                     scale_factors=a_pl)
+    # C_ell over the halofit Limber prediction in ten bands: over the
+    # whole map (bands 3,200 wide, most of them beyond the force mesh's
+    # resolution: reported) and below LC_ELL_MAX (held to the bars of the
+    # JAX package's own lightcone test)
+    bands = {}
+    for name, ell_max in (("whole_map", None), ("resolved", LC_ELL_MAX)):
+        ell, cl = angular_power.cl_flat_sky(kappa, math.degrees(LC_FOV),
+                                            nbins=10, ell_max=ell_max)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        theory = angular_power.cl_kappa_limber(ell, gr, LC_Z_SOURCE,
+                                               nonlinear=True)
+        torch.cuda.synchronize()
+        limber_s = time.perf_counter() - t0
+        ratio = (cl / theory).double().cpu().numpy()
+        bands[name] = {"ell": ell.tolist(), "cl_over_halofit": ratio.tolist(),
+                       "band_1_4_mean": float(ratio[1:5].mean())}
+    ratio = np.asarray(bands["resolved"]["cl_over_halofit"])
+    band = bands["resolved"]["band_1_4_mean"]
+    if not 0.55 < band < 1.45 or ratio[0] >= 2.0:
+        raise AssertionError(f"lightcone: C_ell / halofit below ell "
+                             f"{LC_ELL_MAX}: bands {ratio.tolist()}")
+    cat = peaks.find_peaks(kappa, threshold=2.0 * float(kappa.std()))
+    if int(cat.n) == 0 or not bool(torch.isfinite(cat.values[0])):
+        raise AssertionError("lightcone: no kappa peak above 2 sigma")
+
+    def trace(planes):
+        return raytrace.multiplane_raytrace(planes, chis, dchis, chi_s,
+                                            gr.Om0, LC_FOV,
+                                            scale_factors=a_pl)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced = trace(delta)
+    torch.cuda.synchronize()
+    raytrace_s = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(t).all()) for t in traced.values()):
+        raise AssertionError("lightcone: the ray-traced maps are not finite")
+    corr = {f: _corr(_block_mean(traced["kappa"], f), _block_mean(kappa, f))
+            for f in (1, 4, 8, LC_BLOCK, 32)}
+    omega_share = float(traced["omega"].std() / kappa.std())
+    # how far the rays end from their Born lines, in pixels (rms)
+    theta = torch.arange(LC_NPIX, device=dev) * (LC_FOV / LC_NPIX)
+    ray_shift_pix = float(torch.sqrt(
+        ((traced["beta1"] - theta[:, None]) ** 2
+         + (traced["beta2"] - theta[None, :]) ** 2).mean())
+        / (LC_FOV / LC_NPIX))
+    del traced
+    # the same trace where the rays stay on their lines: the planes scaled
+    # down, at the same size and field, pixel against pixel
+    weak = trace(LC_WEAK * delta)["kappa"] / LC_WEAK
+    corr_weak = _corr(weak, kappa)
+    # (the periodic solve carries no mean, so the maps' means are taken out)
+    weak_err = float(((weak - weak.mean()) - (kappa - kappa.mean()))
+                     .abs().max() / kappa.abs().max())
+    del weak
+    # and with the shot noise smoothed over more than the rays' shift: the
+    # planes under a periodic Gaussian of LC_SMOOTH pixels, Born and traced
+    f = _mode_numbers_1d(LC_NPIX, dev)
+    gauss = torch.exp(-0.5 * (2.0 * math.pi * LC_SMOOTH / LC_NPIX) ** 2
+                      * (f[:, None] ** 2 + f[None, :LC_NPIX // 2 + 1] ** 2))
+    smooth = torch.fft.irfft2(torch.fft.rfft2(delta) * gauss,
+                              s=(LC_NPIX, LC_NPIX))
+    corr_smooth = _corr(
+        trace(smooth)["kappa"],
+        lensing.born_convergence(smooth, chis, dchis, chi_s, gr.Om0,
+                                 scale_factors=a_pl))
+    del smooth, gauss
+    if corr[1] <= LC_PIXEL_CORR_FLOOR or corr[LC_BLOCK] <= 0.99 \
+            or corr_weak <= 0.999 or corr_smooth <= 0.99 \
+            or omega_share >= 0.05:
+        raise AssertionError(
+            f"lightcone: ray-traced against Born kappa: correlation by "
+            f"block size {corr} (pixel floor {LC_PIXEL_CORR_FLOOR}, "
+            f"{LC_BLOCK} x {LC_BLOCK} blocks > 0.99), planes x {LC_WEAK} "
+            f"{corr_weak} (> 0.999), planes smoothed over {LC_SMOOTH} "
+            f"pixels {corr_smooth} (> 0.99), omega rms {omega_share} of "
+            f"kappa rms (< 0.05)")
+
+    # one plane (the farthest geometry) of the GR z=0 snapshot through K1
+    # against the per-plane scan on the same particles
+    geometry = (BOX, far, dchi, 1, LC_FOV, LC_NPIX, 2, None, 0)
+    got, _ = lens_planes._plane_counts_deposit(out_gr, *geometry)
+    want, _ = lens_planes._plane_counts_scan(out_gr, *geometry)
+    scan_err = float((got - want).abs().max())
+    scan_max = float(want.max())
+    sums = float(got.double().sum()), float(want.double().sum())
+    if scan_err > 1e-4 * scan_max + 1e-3 \
+            or abs(sums[0] - sums[1]) > 1e-6 * sums[1]:
+        raise AssertionError(f"lens plane through K1 differs from the scan: "
+                             f"max err {scan_err} on counts up to "
+                             f"{scan_max}; sums {sums}")
+    del got, want
+
+    # K1 at the lane's plane shape: the farthest plane's sorted entries
+    keys, vals = lens_planes.sorted_plane_entries(out_gr, BOX, far, dchi,
+                                                  LC_FOV, LC_NPIX)
+    vals = vals.contiguous()
+    k1_timing = _time_k1_against_index_add(keys, vals, LC_NPIX ** 2 + 1)
+    del keys, vals
+
+    per_plane = {
+        "key_pass_ms": spans["planes.keys"]["ms"] / LC_PLANES,
+        "sort_ms": (spans["planes.flush"]["ms"] - k1_ms) / LC_PLANES,
+        "k1_ms": k1_ms / LC_PLANES,
+        "whole_ms": spans["lightcone.plane"]["ms"] / LC_PLANES}
+    log(f"# phase lightcone: planes finite; K1 launches "
+        f"{launches['deposit_sorted']}, K2 {launches['paint_windowed']}; "
+        f"C_ell/halofit below ell {LC_ELL_MAX:.0f} bands "
+        f"{np.round(ratio, 3).tolist()}, bands 1-4 mean {band:.3f} (over "
+        f"the whole map {bands['whole_map']['band_1_4_mean']:.3f}); "
+        f"{int(cat.n)} peaks above 2 sigma, highest "
+        f"{float(cat.values[0]):.4f}; rays end {ray_shift_pix:.2f} pixels "
+        f"(rms) from their Born lines; ray trace vs Born correlation "
+        f"{corr[1]:.5f} at the pixel, {corr[LC_BLOCK]:.5f} on {LC_BLOCK} x "
+        f"{LC_BLOCK} block means, {corr_weak:.6f} at the pixel with the "
+        f"planes x {LC_WEAK} (max err {weak_err:.2e} of max), "
+        f"{corr_smooth:.5f} at the pixel with the planes smoothed over "
+        f"{LC_SMOOTH:.0f} pixels; omega rms {omega_share:.4f} of kappa rms; "
+        f"one plane through K1 vs the scan "
+        f"max err {scan_err:.3e} on counts up to {scan_max:.1f}")
+    return {"whole_s": whole_s,
+            "evolve_s": evolve_s,
+            "planes_s": spans["lightcone.plane"]["ms"] / 1e3,
+            "per_plane_ms": per_plane, "limber_s": limber_s,
+            "raytrace_s": raytrace_s, "peak_mem_gb": peak_gb,
+            "launches": launches, "cl_bands": bands,
+            "kappa_rms": float(kappa.std()), "peaks_2sigma": int(cat.n),
+            "raytrace_born_corr_by_block": corr,
+            "ray_shift_rms_pixels": ray_shift_pix,
+            "raytrace_born_corr_weak_planes": corr_weak,
+            "raytrace_born_weak_max_err": weak_err,
+            "raytrace_born_corr_smoothed_planes": corr_smooth,
+            "omega_rms_over_kappa_rms": omega_share,
+            "plane_vs_scan_max_err": scan_err, "plane_count_max": scan_max,
+            "k1_plane_timing_ms": k1_timing}
+
+
+def lightcone_shells(dev, seed: int, out_gr) -> dict:
+    """HEALPix shells of the GR z=0 snapshot through K1 under the profiler
+    and their checks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from astrild_tpu_torch.ops import lightcone_sphere, paint_cuda
+
+    n = out_gr[0].shape[0]
+    edges = np.linspace(*LC_EDGES)
+    nshell = len(edges) - 1
+    npix = 12 * LC_NSIDE ** 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launch counts cover exactly the shell call
+    paint_cuda.LAUNCHES.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        delta, chis, dchis = lightcone_sphere.density_shells_healpix(
+            out_gr, edges, LC_NSIDE, BOX)
+        torch.cuda.synchronize()
+        shells_s = time.perf_counter() - t0
+    launches = dict(paint_cuda.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = prof.key_averages()
+    spans = _span_ms(rows, ("shells.keys", "shells.flush"))
+    k1_ms = _kernel_ms(rows, "deposit_sorted_kernel")
+    del prof, rows
+    flushes = spans["shells.flush"]["count"]
+    if launches.get("deposit_sorted", 0) != flushes or flushes < 1:
+        raise AssertionError(f"shells launched K1 {launches} times in "
+                             f"{flushes} flushes")
+    if spans["shells.keys"]["count"] != 27:
+        raise AssertionError(f"shells painted {spans['shells.keys']} box "
+                             f"images, not 27")
+    kappa = lightcone_sphere.born_convergence_healpix(
+        delta, chis, dchis, LC_SHELL_SOURCE, 0.3)
+    means = delta.mean(dim=1)
+    if tuple(delta.shape) != (nshell, npix) \
+            or not bool(torch.isfinite(kappa).all()) \
+            or bool((means.abs() > 0.05).any()):
+        raise AssertionError(f"shells: shape {tuple(delta.shape)}, kappa "
+                             f"finite {bool(torch.isfinite(kappa).all())}, "
+                             f"shell means {means.tolist()}")
+    # the counts back from delta = counts / expected - 1: float32 leaves
+    # them within ~1e-5 of their integers, far from a half
+    expected = (n / BOX ** 3) * (4.0 * math.pi / npix) \
+        * np.diff(edges ** 3) / 3.0
+    counts = (delta.double() + 1.0) \
+        * torch.as_tensor(expected, device=dev)[:, None]
+    if float((counts - counts.round()).abs().max()) > 1e-2:
+        raise AssertionError("shells: delta does not give back whole counts")
+    total = int(counts.round().sum())
+    del delta, kappa, counts
+
+    # they hold every (particle, image) pair inside the radial range,
+    # counted by a plain pass with the key pass's own float32 distance
+    e32 = edges.astype(np.float32)
+    x, y, z = out_gr
+    obs = BOX / 2.0
+    pairs = 0
+    for kx in (-1, 0, 1):
+        for ky in (-1, 0, 1):
+            for kz in (-1, 0, 1):
+                dx = x + (kx * BOX - obs)
+                dy = y + (ky * BOX - obs)
+                dz = z + (kz * BOX - obs)
+                chi = torch.sqrt(dx * dx + dy * dy + dz * dz)
+                pairs += int(((chi >= float(e32[0])) & (chi < float(e32[-1]))
+                              & (chi > 0)).sum())
+    if total != pairs:
+        raise AssertionError(f"shells hold {total} counts, and {pairs} "
+                             f"(particle, image) pairs lie in range")
+
+    # the central box image through K1 against index_add_: equal counts
+    edges_dev = torch.as_tensor(e32, device=dev)
+    keys, _ = lightcone_sphere._shell_keys(x - obs, y - obs, z - obs,
+                                           edges_dev, None, LC_NSIDE, nshell)
+    got = paint_cuda.deposit_flat(keys, None, nshell * npix)
+    want = torch.zeros(nshell * npix, device=dev).index_add_(
+        0, keys, torch.ones(keys.shape[0], device=dev))
+    if not torch.equal(got, want):
+        raise AssertionError("shells: one box image through K1 differs "
+                             "from index_add_")
+    del got, want
+    k1_timing = _time_k1_against_index_add(
+        torch.sort(keys, stable=False)[0], None, nshell * npix)
+    del keys
+
+    # a weighted call against the scatter deposit of the same keys
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    sub = tuple(c[:LC_WEIGHTED_N] for c in out_gr)
+    w = torch.rand(LC_WEIGHTED_N, generator=gen, device=dev) + 0.5
+    got = lightcone_sphere.shell_counts_healpix(sub, edges, LC_NSIDE, BOX,
+                                                weights=w)
+    want = lightcone_sphere.shell_counts_healpix(sub, edges, LC_NSIDE, BOX,
+                                                 weights=w,
+                                                 deposit="scatter")
+    w_err, w_max = float((got - want).abs().max()), float(want.max())
+    if w_err > WEIGHTED_TOL * w_max:
+        raise AssertionError(f"shells: weighted K1 differs from index_add_: "
+                             f"max err {w_err} > {WEIGHTED_TOL} * {w_max}")
+    del got, want
+    log(f"# phase lightcone: shells: K1 launches "
+        f"{launches['deposit_sorted']} in {flushes} flushes; {total} counts "
+        f"= the (particle, image) pairs in range ({total / (27 * n):.4f} of "
+        f"all); shell means {np.round(means.tolist(), 4).tolist()}; one "
+        f"image equal to index_add_; weighted max err {w_err:.3e} on "
+        f"counts up to {w_max:.1f}")
+    return {"shells_s": shells_s,
+            "shells_key_pass_s": spans["shells.keys"]["ms"] / 1e3,
+            "shells_sort_s": (spans["shells.flush"]["ms"] - k1_ms) / 1e3,
+            "shells_k1_s": k1_ms / 1e3, "shells_flushes": flushes,
+            "shells_launches": launches, "shells_keys": total,
+            "shells_peak_mem_gb": peak_gb,
+            "shell_means": means.tolist(), "shells_weighted_max_err": w_err,
+            "k1_shell_timing_ms": k1_timing}
+
+
+def phase_lightcone(dev, seed: int, out_gr) -> dict:
+    result = {**lightcone_planes(dev, seed, out_gr),
+              **lightcone_shells(dev, seed, out_gr)}
+    log("# lightcone " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -1359,6 +1784,7 @@ def main() -> None:
     k2 = phase_k2_timing(out_gr)["cic"]
     lane_launches, k4_err, lane_keys = phase_file_lane(dev, args.seed,
                                                        out_gr, mom_gr)
+    lightcone = phase_lightcone(dev, args.seed, out_gr)
     del out_gr, mom_gr
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
@@ -1404,6 +1830,20 @@ def main() -> None:
     k3_row = next(k for k in kernels if k["name"] == "pairwise_accumulate")
     k3_row["bound_all_pairs_ms"] = bound_ms(
         24 * n_tr, K3_OPS_PER_PAIR * n_tr * (n_tr - 1) / 2)[0]
+    # the lightcone lane's launches, and K1 at its two shapes there (the
+    # farthest plane's weighted entries, one box image's shell keys)
+    k1_row = next(k for k in kernels if k["name"] == "deposit_sorted")
+    k1_row["lightcone"] = {
+        "planes_launches": lightcone["launches"]["deposit_sorted"],
+        "shells_launches": lightcone["shells_launches"]["deposit_sorted"],
+        **{shape: {"n_keys": t["n_keys"], "n_cells": t["n_cells"],
+                   "ms": t["mean"]["kernel"], "plain_ms": t["mean"]["plain"],
+                   "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                   "library_ms": t["mean"]["index_add"]}
+           for shape, t in (("plane", lightcone["k1_plane_timing_ms"]),
+                            ("shell", lightcone["k1_shell_timing_ms"]))}}
+    k2_row = next(k for k in kernels if k["name"] == "paint_windowed")
+    k2_row["lightcone_launches"] = lightcone["launches"]["paint_windowed"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

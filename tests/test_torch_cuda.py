@@ -12,6 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from astrild_tpu_torch import suite  # noqa: E402
+from astrild_tpu_torch.ops import lens_planes as TLP  # noqa: E402
+from astrild_tpu_torch.ops import lightcone_sphere as TLS  # noqa: E402
 from astrild_tpu_torch.ops import paint as TP  # noqa: E402
 from astrild_tpu_torch.ops import paint_cuda as TPC  # noqa: E402
 from astrild_tpu_torch.ops import nbody as TN  # noqa: E402
@@ -617,3 +619,259 @@ def test_pm_evolve_on_card_matches_cpu(cuda):
     for g, c in zip(mom_g, mom_c):
         torch.testing.assert_close(g.cpu(), c, rtol=0,
                                    atol=1e-3 * float(c.abs().max()))
+
+
+# ------------------------------------------------ K1's lightcone callers
+LIGHTCONE_BOX = 500.0
+# (chi0, dchi, nplanes, fov, npix, n_rep): a narrow cone, and a wide one
+# whose planes span several box depths along the line of sight
+CONES = {"narrow": (200.0, 31.25, 8, 0.35, 64, 0),
+         "wide_nrep1": (950.0, 100.0, 6, 0.6, 32, 1)}
+
+
+def _lightcone_pos(dev, n=200000, seed=5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.rand(n, generator=gen, device=dev) * LIGHTCONE_BOX
+                 for _ in range(3))
+
+
+def _deposit_flushes(monkeypatch, budget, *args):
+    """`_plane_counts_deposit(*args)` with room for `budget` entries a
+    flush (None: what the card reports); returns (counts, chis, the
+    entries of each flush)."""
+    sizes = []
+    real = TPC.deposit_flat
+
+    def recording(keys, weights, n_cells):
+        sizes.append(keys.shape[0])
+        return real(keys, weights, n_cells)
+
+    with monkeypatch.context() as patch:
+        patch.setattr(TPC, "deposit_flat", recording)
+        if budget is not None:
+            patch.setattr(TLP, "_entry_budget", lambda dev, n_cells: budget)
+        counts, chis = TLP._plane_counts_deposit(*args)
+    return counts, chis, sizes
+
+
+@pytest.mark.parametrize("cone", sorted(CONES))
+@pytest.mark.parametrize("group", [None, 1, 4])
+def test_lens_planes_k1_matches_scan(cuda, cone, group, monkeypatch):
+    """The lens planes through K1 against the per-plane scan on the same
+    particles, weighted, off-centre observer: atol 1e-4 of the largest
+    count + 1e-3, sums to rtol 1e-6; one K1 launch per flush. With room
+    for `group` times the largest plane's entries the planes go in the
+    groups that room gives (one plane a flush on the far planes at
+    `group` 1) and add up to the same counts."""
+    chi0, dchi, nplanes, fov, npix, n_rep = CONES[cone]
+    pos = _lightcone_pos(cuda)
+    w = torch.rand(pos[0].shape[0], device=cuda) + 0.5
+    oxy = (123.0, 377.5)
+    want, _ = TLP._plane_counts_scan(pos, LIGHTCONE_BOX, chi0, dchi, nplanes,
+                                     fov, npix, 2, oxy, n_rep, w)
+    # each plane's entries, from one-plane calls (chi0 and dchi are exact
+    # in float32, so these are the stacked call's planes)
+    per_plane = [_deposit_flushes(monkeypatch, None, pos, LIGHTCONE_BOX,
+                                  chi0 + i * dchi, dchi, 1, fov, npix, 2,
+                                  oxy, n_rep, w)[2][0]
+                 for i in range(nplanes)]
+    budget = None if group is None else group * max(per_plane)
+    groups = [0]
+    for e in per_plane:
+        if budget is not None and groups[-1] and groups[-1] + e > budget:
+            groups.append(0)
+        groups[-1] += e
+    before = TPC.LAUNCHES["deposit_sorted"]
+    got, chis, sizes = _deposit_flushes(monkeypatch, budget, pos,
+                                        LIGHTCONE_BOX, chi0, dchi, nplanes,
+                                        fov, npix, 2, oxy, n_rep, w)
+    assert sizes == groups
+    assert len(sizes) == 1 if group is None else len(sizes) > 1
+    assert TPC.LAUNCHES["deposit_sorted"] == before + len(sizes)
+    assert got.device.type == "cuda" and chis.device.type == "cuda"
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.max()) + 1e-3
+    assert abs(float(got.double().sum()) - float(want.double().sum())) \
+        <= 1e-6 * float(want.double().sum())
+
+
+def test_density_planes_take_k1_on_the_card(cuda):
+    """`density_planes_from_particles` launches K1 for a CUDA tensor and
+    for numpy input (which lands on the card), and agrees with its CPU run
+    (the scan) to rtol 1e-4 of the largest |delta|."""
+    pos = torch.stack(_lightcone_pos(cuda, n=100000), dim=1)
+    args = (LIGHTCONE_BOX, 600.0, 200.0, 3, 0.1, 32)
+    before = TPC.LAUNCHES["deposit_sorted"]
+    got, chis = TLP.density_planes_from_particles(pos, *args)
+    assert TPC.LAUNCHES["deposit_sorted"] == before + 1
+    from_numpy, _ = TLP.density_planes_from_particles(pos.cpu().numpy(),
+                                                      *args)
+    assert TPC.LAUNCHES["deposit_sorted"] == before + 2
+    assert from_numpy.device.type == "cuda"
+    cpu, _ = TLP.density_planes_from_particles(pos.cpu(), *args)
+    scale = float(cpu.abs().max())
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale
+    assert float((from_numpy.cpu() - cpu).abs().max()) <= 1e-4 * scale
+    assert chis.tolist() == [600.0, 800.0, 1000.0]
+
+
+def test_lens_planes_refuse_what_cannot_fit(cuda, monkeypatch):
+    """2^31 cells or more raise before any key is built; a plane whose
+    entries pass the card's room (set here) raises with both sizes and
+    launches nothing."""
+    pos = _lightcone_pos(cuda, n=20000)
+    before = TPC.LAUNCHES["deposit_sorted"]
+    with pytest.raises(ValueError, match="2\\^31"):
+        TLP._plane_counts_deposit(pos, LIGHTCONE_BOX, 300.0, 100.0, 512,
+                                  0.05, 2048, 2, None, 0)
+    assert TLP._entry_budget(cuda, 1 << 20) > 1 << 20
+    monkeypatch.setattr(TLP, "_entry_budget", lambda dev, n_cells: 1000)
+    with pytest.raises(RuntimeError, match="room for 1000"):
+        TLP._plane_counts_deposit(pos, LIGHTCONE_BOX, 950.0, 100.0, 6, 0.6,
+                                  32, 2, None, 1)
+    assert TPC.LAUNCHES["deposit_sorted"] == before
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_shells_k1_matches_index_add(cuda, weighted):
+    """HEALPix shells through K1 against `index_add_` of the same keys
+    (`deposit="scatter"`): counts equal, weighted sums within 2e-5 * max;
+    the JAX package's spelling "pallas" is the kernel; numpy input lands
+    on the card."""
+    pos = torch.stack(_lightcone_pos(cuda), dim=1)
+    w = torch.rand(pos.shape[0], device=cuda) + 0.5 if weighted else None
+    edges = np.array([150.0, 300.0, 450.0, 650.0])
+    before = TPC.LAUNCHES["deposit_sorted"]
+    got = TLS.shell_counts_healpix(pos, edges, 64, LIGHTCONE_BOX, weights=w)
+    assert TPC.LAUNCHES["deposit_sorted"] == before + 1
+    want = TLS.shell_counts_healpix(pos, edges, 64, LIGHTCONE_BOX, weights=w,
+                                    deposit="scatter")
+    assert TPC.LAUNCHES["deposit_sorted"] == before + 1
+    if weighted:
+        assert float((got - want).abs().max()) <= 2e-5 * float(want.max())
+    else:
+        assert torch.equal(got, want)
+    alias = TLS.shell_counts_healpix(pos, edges, 64, LIGHTCONE_BOX,
+                                     weights=w, deposit="pallas")
+    assert TPC.LAUNCHES["deposit_sorted"] == before + 2
+    assert float((alias - got).abs().max()) <= 2e-5 * float(want.max())
+    from_numpy = TLS.shell_counts_healpix(
+        pos.cpu().numpy(), edges, 64, LIGHTCONE_BOX,
+        weights=None if w is None else w.cpu().numpy())
+    assert from_numpy.device.type == "cuda"
+    assert float((from_numpy - got).abs().max()) <= 2e-5 * float(want.max())
+
+
+def test_shells_grouped_flushes_on_the_card(cuda, monkeypatch):
+    """A room for one box image's keys flushes image by image (one K1
+    launch each) and gives the same counts; no room raises with its
+    sizes."""
+    pos = _lightcone_pos(cuda, n=50000)
+    edges = np.array([150.0, 400.0, 650.0])
+    want = TLS.shell_counts_healpix(pos, edges, 16, LIGHTCONE_BOX)
+    monkeypatch.setattr(TLS, "_entry_budget", lambda dev, n: 50000)
+    before = TPC.LAUNCHES["deposit_sorted"]
+    got = TLS.shell_counts_healpix(pos, edges, 16, LIGHTCONE_BOX)
+    assert TPC.LAUNCHES["deposit_sorted"] - before > 5
+    assert torch.equal(got, want)
+    monkeypatch.setattr(TLS, "_entry_budget", lambda dev, n: 10)
+    with pytest.raises(RuntimeError, match="room for 10"):
+        TLS.shell_counts_healpix(pos, edges, 16, LIGHTCONE_BOX)
+
+
+def test_lightcone_numpy_input_lands_on_the_card(cuda):
+    """The lane's entry points that take maps, shells or wavenumbers put
+    numpy input on the card and agree there with their CPU runs (rtol 1e-4
+    of the largest value: FFTs and float32 sums in another order)."""
+    from astrild_tpu_torch.ops import angular_power as TAP
+    from astrild_tpu_torch.ops import linear_power as TL
+    from astrild_tpu_torch.ops import raytrace as TRT
+
+    rng = np.random.default_rng(3)
+    tc = Cosmology(Om0=0.3, h=0.7)
+    img = rng.standard_normal((32, 32)).astype(np.float32)
+    planes = (0.1 * rng.standard_normal((2, 32, 32))).astype(np.float32)
+    shells = (0.1 * rng.standard_normal((2, 48))).astype(np.float32)
+    k = np.geomspace(0.01, 5.0, 8).astype(np.float32)
+    chis, dchis = [500.0, 900.0], [400.0, 400.0]
+    calls = {
+        "multiplane_raytrace": lambda **kw: TRT.multiplane_raytrace(
+            planes, chis, dchis, 1500.0, 0.3, 0.05, **kw)["kappa"],
+        "plane_deflection_fields": lambda **kw: TRT.plane_deflection_fields(
+            img, 0.05, **kw)[0],
+        "born_convergence_healpix": lambda **kw:
+            TLS.born_convergence_healpix(shells, chis, dchis, 1500.0, 0.3,
+                                         **kw),
+        "flat_sky_mode_counts": lambda **kw: TAP.flat_sky_mode_counts(
+            32, 5.0, nbins=4, **kw)[1],
+        "cl_flat_sky": lambda **kw: TAP.cl_flat_sky(img, 5.0, nbins=4,
+                                                    **kw)[1],
+        "cl_flat_sky_cross": lambda **kw: TAP.cl_flat_sky_cross(
+            img, img[::-1].copy(), 5.0, nbins=4, **kw)[1],
+        "nonlinear_power": lambda **kw: TL.nonlinear_power(k, tc, 0.5, **kw),
+        "linear_power": lambda **kw: TL.linear_power(k, tc, 0.5, **kw),
+    }
+    for name, call in calls.items():
+        got, cpu = call(), call(device="cpu")
+        assert got.device.type == "cuda" and cpu.device.type == "cpu", name
+        assert float((got.cpu() - cpu).abs().max()) \
+            <= 1e-4 * float(cpu.abs().max()), name
+
+
+def test_jax_spellings_run_the_kernels_on_the_card(cuda):
+    """`deposit="pallas"` / `"pallas_seg"` and `backend="pallas"` launch
+    the kernels their port spellings launch and give the same results."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    pos = torch.rand((100000, 3), generator=gen, device=cuda) * BOX
+    for jax_name, port_name, counter in (
+            ("pallas", "kernel", "deposit_sorted"),
+            ("pallas_seg", "kernel_seg", "deposit_segmented")):
+        before = TPC.LAUNCHES[counter]
+        a = TPS.auto_power_fast(pos, 32, BOX, nbins=8, deposit=jax_name)
+        b = TPS.auto_power_fast(pos, 32, BOX, nbins=8, deposit=port_name)
+        assert TPC.LAUNCHES[counter] == before + 2
+        assert torch.equal(a.power, b.power)
+    before = TPC.LAUNCHES["paint_windowed"]
+    a = TP.paint(pos, 32, BOX, deposit="pallas")
+    b = TP.paint(pos, 32, BOX, deposit="kernel")
+    assert TPC.LAUNCHES["paint_windowed"] == before + 2
+    # K2's float atomics land in another order from run to run
+    assert float((a - b).abs().max()) <= 2e-5 * float(b.max())
+    vel = torch.randn((100000, 3), generator=gen, device=cuda) * 300.0
+    bins = np.linspace(0.0, 40.0, 9)
+    before = TPWC.LAUNCHES["pairwise_accumulate"]
+    _, a = TPW.mean_pairwise_velocity(pos[:4000], vel[:4000], bins,
+                                      backend="pallas")
+    _, b = TPW.mean_pairwise_velocity(pos[:4000], vel[:4000], bins,
+                                      backend="kernel")
+    assert TPWC.LAUNCHES["pairwise_accumulate"] == before + 2
+    assert torch.equal(a, b)
+    _, c = TPW.mean_pairwise_velocity(pos[:1000], vel[:1000], bins,
+                                      backend="xla")
+    assert TPWC.LAUNCHES["pairwise_accumulate"] == before + 2
+    assert bool(torch.isfinite(c).all())
+
+
+def test_pm_lightcone_planes_on_card_matches_cpu(cuda):
+    """The lightcone forward model from the same modes and shifts on the
+    card (K2 every force evaluation, K1 every plane) and on the CPU: rtol
+    5e-3 of each plane's max |delta| (two float32 PM runs)."""
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+    rng = np.random.default_rng(2)
+    n, box = 32, 200.0
+    dk = np.fft.fftn(rng.standard_normal((n, n, n))).astype(np.complex64)
+    dk *= 3.0
+    args = (cosmo, n, box, 0.05, 32, 6)
+    kw = dict(z_source=0.4, nsteps_init=4, steps_per_plane=1,
+              shifts=rng.uniform(0, box, (5, 2)))
+    launches = dict(TPC.LAUNCHES)
+    got, chis, dchi = TN.pm_lightcone_planes_from_modes(dk, *args, **kw)
+    assert got.device.type == "cuda"  # numpy modes land on the card
+    assert TPC.LAUNCHES["deposit_sorted"] == launches.get(
+        "deposit_sorted", 0) + 6
+    assert TPC.LAUNCHES["paint_windowed"] == launches.get(
+        "paint_windowed", 0) + 4 + 5 + 6
+    want, _, _ = TN.pm_lightcone_planes_from_modes(dk, *args, device="cpu",
+                                                   **kw)
+    for i in range(6):
+        scale = float(want[i].abs().max())
+        assert float((got[i].cpu() - want[i]).abs().max()) <= 5e-3 * scale

@@ -30,8 +30,14 @@ from astrild_tpu_torch.utils.tables import tables_from_numpy  # noqa: E402
 def _two_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+    # beside JAX in one process, torch's first threaded float32 sqrt now
+    # and then comes back 2^-12 low on the second thread's half of the
+    # array; a first call below the threading grain settles it
+    torch.sqrt(torch.ones(16))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 def T(a):

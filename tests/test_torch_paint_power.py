@@ -41,8 +41,14 @@ for _ngrid, _nbins in ((16, 6), (8, 4), (4, 3)):
 def _two_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+    # beside JAX in one process, torch's first threaded float32 sqrt now
+    # and then comes back 2^-12 low on the second thread's half of the
+    # array; a first call below the threading grain settles it
+    torch.sqrt(torch.ones(16))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 def T(a):
@@ -230,8 +236,32 @@ def test_paint_kernel_deposit_rules(rng):
     for window in ("ngp", "cic", "tsc"):
         with pytest.raises(ValueError, match="CUDA"):
             TP.paint(pos, 8, BOX, window=window, deposit="kernel")
-    with pytest.raises(ValueError, match="deposit"):
-        TP.paint(pos, 8, BOX, window="ngp", deposit="pallas")
+    with pytest.raises(ValueError, match="deposit must be"):
+        TP.paint(pos, 8, BOX, window="ngp", deposit="sorted")
+
+
+@pytest.mark.parametrize("window", ["ngp", "cic", "tsc"])
+@pytest.mark.parametrize("jax_name,port_name", [("pallas", "kernel")])
+def test_paint_accepts_jax_deposit_spellings(rng, window, jax_name,
+                                             port_name):
+    """`paint(deposit=)` takes the JAX package's spelling as an alias: on
+    a CPU tensor both kernel spellings raise the same error (the request
+    is explicit, so nothing falls back), and the interpret spelling says
+    that the port has no such mode."""
+    pos = T(_positions(rng, 100))
+    errors = []
+    for name in (jax_name, port_name):
+        with pytest.raises(ValueError, match="needs a CUDA tensor") as err:
+            TP.paint(pos, 8, BOX, window=window, deposit=name)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    with pytest.raises(ValueError, match="no interpret mode"):
+        TP.paint(pos, 8, BOX, window=window,
+                 deposit=f"{jax_name}_interpret")
+    # the spellings that run on the CPU are unchanged
+    assert torch.equal(TP.paint(pos, 8, BOX, window=window,
+                                deposit="scatter"),
+                       TP.paint(pos, 8, BOX, window=window))
 
 
 @pytest.mark.parametrize("window", ["ngp", "cic", "tsc"])
@@ -244,6 +274,13 @@ def test_compensation_kernel_matches_jax(window):
 # ------------------------------------------------------------- P(k)
 @pytest.mark.parametrize("ngrid", [16, 15])
 def test_mode_radius_and_hermitian_weights_match_jax(ngrid):
+    # against the correctly rounded square roots first, so a mismatch with
+    # JAX says which side is off
+    f = np.fft.fftfreq(ngrid, 1.0 / ngrid)
+    m2 = (f[:, None, None] ** 2 + f[None, :, None] ** 2
+          + f[None, None, :ngrid // 2 + 1] ** 2)
+    npt.assert_array_equal(TPS.mode_radius_rfft(ngrid).numpy(),
+                           np.sqrt(m2.astype(np.float32)))
     npt.assert_array_equal(TPS.mode_radius_rfft(ngrid).numpy(),
                            np.asarray(JPS.mode_radius_rfft(ngrid)))
     npt.assert_array_equal(TPS.hermitian_weights(ngrid).numpy(),
@@ -349,9 +386,34 @@ def test_auto_power_fast_deposit_selection(rng):
     for kernel in ("kernel", "kernel_seg"):
         with pytest.raises(ValueError, match="CUDA"):
             TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit=kernel)
-    for jax_name in ("pallas", "pallas_seg"):
-        with pytest.raises(ValueError, match="deposit"):
-            TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit=jax_name)
+    with pytest.raises(ValueError, match="deposit must be"):
+        TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit="sorted")
+
+
+@pytest.mark.parametrize("jax_name,port_name", [("pallas", "kernel"),
+                                                ("pallas_seg", "kernel_seg")])
+def test_auto_power_fast_accepts_jax_deposit_spellings(rng, jax_name,
+                                                       port_name):
+    """`auto_power_fast(deposit=)` takes the JAX package's spellings as
+    aliases of the port's: on a CPU tensor each pair raises the same
+    error, the interpret spellings say that the port has no such mode, and
+    an explicit request leaves `last_auto_deposit` alone."""
+    pos = T(rng.uniform(0, BOX, (1000, 3)).astype(np.float32))
+    TPS.last_auto_deposit = None
+    errors = []
+    for name in (jax_name, port_name):
+        with pytest.raises(ValueError, match="needs a CUDA tensor") as err:
+            TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit=name)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    with pytest.raises(ValueError, match="no interpret mode"):
+        TPS.auto_power_fast(pos, 8, BOX, nbins=4,
+                            deposit=f"{jax_name}_interpret")
+    assert TPS.last_auto_deposit is None
+    want = TPS.auto_power_fast(pos, 8, BOX, nbins=4)
+    got = TPS.auto_power_fast(pos, 8, BOX, nbins=4, deposit="scatter")
+    assert torch.equal(got.power, want.power)
+    assert TPS.last_auto_deposit == "scatter"
 
 
 def test_auto_power_fast_matches_pallas_seg(rng):

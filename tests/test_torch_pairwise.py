@@ -31,8 +31,14 @@ from astrild_tpu_torch.ops import pairwise_cuda as TPWC  # noqa: E402
 def _two_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+    # beside JAX in one process, torch's first threaded float32 sqrt now
+    # and then comes back 2^-12 low on the second thread's half of the
+    # array; a first call below the threading grain settles it
+    torch.sqrt(torch.ones(16))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 def T(a):
@@ -539,10 +545,43 @@ def test_pairwise_backend_rules(rng):
     assert dict(TPWC.LAUNCHES) == before
     with pytest.raises(ValueError, match="CUDA"):
         TPW.mean_pairwise_velocity(T(pos), T(vel), bins, backend="kernel")
-    with pytest.raises(ValueError, match="backend"):
-        TPW.mean_pairwise_velocity(T(pos), T(vel), bins, backend="pallas")
+    with pytest.raises(ValueError, match="backend must be"):
+        TPW.mean_pairwise_velocity(T(pos), T(vel), bins, backend="mosaic")
     with pytest.raises(ValueError, match="ascending"):
         TPW.mean_pairwise_velocity(T(pos), T(vel), [0.0, 2.0, 1.0])
+
+
+@pytest.mark.parametrize("jax_name,port_name", [("pallas", "kernel"),
+                                                ("xla", "plain")])
+def test_pairwise_accepts_jax_backend_spellings(rng, jax_name, port_name):
+    """`mean_pairwise_velocity(backend=)` takes the JAX package's
+    spellings as aliases: 'xla' gives the plain tiles' result bit for bit,
+    'pallas' on a CPU tensor raises what 'kernel' raises (on uniform and
+    on uneven bins), and the interpret spelling says that the port has no
+    such mode."""
+    pos, vel = _catalog(rng, 50)
+    bins = np.linspace(0, 50, 11)
+    uneven = np.array([0.0, 5.0, 12.0, 30.0])
+    if port_name == "plain":
+        for b in (bins, uneven):
+            _, want = TPW.mean_pairwise_velocity(T(pos), T(vel), b,
+                                                 backend=port_name)
+            _, got = TPW.mean_pairwise_velocity(T(pos), T(vel), b,
+                                                backend=jax_name)
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(got[~got.isnan()], want[~want.isnan()])
+    else:
+        for b in (bins, uneven):
+            errors = []
+            for name in (jax_name, port_name):
+                with pytest.raises(ValueError, match="CUDA") as err:
+                    TPW.mean_pairwise_velocity(T(pos), T(vel), b,
+                                               backend=name)
+                errors.append(str(err.value))
+            assert errors[0] == errors[1]
+    with pytest.raises(ValueError, match="no interpret mode"):
+        TPW.mean_pairwise_velocity(T(pos), T(vel), bins,
+                                   backend=f"{jax_name}_interpret")
 
 
 # ------------------------------------------------------ K2 plain version

@@ -35,8 +35,14 @@ PORT = pathlib.Path(__file__).resolve().parents[1] / "astrild_tpu_torch"
 def _two_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+    # beside JAX in one process, torch's first threaded float32 sqrt now
+    # and then comes back 2^-12 low on the second thread's half of the
+    # array; a first call below the threading grain settles it
+    torch.sqrt(torch.ones(16))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 def _jax_stages():
