@@ -30,10 +30,22 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 # C signatures of each library's exports: name -> {symbol: (argtypes, restype)}
 _SIGNATURES = {
     "deposit_sorted": {
+        # keys, vals, n, out, n_cells, chunk, scratch, scratch bytes, stream
         "astrild_deposit_sorted": (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
             ctypes.c_int),
+        "astrild_deposit_flat": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p],
+            ctypes.c_int),
+        # n, n_cells, flat, weighted, chunk
+        "astrild_deposit_scratch_bytes": (
+            [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int64],
+            ctypes.c_int64),
         "astrild_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "deposit_segmented": {

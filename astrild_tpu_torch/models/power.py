@@ -68,7 +68,7 @@ class PowerSpectrum3D:
         """Point set -> paint -> P(k).
 
         method='fast' uses the folded fine-grid NGP estimator
-        (ops.power.auto_power_fast, through the sorted deposit K1 on a
+        (ops.power.auto_power_fast, through the windowed deposit K1 on a
         card); 'window' paints with self.window (cic/tsc) and deconvolves.
         mesh (the JAX package's distributed estimator) waits for the
         distributed layer and raises NotImplementedError.

@@ -20,8 +20,8 @@ Two paths give the per-plane CIC counts:
 - `_plane_counts_deposit`, what a CUDA tensor runs: the particles inside a
   plane's slab and field of view are selected first (a mask and
   `nonzero`), their four corner cells become (plane, row, col) keys, and
-  the keys of a group of planes go through one sort and the sorted deposit
-  kernel K1 (`paint_cuda.deposit_flat`). The slab test and the corner
+  the keys of a group of planes go through one call of the deposit kernel
+  K1 (`paint_cuda.deposit_flat`, no sort). The slab test and the corner
   arithmetic are the scan's own, plane by plane, so the two paths agree
   particle for particle and differ only in the order of the float sums.
   The JAX package's deposit finds each particle's plane from
@@ -42,7 +42,7 @@ from . import paint_cuda
 
 __all__ = ["density_planes_from_particles",
            "density_planes_from_particles_nrep", "replica_ranges",
-           "sorted_plane_entries"]
+           "plane_entries", "sorted_plane_entries"]
 
 _F32 = np.float32
 _span = torch.profiler.record_function
@@ -243,15 +243,16 @@ def _plane_counts_scan(pos, boxsize, chi0, dchi, nplanes: int, fov,
 
 # Card memory one (key, weight) entry takes on its way through a flush, in
 # bytes: the chunk it is built in and the concatenation of the group's
-# chunks (int32 key + float32 weight, twice: 16), the sorted keys (4), the
-# sort's int64 order (8), the radix sort's double buffers for keys and
-# order (12) and the weights gathered into sorted order (4).
-_BYTES_PER_ENTRY = 44
+# chunks (int32 key + float32 weight, twice: 16), and K1's partition of
+# them by window: the first of its two levels (int32 key + float32 weight:
+# 8; a flush of more than 1024 windows of 8192 cells takes two) and the
+# last (uint16 offset in the window + float32 weight: 6).
+_BYTES_PER_ENTRY = 30
 # share of the card's free memory a group may take; the rest is left for
 # the mask and coordinate temporaries (a few float32 buffers of n) and the
 # fragmentation of the caching allocator
 _MEM_SHARE = 0.6
-# a flush's sort stays well inside int32 element counts
+# a flush stays well inside the 2^32 keys K1 takes in one call
 _MAX_FLUSH_ENTRIES = 1 << 30
 
 
@@ -302,14 +303,14 @@ def _plane_entries(proj, w_in, g: _Geometry, plane: int, n_rep: int,
 def _plane_counts_deposit(pos, boxsize, chi0, dchi, nplanes: int, fov,
                           npix: int, los: int, observer_xy, n_rep: int,
                           weights=None):
-    """Raw per-plane counts via sorted deposits over (plane, row, col)
-    keys: K1 on a CUDA tensor, its plain version on a CPU tensor.
+    """Raw per-plane counts via deposits over (plane, row, col) keys: K1
+    on a CUDA tensor, its plain version on a CPU tensor.
 
     For each plane the particles inside its slab are selected, then for
     each transverse image those with a corner inside the field of view;
     only they get keys (four each; a corner outside the map goes to the
     junk cell n_real with weight 0). The keys of several planes share one
-    sort and one deposit: planes are added to a group until the next
+    deposit: planes are added to a group until the next
     plane's entries would pass `_entry_budget`, then the group is flushed.
     A single plane whose entries alone pass the budget raises.
 
@@ -351,7 +352,7 @@ def _plane_counts_deposit(pos, boxsize, chi0, dchi, nplanes: int, fov,
                 f"weight) entries ((2*{n_rep}+1)^2 transverse images x 4 "
                 f"corners of its in-cone particles), "
                 f"{entries * _BYTES_PER_ENTRY / 1e9:.2f} GB through the "
-                f"sort, and the card has room for {budget} "
+                f"deposit, and the card has room for {budget} "
                 f"({budget * _BYTES_PER_ENTRY / 1e9:.2f} GB); use thinner "
                 f"planes, fewer particles or a narrower field of view")
         if keys and budget is not None and pending + entries > budget:
@@ -363,17 +364,27 @@ def _plane_counts_deposit(pos, boxsize, chi0, dchi, nplanes: int, fov,
     return flat[:n_real].view(nplanes, npix, npix), g.chis_t
 
 
-def sorted_plane_entries(pos, boxsize, chi, dchi, fov, npix: int,
-                         los: int = 2, observer_xy=None, n_rep: int = 0):
+def plane_entries(pos, boxsize, chi, dchi, fov, npix: int, los: int = 2,
+                  observer_xy=None, n_rep: int = 0):
     """What K1 is given for the one plane centred on `chi`: the (keys,
-    weights) of `_plane_counts_deposit` in ascending key order, for timing
-    the kernel on a plane's own input."""
+    weights) of `_plane_counts_deposit` in the order the flush hands them
+    to `paint_cuda.deposit_flat`, for timing the kernel on a plane's own
+    input. Keys lie in [0, npix^2]; npix^2 is the junk cell."""
     dev = _split_components(pos, los)[0].device
     g = _Geometry(boxsize, chi, dchi, 1, fov, npix, observer_xy, dev)
     pk, pw = _plane_entries(_project(pos, los, g), None, g, 0, n_rep, npix,
                             npix * npix)
-    keys, order = torch.sort(torch.cat(pk), stable=False)
-    return keys, torch.cat(pw)[order]
+    return torch.cat(pk), torch.cat(pw)
+
+
+def sorted_plane_entries(pos, boxsize, chi, dchi, fov, npix: int,
+                         los: int = 2, observer_xy=None, n_rep: int = 0):
+    """`plane_entries` in ascending key order (the input of
+    `paint_cuda.deposit_sorted`)."""
+    keys, vals = plane_entries(pos, boxsize, chi, dchi, fov, npix, los,
+                               observer_xy, n_rep)
+    keys, order = torch.sort(keys, stable=False)
+    return keys, vals[order]
 
 
 def _density_planes_impl(pos, boxsize, chi0, dchi, nplanes: int, fov,

@@ -4,14 +4,14 @@ snapshots and Born convergence on the sphere.
 Port of `shell_counts_healpix`, `shell_overdensity`,
 `density_shells_healpix` and `born_convergence_healpix` of
 astrild_tpu/ops/lightcone_sphere.py: particles -> spherical density shells
-(a sorted deposit over (shell, pixel) keys: the kernel K1,
+(a deposit over (shell, pixel) keys: the kernel K1,
 `paint_cuda.deposit_flat`, on a CUDA tensor) -> Born kappa.
 
 Each periodic image of the box is painted in turn. The particles of an
 image that fall into a shell are selected first (a mask and `nonzero`)
 and only they get keys; the JAX package, whose shapes are static, gives
 every particle a key and parks the others on a junk cell. The images'
-keys are gathered into groups that share one sort and one deposit; a group
+keys are gathered into groups that share one deposit; a group
 is flushed when the next image's keys would pass the card's room for them
 (`lens_planes._entry_budget`).
 
@@ -93,7 +93,7 @@ def shell_counts_healpix(pos, chi_edges, nside: int, boxsize: float,
         chi_edges[-1] is covered (the standard box-replication
         lightcone). With False only the primary image is painted:
         shells beyond the box boundary will be incomplete.
-      deposit: None (auto: the sorted CUDA deposit K1 on a CUDA tensor,
+      deposit: None (auto: the CUDA deposit K1 on a CUDA tensor,
         `index_add_` on the CPU) | "kernel" (the JAX package's "pallas";
         CUDA tensors only) | "scatter".
 
@@ -173,7 +173,7 @@ def shell_counts_healpix(pos, chi_edges, nside: int, boxsize: float,
                         f"shells: box image ({kx}, {ky}, {kz}) alone holds "
                         f"{entries} keys, "
                         f"{entries * _BYTES_PER_ENTRY / 1e9:.2f} GB through "
-                        f"the sort, and the card has room for {budget} "
+                        f"the deposit, and the card has room for {budget} "
                         f"({budget * _BYTES_PER_ENTRY / 1e9:.2f} GB); paint "
                         f"the particles in parts and add the counts")
                 if budget is not None and pending + entries > budget:

@@ -28,7 +28,7 @@ Conventions (t in units of 1/H0, comoving lengths in Mpc/h):
 `pm_lightcone_planes` carries the evolution on to a lightcone: the
 snapshot is evolved to each lens plane's own redshift and painted there
 (`ops.lens_planes.density_planes_from_particles`, whose keys go through
-the sorted deposit K1 on the card).
+the windowed deposit K1 on the card).
 
 Not ported yet: `pm_evolve_checkpointed` and the `ckpt_dir` option of
 `pm_lightcone_planes` (both need core/checkpoint).

@@ -2,7 +2,7 @@
 
 Port of astrild_tpu/ops/paint.py. The scatter painters deposit each
 particle's separable window weights with `index_add_` over the neighbour
-offsets; `deposit="kernel"` sends NGP through the sorted CUDA deposit
+offsets; `deposit="kernel"` sends NGP through the windowed CUDA deposit
 (`paint_cuda.deposit_flat`, kernel K1) and CIC/TSC through the windowed
 CUDA painter (`paint_cuda.paint_windowed`, kernel K2).
 """
@@ -148,7 +148,7 @@ def paint(pos, ngrid: int, boxsize, weights=None, window: str = "cic",
       interlaced: if True, returns (grid, grid_shifted) where the second
         deposit is displaced by half a cell along each axis.
       deposit: None (auto: 'kernel' for CIC/TSC on a CUDA tensor,
-        'scatter' otherwise) | 'scatter' | 'kernel' (NGP through the sorted
+        'scatter' otherwise) | 'scatter' | 'kernel' (NGP through the windowed
         CUDA deposit K1, CIC/TSC through the windowed CUDA painter K2;
         CUDA tensors only; the JAX package's spelling 'pallas' means the
         same).

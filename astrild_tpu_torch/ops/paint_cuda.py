@@ -2,8 +2,11 @@
 
 Port of astrild_tpu/ops/paint_pallas.py:
 
-- K1, the sorted deposit (`deposit_sorted`, `deposit_flat`), in
-  csrc/deposit_sorted.cu: one block per window of output cells;
+- K1, the windowed deposit (`deposit_sorted` on sorted keys,
+  `deposit_flat` on keys in any order), in csrc/deposit_sorted.cu: the
+  keys reach their window of output cells by binary search (sorted) or by
+  a counting partition (any order, no sort), and one block per chunk of a
+  window's entries accumulates in shared memory;
 - K2, the windowed CIC/TSC painter (`paint_windowed`), in
   csrc/paint_windowed.cu: particles binned by output tile with a counting
   sort, one block per tile;
@@ -38,6 +41,11 @@ __all__ = ["deposit_sorted", "deposit_flat", "deposit_sorted_reference",
 LAUNCHES: Counter = Counter()
 
 _MAX_CELLS = 1 << 31
+# K1: entries one block of the accumulate pass takes at most (a window
+# holding more is split over several blocks), and the keys of one call
+# (its per-window counters are 32-bit)
+_CHUNK = 1 << 15
+_MAX_KEYS = (1 << 32) - 1
 
 
 def deposit_sorted_reference(keys_sorted: torch.Tensor,
@@ -61,6 +69,9 @@ def _check_inputs(keys: torch.Tensor, vals: torch.Tensor | None,
     if not 0 <= n_cells < _MAX_CELLS:
         raise ValueError(f"deposit_sorted: n_cells={n_cells} outside "
                          f"[0, 2^31)")
+    if keys.shape[0] > _MAX_KEYS:
+        raise ValueError(f"deposit_sorted: {keys.shape[0]} keys, more than "
+                         f"K1 counts in one call (2^32 - 1)")
     if vals is None:
         return
     if vals.dtype != torch.float32 or vals.shape != keys.shape:
@@ -74,48 +85,69 @@ def _check_inputs(keys: torch.Tensor, vals: torch.Tensor | None,
         raise ValueError("deposit_sorted: vals must be contiguous")
 
 
+def _launch_k1(entry: str, keys: torch.Tensor, vals: torch.Tensor | None,
+               n_cells: int) -> torch.Tensor:
+    """One K1 call on the card: `entry` "flat" (keys in any order: the
+    window partition, then the accumulate pass) or "sorted" (window
+    segments by binary search, then the same accumulate pass). Counts as
+    one launch, whatever number of passes it runs; the scratch is
+    allocated here and nothing waits on the card."""
+    if keys.device.type != "cuda":
+        raise ValueError(f"deposit_{entry}: no kernel for device "
+                         f"{keys.device}")
+    _check_inputs(keys, vals, n_cells)
+    lib = _ext.load("deposit_sorted")
+    n = keys.shape[0]
+    dev = keys.device
+    out = torch.empty(n_cells, dtype=torch.float32, device=dev)
+    flat = entry == "flat"
+    nbytes = lib.astrild_deposit_scratch_bytes(n, n_cells, int(flat),
+                                               int(vals is not None), _CHUNK)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    launch = lib.astrild_deposit_flat if flat else lib.astrild_deposit_sorted
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(keys.data_ptr(), None if vals is None else vals.data_ptr(),
+                    n, out.data_ptr(), n_cells, _CHUNK, scratch.data_ptr(),
+                    nbytes, stream)
+    _ext.check(lib, rc, f"deposit_{entry}")
+    LAUNCHES["deposit_sorted"] += 1
+    return out
+
+
 def deposit_sorted(keys_sorted: torch.Tensor,
                    vals_sorted: torch.Tensor | None,
                    n_cells: int) -> torch.Tensor:
     """Deposit pre-sorted (cell, weight) pairs into a flat grid.
 
-    keys_sorted: (N,) int32 ascending cell indices in [0, n_cells).
+    keys_sorted: (N,) int32 ascending cell indices in [0, n_cells) (on
+      the card, keys outside it are dropped).
     vals_sorted: (N,) float32 weights co-sorted with keys, or None for unit
       weights (counts, exact below 2^24 per cell).
     Returns (n_cells,) float32 on the keys' device.
     """
     if keys_sorted.device.type == "cpu":
         return deposit_sorted_reference(keys_sorted, vals_sorted, n_cells)
-    if keys_sorted.device.type != "cuda":
-        raise ValueError(f"deposit_sorted: no kernel for device "
-                         f"{keys_sorted.device}")
-    _check_inputs(keys_sorted, vals_sorted, n_cells)
-    lib = _ext.load("deposit_sorted")
-    out = torch.empty(n_cells, dtype=torch.float32, device=keys_sorted.device)
-    with torch.cuda.device(keys_sorted.device):
-        stream = torch.cuda.current_stream(keys_sorted.device).cuda_stream
-        rc = lib.astrild_deposit_sorted(
-            keys_sorted.data_ptr(),
-            None if vals_sorted is None else vals_sorted.data_ptr(),
-            keys_sorted.shape[0], out.data_ptr(), n_cells, stream)
-    _ext.check(lib, rc, "deposit_sorted")
-    LAUNCHES["deposit_sorted"] += 1
-    return out
+    return _launch_k1("sorted", keys_sorted, vals_sorted, n_cells)
 
 
 def deposit_flat(flat_idx: torch.Tensor, weights: torch.Tensor | None,
                  n_cells: int) -> torch.Tensor:
-    """Sort + deposit: drop-in for `zeros(n_cells).index_add_(0, flat, w)`.
+    """Deposit of keys in any order: drop-in for
+    `zeros(n_cells).index_add_(0, flat, w)`.
 
-    weights=None deposits counts and sorts only the keys. The sort is
-    unstable: the deposit does not depend on the order of equal keys.
+    weights=None deposits counts (exact below 2^24 per cell). On a CUDA
+    tensor K1 partitions the keys by window of 8192 cells (a histogram, a
+    scan and a scatter of 13-bit offsets, no sort) and accumulates each
+    window in shared memory; keys outside [0, n_cells) are dropped there.
+    On a CPU tensor it is the plain version, `deposit_sorted_reference`.
     """
     flat = flat_idx.reshape(-1).to(torch.int32)
-    keys, order = torch.sort(flat, stable=False)
-    if weights is None:
-        return deposit_sorted(keys, None, n_cells)
-    vals = weights.reshape(-1).to(torch.float32)[order]
-    return deposit_sorted(keys, vals, n_cells)
+    vals = None if weights is None else weights.reshape(-1).to(torch.float32)
+    if flat.device.type == "cpu":
+        return deposit_sorted_reference(flat, vals, n_cells)
+    return _launch_k1("flat", flat.contiguous(),
+                      None if vals is None else vals.contiguous(), n_cells)
 
 
 # ---------------------------------------------------------------- K4

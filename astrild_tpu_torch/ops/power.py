@@ -5,7 +5,7 @@ package's numpy code, copied unchanged so that the float32 shell edges and
 every mode's bin are bit-identical between the two packages. The fast
 estimator `auto_power_fast` deposits NGP counts on a fine_factor-finer grid
 in subgrid-major layout and folds the fine_factor^3 subgrid FFTs; on a CUDA
-tensor the deposit is the hand-written sorted kernel K1
+tensor the deposit is the hand-written windowed kernel K1
 (`paint_cuda.deposit_flat`), or on request the chunk-sorted kernel K4
 (`paint_cuda.deposit_flat_segmented`), on the CPU an `index_add_` scatter.
 """
@@ -358,7 +358,7 @@ def auto_power_fast(pos, ngrid: int, boxsize: float, nbins: int = 0,
 
     pos: (n, 3) tensor or a tuple of flat (n,) components (x, y, z).
     deposit: None (auto: 'kernel' on a CUDA tensor, 'scatter' on the CPU;
-      recorded in `last_auto_deposit`) | 'kernel' (the sorted CUDA deposit
+      recorded in `last_auto_deposit`) | 'kernel' (the windowed CUDA deposit
       K1) | 'kernel_seg' (the chunk-sorted CUDA deposit K4, the
       counterpart of the JAX package's opt-in 'pallas_seg', meant for
       input whose order is spatially coherent, such as a snapshot read in

@@ -3,7 +3,7 @@
 Port of the four stages that bench.py times (`bench.py:53-119`):
 
   matter      folded fast P(k) of flat x/y/z positions (NGP keys on a
-              2x-fine grid -> sorted CUDA deposit -> folded FFT -> shells),
+              2x-fine grid -> windowed CUDA deposit -> folded FFT -> shells),
               plus the coarse density grid;
   bispectrum  B(k1,k2,k3) over 4 shells of the coarse grid;
   lensing     density contrast -> interleaved slabs -> Born kappa -> linear
@@ -138,9 +138,11 @@ def make_stages(n_side: int, ngrid: int, npix: int, boxsize: float,
         return stage_s
 
     def matter_detail(pos_flat):
-        """Sub-stage seconds of the matter stage {keygen, sort, deposit,
-        fft_bin} through the same helpers `auto_power_fast` calls, plus
-        which deposit ran. Each sub-stage is run once untimed first."""
+        """Sub-stage seconds of the matter stage {keygen, deposit,
+        fft_bin} through the same helpers `auto_power_fast` calls (the
+        deposit: `paint_cuda.deposit_flat` on the keys as they come, or the
+        scatter), plus which deposit ran. Each sub-stage is run once
+        untimed first."""
         n_cells = FINE_FACTOR ** 3 * ngrid ** 3
         use_kernel = power.last_auto_deposit == "kernel"
 
@@ -148,12 +150,9 @@ def make_stages(n_side: int, ngrid: int, npix: int, boxsize: float,
             return power._fast_keys(split(p), boxsize, ngrid=ngrid,
                                     fine_factor=FINE_FACTOR)
 
-        def sort(k):
-            return torch.sort(k, stable=False)[0]
-
         def deposit(k):
             if use_kernel:
-                return paint_cuda.deposit_sorted(k, None, n_cells)
+                return paint_cuda.deposit_flat(k, None, n_cells)
             return paint_cuda.deposit_sorted_reference(k, None, n_cells)
 
         def fft_bin(d):
@@ -163,13 +162,10 @@ def make_stages(n_side: int, ngrid: int, npix: int, boxsize: float,
                                        fine_factor=FINE_FACTOR,
                                        return_coarse_grid=False).power
 
-        chain = [("keygen", keygen)]
-        if use_kernel:  # the scatter path has no sort
-            chain.append(("sort", sort))
-        chain += [("deposit", deposit), ("fft_bin", fft_bin)]
         out = {"deposit_kind": "kernel" if use_kernel else "scatter"}
         x = pos_flat
-        for name, fn in chain:
+        for name, fn in (("keygen", keygen), ("deposit", deposit),
+                         ("fft_bin", fft_bin)):
             fn(x)
             _sync(device)
             t0 = time.perf_counter()

@@ -7,15 +7,19 @@ Phases, each printing its own lines; a failure in any phase raises and
 exits non-zero before the final line:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels K1 (sorted deposit), K2 (tile-binned CIC/TSC
+  2. build the kernels K1 (windowed deposit), K2 (tile-binned CIC/TSC
      painter), K3 (pair tiles) and K4 (chunk-sorted deposit) from csrc/,
      one nvcc each, all started together; print each kernel's registers,
      shared memory and spills;
-  3. hold K1 against its plain PyTorch version on the card: 2^24 keys into
-     2^24 cells (counts and weighted) and the edge cases (empty windows,
-     all keys in one cell, N not a multiple of the block size, a partly
-     filled last window). Counts must be equal, weighted sums within
-     2e-5 * max; then K4 against its plain version: 2^24 keys into 2^24
+  3. hold both entry points of K1 (`deposit_flat` on keys as they come,
+     `deposit_sorted` on them sorted) against the plain PyTorch version
+     on the card: 2^24 keys into 2^24 cells (counts and weighted) and the
+     edge cases (empty windows, all keys in one cell, 2^24 keys in one
+     cell, N not a multiple of the block size, a partly filled last
+     window, ~29 keys a cell over whole windows, the lens planes' junk
+     cell, keys outside [0, n_cells), 2^30 + 5 cells, 1025 windows).
+     Counts must be equal, weighted sums within 2e-5 * max; then K4
+     against its plain version: 2^24 keys into 2^24
      cells in random, coherent (lattice) and one-cell orders, and the edge
      cases (fewer keys than segments, N not a multiple of the segments, one
      segment, empty windows, a partly filled last window, shuffled and
@@ -82,8 +86,12 @@ exits non-zero before the final line:
      the sphere; K1 timed at the lane's two shapes;
  10. time K1, K2, K3 and K4 against their plain versions and, for K1 and
      K4, against `index_add_` at the main paths' shapes, in turns (plain,
-     kernel, kernel, plain); K3's parts from a profiler trace, with the
-     tile pairs it visits, the pairs they hold and the in-range pairs.
+     kernel, kernel, plain): K1's `deposit_flat` on the keys as they come
+     and `deposit_sorted` on them sorted, each beside `index_add_` of the
+     same keys, at the suite's, a lens plane's and a shell image's shape,
+     and a profiler trace that shows `deposit_flat` runs no radix sort;
+     K3's parts from a profiler trace, with the tile pairs it visits, the
+     pairs they hold and the in-range pairs.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -189,30 +197,46 @@ def phase_build() -> None:
                 log(f"#   {name}: {line.strip()}")
 
 
-def _sorted_pair(keys, gen):
-    keys_sorted, order = torch.sort(keys, stable=False)
-    vals = torch.rand(keys.shape[0], generator=gen, device=keys.device) + 0.5
-    return keys_sorted, vals[order].contiguous()
+# K1's kernels by name (csrc/deposit_sorted.cu), for reading a trace
+K1_KERNELS = ("deposit_hist", "deposit_plan", "deposit_partition",
+              "deposit_bounds", "deposit_zero", "deposit_accumulate")
 
 
-def compare_k1(keys_sorted, vals_sorted, n_cells) -> float:
-    """Kernel vs plain version on the same sorted inputs; raises on a
-    mismatch, returns max |kernel - plain| of the weighted deposit."""
+def compare_k1(keys, n_cells: int, gen, weighted: bool = True) -> float:
+    """Both entry points of K1 against the plain version on the same keys:
+    `deposit_flat` on the keys as they come, `deposit_sorted` on them
+    sorted, counts and (unless told otherwise) random weights in [0.5,
+    1.5) carried with their keys; keys outside [0, n_cells) must be
+    dropped (the plain version is given only the others). Raises on a
+    mismatch; returns the larger max |kernel - plain| of the weighted
+    deposits (0 without weights)."""
     from astrild_tpu_torch.ops import paint_cuda
 
-    got = paint_cuda.deposit_sorted(keys_sorted, None, n_cells)
-    want = paint_cuda.deposit_sorted_reference(keys_sorted, None, n_cells)
-    if not torch.equal(got, want):
-        raise AssertionError(f"K1 counts differ from the plain deposit "
-                             f"(n={keys_sorted.numel()}, n_cells={n_cells})")
-    gotw = paint_cuda.deposit_sorted(keys_sorted, vals_sorted, n_cells)
-    wantw = paint_cuda.deposit_sorted_reference(keys_sorted, vals_sorted,
-                                                n_cells)
-    err = float((gotw - wantw).abs().max()) if n_cells else 0.0
-    scale = float(wantw.abs().max()) if n_cells else 0.0
-    if err > WEIGHTED_TOL * scale:
-        raise AssertionError(f"K1 weighted sums differ: max err {err} > "
-                             f"{WEIGHTED_TOL} * {scale}")
+    vals = torch.rand(keys.shape[0], generator=gen, device=keys.device) + 0.5
+    keys_sorted, order = torch.sort(keys, stable=False)
+    err = 0.0
+    for name, deposit, k, v in (
+            ("deposit_flat", paint_cuda.deposit_flat, keys, vals),
+            ("deposit_sorted", paint_cuda.deposit_sorted, keys_sorted,
+             vals[order].contiguous())):
+        inside = (k >= 0) & (k < n_cells)
+        got = deposit(k, None, n_cells)
+        want = paint_cuda.deposit_sorted_reference(k[inside], None, n_cells)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 {name} counts differ from the plain "
+                                 f"deposit (n={k.numel()}, "
+                                 f"n_cells={n_cells})")
+        if not weighted:
+            continue
+        gotw = deposit(k, v, n_cells)
+        wantw = paint_cuda.deposit_sorted_reference(k[inside], v[inside],
+                                                    n_cells)
+        e = float((gotw - wantw).abs().max()) if n_cells else 0.0
+        scale = float(wantw.abs().max()) if n_cells else 0.0
+        if e > WEIGHTED_TOL * scale:
+            raise AssertionError(f"K1 {name} weighted sums differ: max err "
+                                 f"{e} > {WEIGHTED_TOL} * {scale}")
+        err = max(err, e)
     return err
 
 
@@ -223,27 +247,60 @@ def phase_kernel_check(dev, seed: int) -> None:
         return torch.randint(0, n_cells, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
 
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    def shuffled(keys):
+        return keys[torch.randperm(keys.numel(), generator=gen, device=dev)]
+
     last = 5 * 8192 + 77
+    plane = 4 * 2048 * 2048 + 1  # four 2048^2 planes and the junk cell
+    huge = (1 << 30) + 5
+    outside = [-1, -7, -(1 << 31), (1 << 31) - 1]
+    # (keys, n_cells, weighted). 2^24 weights summed in one cell round by
+    # ~2^12 in float32 in both versions (2e-4 of the sum, above the bar),
+    # so that case deposits counts (exact up to 2^24)
     cases = {
-        "2^24 keys into 2^24 cells": (rand_keys(1 << 24, 1 << 24), 1 << 24),
+        "2^24 keys into 2^24 cells": (rand_keys(1 << 24, 1 << 24), 1 << 24,
+                                      True),
         "empty windows (1000 keys, 2^22 cells)": (rand_keys(1000, 1 << 22),
-                                                  1 << 22),
-        "no keys": (torch.zeros(0, dtype=torch.int32, device=dev), 1000),
+                                                  1 << 22, True),
+        "no keys": (torch.zeros(0, dtype=torch.int32, device=dev), 1000,
+                    True),
         "all keys in one cell": (torch.full((100000,), 12345,
                                             dtype=torch.int32, device=dev),
-                                 1 << 16),
+                                 1 << 16, True),
+        "2^24 keys in one cell, counts": (
+            torch.full((1 << 24,), 500, dtype=torch.int32, device=dev), 999,
+            False),
         "N not a multiple of the block": (rand_keys((1 << 20) + 12345,
-                                                    1 << 20), 1 << 20),
+                                                    1 << 20), 1 << 20, True),
         "last window partly filled": (
             torch.cat([rand_keys(5000, last),
                        torch.arange(last - 200, last, dtype=torch.int32,
-                                    device=dev).repeat(7)]), last),
+                                    device=dev).repeat(7)]), last, True),
+        "~29 keys a cell over 9 heavy windows": (
+            shuffled(torch.arange(3 * 8192, 12 * 8192, dtype=torch.int32,
+                                  device=dev).repeat(29)), 1 << 20, True),
+        "the lens planes' junk cell n_cells - 1": (
+            shuffled(torch.cat([rand_keys(1 << 22, plane - 1),
+                                ints([plane - 1]).repeat(100000)])), plane,
+            True),
+        "keys outside [0, 999) dropped": (
+            shuffled(torch.cat([rand_keys(100000, 999),
+                                ints(outside + [999, 1006])])), 999, True),
+        "2^30 + 5 cells, keys outside dropped": (
+            shuffled(torch.cat([rand_keys(1 << 22, huge),
+                                ints(outside + [huge, huge - 1])])), huge,
+            True),
+        "1025 windows (two partition levels)": (
+            rand_keys(1 << 22, 1024 * 8192 + 1), 1024 * 8192 + 1, True),
     }
-    for name, (keys, n_cells) in cases.items():
-        err = compare_k1(*_sorted_pair(keys, gen), n_cells)
+    for name, (keys, n_cells, weighted) in cases.items():
+        err = compare_k1(keys, n_cells, gen, weighted)
         torch.cuda.synchronize()
-        log(f"# phase kernel: {name}: counts equal, weighted max err "
-            f"{err:.3e}")
+        log(f"# phase kernel: {name}: counts equal (flat and sorted), "
+            f"weighted max err {err:.3e}")
 
 
 def compare_k4(keys, n_cells: int, n_seg: int, gen,
@@ -438,25 +495,81 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _index_add(keys, n_cells: int):
-    """The library yardstick of a deposit: one `index_add_` of unit
-    weights at the int32 keys into a grid zeroed first (the ones and the
-    grid made ahead)."""
-    ones = torch.ones(keys.shape[0], device=keys.device)
+def _index_add(keys, n_cells: int, vals=None):
+    """The library yardstick of a deposit: one `index_add_` of the weights
+    (unit weights if None) at the int32 keys into a grid zeroed first (the
+    ones and the grid made ahead)."""
+    src = torch.ones(keys.shape[0], device=keys.device) if vals is None \
+        else vals
     out = torch.empty(n_cells, device=keys.device)
 
     def run():
         out.zero_()
-        return out.index_add_(0, keys, ones)
+        return out.index_add_(0, keys, src)
     return run
 
 
+def _time_k1(keys, vals, n_cells: int, reps: int = 5) -> dict:
+    """K1's two entry points at one shape, in turns: `deposit_flat` on the
+    keys as they come (what the callers run), `deposit_sorted` on them
+    sorted, the plain version on the keys as they come, and `index_add_`
+    on the keys as they come and on the sorted keys; with the byte bound
+    of the function ((4 or 8) B an entry read, 4 B a cell written)."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    keys_sorted, order = torch.sort(keys, stable=False)
+    vals_sorted = None if vals is None else vals[order].contiguous()
+    del order
+    fns = {
+        "plain": lambda: paint_cuda.deposit_sorted_reference(keys, vals,
+                                                             n_cells),
+        "flat": lambda: paint_cuda.deposit_flat(keys, vals, n_cells),
+        "index_add_unsorted": _index_add(keys, n_cells, vals),
+        "sorted": lambda: paint_cuda.deposit_sorted(keys_sorted, vals_sorted,
+                                                    n_cells),
+        "index_add_sorted": _index_add(keys_sorted, n_cells, vals_sorted),
+    }
+    ms = {k: [] for k in fns}
+    for turn in (list(fns), list(fns)[::-1]):
+        for name in turn:
+            ms[name].append(_event_ms(fns[name], reps))
+    n = keys.shape[0]
+    bound = bound_ms((4 if vals is None else 8) * n + 4 * n_cells, n)
+    return {"n_keys": n, "n_cells": n_cells, "weighted": vals is not None,
+            "reps": reps, "mean": {k: sum(v) / len(v) for k, v in ms.items()},
+            "turns": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def _k1_kernel_names(fn) -> dict:
+    """Device ms of each kernel one call of `fn` runs, from a profiler
+    trace, K1's summed by pass; raises if any is a radix sort (K1 runs
+    none) or none is K1's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    if any("RadixSort" in k for k, _ in kernels) \
+            or not any(k1 in k for k, _ in kernels for k1 in K1_KERNELS):
+        raise AssertionError(f"deposit_flat ran a radix sort or none of "
+                             f"K1's kernels: {[k for k, _ in kernels]}")
+    ms = {}
+    for key, t in kernels:
+        name = next((k1 for k1 in K1_KERNELS if k1 in key), key[:40])
+        ms[name] = ms.get(name, 0.0) + t
+    return ms
+
+
 def phase_timing(dev, seed: int) -> tuple[float, dict]:
-    """K1 vs plain at bench size, in turns (plain, kernel, kernel, plain);
-    with `index_add_` alone on the sorted keys (the kernel's inputs) and on
-    the suite's uniform keys as they come (`index_add_unsorted`; with the
-    plain deposit's int64 cast and ones, `scatter_unsorted`). Returns the
-    weighted error and the mean times."""
+    """K1 at the suite's shape: both entry points against the plain
+    version on the suite's uniform keys (counts equal, weighted within
+    the bar), their times against `index_add_` (`_time_k1`), and the
+    passes of one `deposit_flat` call from a profiler trace, which must
+    hold no radix sort. Returns the weighted error and the timings."""
     from astrild_tpu_torch import suite
     from astrild_tpu_torch.ops import paint_cuda, power
 
@@ -467,41 +580,14 @@ def phase_timing(dev, seed: int) -> tuple[float, dict]:
                             ngrid=NGRID, fine_factor=2)
     del pos
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    keys_sorted, vals_sorted = _sorted_pair(keys, gen)
-    err = compare_k1(keys_sorted, vals_sorted, n_cells)
+    err = compare_k1(keys, n_cells, gen)
     log(f"# phase timing: bench-size K1 vs plain: counts equal, weighted "
         f"max err {err:.3e}")
-
-    reps = 10
-    fns = {
-        "kernel": lambda: paint_cuda.deposit_sorted(keys_sorted, None,
-                                                    n_cells),
-        "plain": lambda: paint_cuda.deposit_sorted_reference(keys_sorted,
-                                                             None, n_cells),
-        "kernel_weighted": lambda: paint_cuda.deposit_sorted(
-            keys_sorted, vals_sorted, n_cells),
-        "plain_weighted": lambda: paint_cuda.deposit_sorted_reference(
-            keys_sorted, vals_sorted, n_cells),
-        "sort": lambda: torch.sort(keys, stable=False),
-        "sort_plus_kernel": lambda: paint_cuda.deposit_flat(keys, None,
-                                                            n_cells),
-        "scatter_unsorted": lambda: paint_cuda.deposit_sorted_reference(
-            keys, None, n_cells),
-        "index_add": _index_add(keys_sorted, n_cells),
-        "index_add_unsorted": _index_add(keys, n_cells),
-    }
-    order = ["plain", "kernel", "plain_weighted", "kernel_weighted",
-             "index_add", "index_add_unsorted", "scatter_unsorted", "sort",
-             "sort_plus_kernel"]
-    ms = {k: [] for k in fns}
-    for turn in (order, order[::-1]):
-        for name in turn:
-            ms[name].append(_event_ms(fns[name], reps))
-    mean = {k: sum(v) / len(v) for k, v in ms.items()}
-    log("# k1_timing_ms " + json.dumps({"n_keys": n, "n_cells": n_cells,
-                                        "reps": reps, "mean": mean,
-                                        "turns": ms}))
-    return err, mean
+    timing = _time_k1(keys, None, n_cells, reps=10)
+    timing["deposit_flat_passes_ms"] = _k1_kernel_names(
+        lambda: paint_cuda.deposit_flat(keys, None, n_cells))
+    log("# k1_timing_ms " + json.dumps({"shape": "suite", **timing}))
+    return err, timing
 
 
 # ------------------------------------------------------------------ K2
@@ -1265,7 +1351,7 @@ def phase_k4_timing(keys_file, keys_shuf) -> dict:
     2^27 cells) on the file order and the shuffled order, in turns (plain,
     kernel, ..., kernel, plain): the whole K4 wrapper (counts and
     weighted), `index_add_` of the same keys (alone, and with the plain
-    deposit's int64 cast and ones) and K1 with its full sort."""
+    deposit's int64 cast and ones) and K1's `deposit_flat`."""
     from astrild_tpu_torch.ops import paint_cuda
 
     n_cells = 8 * LANE_NGRID ** 3
@@ -1282,8 +1368,8 @@ def phase_k4_timing(keys_file, keys_shuf) -> dict:
             "index_add": _index_add(keys, n_cells),
             "index_add_with_cast": lambda: paint_cuda.deposit_sorted_reference(
                 keys, None, n_cells),
-            "k1_sort_plus_kernel": lambda: paint_cuda.deposit_flat(
-                keys, None, n_cells),
+            "k1_flat": lambda: paint_cuda.deposit_flat(keys, None,
+                                                       n_cells),
         }
         ms = {k: [] for k in fns}
         for turn in (list(fns), list(fns)[::-1]):
@@ -1304,10 +1390,11 @@ def _span_ms(rows, names) -> dict:
             for e in rows if e.key in names}
 
 
-def _kernel_ms(rows, name: str) -> float:
-    """Device milliseconds of the kernels whose name holds `name`."""
+def _kernel_ms(rows, names) -> float:
+    """Device milliseconds of the kernels whose name holds one of
+    `names`."""
     return sum(e.self_device_time_total for e in rows
-               if name in e.key) / 1e3
+               if any(name in e.key for name in names)) / 1e3
 
 
 def _corr(a, b) -> float:
@@ -1325,34 +1412,6 @@ def _mode_numbers_1d(n: int, dev):
 def _block_mean(img, f: int):
     n = img.shape[-1] // f
     return img.reshape(n, f, n, f).mean(dim=(1, 3))
-
-
-def _time_k1_against_index_add(keys, vals, n_cells: int) -> dict:
-    """K1 on sorted keys (weighted if `vals`) against `index_add_` of the
-    same keys and values, in turns; the byte bound of the same work."""
-    from astrild_tpu_torch.ops import paint_cuda
-
-    src = torch.ones(keys.shape[0], device=keys.device) if vals is None \
-        else vals
-    out = torch.empty(n_cells, device=keys.device)
-
-    def library():
-        out.zero_()
-        return out.index_add_(0, keys, src)
-
-    fns = {"kernel": lambda: paint_cuda.deposit_sorted(keys, vals, n_cells),
-           "plain": lambda: paint_cuda.deposit_sorted_reference(keys, vals,
-                                                                n_cells),
-           "index_add": library}
-    ms = {k: [] for k in fns}
-    for turn in (list(fns), list(fns)[::-1]):
-        for name in turn:
-            ms[name].append(_event_ms(fns[name], 5))
-    n = keys.shape[0]
-    bound = bound_ms((4 if vals is None else 8) * n + 4 * n_cells, n)
-    return {"n_keys": n, "n_cells": n_cells, "weighted": vals is not None,
-            "mean": {k: sum(v) / len(v) for k, v in ms.items()},
-            "turns": ms, "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def lightcone_planes(dev, seed: int, out_gr) -> dict:
@@ -1394,7 +1453,8 @@ def lightcone_planes(dev, seed: int, out_gr) -> dict:
     spans = _span_ms(rows, ("lightcone.plane", "planes.keys",
                             "planes.flush") + pm_spans)
     evolve_s = sum(spans[k]["ms"] for k in pm_spans) / 1e3
-    k1_ms = _kernel_ms(rows, "deposit_sorted_kernel")
+    k1_ms = _kernel_ms(rows, K1_KERNELS)
+    radix_ms = _kernel_ms(rows, ("RadixSort",))
     del prof, rows
 
     # ---- checks
@@ -1522,17 +1582,19 @@ def lightcone_planes(dev, seed: int, out_gr) -> dict:
                              f"{scan_max}; sums {sums}")
     del got, want
 
-    # K1 at the lane's plane shape: the farthest plane's sorted entries
-    keys, vals = lens_planes.sorted_plane_entries(out_gr, BOX, far, dchi,
-                                                  LC_FOV, LC_NPIX)
-    vals = vals.contiguous()
-    k1_timing = _time_k1_against_index_add(keys, vals, LC_NPIX ** 2 + 1)
+    # K1 at the lane's plane shape: the farthest plane's entries, in the
+    # order a flush hands them to deposit_flat
+    keys, vals = lens_planes.plane_entries(out_gr, BOX, far, dchi, LC_FOV,
+                                           LC_NPIX)
+    k1_timing = _time_k1(keys, vals, LC_NPIX ** 2 + 1)
     del keys, vals
 
+    # a flush is K1 (deposit_flat) and the sum into the planes
     per_plane = {
         "key_pass_ms": spans["planes.keys"]["ms"] / LC_PLANES,
-        "sort_ms": (spans["planes.flush"]["ms"] - k1_ms) / LC_PLANES,
+        "flush_ms": spans["planes.flush"]["ms"] / LC_PLANES,
         "k1_ms": k1_ms / LC_PLANES,
+        "radix_sort_ms": radix_ms / LC_PLANES,
         "whole_ms": spans["lightcone.plane"]["ms"] / LC_PLANES}
     log(f"# phase lightcone: planes finite; K1 launches "
         f"{launches['deposit_sorted']}, K2 {launches['paint_windowed']}; "
@@ -1592,7 +1654,8 @@ def lightcone_shells(dev, seed: int, out_gr) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     rows = prof.key_averages()
     spans = _span_ms(rows, ("shells.keys", "shells.flush"))
-    k1_ms = _kernel_ms(rows, "deposit_sorted_kernel")
+    k1_ms = _kernel_ms(rows, K1_KERNELS)
+    radix_ms = _kernel_ms(rows, ("RadixSort",))
     del prof, rows
     flushes = spans["shells.flush"]["count"]
     if launches.get("deposit_sorted", 0) != flushes or flushes < 1:
@@ -1651,8 +1714,7 @@ def lightcone_shells(dev, seed: int, out_gr) -> dict:
         raise AssertionError("shells: one box image through K1 differs "
                              "from index_add_")
     del got, want
-    k1_timing = _time_k1_against_index_add(
-        torch.sort(keys, stable=False)[0], None, nshell * npix)
+    k1_timing = _time_k1(keys, None, nshell * npix)
     del keys
 
     # a weighted call against the scatter deposit of the same keys
@@ -1677,8 +1739,9 @@ def lightcone_shells(dev, seed: int, out_gr) -> dict:
         f"counts up to {w_max:.1f}")
     return {"shells_s": shells_s,
             "shells_key_pass_s": spans["shells.keys"]["ms"] / 1e3,
-            "shells_sort_s": (spans["shells.flush"]["ms"] - k1_ms) / 1e3,
-            "shells_k1_s": k1_ms / 1e3, "shells_flushes": flushes,
+            "shells_flush_s": spans["shells.flush"]["ms"] / 1e3,
+            "shells_k1_s": k1_ms / 1e3,
+            "shells_radix_sort_s": radix_ms / 1e3, "shells_flushes": flushes,
             "shells_launches": launches, "shells_keys": total,
             "shells_peak_mem_gb": peak_gb,
             "shell_means": means.tolist(), "shells_weighted_max_err": w_err,
@@ -1791,17 +1854,18 @@ def main() -> None:
     k3 = phase_k3_timing(*k3_inputs)
 
     # max_abs_err, ms, plain_ms and library_ms are taken at the main paths'
-    # shapes, the bounds from the same inputs: K1 counts of 2^27 sorted
-    # keys into 2^27 cells (the suite), K2 CIC of 2^27 particles onto 512^3
+    # shapes, the bounds from the same inputs: K1 counts of the suite's 2^27
+    # keys as they come into 2^27 cells (deposit_flat, what the suite
+    # runs), K2 CIC of 2^27 particles onto 512^3
     # (a PM force paint), K3 v12 of 2^17 tracers, K4 counts of the lane's
     # 2^27 file-order keys into 2^27 cells
     n_keys, n_fine = N_SIDE ** 3, 8 * NGRID ** 3
     n_pm, n_tr = PM_SIDE ** 3, V12_N
     measured = {
         "deposit_sorted": (
-            suite_launches["deposit_sorted"], err_bench, k1["kernel"],
-            k1["plain"], bound_ms(4 * n_keys + 4 * n_fine, n_keys),
-            k1["index_add"]),
+            suite_launches["deposit_sorted"], err_bench, k1["mean"]["flat"],
+            k1["mean"]["plain"], bound_ms(4 * n_keys + 4 * n_fine, n_keys),
+            k1["mean"]["index_add_unsorted"]),
         "paint_windowed": (
             fwd_launches["paint_windowed"], k2["max_abs_err"],
             k2["mean"]["kernel"], k2["mean"]["plain"],
@@ -1830,18 +1894,24 @@ def main() -> None:
     k3_row = next(k for k in kernels if k["name"] == "pairwise_accumulate")
     k3_row["bound_all_pairs_ms"] = bound_ms(
         24 * n_tr, K3_OPS_PER_PAIR * n_tr * (n_tr - 1) / 2)[0]
-    # the lightcone lane's launches, and K1 at its two shapes there (the
-    # farthest plane's weighted entries, one box image's shell keys)
+    # K1's two entry points at the three shapes (the suite's keys, the
+    # farthest plane's weighted entries, one box image's shell keys), each
+    # beside index_add_ of the same keys, and the lightcone lane's launches
     k1_row = next(k for k in kernels if k["name"] == "deposit_sorted")
+    shapes = {"suite": k1, "plane": lightcone["k1_plane_timing_ms"],
+              "shell": lightcone["k1_shell_timing_ms"]}
+    k1_row["entry_points"] = {
+        entry: {shape: {"n_keys": t["n_keys"], "n_cells": t["n_cells"],
+                        "weighted": t["weighted"], "ms": t["mean"][kind],
+                        "plain_ms": t["mean"]["plain"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                        "library_ms": t["mean"][f"index_add_{order}"]}
+                for shape, t in shapes.items()}
+        for entry, kind, order in (("deposit_flat", "flat", "unsorted"),
+                                   ("deposit_sorted", "sorted", "sorted"))}
     k1_row["lightcone"] = {
         "planes_launches": lightcone["launches"]["deposit_sorted"],
-        "shells_launches": lightcone["shells_launches"]["deposit_sorted"],
-        **{shape: {"n_keys": t["n_keys"], "n_cells": t["n_cells"],
-                   "ms": t["mean"]["kernel"], "plain_ms": t["mean"]["plain"],
-                   "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                   "library_ms": t["mean"]["index_add"]}
-           for shape, t in (("plane", lightcone["k1_plane_timing_ms"]),
-                            ("shell", lightcone["k1_shell_timing_ms"]))}}
+        "shells_launches": lightcone["shells_launches"]["deposit_sorted"]}
     k2_row = next(k for k in kernels if k["name"] == "paint_windowed")
     k2_row["lightcone_launches"] = lightcone["launches"]["paint_windowed"]
     log(json.dumps({"kernels": kernels}))

@@ -41,34 +41,136 @@ def _sorted_case(keys, dev, seed=0):
     return keys_sorted, vals[order].contiguous()
 
 
-@pytest.mark.parametrize("case", ["dense", "sparse", "empty", "one_cell",
-                                  "ragged", "last_window"])
-def test_k1_matches_plain(cuda, case):
-    """Counts equal; weighted sums within 2e-5 * max (the JAX kernel's
-    bar)."""
-    rng = np.random.default_rng(3)
+def _k1_case(case, rng):
+    """(keys, n_cells) of one K1 case, in no order."""
     n_cells = {"dense": 1 << 20, "sparse": 1 << 22, "empty": 999,
                "one_cell": 1 << 16, "ragged": 1 << 18,
-               "last_window": 5 * 8192 + 77}[case]
+               "last_window": 5 * 8192 + 77, "clustered_29": 1 << 20,
+               "junk_cell": 4 * 2048 * 2048 + 1,
+               "ragged_last_window": 5 * 8192 + 77,
+               "2^24_in_one_cell": 999}[case]
     keys = {
-        "dense": rng.integers(0, n_cells, 1 << 20),
-        "sparse": rng.integers(0, n_cells, 1000),
-        "empty": np.zeros(0),
-        "one_cell": np.full(100000, 12345),
-        "ragged": rng.integers(0, n_cells, (1 << 18) + 12345),
-        "last_window": np.repeat(np.arange(n_cells - 300, n_cells), 5),
-    }[case]
-    keys_sorted, vals = _sorted_case(
-        torch.from_numpy(np.asarray(keys, np.int32)), cuda)
+        "dense": lambda: rng.integers(0, n_cells, 1 << 20),
+        "sparse": lambda: rng.integers(0, n_cells, 1000),
+        "empty": lambda: np.zeros(0),
+        "one_cell": lambda: np.full(100000, 12345),
+        "ragged": lambda: rng.integers(0, n_cells, (1 << 18) + 12345),
+        "last_window": lambda: np.repeat(np.arange(n_cells - 300, n_cells),
+                                         5),
+        # the lens planes: ~29 keys a cell over whole windows, heavy
+        # enough that the card splits each window over several blocks
+        "clustered_29": lambda: rng.permutation(
+            np.repeat(np.arange(3 * 8192, 12 * 8192), 29)),
+        # and their junk cell n_cells - 1 (the corners outside the map)
+        "junk_cell": lambda: rng.permutation(np.concatenate([
+            rng.integers(0, n_cells - 1, 1 << 20),
+            np.full(100000, n_cells - 1)])),
+        "ragged_last_window": lambda: rng.permutation(np.concatenate([
+            rng.integers(0, n_cells, 5000),
+            np.repeat(np.arange(5 * 8192, n_cells), 29 * 100)])),
+        "2^24_in_one_cell": lambda: np.full(1 << 24, 500),
+    }[case]()
+    return keys, n_cells
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "empty", "one_cell",
+                                  "ragged", "last_window", "clustered_29",
+                                  "junk_cell", "ragged_last_window",
+                                  "2^24_in_one_cell"])
+def test_k1_matches_plain(cuda, case):
+    """Both entry points against the plain version: `deposit_sorted` on
+    the sorted keys and `deposit_flat` on the keys as they come. Counts
+    equal; weighted sums within 2e-5 * max (the JAX kernel's bar), except
+    for 2^24 keys in one cell, where counts are held (exact up to 2^24)
+    and float32 sums of 2^24 weights round by ~2^12 in both versions,
+    above the bar (as K4's test notes); one launch per call."""
+    rng = np.random.default_rng(3)
+    keys, n_cells = _k1_case(case, rng)
+    flat = torch.from_numpy(np.asarray(keys, np.int32)).to(cuda)
+    keys_sorted, vals = _sorted_case(flat, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    w = torch.rand(flat.shape[0], generator=gen, device=cuda) + 0.5
+    for entry, k, v in (("sorted", keys_sorted, vals), ("flat", flat, w)):
+        deposit = TPC.deposit_sorted if entry == "sorted" else TPC.deposit_flat
+        before = TPC.LAUNCHES["deposit_sorted"]
+        got = deposit(k, None, n_cells)
+        assert TPC.LAUNCHES["deposit_sorted"] == before + 1, entry
+        assert torch.equal(got, TPC.deposit_sorted_reference(k, None,
+                                                             n_cells)), entry
+        if case == "2^24_in_one_cell":
+            assert float(got[500]) == float(1 << 24)
+            continue
+        gotw = deposit(k, v, n_cells)
+        want = TPC.deposit_sorted_reference(k, v, n_cells)
+        scale = float(want.abs().max()) if n_cells else 0.0
+        assert float((gotw - want).abs().max()) <= 2e-5 * scale, entry
+
+
+def _file_order(keys, rng):
+    """Keys in a spatially coherent order, as a snapshot in the PM code's
+    order gives them: ascending runs of 4096 keys, the runs shuffled."""
+    keys = np.sort(keys)
+    runs = [keys[i:i + 4096] for i in range(0, keys.shape[0], 4096)]
+    return np.concatenate([runs[i] for i in rng.permutation(len(runs))])
+
+
+@pytest.mark.parametrize("order", ["random", "file"])
+@pytest.mark.parametrize("n_cells", [999, 1 << 20, (1 << 30) + 5])
+def test_k1_flat_matches_index_add(cuda, order, n_cells):
+    """`deposit_flat` on keys as they come (uniform random order, or
+    coherent file order) with keys outside [0, n_cells) mixed in, against
+    `index_add_` of the keys inside: counts equal (the dropped keys leave
+    no trace), weighted sums within 2e-5 * max, one launch counted."""
+    rng = np.random.default_rng(9)
+    n = 1 << 21
+    keys = rng.integers(0, n_cells, n)
+    if order == "file":
+        keys = _file_order(keys, rng)
+    junk = np.array([-1, -7, -(1 << 31), n_cells, n_cells + 7,
+                     (1 << 31) - 1], np.int64)
+    at = rng.integers(0, n, junk.shape[0])
+    keys = np.insert(keys, at, junk).astype(np.int32)
+    flat = torch.from_numpy(keys).to(cuda)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, keys.shape[0]).astype(
+        np.float32)).to(cuda)
+    inside = (flat >= 0) & (flat < n_cells)
+    ones = torch.ones(keys.shape[0], device=cuda)
     before = TPC.LAUNCHES["deposit_sorted"]
-    got = TPC.deposit_sorted(keys_sorted, None, n_cells)
+    got = TPC.deposit_flat(flat, None, n_cells)
     assert TPC.LAUNCHES["deposit_sorted"] == before + 1
-    assert torch.equal(got, TPC.deposit_sorted_reference(keys_sorted, None,
-                                                         n_cells))
-    gotw = TPC.deposit_sorted(keys_sorted, vals, n_cells)
-    want = TPC.deposit_sorted_reference(keys_sorted, vals, n_cells)
-    scale = float(want.abs().max()) if n_cells else 0.0
-    assert float((gotw - want).abs().max()) <= 2e-5 * scale
+    want = torch.zeros(n_cells, device=cuda).index_add_(
+        0, flat[inside].long(), ones[inside])
+    assert torch.equal(got, want)
+    del got, want
+    gotw = TPC.deposit_flat(flat, w, n_cells)
+    assert TPC.LAUNCHES["deposit_sorted"] == before + 2
+    wantw = torch.zeros(n_cells, device=cuda).index_add_(
+        0, flat[inside].long(), w[inside])
+    torch.cuda.synchronize()
+    assert float((gotw - wantw).abs().max()) <= 2e-5 * float(wantw.max())
+
+
+def test_k1_flat_runs_no_radix_sort(cuda):
+    """Under `torch.profiler`, a `deposit_flat` call runs K1's own passes
+    and no kernel whose name holds `RadixSort` (the device-wide sort it
+    replaces)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    keys = torch.randint(0, 1 << 24, (1 << 22,), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    w = torch.rand(keys.shape[0], generator=gen, device=cuda)
+    TPC.deposit_flat(keys, w, 1 << 24)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        TPC.deposit_flat(keys, None, 1 << 24)
+        TPC.deposit_flat(keys, w, 1 << 24)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.self_device_time_total > 0]
+    assert not [k for k in names if "RadixSort" in k], names
+    assert any("deposit_accumulate" in k for k in names), names
+    assert any("deposit_partition" in k for k in names), names
 
 
 def test_k1_rejects_bad_inputs(cuda):
@@ -81,6 +183,10 @@ def test_k1_rejects_bad_inputs(cuda):
         TPC.deposit_sorted(keys, keys.double(), 64)
     with pytest.raises(ValueError, match="vals on"):
         TPC.deposit_sorted(keys, keys.float().cpu(), 64)
+    with pytest.raises(ValueError, match="float32 of shape"):
+        TPC.deposit_flat(keys, keys.float()[:10], 64)
+    with pytest.raises(ValueError, match="2\\^31"):
+        TPC.deposit_flat(keys, None, 1 << 31)
 
 
 def test_auto_power_fast_kernel_matches_scatter(cuda):

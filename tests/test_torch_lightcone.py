@@ -113,7 +113,7 @@ def _greedy_groups(entries, budget):
 @pytest.mark.parametrize("cone", sorted(CONES))
 @pytest.mark.parametrize("group", [None, 1, 2])
 def test_plane_deposit_matches_own_scan(rng, cone, group, monkeypatch):
-    """The deposit path (selection, keys, sort, K1's plain version) against
+    """The deposit path (selection, keys, K1's plain version) against
     the port's own scan on the same particles, with an off-centre observer
     and weights: atol 1e-4; the totals to rtol 1e-6. With room for `group`
     times the largest plane's entries the planes are flushed in the groups
@@ -142,6 +142,35 @@ def test_plane_deposit_matches_own_scan(rng, cone, group, monkeypatch):
     npt.assert_allclose(float(got.double().sum()),
                         float(want.double().sum()), rtol=1e-6)
     assert got.shape == (nplanes, npix, npix) and chis.shape == (nplanes,)
+
+
+@pytest.mark.parametrize("cone", sorted(CONES))
+def test_plane_entries_deposit_to_the_plane(rng, cone):
+    """`plane_entries` (K1's input for one plane, as the flush gives it)
+    deposited through `deposit_flat`, and `sorted_plane_entries` (the same
+    entries in ascending key order) through `deposit_sorted`, give that
+    plane of the JAX scan: atol 1e-4; the junk cell npix^2 holds weight
+    0."""
+    chi0, dchi, nplanes, fov, npix, n_rep = CONES[cone]
+    pos = _flat_pos(rng, 20000)
+    chi = chi0 + (nplanes - 1) * dchi
+    want, _ = JLP._plane_counts_scan(
+        tuple(jnp.asarray(c) for c in pos), BOX, chi, dchi, 1, fov, npix, 2,
+        None, n_rep)
+    keys, vals = TLP.plane_entries(_t(pos), BOX, chi, dchi, fov, npix,
+                                   n_rep=n_rep)
+    skeys, svals = TLP.sorted_plane_entries(_t(pos), BOX, chi, dchi, fov,
+                                            npix, n_rep=n_rep)
+    assert keys.dtype == torch.int32 and keys.shape == vals.shape
+    assert bool((skeys[1:] >= skeys[:-1]).all())
+    assert torch.equal(torch.sort(keys)[0], skeys)
+    n_cells = npix * npix + 1
+    flat = paint_cuda.deposit_flat(keys, vals, n_cells)
+    srt = paint_cuda.deposit_sorted(skeys, svals, n_cells)
+    assert float(flat[-1]) == 0.0 and float(srt[-1]) == 0.0
+    for got in (flat, srt):
+        npt.assert_allclose(got[:-1].view(npix, npix).numpy(),
+                            np.asarray(want)[0], atol=1e-4)
 
 
 @pytest.mark.parametrize("los", [0, 1])

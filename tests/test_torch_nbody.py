@@ -299,6 +299,47 @@ def test_pm_evolve_matches_jax(rng):
                                 atol=1e-3 * np.abs(want).max())
 
 
+def _low_mode_growth(paint_fn, delta_k_fn, init, final, n, box):
+    """sqrt(P_final / P_init) over the CIC-compensated modes 0 < |m| <= 3
+    of the painted particles (the chip run's growth measure)."""
+    f = np.fft.fftfreq(n) * n
+    m2 = (f[:, None, None] ** 2 + f[None, :, None] ** 2
+          + np.abs(f[: n // 2 + 1])[None, None, :] ** 2)
+    sel = (m2 > 0) & (m2 <= 9.0)
+    p = [np.mean(np.abs(np.asarray(delta_k_fn(
+        paint_fn(c, n, box, window="cic"), window="cic")))[sel] ** 2)
+        for c in (init, final)]
+    return float(np.sqrt(p[1] / p[0]))
+
+
+def test_pm_growth_matches_jax_at_20_steps(rng):
+    """The growth of the lowest modes over 2LPT at z=9 and 20 log-a KDK
+    steps to z=0 on a 32^3 mesh (32^3 particles, 500 Mpc/h, the forward
+    path's setup cut in size), from the same modes in both packages: the
+    two growths agree to 1e-3, so the deficit against D(0)/D(9) that the
+    card run shows is the method's (20 steps from z=9), not the port's;
+    it stays below the chip run's 5% bar."""
+    from astrild_tpu.ops.paint import paint as jpaint
+    from astrild_tpu.ops.power import delta_k as jdelta_k
+
+    n, box, z_i = 32, 500.0, 9.0
+    dk = _modes(rng, n, box, amp=2000.0)
+    jc, tc = _both(COSMOS["lcdm"])
+    growth = (*TN.lpt_growth(tc, z_i), float(tc.efunc(z_i)))
+    jcomps, jmom = JN.lpt_catalog_from_modes(jnp.asarray(dk), n, box, jc,
+                                             z_i, growth=growth)
+    tcomps, tmom = TN.lpt_catalog_from_modes(dk, n, box, tc, z_i,
+                                             growth=growth)
+    a0 = 1.0 / (1.0 + z_i)
+    jout, _ = JN.pm_evolve(jcomps, jmom, jc, n, box, a0, 1.0, 20)
+    tout, _ = TN.pm_evolve(tcomps, tmom, tc, n, box, a0, 1.0, 20)
+    g_jax = _low_mode_growth(jpaint, jdelta_k, jcomps, jout, n, box)
+    g_port = _low_mode_growth(tpaint, tdelta_k, tcomps, tout, n, box)
+    assert abs(g_port / g_jax - 1.0) < 1e-3, (g_port, g_jax)
+    d_ratio = float(tc.growth_factor(0.0) / tc.growth_factor(z_i))
+    assert abs(g_port / d_ratio - 1.0) < 0.05, (g_port, d_ratio)
+
+
 def test_pm_evolve_leaves_inputs_untouched(rng):
     n, box = 8, 50.0
     tc = Cosmology(**COSMOS["lcdm"])

@@ -84,29 +84,72 @@ def test_fast_keys_exact(rng, ff):
     npt.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-def test_deposit_flat_matches_pallas(rng, weighted):
+def _flat_case(rng, case):
+    """(keys in the order a caller gives them, n_cells, the JAX kernel's
+    window, which must divide n_cells) of one K1 case."""
+    if case == "random":
+        n_cells = 4 * 8192
+        return rng.integers(0, n_cells, 20000), n_cells, 8192
+    if case == "one_cell":  # one window holds every key: a heavy window
+        return np.full(60000, 5), 3 * 8192, 8192
+    if case == "clustered_29":
+        # 29 keys a cell over 2048 cells of one window (the lens planes'
+        # density), in no order
+        return rng.permutation(np.repeat(np.arange(4000, 6048), 29)), \
+            3 * 8192, 8192
+    if case == "junk_cell":
+        # the lens planes' junk cell n_cells - 1 takes the corners outside
+        # the map
+        n_cells = 4 * 8192
+        return rng.permutation(np.concatenate([
+            rng.integers(0, n_cells, 20000), np.full(30000, n_cells - 1)])), \
+            n_cells, 8192
+    if case == "ragged_last_window":
+        # 20480 cells: 2.5 windows of 8192 on the card; the JAX kernel's
+        # window must divide n_cells, so it takes 4096
+        n_cells = 5 * 4096
+        return rng.permutation(np.concatenate([
+            rng.integers(0, n_cells, 20000),
+            np.repeat(np.arange(n_cells - 200, n_cells), 29)])), n_cells, 4096
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,weighted", [
+    pytest.param("random", False, id="False"),
+    pytest.param("random", True, id="True"),
+    *[pytest.param(c, w, id=f"{c}-{w}")
+      for c in ("one_cell", "clustered_29", "junk_cell", "ragged_last_window")
+      for w in (False, True)]])
+def test_deposit_flat_matches_pallas(rng, case, weighted):
     """Counts exact; weighted sums within 2e-5 * max, the bar the JAX
-    package sets for its own kernel."""
-    n_cells = 4 * 8192
-    flat = rng.integers(0, n_cells, 20000).astype(np.int32)
-    w = rng.normal(1, 0.2, 20000).astype(np.float32) if weighted else None
+    package sets for its own kernel. Keys in any order, on the heavy
+    windows the card splits over several blocks, the junk cell and a
+    ragged last window."""
+    flat, n_cells, window = _flat_case(rng, case)
+    flat = np.asarray(flat, np.int32)
+    n = flat.shape[0]
+    w = rng.normal(1, 0.2, n).astype(np.float32) if weighted else None
     want = np.asarray(JPP.deposit_flat(
         jnp.asarray(flat), None if w is None else jnp.asarray(w), n_cells,
-        window=8192, interpret=True))
+        window=window, interpret=True))
     got = TPC.deposit_flat(T(flat), None if w is None else T(w),
                            n_cells).numpy()
     if weighted:
         npt.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
     else:
         npt.assert_array_equal(got, want)
+        npt.assert_array_equal(got, np.bincount(flat, minlength=n_cells))
 
 
 @pytest.mark.parametrize("case", ["empty", "one_cell", "last_cell",
-                                  "ragged", "sparse"])
+                                  "ragged", "sparse", "all_in_one_cell",
+                                  "clustered_29", "junk_cell",
+                                  "heavy_ragged_last_window"])
 def test_deposit_sorted_plain_edge_cases(rng, case):
     """The plain deposit (the CPU path of both wrappers) equals numpy's
-    bincount exactly on the kernel's edge cases."""
+    bincount exactly on the kernel's edge cases, the heavy windows (one
+    cell, ~29 keys a cell, the junk cell at n_cells - 1, the ragged last
+    window holding 29 keys a cell) among them."""
     n_cells = 3 * 8192 + 77
     keys = {
         "empty": np.zeros(0, np.int32),
@@ -114,6 +157,14 @@ def test_deposit_sorted_plain_edge_cases(rng, case):
         "last_cell": np.full(33, n_cells - 1, np.int32),
         "ragged": rng.integers(0, n_cells, 12345).astype(np.int32),
         "sparse": rng.integers(0, n_cells, 10).astype(np.int32),
+        "all_in_one_cell": np.full(1 << 17, 8191, np.int32),
+        "clustered_29": np.repeat(np.arange(8192, 2 * 8192),
+                                  29).astype(np.int32),
+        "junk_cell": np.concatenate([
+            rng.integers(0, n_cells, 20000),
+            np.full(50000, n_cells - 1)]).astype(np.int32),
+        "heavy_ragged_last_window": np.repeat(
+            np.arange(3 * 8192, n_cells), 29 * 64).astype(np.int32),
     }[case]
     keys = np.sort(keys)
     w = rng.uniform(0.5, 2.0, keys.shape[0]).astype(np.float32)
@@ -125,10 +176,13 @@ def test_deposit_sorted_plain_edge_cases(rng, case):
     atol = 2e-5 * max(np.abs(want).max(initial=0.0), 1.0)
     gotw = TPC.deposit_sorted(T(keys), T(w), n_cells).numpy()
     npt.assert_allclose(gotw, want, rtol=0, atol=atol)
-    # deposit_flat sorts first and carries each weight with its key
+    # deposit_flat takes the keys in any order with their weights
     perm = rng.permutation(keys.shape[0])
     gotf = TPC.deposit_flat(T(keys[perm]), T(w[perm]), n_cells).numpy()
     npt.assert_allclose(gotf, want, rtol=0, atol=atol)
+    npt.assert_array_equal(TPC.deposit_flat(T(keys[perm]), None,
+                                            n_cells).numpy(),
+                           np.bincount(keys, minlength=n_cells))
 
 
 def test_deposit_sorted_rejects_devices_without_kernel():
