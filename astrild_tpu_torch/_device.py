@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["default_device", "as_tensor"]
+__all__ = ["default_device", "as_tensor", "as_points"]
 
 
 def default_device(device=None) -> torch.device:
@@ -37,3 +37,13 @@ def as_tensor(arr, device=None) -> torch.Tensor:
     if t.is_floating_point():
         t = t.to(torch.float32)
     return t if device is None else t.to(device)
+
+
+def as_points(pos, device=None):
+    """Positions as tensors: an (n, 3) array, or a tuple of flat (x, y, z)
+    components kept as a tuple; placed as `as_tensor` places them (the
+    components follow the first one's device)."""
+    if isinstance(pos, (tuple, list)):
+        first = as_tensor(pos[0], device)
+        return tuple([first] + [as_tensor(c, first.device) for c in pos[1:]])
+    return as_tensor(pos, device)

@@ -1,12 +1,13 @@
 """Linear matter power spectrum (Eisenstein & Hu 1998), sigma8-normalized.
 
-Port of astrild_tpu/ops/linear_power.py (`eh98_transfer`,
-`_unnormalized_power`, `sigma_r`, `normalization`, `linear_power`, and the
-halofit `_sigma2_gauss`, `nonlinear_power`). The k-dependent terms are
-torch ops in the dtype of `k`; the k-independent fit coefficients are host
-float64 scalars.
+Port of astrild_tpu/ops/linear_power.py (`eh98_transfer`, the no-wiggle
+`eh98_transfer_nowiggle`, `_unnormalized_power`, `sigma_r`,
+`normalization`, `linear_power`, `linear_power_nowiggle`,
+`kaiser_multipoles`, and the halofit `_sigma2_gauss`, `nonlinear_power`).
+The k-dependent terms are torch ops in the dtype of `k`; the k-independent
+fit coefficients are host float64 scalars.
 
-Not ported yet: the no-wiggle transfer, `kaiser_multipoles` and `p_dpdp`.
+Not ported yet: `p_dpdp`.
 
 Units: k in h/Mpc, P in (Mpc/h)^3.
 """
@@ -20,8 +21,9 @@ import torch
 from .._device import as_tensor
 from ..utils.cosmology import Cosmology
 
-__all__ = ["eh98_transfer", "linear_power", "sigma_r", "normalization",
-           "nonlinear_power", "halofit_parameters"]
+__all__ = ["eh98_transfer", "eh98_transfer_nowiggle", "linear_power",
+           "linear_power_nowiggle", "sigma_r", "normalization",
+           "kaiser_multipoles", "nonlinear_power", "halofit_parameters"]
 
 
 def _as_tensor(k, device=None):
@@ -107,6 +109,34 @@ def eh98_transfer(k_hmpc, cosmo: Cosmology, device=None):
     return fb * t_b + fc * t_c
 
 
+def eh98_transfer_nowiggle(k_hmpc, cosmo: Cosmology, device=None):
+    """EH98 zero-baryon ("no-wiggle") transfer function (EH98 sec. 4.2).
+
+    The same broadband as `eh98_transfer` (baryon suppression through the
+    effective shape parameter Gamma_eff, eqs. 30-31) without the acoustic
+    oscillations: the denominator of the BAO wiggle ratio O(k) of ops.bao.
+    k is placed as in `eh98_transfer`.
+    """
+    h = cosmo.h
+    k_hmpc = _as_tensor(k_hmpc, device)
+    om = cosmo.Om0 * h ** 2
+    ob = cosmo.Ob0 * h ** 2
+    fb = ob / om
+    theta = cosmo.Tcmb / 2.7
+    # sound horizon, EH98 eq. 26 approximation [Mpc]
+    s = 44.5 * math.log(9.83 / om) / math.sqrt(1.0 + 10.0 * ob ** 0.75)
+    # effective shape parameter, eq. 30-31
+    a_gamma = (1.0 - 0.328 * math.log(431.0 * om) * fb
+               + 0.38 * math.log(22.3 * om) * fb ** 2)
+    ks = k_hmpc * h * s  # k [1/Mpc] * s [Mpc]
+    gamma_eff = cosmo.Om0 * h * (a_gamma + (1.0 - a_gamma)
+                                 / (1.0 + (0.43 * ks) ** 4))
+    q = k_hmpc * theta ** 2 / gamma_eff  # eq. 28
+    l0 = torch.log(2.0 * math.e + 1.8 * q)
+    c0 = 14.2 + 731.0 / (1.0 + 62.5 * q)
+    return l0 / (l0 + c0 * q ** 2)
+
+
 def _unnormalized_power(k, cosmo: Cosmology):
     return k ** cosmo.ns * eh98_transfer(k, cosmo) ** 2
 
@@ -143,6 +173,43 @@ def linear_power(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
     d = float(cosmo.growth_factor(z))
     k = _as_tensor(k_hmpc, device)
     return float(amplitude) * _unnormalized_power(k, cosmo) * d ** 2
+
+
+def linear_power_nowiggle(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
+                          device=None):
+    """Smooth (no-wiggle) linear P(k, z) [(Mpc/h)^3].
+
+    Normalized with the same sigma8 amplitude as `linear_power` (from the
+    full wiggly spectrum), so linear_power / linear_power_nowiggle is the
+    acoustic pattern O(k) on a broadband ratio ~= 1. k is placed as in
+    `eh98_transfer`.
+    """
+    if amplitude is None:
+        amplitude = normalization(cosmo)
+    d = float(cosmo.growth_factor(z))
+    k = _as_tensor(k_hmpc, device)
+    t = eh98_transfer_nowiggle(k, cosmo)
+    return float(amplitude) * k ** cosmo.ns * t ** 2 * d ** 2
+
+
+def kaiser_multipoles(k_hmpc, cosmo: Cosmology, z=0.0, bias: float = 1.0,
+                      amplitude=None, device=None):
+    """Linear Kaiser redshift-space multipoles (P0, P2, P4) [(Mpc/h)^3].
+
+    P(k, mu) = b^2 (1 + beta mu^2)^2 P_lin(k), beta = f(z)/b:
+      P0 = (1 + 2 beta/3 + beta^2/5) b^2 P_lin
+      P2 = (4 beta/3 + 4 beta^2/7)   b^2 P_lin
+      P4 = (8 beta^2 / 35)           b^2 P_lin
+    k is placed as in `eh98_transfer`.
+    """
+    p = linear_power(k_hmpc, cosmo, z=z, amplitude=amplitude, device=device)
+    f = float(cosmo.growth_rate(z))
+    beta = f / bias
+    b2p = bias ** 2 * p
+    p0 = (1.0 + 2.0 * beta / 3.0 + beta ** 2 / 5.0) * b2p
+    p2 = (4.0 * beta / 3.0 + 4.0 * beta ** 2 / 7.0) * b2p
+    p4 = (8.0 * beta ** 2 / 35.0) * b2p
+    return p0, p2, p4
 
 
 # ----------------------------------------------------- halofit (nonlinear)

@@ -1,31 +1,33 @@
-"""Blocked O(N^2) mean-pairwise-velocity estimator.
+"""Blocked O(N^2) pairwise-velocity estimators.
 
-Port of `make_rsep`, `make_rsep_uneven_bins`, `_pad_blocks`,
-`_pairwise_accumulate` and `mean_pairwise_velocity` of
-astrild_tpu/ops/pairwise.py. The plain version processes pairs in (B x B)
-tiles (a Python loop over the upper-triangular tile pairs) and reduces
-each tile into distance bins with `binred.masked_bin_reduce`; on a CUDA
-tensor the estimator runs the pair-tile kernel K3
-(`pairwise_cuda.pairwise_accumulate`) instead.
+Port of astrild_tpu/ops/pairwise.py. The plain version processes pairs in
+(B x B) tiles (a Python loop over the upper-triangular tile pairs) and
+reduces each tile into distance bins with `binred.masked_bin_reduce`; on a
+CUDA tensor `mean_pairwise_velocity` (and `mean_pv_from_tv` through it)
+runs the pair-tile kernel K3 (`pairwise_cuda.pairwise_accumulate`)
+instead. The pairwise-velocity PDF and the kSZ estimator are plain torch
+tiles on every device, as they are XLA tiles in the JAX package.
 
 Estimator (Yasini et al. 2018, arxiv:1812.04241 Eq. 6):
   v12(r) = sum_pairs (v_i - v_j) . q_ij / sum_pairs |q_ij|^2
   q_ij = [2 rhat_ij - phat_i (rhat_ij.phat_i) - phat_j (rhat_ij.phat_j)] / 2
-
-Not ported yet: `pairwise_velocity_pdf`, the kSZ estimator
-(`pairwise_ksz_momentum`) and `mean_pv_from_tv`.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from .._device import as_tensor
 from .._options import port_spelling
+from ..utils.geometry import angular_coordinate_in_lc, convert_vec_sph_to_cart
 from . import pairwise_cuda
 from .binred import masked_bin_reduce
 
-__all__ = ["mean_pairwise_velocity", "make_rsep", "make_rsep_uneven_bins"]
+__all__ = ["mean_pairwise_velocity", "mean_pv_from_tv", "make_rsep",
+           "make_rsep_uneven_bins", "pairwise_velocity_pdf",
+           "pairwise_ksz_momentum"]
 
 
 def make_rsep(binnr: int, binwidth: float, device=None):
@@ -46,6 +48,16 @@ def _pad_blocks(arr, block: int):
     nb = (n + block - 1) // block
     pad = arr.new_zeros((nb * block - n,) + tuple(arr.shape[1:]))
     return torch.cat([arr, pad]), nb
+
+
+def _uniform_bins(dist, width, nbins: int):
+    """Bin b of [b w, (b + 1) w) for each distance; distances at or beyond
+    nbins * w (and NaN) go to the drop bin nbins. The float -> int cast
+    only sees values below nbins."""
+    t = dist / width
+    keep = t < nbins
+    return torch.where(keep, torch.where(keep, t, 0.0).to(torch.int64),
+                       nbins)
 
 
 def _pairwise_accumulate(pos, vel, n_valid, binnr: int, binwidth,
@@ -93,10 +105,7 @@ def _pairwise_accumulate(pos, vel, n_valid, binnr: int, binwidth,
             mask = ((ia[:, None] < jb[None, :])
                     & (ia[:, None] < n_valid) & (jb[None, :] < n_valid))
             if edges is None:
-                t = rnorm / width
-                binidx = torch.where(t < binnr,
-                                     t.to(torch.int64).clamp(0, binnr),
-                                     binnr)
+                binidx = _uniform_bins(rnorm, width, binnr)
             else:
                 binidx = torch.searchsorted(edges, rnorm, right=True) - 1
                 binidx = torch.where(
@@ -191,3 +200,172 @@ def mean_pairwise_velocity(pos_cart, vel_cart, bins, n_valid=None,
                                         binwidth, block=block)
     v12 = torch.where(den > 0, nom / den.clamp_min(1e-30), torch.nan)
     return make_rsep(binnr, binwidth, device=dev), v12
+
+
+def pairwise_velocity_pdf(pos, vel, dist_bin: int, vel_bin: int,
+                          mode: str = "radial", n_valid=None,
+                          block: int = 512, device=None):
+    """2D (separation, pairwise-velocity) histogram over all pairs i<j.
+
+    Blocked-tile port of the Cython kernels
+    (particles/utils_cython/pairwise_velocity.pyx:194-313):
+      mode='z_sign' : v12 = (v2z - v1z) * sign(r2z - r1z)
+      mode='radial' : v12 = (v2 - v1) . (r2 - r1) / |r12|
+    Bin sizes are 1 Mpc/h in distance and 1 km/s in velocity with the
+    velocity axis offset by vel_bin/2 (the reference's convention): a pair
+    lands in distance bin int(|r12|) and velocity bin floor(v12 + offset),
+    so v12 + offset in (-1, 0) is rejected. Both bin tests are made on the
+    float values, before the int cast.
+
+    pos, vel: (n, 3); a tensor stays on its device unless `device` is
+    given, numpy input goes to `device`, by default the CUDA card (it
+    raises without one: pass device="cpu"). Plain torch tiles on every
+    device. Returns (dist_bin, vel_bin) float32 pair counts.
+    """
+    pos = as_tensor(pos, device)
+    vel = as_tensor(vel, device if isinstance(vel, torch.Tensor)
+                    else pos.device)
+    n = pos.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    posp, nb = _pad_blocks(pos.to(torch.float32), block)
+    velp, _ = _pad_blocks(vel.to(torch.float32).to(pos.device), block)
+    dev = posp.device
+    offset = vel_bin // 2
+    nbinstot = dist_bin * vel_bin
+    counts = torch.zeros(nbinstot, dtype=torch.float32, device=dev)
+    ar = torch.arange(block, device=dev)
+    for a in range(nb):
+        for b in range(a, nb):
+            ia = a * block + ar
+            jb = b * block + ar
+            sa, sb = slice(a * block, (a + 1) * block), slice(
+                b * block, (b + 1) * block)
+            rij = posp[sb][None, :, :] - posp[sa][:, None, :]
+            dist = torch.sqrt(rij[..., 0] * rij[..., 0]
+                              + rij[..., 1] * rij[..., 1]
+                              + rij[..., 2] * rij[..., 2])
+            dv = velp[sb][None, :, :] - velp[sa][:, None, :]
+            if mode == "z_sign":
+                v12 = dv[..., 2] * torch.sign(rij[..., 2])
+            else:
+                v12 = (dv[..., 0] * rij[..., 0] + dv[..., 1] * rij[..., 1]
+                       + dv[..., 2] * rij[..., 2]) / dist.clamp_min(1e-12)
+            vfl = torch.floor(v12 + offset)
+            ok = ((ia[:, None] < jb[None, :])
+                  & (ia[:, None] < n_valid) & (jb[None, :] < n_valid)
+                  & (dist < dist_bin) & (vfl >= 0) & (vfl < vel_bin))
+            db = torch.where(ok, dist, 0.0).to(torch.int64)
+            vb = torch.where(ok, vfl, 0.0).to(torch.int64)
+            flat = torch.where(ok, db * vel_bin + vb, nbinstot)
+            inc = torch.bincount(flat.reshape(-1), minlength=nbinstot + 1)
+            counts = counts + inc[:nbinstot].to(torch.float32)
+    return counts.reshape(dist_bin, vel_bin)
+
+
+def _ksz_accumulate(pos, dT, n_valid, binnr: int, binwidth,
+                    block: int = 512):
+    """kSZ numerator and denominator over all pairs i < j < n_valid (the
+    JAX package's shared tile accumulator, kind='ksz'): nom = (dT_i -
+    dT_j) c_ij, den = c_ij^2, c_ij = rhat_ij.(phat_i + phat_j)/2, in bins
+    of uniform width (dropped at or beyond binnr * binwidth). The sums
+    accumulate in float32 tile by tile, as the JAX package's scan does."""
+    posp, nb = _pad_blocks(pos.to(torch.float32), block)
+    dTp, _ = _pad_blocks(dT.to(torch.float32).to(posp.device), block)
+    dev = posp.device
+    pnorm = torch.linalg.vector_norm(posp, dim=1, keepdim=True)
+    phat = posp / pnorm.clamp_min(1e-12)
+    nom = torch.zeros(binnr, dtype=torch.float32, device=dev)
+    den = torch.zeros(binnr, dtype=torch.float32, device=dev)
+    width = torch.tensor(binwidth, dtype=torch.float32, device=dev)
+    ar = torch.arange(block, device=dev)
+    for a in range(nb):
+        for b in range(a, nb):
+            ia = a * block + ar
+            jb = b * block + ar
+            sa, sb = slice(a * block, (a + 1) * block), slice(
+                b * block, (b + 1) * block)
+            rij = posp[sa][:, None, :] - posp[sb][None, :, :]
+            rnorm = torch.sqrt(rij[..., 0] * rij[..., 0]
+                               + rij[..., 1] * rij[..., 1]
+                               + rij[..., 2] * rij[..., 2])
+            rhat = rij / rnorm.clamp_min(1e-12)[..., None]
+            cij = 0.5 * (torch.einsum("abk,ak->ab", rhat, phat[sa])
+                         + torch.einsum("abk,bk->ab", rhat, phat[sb]))
+            nom_ij = (dTp[sa][:, None] - dTp[sb][None, :]) * cij
+            mask = ((ia[:, None] < jb[None, :])
+                    & (ia[:, None] < n_valid) & (jb[None, :] < n_valid))
+            w = mask.to(torch.float32).reshape(-1)
+            bflat = torch.where(mask, _uniform_bins(rnorm, width, binnr),
+                                binnr).reshape(-1)
+            inc = masked_bin_reduce(
+                torch.stack([w * nom_ij.reshape(-1),
+                             w * (cij * cij).reshape(-1)]), bflat, binnr)
+            nom = nom + inc[0]
+            den = den + inc[1]
+    return nom, den
+
+
+def pairwise_ksz_momentum(pos_cart, dT, bins, n_valid=None,
+                          block: int = 512, device=None):
+    """kSZ pairwise momentum estimator (Hand et al. 2012, arXiv:1203.4219
+    Eq. 2; Ferreira et al. 1999):
+
+        p_hat(r) = sum_pairs (dT_i - dT_j) c_ij / sum_pairs c_ij^2
+        c_ij     = rhat_ij . (rhat_i + rhat_j) / 2
+
+    With kSZ temperatures dT_i = -T0 v_i.rhat_i, p_hat(r) -> -T0 v12(r):
+    gravitational infall (v12 < 0) gives p_hat > 0.
+
+    Args:
+      pos_cart: (n, 3) comoving positions, observer at the origin; placed
+        as in `pairwise_velocity_pdf`.
+      dT: (n,) temperature offsets at the cluster positions [any unit].
+      bins: distance bin edges starting at 0 with uniform width.
+
+    Plain torch tiles on every device. Returns (rsep, p_hat): bin centers
+    and the estimate (NaN on empty bins).
+    """
+    bins_np = (bins.detach().cpu().numpy() if isinstance(bins, torch.Tensor)
+               else np.asarray(bins))
+    binnr = int(bins_np.shape[0])
+    binwidth = float(bins_np[1] - bins_np[0])
+    pos_cart = as_tensor(pos_cart, device)
+    dT = as_tensor(dT, device if isinstance(dT, torch.Tensor)
+                   else pos_cart.device)
+    n = pos_cart.shape[0] if n_valid is None else int(n_valid)
+    nom, den = _ksz_accumulate(pos_cart, dT, n, binnr, binwidth,
+                               block=block)
+    p = torch.where(den > 0, nom / den.clamp_min(1e-30), torch.nan)
+    return make_rsep(binnr, binwidth, device=pos_cart.device), p
+
+
+def mean_pv_from_tv(pos_cart, vel_ang, bins, theta1=None, theta2=None,
+                    block: int = 512, device=None):
+    """Mean pairwise velocity from transverse (angular) velocities.
+
+    Mirror of the reference entry point (mean_pairwise_velocity.py:16-118):
+    angular velocities [vel_RA, vel_DEC] are embedded as a spherical
+    vector [v_r=0, vel_ang0, vel_ang1] and rotated to cartesian with the
+    (theta2, theta1) jacobian before the pair accumulation; with no angles
+    given they derive from the lightcone positions shifted by 10 deg.
+    Angles above 2 pi are taken as degrees. The estimate is
+    `mean_pairwise_velocity`'s: through K3 on a CUDA tensor. Placement as
+    in `mean_pairwise_velocity`.
+    """
+    pos_cart = as_tensor(pos_cart, device)
+    dev = pos_cart.device
+    vel_ang = as_tensor(vel_ang, dev)
+    if theta1 is None:
+        t1, t2 = angular_coordinate_in_lc(pos_cart, unit="rad")
+        t1 = t1 + 10.0 * math.pi / 180.0
+        t2 = t2 + 10.0 * math.pi / 180.0
+    else:
+        theta1 = as_tensor(theta1, dev)
+        theta2 = as_tensor(theta2, dev)
+        deg = theta1.max() > 2.0 * math.pi
+        t1 = torch.where(deg, torch.deg2rad(theta1), theta1)
+        t2 = torch.where(deg, torch.deg2rad(theta2), theta2)
+    vel_sph = torch.cat([vel_ang.new_zeros((pos_cart.shape[0], 1)),
+                         vel_ang], dim=1)
+    vel_cart = convert_vec_sph_to_cart(t2, t1, vel_sph)
+    return mean_pairwise_velocity(pos_cart, vel_cart, bins, block=block)

@@ -13,3 +13,5 @@ H0_HUNITS = 100.0  # km/s / (Mpc/h)
 H0_OVER_C_HMPC = 1.0 / 2997.92458  # H0/c in h/Mpc (c = 1 units)
 
 DEG2RAD = 0.017453292519943295
+ARCMIN2RAD = DEG2RAD / 60.0
+RAD2ARCMIN = 1.0 / ARCMIN2RAD

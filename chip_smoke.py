@@ -91,7 +91,21 @@ exits non-zero before the final line:
      same keys, at the suite's, a lens plane's and a shell image's shape,
      and a profiler trace that shows `deposit_flat` runs no radix sort;
      K3's parts from a profiler trace, with the tile pairs it visits, the
-     pairs they hold and the in-range pairs.
+     pairs they hold and the in-range pairs;
+ 11. the clustering lane (examples/clustering_toolkit.py on the GR z=0
+     snapshot of phase 7, run after phase 9): P_thetatheta and P_deltatheta
+     at 256^3 (infall below k = 0.1 h/Mpc, -P_dtheta / (aHf P_d) near 1),
+     the marked P(k) (p = 0 equal to the plain P(k) with V/N), counts in
+     128^3 cells, density-split profiles of the 2^17 v12 tracers, BAO
+     reconstruction of all 2^27 particles against the painted 2LPT initial
+     field (the propagator rises), xi(r), xi_0 and xi_2 in redshift space
+     and wp(rp) of the 2^17 tracers against the halofit FFTLog wp, the
+     pairwise-velocity PDF (its total against a direct count) and the kSZ
+     estimator of 2^15 tracers in a lightcone frame, v12 from their
+     transverse velocities through K3, and the BAO scale of a 256^3 EH98
+     Gaussian field; K2 and K3 launches held to the counts the stages
+     predict; K2 on a signed velocity weight and on counts at 2^27 onto
+     256^3 against its plain version, and timed there in turns.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -148,6 +162,21 @@ LC_WEIGHTED_N = 1 << 24
 # the trace must return the Born map pixel for pixel
 LC_ELL_MAX, LC_BLOCK = 2000.0, 16
 LC_PIXEL_CORR_FLOOR, LC_SMOOTH, LC_WEAK = 0.85, 4.0, 0.01
+# the clustering lane: grid and bins of the spectra; smoothing of the mark,
+# the reconstruction and the split [Mpc/h]; counts-in-cells cells and
+# overflow count; the split's query lattice and shells (r_min above the
+# 256^3 cell, so that a quantile's innermost shell holds ~500 tracers);
+# pair-estimator tracers, tile rows, s / rp edges, mu and pi bins, the
+# lightcone distance of the box; the BAO fit's bins and alpha grid
+CL_NGRID, CL_BINS = 256, 64
+CL_MARK_R, CL_RECON_R, CL_SPLIT_R = 10.0, 10.0, 20.0
+CL_CIC_CELLS, CL_CIC_MAX = 128, 1024
+CL_QUERY, CL_SPLIT_RMIN, CL_SPLIT_RMAX = 16, 5.0, 100.0
+CL_PAIR_N, CL_BLOCK = 1 << 15, 2048
+CL_S_EDGES, CL_NMU = (0.0, 100.0, 21), 20
+CL_RP_EDGES, CL_PI_MAX, CL_N_PI = (4.0, 60.0, 13), 80.0, 40
+CL_LC_DIST = 1000.0
+CL_BAO_BINS, CL_ALPHAS = 32, (0.7, 1.3, 301)
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -606,8 +635,12 @@ def compare_k2(pf, w, ngrid: int, box: float, order: int) -> float:
                              f"painter: max err {err} > {WEIGHTED_TOL} * "
                              f"{scale}")
     mass = float(pf.shape[0] // 3) if w is None else float(w.double().sum())
+    # signed weights (a velocity component) may sum to near 0: their total
+    # is held against the sum of their magnitudes
+    scale = (float(pf.shape[0] // 3) if w is None
+             else float(w.double().abs().sum()))
     total = float(got.double().sum())
-    if abs(total - mass) > MASS_RTOL * mass:
+    if abs(total - mass) > MASS_RTOL * scale:
         raise AssertionError(f"K2 order {order} holds mass {total}, not "
                              f"{mass}")
     return err
@@ -1755,6 +1788,377 @@ def phase_lightcone(dev, seed: int, out_gr) -> dict:
     return result
 
 
+# ------------------------------------------------------ clustering lane
+def _mean_in(x, y, lo: float, hi: float) -> float:
+    """Mean of y over the entries whose x lies in [lo, hi] (NaN left out)."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    sel = (x >= lo) & (x <= hi) & np.isfinite(y)
+    if not sel.any():
+        raise AssertionError(f"no finite entry in [{lo}, {hi}]")
+    return float(y[sel].mean())
+
+
+def _direct_pdf_total(pos, vel, dist_bin: int, vel_bin: int,
+                      rows: int = 1024) -> int:
+    """Pairs i < j with |r_ij| < dist_bin and 0 <= floor(v12 + vel_bin // 2)
+    < vel_bin, v12 the radial pairwise velocity: each block of rows against
+    every later row, with the estimator's float32 pair formula."""
+    n = pos.shape[0]
+    offset = vel_bin // 2
+    idx = torch.arange(n, device=pos.device)
+    total = 0
+    for a in range(0, n, rows):
+        rij = pos[None, a:, :] - pos[a:a + rows, None, :]
+        dv = vel[None, a:, :] - vel[a:a + rows, None, :]
+        dist = torch.sqrt(rij[..., 0] * rij[..., 0] + rij[..., 1] * rij[..., 1]
+                          + rij[..., 2] * rij[..., 2])
+        v12 = (dv[..., 0] * rij[..., 0] + dv[..., 1] * rij[..., 1]
+               + dv[..., 2] * rij[..., 2]) / dist.clamp_min(1e-12)
+        vfl = torch.floor(v12 + offset)
+        later = idx[None, a:] > idx[a:a + rows, None]
+        total += int((later & (dist < dist_bin) & (vfl >= 0)
+                      & (vfl < vel_bin)).sum())
+    return total
+
+
+def _k2_lane_timing(pf, w, ngrid: int) -> dict:
+    """K2 CIC at the lane's shape (2^27 particles onto ngrid^3, weighted by
+    a signed velocity component) against its plain version and the bound,
+    in turns (plain, kernel, kernel, plain), outside the lane's counts;
+    with the per-tile particle counts (the deposit's load balance). (A
+    profiler trace here, after phase 9's, records none of K2's kernels.)"""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    err = compare_k2(pf, w, ngrid, BOX, 2)
+    err_counts = compare_k2(pf, None, ngrid, BOX, 2)
+    counts = paint_cuda.windowed_bins(pf, ngrid, BOX, 2)[1]
+    tiles = {"tile_particles_max": int(counts.max()),
+             "tile_particles_mean": float(counts.double().mean()),
+             "tiles_empty": int((counts == 0).sum()), "tiles": counts.numel()}
+    del counts
+    fns = {
+        "plain": lambda: paint_cuda.paint_windowed_reference(pf, w, ngrid,
+                                                             BOX, 2),
+        "kernel": lambda: paint_cuda.paint_windowed(pf, w, ngrid, BOX, 2),
+    }
+    ms = {k: [] for k in fns}
+    for turn in (["plain", "kernel"], ["kernel", "plain"]):
+        for name in turn:
+            ms[name].append(_event_ms(fns[name], 3))
+    n = pf.shape[0] // 3
+    bound = bound_ms(16 * n + 4 * ngrid ** 3, K2_OPS[2] * n)
+    return {"n": n, "ngrid": ngrid, "weighted": True,
+            "max_abs_err": err, "max_abs_err_counts": err_counts,
+            **tiles,
+            "mean": {k: sum(v) / len(v) for k, v in ms.items()},
+            "turns": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def phase_clustering(dev, seed: int, out_gr, mom_gr, tracers) -> dict:
+    """The clustering lane on the GR z=0 snapshot (all 2^27 particles on
+    256^3 grids) and on the 2^17 v12 tracers: each stage on the host clock,
+    its K2 / K3 launches against the count the stage predicts, its checks;
+    then K2 at this shape against its plain version and timed."""
+    from astrild_tpu_torch.ops import (bao, density_split, fftlog,
+                                       linear_power, mocks, nbody, paint_cuda,
+                                       pairwise, pairwise_cuda, power, recon,
+                                       tpcf, velocity)
+    from astrild_tpu_torch.ops.paint import paint
+    from astrild_tpu_torch.utils import geometry
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    gr = Cosmology(Om0=0.3, h=0.7)
+    amp = linear_power.normalization(gr)
+
+    def pk_fn(k):
+        return linear_power.linear_power(k, gr, 0.0, amplitude=amp)
+
+    n, ng = PM_SIDE ** 3, CL_NGRID
+    vel_gr = nbody.velocities_kms(mom_gr, 1.0)
+    tpos, tvel = tracers
+    bins = np.linspace(*V12_BINS)
+    seconds, launches = {}, {}
+    # the K2 / K3 launches each stage makes (paints: velocity_field paints
+    # the counts and three weighted components per spectrum, plus the
+    # counts grid the lane shares; marked_power paints twice per call;
+    # the reconstruction paints the tracers, the initial field, and the
+    # shifted data and randoms)
+    predicted = {"velocity": {"paint_windowed": 9},
+                 "marked": {"paint_windowed": 4}, "cic": {}, "split": {},
+                 "recon": {"paint_windowed": 4}, "tpcf": {},
+                 "pairs": {"pairwise_accumulate": 1}, "bao_fit": {}}
+    out = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        before = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        after = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+        launches[name] = {k: after[k] - before.get(k, 0) for k in after
+                          if after[k] != before.get(k, 0)}
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launch counts cover exactly the lane's stages
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+
+    # ---- velocity spectra, and the counts grid the lane shares
+    def velocity_stage():
+        tt = velocity.velocity_divergence_power(out_gr, vel_gr, ng, BOX,
+                                                nbins=CL_BINS)
+        dt = velocity.delta_theta_cross_power(out_gr, vel_gr, ng, BOX,
+                                              nbins=CL_BINS)
+        counts = paint(out_gr, ng, BOX)
+        dd = power.auto_power(counts, BOX, nbins=CL_BINS, window="cic")
+        return tt, dt, counts, dd
+
+    tt, dt, counts, dd = stage("velocity", velocity_stage)
+    k = dd.k.cpu().numpy()
+    ahf = 100.0 * float(gr.growth_rate(0.0))
+    has = dd.nmodes.cpu().numpy() > 0
+    for name, res in (("P_thetatheta", tt), ("P_deltatheta", dt)):
+        if not bool(torch.isfinite(res.power[dd.nmodes > 0]).all()):
+            raise AssertionError(f"{name} is not finite")
+    low = has & (k < 0.1)
+    p_dt = dt.power.cpu().numpy()
+    if not np.all(p_dt[low] < 0):
+        raise AssertionError(f"P_deltatheta is not negative below k = 0.1: "
+                             f"{p_dt[low].tolist()}")
+    vel_ratio = -p_dt / (ahf * dd.power.cpu().numpy())
+    out["velocity"] = {"k": k[low].tolist(),
+                       "ratio": vel_ratio[low].tolist(),
+                       "ratio_mean": float(vel_ratio[low].mean()),
+                       "ptt_over_ahf2_pdd": (tt.power.cpu().numpy()[low] / (
+                           ahf ** 2 * dd.power.cpu().numpy()[low])).tolist()}
+    if not 0.5 < out["velocity"]["ratio_mean"] < 1.5:
+        raise AssertionError(f"-P_dtheta / (aHf P_d) below k = 0.1: "
+                             f"{vel_ratio[low].tolist()}")
+
+    # ---- marked P(k); p = 0 is the plain P(k) with shot noise V/N
+    def marked_stage():
+        res, marks = density_split.marked_power(out_gr, ng, BOX, CL_MARK_R,
+                                                mark_p=1.0, nbins=CL_BINS)
+        res0, _ = density_split.marked_power(out_gr, ng, BOX, CL_MARK_R,
+                                             mark_p=0.0, nbins=CL_BINS)
+        return res, marks, res0
+
+    res_m, marks, res_m0 = stage("marked", marked_stage)
+    if not bool(torch.isfinite(res_m.power[dd.nmodes > 0]).all()):
+        raise AssertionError("the marked P(k) is not finite")
+    plain = power.auto_power(counts, BOX, nbins=CL_BINS, window="cic",
+                             shotnoise=BOX ** 3 / n)
+    sel = dd.nmodes > 0
+    mark0_rel = float(((res_m0.power - plain.power).abs()
+                       / plain.power.abs())[sel].max())
+    if mark0_rel > 1e-5:
+        raise AssertionError(f"marked P(k) with p = 0 differs from the plain "
+                             f"P(k): max rel {mark0_rel}")
+    out["marked"] = {"ratio_first8": (res_m.power / plain.power)[sel][:8]
+                     .tolist(), "p0_max_rel": mark0_rel,
+                     "marks_min_max": [float(marks.min()),
+                                       float(marks.max())]}
+    del marks
+
+    # ---- counts in cells
+    pdf, cc = stage("cic", lambda: density_split.counts_in_cells(
+        out_gr, BOX, CL_CIC_CELLS, max_count=CL_CIC_MAX))
+    mu, var, skew = density_split.counts_in_cells_moments(cc)
+    pdf_sum = float(pdf.double().sum())
+    cc_total = float(cc.double().sum())
+    if pdf_sum != 1.0 or cc_total != float(n) or not float(var) > float(mu):
+        raise AssertionError(f"counts in cells: pdf sums to {pdf_sum}, counts "
+                             f"to {cc_total} (not {n}), var {float(var)} vs "
+                             f"mean {float(mu)}")
+    out["cic"] = {"mean_exact": cc_total / CL_CIC_CELLS ** 3,
+                  "mean": float(mu), "var": float(var), "skew": float(skew)}
+    del cc, pdf
+
+    # ---- density split around the v12 tracers
+    delta = counts / counts.mean() - 1.0
+    r_ds, prof = stage("split", lambda: density_split.density_split_profiles(
+        delta, BOX, tpos, CL_SPLIT_R, n_quantiles=5, n_query=CL_QUERY,
+        r_min=CL_SPLIT_RMIN, r_max=CL_SPLIT_RMAX))
+    inner = prof[:, 0].cpu().numpy()
+    if not (inner[0] < 0 < inner[-1] and np.all(np.diff(inner) > 0)):
+        raise AssertionError(f"density split: innermost bins by quantile "
+                             f"{inner.tolist()}")
+    out["split"] = {"r": r_ds.tolist(), "inner": inner.tolist(),
+                    "profiles": prof.tolist()}
+
+    # ---- BAO reconstruction against the painted 2LPT initial field
+    def recon_stage():
+        x = (torch.arange(ng, dtype=torch.float32, device=dev) + 0.25) * (
+            BOX / ng)
+        randoms = torch.stack(torch.meshgrid(x, x, x, indexing="ij"),
+                              dim=-1).reshape(-1, 3)
+        pos_rec, rand_rec = recon.reconstruct_catalog(out_gr, randoms, ng,
+                                                      BOX, smooth=CL_RECON_R)
+        del randoms
+        # phase 7's initial conditions, from the same seed
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        comps0, mom0 = nbody.lpt_catalog(gen, PM_SIDE, BOX, pk_fn, gr,
+                                         Z_INIT)
+        del mom0
+        g0 = paint(comps0, ng, BOX)
+        del comps0
+        g_rec = paint(pos_rec, ng, BOX)
+        del pos_rec
+        g_rand = paint(rand_rec, ng, BOX)
+        del rand_rec
+        return (g0 / g0.mean() - 1.0,
+                g_rec / g_rec.mean() - g_rand / g_rand.mean())
+
+    delta_l, delta_rec = stage("recon", recon_stage)
+
+    def corr(dg):
+        pcc = power.cross_power(dg + 1.0, delta_l + 1.0, BOX, nbins=CL_BINS)
+        paa = power.auto_power(dg + 1.0, BOX, nbins=CL_BINS)
+        pbb = power.auto_power(delta_l + 1.0, BOX, nbins=CL_BINS)
+        return (pcc.power / torch.sqrt(paa.power * pbb.power)).cpu().numpy()
+
+    r_pre, r_post = corr(delta), corr(delta_rec)
+    pre, post = _mean_in(k, r_pre, 0.1, 0.3), _mean_in(k, r_post, 0.1, 0.3)
+    if not post > pre:
+        raise AssertionError(f"reconstruction did not raise the propagator "
+                             f"over 0.1-0.3 h/Mpc: {pre} -> {post}")
+    out["recon"] = {"k": k[has].tolist(), "r_pre": r_pre[has].tolist(),
+                    "r_post": r_post[has].tolist(),
+                    "mean_0.1_0.3": [pre, post]}
+    del delta_l, delta_rec, delta, counts
+
+    # ---- correlation functions of the v12 tracers
+    s_edges = np.linspace(*CL_S_EDGES)
+    rp_edges = np.linspace(*CL_RP_EDGES)
+
+    def tpcf_stage():
+        r, xi_r = tpcf.tpcf_real(tpos, BOX, s_edges, block=CL_BLOCK)
+        pos_s = tpcf.to_redshift_space(tpos, tvel, BOX)
+        _, _, xi_smu = tpcf.tpcf_s_mu(pos_s, BOX, s_edges, nmu=CL_NMU,
+                                      block=CL_BLOCK)
+        rp, wp, _ = tpcf.projected_tpcf(tpos, BOX, rp_edges, CL_PI_MAX,
+                                        n_pi=CL_N_PI, block=CL_BLOCK)
+        return r, xi_r, xi_smu, rp, wp
+
+    r, xi_r, xi_smu, rp, wp = stage("tpcf", tpcf_stage)
+    xi0 = tpcf.tpcf_multipoles(xi_smu, 0).cpu().numpy()
+    xi2 = tpcf.tpcf_multipoles(xi_smu, 2).cpu().numpy()
+    r = r.cpu().numpy()
+    xi_r = xi_r.cpu().numpy()
+    boost = _mean_in(r, xi0 / xi_r, 10.0, 40.0)
+    quad = _mean_in(r, xi2, 20.0, 60.0)
+    k_tab = np.geomspace(1e-3, 30.0, 512)
+    wp_th = fftlog.wp_from_pk(k_tab, linear_power.nonlinear_power(
+        k_tab, gr, 0.0, amplitude=amp, device=dev), rp, CL_PI_MAX)
+    rp, wp_ratio = rp.cpu().numpy(), (wp / wp_th).cpu().numpy()
+    wp_mean = _mean_in(rp, wp_ratio, 8.0, 40.0)
+    if not (boost > 1.0 and quad < 0.0 and 0.5 < wp_mean < 1.5):
+        raise AssertionError(f"tpcf: xi0/xi(r) over 10-40 {boost}, xi2 over "
+                             f"20-60 {quad}, wp/theory over 8-40 {wp_mean}")
+    out["tpcf"] = {"r": r.tolist(), "xi_r": xi_r.tolist(),
+                   "xi0": xi0.tolist(), "xi2": xi2.tolist(),
+                   "xi0_over_xi_r_10_40": boost, "xi2_20_60": quad,
+                   "rp": rp.tolist(), "wp": wp.tolist(),
+                   "wp_over_halofit": wp_ratio.tolist(),
+                   "wp_ratio_8_40": wp_mean}
+
+    # ---- pair estimators: the PDF, kSZ and v12 from transverse velocities
+    p15, v15 = tpos[:CL_PAIR_N].contiguous(), tvel[:CL_PAIR_N].contiguous()
+    pos_lc = geometry.transform_box_to_lc_cart_coords(tpos, BOX, CL_LC_DIST)
+    rhat = pos_lc / torch.linalg.vector_norm(pos_lc, dim=1, keepdim=True)
+    d_t = -(tvel * rhat).sum(dim=1)
+    t1, t2 = geometry.angular_coordinate_in_lc(pos_lc, unit="rad")
+    t1, t2 = t1 + 10.0 * math.pi / 180.0, t2 + 10.0 * math.pi / 180.0
+    vel_ang = geometry.convert_vec_cart_to_sph(t2, t1, tvel)[:, 1:]
+
+    def pairs_stage():
+        pdf2 = pairwise.pairwise_velocity_pdf(p15, v15, 50, 2000,
+                                              block=CL_BLOCK)
+        r_k, p_k = pairwise.pairwise_ksz_momentum(
+            pos_lc[:CL_PAIR_N], d_t[:CL_PAIR_N], bins, block=CL_BLOCK)
+        r_v, v12 = pairwise.mean_pv_from_tv(pos_lc, vel_ang, bins)
+        return pdf2, r_k, p_k, r_v, v12
+
+    pdf2, r_k, p_k, r_v, v12 = stage("pairs", pairs_stage)
+    pdf_total = int(pdf2.double().sum())
+    direct = _direct_pdf_total(p15, v15, 50, 2000)
+    vc = torch.arange(2000, device=dev, dtype=torch.float64) - 1000 + 0.5
+    near = pdf2[:20].double()
+    v12_pdf_mean = float((near * vc).sum() / near.sum())
+    p_k, v12 = p_k.cpu().numpy(), v12.cpu().numpy()
+    ksz_mean = _mean_in(r_k.cpu().numpy(), p_k, 5.0, 40.0)
+    tv_mean = _mean_in(r_v.cpu().numpy(), v12, 5.0, 40.0)
+    if not (pdf_total == direct and v12_pdf_mean < 0 and ksz_mean > 0
+            and tv_mean < 0):
+        raise AssertionError(f"pair estimators: PDF total {pdf_total} vs "
+                             f"direct {direct}, mean v12 below 20 "
+                             f"{v12_pdf_mean}, kSZ over 5-40 {ksz_mean}, "
+                             f"transverse v12 over 5-40 {tv_mean}")
+    out["pairs"] = {"pdf_total": pdf_total, "direct_total": direct,
+                    "pdf_mean_v12_below_20": v12_pdf_mean,
+                    "ksz": p_k.tolist(), "ksz_5_40": ksz_mean,
+                    "v12_transverse": v12.tolist(), "v12_5_40": tv_mean}
+    del pdf2
+
+    # ---- BAO scale of an EH98 Gaussian field
+    def bao_stage():
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        wig = mocks.gaussian_field(gen, ng, BOX, pk_fn)
+        res = power.auto_power(wig + 1.0, BOX, nbins=CL_BAO_BINS,
+                               kmax=CL_BAO_BINS + 0.5)
+        pk = res.power.cpu().numpy().astype(np.float64)
+        nm = res.nmodes.cpu().numpy()
+        sig = pk * np.sqrt(2.0 / np.maximum(nm, 1))
+        return bao.fit_bao_scale(res.k.cpu().numpy(), pk, gr, sigma=sig,
+                                 sigma_nl=1.0, kmin=0.04, kmax=0.30,
+                                 alphas=np.linspace(*CL_ALPHAS), device=dev)
+
+    fit = stage("bao_fit", bao_stage)
+    if not abs(fit.alpha - 1.0) < 3.0 * fit.alpha_err:
+        raise AssertionError(f"BAO alpha {fit.alpha} +- {fit.alpha_err}")
+    out["bao_fit"] = {"alpha": fit.alpha, "alpha_err": fit.alpha_err,
+                      "chi2": fit.chi2, "dof": fit.dof}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- launches against the stages' own counts
+    total = {}
+    for name, want in predicted.items():
+        if launches[name] != want:
+            raise AssertionError(f"clustering stage {name} launched "
+                                 f"{launches[name]}, predicted {want}")
+        for kname, v in want.items():
+            total[kname] = total.get(kname, 0) + v
+    lane = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+    if {k: v for k, v in lane.items() if v} != total:
+        raise AssertionError(f"clustering lane launched {dict(lane)}, "
+                             f"predicted {total}")
+
+    # ---- K2 at the lane's shape, outside the counts
+    k2 = _k2_lane_timing(torch.cat(out_gr), vel_gr[0].contiguous(), ng)
+    del vel_gr
+    log(f"# phase clustering: launches {total}; -P_dtheta/(aHf P_d) below "
+        f"k=0.1 {out['velocity']['ratio_mean']:.4f}; marked p=0 vs plain max "
+        f"rel {mark0_rel:.2e}; CIC mean {out['cic']['mean_exact']} var "
+        f"{float(var):.3f}; split inner {inner.round(4).tolist()}; "
+        f"propagator 0.1-0.3 {pre:.4f} -> {post:.4f}; xi0/xi_r "
+        f"{boost:.4f}, xi2 {quad:.4f}, wp/halofit {wp_mean:.4f}; PDF total "
+        f"{pdf_total} = direct {direct}; kSZ {ksz_mean:.4f}; transverse v12 "
+        f"{tv_mean:.4f}; BAO alpha {fit.alpha:.4f} +- "
+        f"{fit.alpha_err:.4f}; K2 signed vs plain max err "
+        f"{k2['max_abs_err']:.3e}, counts {k2['max_abs_err_counts']:.3e}; "
+        f"peak {peak_gb:.2f} GB")
+    result = {"seconds": seconds, "launches": launches,
+              "launches_total": total, "peak_mem_gb": peak_gb, **out,
+              "k2_timing_ms": k2}
+    log("# clustering " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -1848,6 +2252,8 @@ def main() -> None:
     lane_launches, k4_err, lane_keys = phase_file_lane(dev, args.seed,
                                                        out_gr, mom_gr)
     lightcone = phase_lightcone(dev, args.seed, out_gr)
+    clustering = phase_clustering(dev, args.seed, out_gr, mom_gr,
+                                  k3_inputs[:2])
     del out_gr, mom_gr
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
@@ -1914,6 +2320,16 @@ def main() -> None:
         "shells_launches": lightcone["shells_launches"]["deposit_sorted"]}
     k2_row = next(k for k in kernels if k["name"] == "paint_windowed")
     k2_row["lightcone_launches"] = lightcone["launches"]["paint_windowed"]
+    # the clustering lane's shape: weighted CIC of 2^27 particles onto 256^3
+    cl_k2 = clustering["k2_timing_ms"]
+    k2_row["clustering"] = {
+        "launches": clustering["launches_total"]["paint_windowed"],
+        "n": cl_k2["n"], "ngrid": cl_k2["ngrid"], "weighted": True,
+        "max_abs_err": cl_k2["max_abs_err"], "ms": cl_k2["mean"]["kernel"],
+        "plain_ms": cl_k2["mean"]["plain"], "bound_ms": cl_k2["bound_ms"],
+        "bound_by": cl_k2["bound_by"], "library_ms": None}
+    k3_row["clustering_launches"] = clustering["launches_total"][
+        "pairwise_accumulate"]
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -981,3 +981,147 @@ def test_pm_lightcone_planes_on_card_matches_cpu(cuda):
     for i in range(6):
         scale = float(want[i].abs().max())
         assert float((got[i].cpu() - want[i]).abs().max()) <= 5e-3 * scale
+
+
+# ---------------------------------------------------------- clustering lane
+def _clumpy(rng, n, box=BOX):
+    """float32 positions, half in Gaussian clumps, and velocities whose
+    signs cancel (km/s)."""
+    centers = rng.uniform(0, box, (64, 3))
+    half = n // 2
+    pos = np.concatenate([centers[rng.integers(0, 64, half)]
+                          + rng.normal(0, 1.5, (half, 3)),
+                          rng.uniform(0, box, (n - half, 3))]) % box
+    vel = rng.normal(0, 300, (n, 3))
+    return pos.astype(np.float32), vel.astype(np.float32)
+
+
+def test_k2_signed_weights_and_velocity_grids(cuda):
+    """K2 with a signed weight (a velocity component) at 2^20 particles
+    onto 64^3 against its plain version: within 2e-5 of the largest |cell|,
+    the total within 1e-5 of sum |w|. velocity_field on the card (four K2
+    launches) against the same call on the CPU: counts and momentum grids
+    within 2e-5 of their max, the velocity where the counts exceed 1e-3 of
+    their mean within the bar the two grids' errors carry (a cell with a
+    sliver of a particle turns rounding into a large velocity)."""
+    from astrild_tpu_torch.ops import velocity as TV
+
+    rng = np.random.default_rng(21)
+    pos, vel = _clumpy(rng, 1 << 20)
+    pf = torch.from_numpy(pos.T.copy().reshape(-1)).to(cuda)
+    for a in range(3):
+        w = torch.from_numpy(vel[:, a].copy()).to(cuda)
+        got = TPC.paint_windowed(pf, w, 64, BOX, order=2)
+        want = TPC.paint_windowed_reference(pf, w, 64, BOX, order=2)
+        assert float((got - want).abs().max()) <= 2e-5 * float(
+            want.abs().max())
+        assert abs(float(got.double().sum()) - float(w.double().sum())) \
+            <= 1e-5 * float(w.double().abs().sum())
+    before = TPC.LAUNCHES["paint_windowed"]
+    vg, counts = TV.velocity_field(torch.from_numpy(pos).to(cuda),
+                                   torch.from_numpy(vel).to(cuda), 64, BOX)
+    assert TPC.LAUNCHES["paint_windowed"] - before == 4
+    cvg, ccounts = TV.velocity_field(torch.from_numpy(pos),
+                                     torch.from_numpy(vel), 64, BOX)
+    c, cc = counts.cpu().numpy(), ccounts.numpy()
+    assert np.abs(c - cc).max() <= 2e-5 * cc.max()
+    well = cc > 1e-3 * cc.mean()
+    for a in range(3):
+        m = TP.paint(torch.from_numpy(pos).to(cuda), 64, BOX,
+                     weights=torch.from_numpy(vel[:, a].copy()).to(cuda))
+        cm = TP.paint(torch.from_numpy(pos), 64, BOX,
+                      weights=torch.from_numpy(vel[:, a].copy())).numpy()
+        assert np.abs(m.cpu().numpy() - cm).max() <= 2e-5 * np.abs(cm).max()
+        v, cv = vg[a].cpu().numpy(), cvg[a].numpy()
+        bar = 2e-5 * (np.abs(cm).max() + np.abs(cv) * cc.max()) / cc
+        assert np.all(np.abs(v - cv)[well] <= bar[well])
+
+
+def test_clustering_numpy_input_lands_on_the_card(cuda):
+    """The clustering lane's entry points put numpy input on the card and
+    agree there with their CPU runs: pair counts equal (the same float32
+    formulas elementwise), the rest within 1e-4 of the largest value (K2
+    against the scatter painters, FFTs and float32 sums in another
+    order); mean_pv_from_tv runs K3 (one launch) and matches its CPU plain
+    tiles to 1e-4 in bins of >= 1000 pairs."""
+    from astrild_tpu_torch.ops import bao as TBAO
+    from astrild_tpu_torch.ops import density_split as TDS
+    from astrild_tpu_torch.ops import fftlog as TF
+    from astrild_tpu_torch.ops import linear_power as TL
+    from astrild_tpu_torch.ops import profiles3d as TPR
+    from astrild_tpu_torch.ops import recon as TR
+    from astrild_tpu_torch.ops import tpcf as TT
+    from astrild_tpu_torch.ops import velocity as TV
+    from astrild_tpu_torch.utils import geometry as TG
+
+    rng = np.random.default_rng(22)
+    pos, vel = _clumpy(rng, 20000)
+    tc = Cosmology(Om0=0.3, h=0.7)
+    k = np.geomspace(1e-3, 10.0, 256)
+    lc = TG.transform_box_to_lc_cart_coords(pos, BOX, 300.0)
+    edges = np.linspace(0.0, 20.0, 11)
+    bins = np.linspace(0.0, 20.0, 21)
+    exact = {
+        "pairwise_velocity_pdf": lambda **kw: TPW.pairwise_velocity_pdf(
+            pos[:4000], vel[:4000], 20, 400, **kw),
+        "pair_counts_s_mu": lambda **kw: TT.pair_counts_s_mu(
+            pos[:4000], BOX, edges, 10, nmu=5, **kw),
+        "counts_in_cells": lambda **kw: TDS.counts_in_cells(pos, BOX, 16,
+                                                            **kw)[1],
+    }
+    close = {
+        "velocity_field": lambda **kw: TV.velocity_field(
+            pos, vel, 32, BOX, **kw)[1],
+        "displacement_field": lambda **kw: TR.displacement_field(
+            pos, 32, BOX, smooth=8.0, **kw),
+        "reconstruct_catalog": lambda **kw: TR.reconstruct_catalog(
+            pos, pos[:1000], 32, BOX, smooth=8.0, **kw)[1],
+        "marked_power": lambda **kw: TDS.marked_power(
+            pos, 32, BOX, 10.0, nbins=8, **kw)[0].power,
+        "radial_density_profiles": lambda **kw: TPR.radial_density_profiles(
+            pos, vel[:, 0] ** 2, pos[:50], 0.5, 20.0, nbins=8, boxsize=BOX,
+            **kw)[1],
+        "tpcf_real": lambda **kw: TT.tpcf_real(pos[:4000], BOX, edges,
+                                               **kw)[1],
+        "projected_tpcf": lambda **kw: TT.projected_tpcf(
+            pos[:4000], BOX, edges[1:], 20.0, n_pi=5, **kw)[1],
+        "to_redshift_space": lambda **kw: TT.to_redshift_space(pos, vel, BOX,
+                                                               **kw),
+        "pairwise_ksz_momentum": lambda **kw: TPW.pairwise_ksz_momentum(
+            lc[:4000], vel[:4000, 2], bins, **kw)[1].nan_to_num(),
+        "convert_vec_cart_to_sph": lambda **kw: TG.convert_vec_cart_to_sph(
+            pos[:, 0], pos[:, 1], vel, **kw),
+        "sph_bessel_transform": lambda **kw: TF.sph_bessel_transform(
+            k, k * np.exp(-k), 0, **kw)[1],
+        "wp_from_pk": lambda **kw: TF.wp_from_pk(
+            k, TL.linear_power(k, tc, **kw), np.linspace(5, 40, 8), 60.0),
+        "eh98_transfer_nowiggle": lambda **kw: TL.eh98_transfer_nowiggle(
+            k, tc, **kw),
+        "kaiser_multipoles": lambda **kw: TL.kaiser_multipoles(
+            k, tc, **kw)[1],
+    }
+    for name, call in {**exact, **close}.items():
+        got, cpu = call(), call(device="cpu")
+        assert got.device.type == "cuda" and cpu.device.type == "cpu", name
+        if name in exact:
+            assert torch.equal(got.cpu(), cpu), name
+        else:
+            assert float((got.cpu() - cpu).abs().max()) \
+                <= 1e-4 * float(cpu.abs().max()), name
+    # the BAO template is evaluated on the card by default (numpy out)
+    t_card = TBAO.bao_template_power(k[40:120], tc)
+    t_cpu = TBAO.bao_template_power(k[40:120], tc, device="cpu")
+    assert np.abs(t_card - t_cpu).max() <= 1e-4 * np.abs(t_cpu).max()
+    # v12 from transverse velocities: K3 on the card
+    before = TPWC.LAUNCHES["pairwise_accumulate"]
+    lc8, vel8 = lc[:8000], vel[:8000]
+    r, v12 = TPW.mean_pv_from_tv(lc8, vel8[:, :2], bins)
+    assert TPWC.LAUNCHES["pairwise_accumulate"] - before == 1
+    rc, v12c = TPW.mean_pv_from_tv(lc8, vel8[:, :2], bins, device="cpu")
+    # pairs per 1 Mpc/h bin (every |v12| below 10^4 km/s), on the card
+    pairs = TPW.pairwise_velocity_pdf(lc8, vel8, 20, 20000).sum(1).cpu()
+    many = pairs >= 1000
+    assert bool(many.any())
+    got, want = v12.cpu()[:20][many], v12c[:20][many]
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max()) + 1e-3
