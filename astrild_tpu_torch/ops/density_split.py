@@ -16,25 +16,13 @@ import torch
 
 from .._device import as_points, as_tensor, default_device
 from .paint import paint
-from .power import auto_power, mode_radius_rfft
+from .power import auto_power
 from .profiles3d import _log_edges, radial_density_profiles
+from .voids3d import _kmag_r, _tophat
 
 __all__ = ["smooth_density", "lattice_query_points", "density_at_points",
            "density_quantile_labels", "density_split_profiles",
            "counts_in_cells", "counts_in_cells_moments", "marked_power"]
-
-
-# the port's own copies of the JAX package's voids3d._kmag_r and _tophat
-# (voids3d is not ported yet)
-def _kmag_r(ngrid: int, device=None):
-    """|k|/kf on the rfftn grid, from integer mode numbers."""
-    return mode_radius_rfft(ngrid, device=device)
-
-
-def _tophat(x):
-    xs = torch.where(x < 1e-4, torch.ones_like(x), x)
-    w = 3.0 * (torch.sin(xs) - xs * torch.cos(xs)) / xs ** 3
-    return torch.where(x < 1e-4, 1.0 - x * x / 10.0, w)
 
 
 def smooth_density(delta, boxsize, radius, kind: str = "tophat"):

@@ -142,20 +142,27 @@ def _unnormalized_power(k, cosmo: Cosmology):
 
 
 def sigma_r(r_hmpc, cosmo: Cosmology, amplitude=1.0, nk: int = 1024):
-    """sigma(R) of the (amplitude-scaled) linear power at z=0, as a 0-d
-    float64 tensor (trapezoid in ln k over [1e-4, 50] h/Mpc)."""
+    """sigma(R) of the (amplitude-scaled) linear power at z=0 (trapezoid in
+    ln k over [1e-4, 50] h/Mpc), in float64 and of r's shape (0-d for a
+    scalar). A tensor r keeps its device and its autograd graph, so one
+    backward through a vector of radii gives every dsigma/dR."""
+    if isinstance(r_hmpc, torch.Tensor):
+        r = r_hmpc.to(torch.float64)
+    else:
+        r = torch.tensor(r_hmpc, dtype=torch.float64)
     lnk = torch.linspace(math.log(1e-4), math.log(50.0), nk,
-                         dtype=torch.float64)
+                         dtype=torch.float64, device=r.device)
     k = torch.exp(lnk)
     p = amplitude * _unnormalized_power(k, cosmo)
-    x = k * r_hmpc
+    x = k * r[..., None]
     xs = torch.clamp_min(x, 0.1)
     w_formula = 3.0 * (torch.sin(xs) - xs * torch.cos(xs)) / xs ** 3
     w_series = 1.0 - x ** 2 / 10.0 + x ** 4 / 280.0
     w = torch.where(x < 0.1, w_series, w_formula)
     integrand = k ** 3 * p * w ** 2 / (2.0 * math.pi ** 2)  # d(ln k)
     dlnk = lnk[1] - lnk[0]
-    var = torch.sum(0.5 * (integrand[1:] + integrand[:-1]) * dlnk)
+    var = torch.sum(0.5 * (integrand[..., 1:] + integrand[..., :-1]) * dlnk,
+                    dim=-1)
     return torch.sqrt(var)
 
 

@@ -1,7 +1,7 @@
 """Peak detection on flat-sky maps: local maxima, top-K catalogs, SNR.
 
 Port of astrild_tpu/ops/peaks.py (`local_maxima`, `candidate_topk`,
-`find_peaks`). Top-K selection is a stable descending sort, so exactly tied
+`find_peaks`, `peak_counts`). Top-K selection is a stable descending sort, so exactly tied
 values keep the lower index first, as `jax.lax.top_k` does (`torch.topk`
 promises no order among ties).
 """
@@ -12,7 +12,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["PeakCatalog", "local_maxima", "find_peaks", "candidate_topk"]
+__all__ = ["PeakCatalog", "local_maxima", "find_peaks", "peak_counts",
+           "candidate_topk"]
 
 
 class PeakCatalog(NamedTuple):
@@ -43,6 +44,29 @@ def _top_k(x, k: int):
     index order (the `jax.lax.top_k` contract)."""
     vals, idx = torch.sort(x, descending=True, stable=True)
     return vals[:k], idx[:k]
+
+
+def top_k_masked(values, mask, k: int, fill: float = float("-inf")):
+    """`jax.lax.top_k(where(mask, values, fill), k)` of flat tensors whose
+    masked values all exceed `fill`, without sorting the whole array.
+
+    The masked entries (`nonzero` lists them by ascending index) are sorted
+    stably, so ties keep the lower index first; a short list is padded, as
+    top_k pads it, with the lowest-index entries outside the mask (value
+    `fill`). Those lie among the first k indices, so only those are
+    searched.
+    """
+    idx = torch.nonzero(mask).squeeze(1)
+    vals, order = torch.sort(values[idx], descending=True, stable=True)
+    idx = idx[order][:k]
+    vals = vals[:k]
+    if idx.shape[0] < k:
+        pad = torch.nonzero(~mask[:k]).squeeze(1)[:k - idx.shape[0]]
+        idx = torch.cat([idx, pad])
+        vals = torch.cat([vals, torch.full(pad.shape, fill,
+                                           dtype=vals.dtype,
+                                           device=vals.device)])
+    return vals, idx
 
 
 def candidate_topk(score2d, k: int):
@@ -101,3 +125,29 @@ def find_peaks(img, threshold=float("-inf"), max_peaks: int = 1024,
     std = img.std(correction=0) if sigma is None else sigma
     snr = vals / std
     return PeakCatalog(pos=pos, values=vals, snr=snr, n=count)
+
+
+def peak_counts(img, vmin, vmax, nbins: int = 50, edge_pix: int = 0,
+                device=None):
+    """Histogram of local-maximum heights (the weak-lensing peak-count
+    statistic), `nbins` float32 bins over [vmin, vmax] (the last one
+    closed). Returns (bin_centers, counts), both float32. Numpy input goes
+    to `device`, by default the CUDA card (it raises without one); tensors
+    keep their device."""
+    from .._device import as_tensor
+    from .profiles3d import _linspace_f32
+
+    img = as_tensor(img, device)
+    n = img.shape[-1]
+    mask = local_maxima(img)
+    if edge_pix:
+        r = torch.arange(n, device=img.device)
+        inside = (r >= edge_pix) & (r < n - edge_pix)
+        mask = mask & inside[:, None] & inside[None, :]
+    vals = img.reshape(-1)
+    edges = _linspace_f32(vmin, vmax, nbins + 1, img.device)
+    binidx = torch.clamp(torch.searchsorted(edges, vals, right=True) - 1,
+                         0, nbins - 1)
+    keep = mask.reshape(-1) & (vals >= edges[0]) & (vals <= edges[-1])
+    counts = torch.bincount(binidx[keep], minlength=nbins).to(torch.float32)
+    return 0.5 * (edges[1:] + edges[:-1]), counts

@@ -105,7 +105,24 @@ exits non-zero before the final line:
      transverse velocities through K3, and the BAO scale of a 256^3 EH98
      Gaussian field; K2 and K3 launches held to the counts the stages
      predict; K2 on a signed velocity weight and on counts at 2^27 onto
-     256^3 against its plain version, and timed there in turns.
+     256^3 against its plain version, and timed there in turns;
+ 12. the galaxy-mocks path (examples/galaxy_mocks_voids.py at twice its
+     side, after phase 11 on the same GR z=0 snapshot): a 128^3 Zel'dovich
+     halo mock in 500 Mpc/h with the example's toy P(k) and masses, HOD
+     galaxies (~4.7 M; n_gal, central share, overflow), xi(s, mu) of 2^17
+     of them in redshift and real space (xi_0 > 0 at the smallest s; xi_2
+     < 0 beyond 12 Mpc/h and below its real-space value), their CIC grid
+     on 128^3 through K2, SVF voids (sorted, overlaps <= 0.5) and 3D
+     watershed voids (>= 1), stacked density and velocity profiles around
+     the 64 largest SVF voids (delta < 0 inside and rising, outflow),
+     find_tunnels_auto (candidates within its final capacity) and the 2D
+     watershed on phase 9's Born kappa map; then the 2^27 particles onto
+     768^3 through K2, SO halos (M200m, up to 32,768), their mass function
+     against Tinker08's n(>M) (0.25-1.5 at 1.5x the radius floor and at
+     3e14, Poisson bounds of that band at 1e15) and the most massive
+     halo's axis ratios; every output finite; K2 launches held stage by
+     stage (exactly 2); K2 at both new shapes against its plain version
+     and timed in turns.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -177,6 +194,17 @@ CL_S_EDGES, CL_NMU = (0.0, 100.0, 21), 20
 CL_RP_EDGES, CL_PI_MAX, CL_N_PI = (4.0, 60.0, 13), 80.0, 40
 CL_LC_DIST = 1000.0
 CL_BAO_BINS, CL_ALPHAS = 32, (0.7, 1.3, 301)
+# the galaxy-mocks path: Zel'dovich halo lattice side (twice the example's,
+# in twice its box: the same density), void grid, HOD parameters and
+# satellite cap, xi(s, mu) tracers and bins, profile range and bins, voids
+# stacked and centers a chunk; SO grid (0.65 Mpc/h cells: a 1.5-cell
+# radius floor of ~840 particles), catalog capacity and radius ladder
+GM_SIDE, GM_VGRID, GM_MAX_SAT = 128, 128, 16
+GM_HOD = (12.6, 0.3, 12.5, 13.6, 1.0)
+GM_SUB, GM_S_EDGES, GM_NMU = 1 << 17, (2.0, 40.0, 16), 20
+GM_KAISER_S = 12.0  # xi_2's Kaiser check from ~3 halo-lattice spacings
+GM_PROFILE, GM_NVOIDS, GM_CENTRE_CHUNK = (2.0, 60.0, 12), 64, 8
+SO_NGRID, SO_MAX, SO_RADII = 768, 32768, 40
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -1658,7 +1686,7 @@ def lightcone_planes(dev, seed: int, out_gr) -> dict:
             "raytrace_born_corr_smoothed_planes": corr_smooth,
             "omega_rms_over_kappa_rms": omega_share,
             "plane_vs_scan_max_err": scan_err, "plane_count_max": scan_max,
-            "k1_plane_timing_ms": k1_timing}
+            "k1_plane_timing_ms": k1_timing, "kappa_map": kappa}
 
 
 def lightcone_shells(dev, seed: int, out_gr) -> dict:
@@ -1781,11 +1809,13 @@ def lightcone_shells(dev, seed: int, out_gr) -> dict:
             "k1_shell_timing_ms": k1_timing}
 
 
-def phase_lightcone(dev, seed: int, out_gr) -> dict:
-    result = {**lightcone_planes(dev, seed, out_gr),
-              **lightcone_shells(dev, seed, out_gr)}
+def phase_lightcone(dev, seed: int, out_gr) -> tuple:
+    """The lane's numbers, and its Born kappa map (for phase 12)."""
+    planes = lightcone_planes(dev, seed, out_gr)
+    kappa = planes.pop("kappa_map")
+    result = {**planes, **lightcone_shells(dev, seed, out_gr)}
     log("# lightcone " + json.dumps(result))
-    return result
+    return result, kappa
 
 
 # ------------------------------------------------------ clustering lane
@@ -1822,16 +1852,58 @@ def _direct_pdf_total(pos, vel, dist_bin: int, vel_bin: int,
     return total
 
 
+def _stage_runner(seconds: dict, launches: dict):
+    """stage(name, fn): fn() on the host clock, synchronized, into
+    seconds[name], and the kernel launches it made into launches[name]."""
+    from astrild_tpu_torch.ops import paint_cuda, pairwise_cuda
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        before = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        after = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+        launches[name] = {k: after[k] - before.get(k, 0) for k in after
+                          if after[k] != before.get(k, 0)}
+        return res
+
+    return stage
+
+
+def _held_launches(lane: str, predicted: dict, launches: dict) -> dict:
+    """Each stage's launches against the count it predicts, and the lane's
+    (the counts cleared at its start) against their sum; raises on a
+    difference, returns the sum."""
+    from astrild_tpu_torch.ops import paint_cuda, pairwise_cuda
+
+    total = {}
+    for name, want in predicted.items():
+        if launches[name] != want:
+            raise AssertionError(f"{lane}: stage {name} launched "
+                                 f"{launches[name]}, predicted {want}")
+        for kname, v in want.items():
+            total[kname] = total.get(kname, 0) + v
+    lane_total = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+    if {k: v for k, v in lane_total.items() if v} != total:
+        raise AssertionError(f"{lane} launched {dict(lane_total)}, "
+                             f"predicted {total}")
+    return total
+
+
 def _k2_lane_timing(pf, w, ngrid: int) -> dict:
-    """K2 CIC at the lane's shape (2^27 particles onto ngrid^3, weighted by
-    a signed velocity component) against its plain version and the bound,
-    in turns (plain, kernel, kernel, plain), outside the lane's counts;
-    with the per-tile particle counts (the deposit's load balance). (A
-    profiler trace here, after phase 9's, records none of K2's kernels.)"""
+    """K2 CIC of pf onto ngrid^3 (weighted by w, a signed velocity
+    component, or counts where w is None) against its plain version and
+    the bound, in turns (plain, kernel, kernel, plain), outside the lane's
+    counts; with the per-tile particle counts (the deposit's load balance).
+    (A profiler trace here, after phase 9's, records none of K2's
+    kernels.)"""
     from astrild_tpu_torch.ops import paint_cuda
 
+    weighted = w is not None
     err = compare_k2(pf, w, ngrid, BOX, 2)
-    err_counts = compare_k2(pf, None, ngrid, BOX, 2)
+    err_counts = compare_k2(pf, None, ngrid, BOX, 2) if weighted else err
     counts = paint_cuda.windowed_bins(pf, ngrid, BOX, 2)[1]
     tiles = {"tile_particles_max": int(counts.max()),
              "tile_particles_mean": float(counts.double().mean()),
@@ -1847,8 +1919,10 @@ def _k2_lane_timing(pf, w, ngrid: int) -> dict:
         for name in turn:
             ms[name].append(_event_ms(fns[name], 3))
     n = pf.shape[0] // 3
-    bound = bound_ms(16 * n + 4 * ngrid ** 3, K2_OPS[2] * n)
-    return {"n": n, "ngrid": ngrid, "weighted": True,
+    # 12 B of positions a particle, 4 more of weight where weighted
+    bound = bound_ms((16 if weighted else 12) * n + 4 * ngrid ** 3,
+                     K2_OPS[2] * n)
+    return {"n": n, "ngrid": ngrid, "weighted": weighted,
             "max_abs_err": err, "max_abs_err_counts": err_counts,
             **tiles,
             "mean": {k: sum(v) / len(v) for k, v in ms.items()},
@@ -1890,17 +1964,7 @@ def phase_clustering(dev, seed: int, out_gr, mom_gr, tracers) -> dict:
                  "pairs": {"pairwise_accumulate": 1}, "bao_fit": {}}
     out = {}
 
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        before = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
-        after = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
-        launches[name] = {k: after[k] - before.get(k, 0) for k in after
-                          if after[k] != before.get(k, 0)}
-        return res
+    stage = _stage_runner(seconds, launches)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2125,18 +2189,7 @@ def phase_clustering(dev, seed: int, out_gr, mom_gr, tracers) -> dict:
                       "chi2": fit.chi2, "dof": fit.dof}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # ---- launches against the stages' own counts
-    total = {}
-    for name, want in predicted.items():
-        if launches[name] != want:
-            raise AssertionError(f"clustering stage {name} launched "
-                                 f"{launches[name]}, predicted {want}")
-        for kname, v in want.items():
-            total[kname] = total.get(kname, 0) + v
-    lane = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
-    if {k: v for k, v in lane.items() if v} != total:
-        raise AssertionError(f"clustering lane launched {dict(lane)}, "
-                             f"predicted {total}")
+    total = _held_launches("clustering lane", predicted, launches)
 
     # ---- K2 at the lane's shape, outside the counts
     k2 = _k2_lane_timing(torch.cat(out_gr), vel_gr[0].contiguous(), ng)
@@ -2156,6 +2209,386 @@ def phase_clustering(dev, seed: int, out_gr, mom_gr, tracers) -> dict:
               "launches_total": total, "peak_mem_gb": peak_gb, **out,
               "k2_timing_ms": k2}
     log("# clustering " + json.dumps(result))
+    return result
+
+
+# ------------------------------------------------------ galaxy mocks
+def _tunnel_forms_timing(pcat) -> dict:
+    """find_tunnels' two overlap forms (the K x K matrix, one row a step)
+    on the kappa map's candidates at capacities 2^13 and 2^14, with
+    find_tunnels_auto's defaults: host seconds (synchronized), the card's
+    peak memory above what was held before, and the accepted sets, which
+    must be equal."""
+    from astrild_tpu_torch.ops import voids
+
+    out = {}
+    for cap in (1 << 13, 1 << 14):
+        cpos, crad, cvalid, _ = voids._tunnel_candidates(
+            pcat.pos.to(torch.float32), pcat.values > float("-inf"),
+            LC_NPIX, cap, 1.0)
+        res, acc = {"steps": int(cvalid.sum())}, {}
+        for form in ("matrix", "per_step"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            acc[form] = voids._greedy_accept(cpos, crad, cvalid, 0.2,
+                                             matrix=form == "matrix")
+            torch.cuda.synchronize()
+            res[form + "_s"] = time.perf_counter() - t0
+            res[form + "_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9
+        if not torch.equal(acc["matrix"], acc["per_step"]):
+            raise AssertionError(f"find_tunnels at capacity {cap}: the "
+                                 "matrix and per-step forms accept "
+                                 "different candidates")
+        out[str(cap)] = res
+    return out
+
+
+def _poisson_band(expect: float, lo: float, hi: float) -> tuple:
+    """Counts a run may show where theory expects `expect` and the measured
+    ratio may lie in [lo, hi]: Poisson's central 99.8% of lo * expect and
+    of hi * expect."""
+    from scipy.stats import poisson
+
+    return (int(poisson.ppf(0.001, lo * expect)),
+            int(poisson.ppf(0.999, hi * expect)))
+
+
+def phase_galaxy_mocks(dev, seed: int, out_gr, kappa) -> dict:
+    """examples/galaxy_mocks_voids.py at twice its side (a 128^3 Zel'dovich
+    halo mock in 500 Mpc/h, HOD galaxies, xi(s, mu) of 2^17 of them in
+    redshift space, SVF and 3D watershed voids of their 128^3 CIC grid,
+    void profiles), the 2D watershed and find_tunnels_auto on phase 9's
+    Born kappa map, and SO halos of the GR z=0 snapshot painted onto
+    768^3 against the Tinker08 mass function. Each stage on the host
+    clock, its K2 launches against its own count (one galaxy paint, one
+    snapshot paint), its checks; then K2 at both new shapes against its
+    plain version and timed."""
+    from astrild_tpu_torch.ops import (halo_stats, hod, mocks, paint_cuda,
+                                       pairwise_cuda, peaks, profiles3d,
+                                       so_halos, tpcf, voids, voids3d)
+    from astrild_tpu_torch.ops.paint import paint
+    from astrild_tpu_torch.utils.constants import RHO_CRIT0
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    seconds, launches, out = {}, {}, {}
+    predicted = {"halo_mock": {}, "hod": {}, "clustering": {},
+                 "voids": {"paint_windowed": 1}, "voids_2d": {},
+                 "profiles": {}, "so_paint": {"paint_windowed": 1},
+                 "so_halos": {}, "so_stats": {}}
+
+    stage = _stage_runner(seconds, launches)
+
+    def finite(name, *tensors):
+        for t in tensors:
+            if not bool(torch.isfinite(torch.as_tensor(t)).all()):
+                raise AssertionError(f"galaxy mocks: {name} is not finite")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launch counts cover exactly the path's stages
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+
+    # ---- halo mock: the example's toy P(k) and masses
+    def halo_stage():
+        gen = torch.Generator(device=dev).manual_seed(seed + 12)
+        pos, vel = mocks.zeldovich_catalog_with_velocities(
+            gen, GM_SIDE, BOX, lambda k: 1.5e5 * k / (1.0 + (k / 0.025) ** 3),
+            growth_rate=0.53, device=dev)
+        nh = pos.shape[0]
+        rng = np.random.default_rng(0)
+        m = 10.0 ** rng.uniform(12.2, 14.5, nh)     # toy mass function
+        rvir = 0.78 * (m / 1e13) ** (1.0 / 3.0)     # ~ virial scaling
+        conc = 9.0 * (m / 1e13) ** (-0.1)
+        return pos, vel, [torch.from_numpy(a.astype(np.float32)).to(dev)
+                          for a in (m, rvir, conc)]
+
+    hpos, hvel, (hm, hrvir, hconc) = stage("halo_mock", halo_stage)
+    finite("halo mock", hpos, hvel)
+
+    # ---- HOD (Zheng+07), compacted on the host
+    def hod_stage():
+        gen = torch.Generator(device=dev).manual_seed(seed + 13)
+        cat = hod.hod_populate(
+            gen, hm, hpos[:, 0], hpos[:, 1], hpos[:, 2], hvel[:, 0],
+            hvel[:, 1], hvel[:, 2], hrvir, hconc, BOX,
+            params=hod.HODParams(*GM_HOD), max_sat=GM_MAX_SAT)
+        return hod.compact_catalog(cat), int(cat["overflow"])
+
+    gal, overflow = stage("hod", hod_stage)
+    del hpos, hvel, hm, hrvir, hconc
+    n_gal = gal["gx"].shape[0]
+    gpos = torch.from_numpy(np.stack([gal["gx"], gal["gy"], gal["gz"]],
+                                     axis=-1)).to(dev)
+    gvel = torch.from_numpy(np.stack([gal["gvx"], gal["gvy"], gal["gvz"]],
+                                     axis=-1)).to(dev)
+    finite("galaxies", gpos, gvel)
+    cen_share = float(gal["is_central"].mean())
+    out["hod"] = {"halos": GM_SIDE ** 3, "n_gal": n_gal,
+                  "central_share": cen_share, "overflow": overflow}
+    if not 1.0 < n_gal / GM_SIDE ** 3 < 4.0 or not 0.2 < cen_share < 0.8:
+        raise AssertionError(f"HOD: {out['hod']}")
+    del gal
+
+    # ---- xi(s, mu) of a 2^17 subsample in redshift and in real space
+    def clustering_stage():
+        sub = np.random.default_rng(1).choice(n_gal, GM_SUB, replace=False)
+        sub = torch.from_numpy(sub).to(dev)
+        pos_s = tpcf.to_redshift_space(gpos[sub], gvel[sub], BOX)
+        res = {}
+        for name, p in (("rsd", pos_s), ("real", gpos[sub])):
+            s_mid, _, xi = tpcf.tpcf_s_mu(p, BOX, np.linspace(*GM_S_EDGES),
+                                          nmu=GM_NMU, block=CL_BLOCK)
+            res[name] = (tpcf.tpcf_multipoles(xi, 0),
+                         tpcf.tpcf_multipoles(xi, 2))
+        return s_mid, res
+
+    s_mid, xis = stage("clustering", clustering_stage)
+    finite("xi multipoles", *xis["rsd"], *xis["real"])
+    s_mid = s_mid.cpu().numpy()
+    xi0, xi2 = (t.cpu().numpy() for t in xis["rsd"])
+    xi2_real = xis["real"][1].cpu().numpy()
+    # The halos are a Zel'dovich lattice of 3.9 Mpc/h spacing, smeared by
+    # ~1.3 Mpc/h: below ~3 spacings its pair shells dominate xi, and
+    # redshift space smears them along the line of sight only (xi_2 of
+    # +0.14 ... -0.07 there). Beyond, Kaiser infall squashes the pairs
+    # along the line of sight: xi_2 < 0, and below its real-space value
+    # (on the CPU, two seeds: -0.0023 and -0.0040; the shift -0.0039 and
+    # -0.0042)
+    far = s_mid >= GM_KAISER_S
+    xi2_far = float(xi2[far].mean())
+    xi2_shift = float((xi2 - xi2_real)[far].mean())
+    out["clustering"] = {"s": s_mid.tolist(), "xi0": xi0.tolist(),
+                         "xi2": xi2.tolist(),
+                         "xi0_real": xis["real"][0].cpu().numpy().tolist(),
+                         "xi2_real": xi2_real.tolist(),
+                         "xi2_mean_far": xi2_far,
+                         "xi2_rsd_minus_real_far": xi2_shift}
+    if not xi0[0] > 0 or not xi2_far < 0 or not xi2_shift < 0:
+        raise AssertionError(f"xi0 at s={s_mid[0]:.1f} {xi0[0]}; mean xi2 "
+                             f"at s >= {GM_KAISER_S} {xi2_far} (real space "
+                             f"{xi2_far - xi2_shift})")
+
+    # ---- the galaxies' CIC grid (K2) and the 3D void finders
+    def voids_stage():
+        grid = paint(tuple(gpos[:, a] for a in range(3)), GM_VGRID, BOX,
+                     window="cic")
+        delta = grid / torch.mean(grid) - 1.0
+        svf = voids3d.svf_voids(delta, BOX, delta_threshold=-0.6,
+                                max_voids=256)
+        wvf = voids3d.watershed_voids_3d(delta, BOX, max_voids=256,
+                                         core_delta=-0.25)
+        return grid, svf, wvf
+
+    grid, svf, wvf = stage("voids", voids_stage)
+    finite("galaxy grid", grid)
+    finite("void catalogs", svf.pos, svf.radius, svf.min_delta, wvf.pos,
+           wvf.radius, wvf.min_delta)
+    mass_err = abs(float(grid.double().sum()) - n_gal)
+    if mass_err > MASS_RTOL * n_gal:
+        raise AssertionError(f"galaxy grid holds {float(grid.sum())} of "
+                             f"{n_gal}")
+    del grid
+    n_svf, n_wvf = int(svf.n), int(wvf.n)
+    rad = svf.radius[:n_svf]
+    if n_svf < 1 or not bool((rad[1:] <= rad[:-1]).all()):
+        raise AssertionError(f"SVF: {n_svf} voids, radii not sorted")
+    ov = voids3d.sphere_overlap_fraction(svf.pos[:n_svf, None, :],
+                                         rad[:, None], svf.pos[None, :n_svf],
+                                         rad[None, :], BOX)
+    ov.fill_diagonal_(0.0)
+    # a void is accepted while the voids accepted before it cover at most
+    # half of it
+    covered = float(torch.triu(ov.T, diagonal=1).amax()) if n_svf > 1 \
+        else 0.0
+    if covered > 0.5 + 1e-6:
+        raise AssertionError(f"SVF: a void is {covered} covered")
+    if n_wvf < 1:
+        raise AssertionError("3D watershed: no void")
+    out["voids"] = {"svf_n": n_svf, "svf_candidates": int(svf.n_candidates),
+                    "svf_r_max": float(rad[0]), "svf_max_covered": covered,
+                    "watershed_n": n_wvf,
+                    "watershed_candidates": int(wvf.n_candidates),
+                    "watershed_r_max": float(wvf.radius[0])}
+
+    # ---- the 2D twins on phase 9's Born kappa map (LC_NPIX^2)
+    def voids_2d_stage():
+        cat = peaks.find_peaks(kappa, threshold=kappa.std(correction=0),
+                               max_peaks=2048, edge_pix=8)
+        tun = voids.find_tunnels_auto(cat.pos.to(torch.float32),
+                                      cat.values > float("-inf"), LC_NPIX,
+                                      max_voids=256)
+        f = _mode_numbers_1d(LC_NPIX, dev)
+        gauss = torch.exp(-0.5 * (2.0 * math.pi * LC_SMOOTH / LC_NPIX) ** 2
+                          * (f[:, None] ** 2
+                             + f[None, :LC_NPIX // 2 + 1] ** 2))
+        smooth = torch.fft.irfft2(torch.fft.rfft2(kappa) * gauss,
+                                  s=(LC_NPIX, LC_NPIX))
+        return cat, tun, voids.watershed_voids(smooth, max_voids=256)
+
+    pcat, tun, ws2 = stage("voids_2d", voids_2d_stage)
+    finite("2D voids", tun.radius, ws2.radius)
+    cap = tun.radius.shape[0]
+    if not int(tun.n_candidates) <= cap or int(tun.n) < 1 \
+            or int(ws2.n) < 1:
+        raise AssertionError(f"find_tunnels_auto: {int(tun.n_candidates)} "
+                             f"candidates, capacity {cap}, {int(tun.n)} "
+                             f"voids; watershed {int(ws2.n)}")
+    out["voids_2d"] = {"peaks": int(pcat.n), "tunnels_n": int(tun.n),
+                       "tunnels_candidates": int(tun.n_candidates),
+                       "tunnels_capacity": cap,
+                       "watershed_n": int(ws2.n),
+                       "watershed_r_max_pix": float(ws2.radius[0])}
+
+    # ---- void-centric profiles of all galaxies around the largest voids,
+    # the centers in chunks (each is independent: the same result, a
+    # bounded (chunk, n_gal, 3) temporary)
+    def profiles_stage():
+        nv = min(n_svf, GM_NVOIDS)
+        centers = svf.pos[:nv]
+        ones = torch.ones(n_gal, device=dev)
+        rho, vr, cnt = [], [], []
+        for a in range(0, nv, GM_CENTRE_CHUNK):
+            c = centers[a:a + GM_CENTRE_CHUNK]
+            r, rho_c = profiles3d.radial_density_profiles(
+                gpos, ones, c, *GM_PROFILE[:2], nbins=GM_PROFILE[2],
+                boxsize=BOX)
+            _, vr_c, cnt_c = profiles3d.radial_velocity_profiles(
+                gpos, gvel, c, *GM_PROFILE[:2], nbins=GM_PROFILE[2],
+                boxsize=BOX)
+            rho.append(rho_c)
+            vr.append(vr_c)
+            cnt.append(cnt_c)
+        vr, cnt = torch.cat(vr), torch.cat(cnt)
+        return r, torch.cat(rho), profiles3d.stacked_profile(vr, cnt), nv
+
+    r, rho, stacked_vr, nv = stage("profiles", profiles_stage)
+    finite("density profiles", rho)
+    r = r.cpu().numpy()
+    dens = (rho.mean(dim=0) / (n_gal / BOX ** 3) - 1.0).cpu().numpy()
+    vr = stacked_vr.cpu().numpy()
+    r_void = float(svf.radius[:nv].mean())
+    # shells inside the mean void radius that hold galaxies (the innermost
+    # may hold none: NaN)
+    inside = (r < r_void) & np.isfinite(vr)
+    if not dens[0] < 0 or not dens[-1] > dens[0] or inside.sum() < 2 \
+            or not float(vr[inside].mean()) > 0:
+        raise AssertionError(f"void profiles: delta {dens.tolist()}, v_r "
+                             f"{vr.tolist()} (inside {r_void:.1f} Mpc/h)")
+    out["profiles"] = {"voids": nv, "r": r.tolist(), "delta": dens.tolist(),
+                       "v_r": [float(v) if np.isfinite(v) else None
+                               for v in vr],
+                       "mean_void_radius": r_void,
+                       "v_r_inside_mean": float(vr[inside].mean())}
+    del gvel, rho
+
+    # ---- SO halos of the GR z=0 snapshot painted onto SO_NGRID^3
+    gr = Cosmology(Om0=0.3, h=0.7)
+    delta = stage("so_paint",
+                  lambda: paint(out_gr, SO_NGRID, BOX, window="cic"))
+    delta = delta / torch.mean(delta) - 1.0
+    so = stage("so_halos", lambda: so_halos.so_halos(
+        delta, BOX, gr.Om0, delta_mean=200.0, n_radii=SO_RADII,
+        max_halos=SO_MAX))
+    del delta
+    finite("SO catalog", so.pos, so.radius, so.mass)
+    n_so, n_cand = int(so.n), int(so.n_candidates)
+    m_p = gr.Om0 * RHO_CRIT0 * BOX ** 3 / PM_SIDE ** 3
+    floor = (4.0 / 3.0 * math.pi * (1.5 * BOX / SO_NGRID) ** 3 * 200.0
+             * gr.Om0 * RHO_CRIT0)
+
+    def so_stats_stage():
+        d = so_halos.so_catalog_dict(so)
+        centers, cum = halo_stats.halo_mass_function(d["mass"], device=dev)
+
+        def n_above(m_lo):
+            lnm = np.linspace(np.log(m_lo), np.log(3e15), 64)
+            dn = halo_stats.theory_hmf(np.exp(lnm), gr, 0.0,
+                                       model="tinker08", device=dev)
+            return (int((d["mass"] > m_lo).sum()),
+                    float(np.trapezoid(dn.cpu().numpy(), lnm)) * BOX ** 3)
+
+        # a truncated candidate list is complete only above the smallest
+        # mass kept
+        m_lo = 1.5 * floor
+        if n_cand > SO_MAX:
+            m_lo = max(m_lo, 1.01 * float(d["mass"].min()))
+        bands = {name: (m,) + n_above(m) for name, m in
+                 (("low", m_lo), ("3e14", 3e14), ("1e15", 1e15))}
+        # the most massive halo's particles within its R200m: its shape
+        c = so.pos[0]
+        offs = []
+        for comp, cc in zip(out_gr, c):
+            dd = comp - cc
+            offs.append(dd - BOX * torch.round(dd / torch.tensor(
+                BOX, device=dev)))
+        inside = (offs[0] ** 2 + offs[1] ** 2 + offs[2] ** 2
+                  < so.radius[0] ** 2)
+        lengths, _ = halo_stats.point_cloud_shape(
+            tuple(o[inside] for o in offs))
+        return d, centers, cum, bands, lengths, int(inside.sum())
+
+    d, m_centers, cum, bands, lengths, n_in = stage("so_stats",
+                                                    so_stats_stage)
+    finite("SO mass function", cum, lengths)
+    ratios = {k: v[1] / v[2] for k, v in bands.items()}
+    lo_band = (0.25, 1.5)
+    if not lo_band[0] < ratios["low"] < lo_band[1] \
+            or not lo_band[0] < ratios["3e14"] < lo_band[1]:
+        raise AssertionError(f"SO n(>M) / Tinker08: {bands}")
+    pb = _poisson_band(bands["1e15"][2], *lo_band)
+    if not pb[0] <= bands["1e15"][1] <= pb[1]:
+        raise AssertionError(f"SO n(>1e15) {bands['1e15'][1]} outside "
+                             f"{pb} (Tinker08 {bands['1e15'][2]:.1f})")
+    ax = lengths.cpu().numpy()
+    if not (ax[0] >= ax[1] >= ax[2] > 0):
+        raise AssertionError(f"halo axes {ax.tolist()}")
+    out["so_halos"] = {
+        "ngrid": SO_NGRID, "n": n_so, "n_candidates": n_cand,
+        "max_halos": SO_MAX, "mass_floor": floor,
+        "particles_at_floor": floor / m_p,
+        "m_max": float(d["mass"][0]) if n_so else 0.0,
+        "n_above": {k: {"m": v[0], "measured": v[1], "tinker08": v[2],
+                        "ratio": ratios[k]} for k, v in bands.items()},
+        "poisson_band_1e15": pb,
+        "hmf_cumulative": cum.cpu().numpy().tolist(),
+        "hmf_centers": m_centers.cpu().numpy().tolist(),
+        "top_halo_particles": n_in,
+        "top_halo_axis_ratios": [float(ax[1] / ax[0]), float(ax[2] / ax[0])]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    total = _held_launches("galaxy mocks", predicted, launches)
+
+    # ---- K2 at the two new shapes, outside the counts
+    k2 = {"galaxies": _k2_lane_timing(
+        torch.cat([gpos[:, a] for a in range(3)]), None, GM_VGRID),
+        "snapshot": _k2_lane_timing(torch.cat(out_gr), None, SO_NGRID)}
+    del gpos
+    tunnel_forms = _tunnel_forms_timing(pcat)
+    log(f"# phase galaxy mocks: launches {total}; {n_gal} galaxies "
+        f"({cen_share:.3f} centrals, overflow {overflow}); xi0(s="
+        f"{s_mid[0]:.1f}) {xi0[0]:.3f}, mean xi2 at s >= {GM_KAISER_S} "
+        f"{xi2_far:.4f} (real space {xi2_far - xi2_shift:.4f}); SVF "
+        f"{n_svf} voids (R max {out['voids']['svf_r_max']:.2f}), "
+        f"watershed {n_wvf}; kappa map: {int(tun.n)} tunnels of "
+        f"{int(tun.n_candidates)} candidates (capacity {cap}), watershed "
+        f"{int(ws2.n)}; stacked delta {dens[0]:.3f} -> {dens[-1]:.3f}, "
+        f"v_r inside {out['profiles']['v_r_inside_mean']:.2f} km/s; SO "
+        f"{n_so} halos of {n_cand} candidates, n(>M)/Tinker08 "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+        + f"; K2 vs plain max err {k2['galaxies']['max_abs_err']:.3e} "
+        f"({GM_VGRID}^3), {k2['snapshot']['max_abs_err']:.3e} "
+        f"({SO_NGRID}^3); find_tunnels matrix / per-step s "
+        + ", ".join(f"{c}: {v['matrix_s']:.3f} / {v['per_step_s']:.3f}"
+                    for c, v in tunnel_forms.items())
+        + f"; peak {peak_gb:.2f} GB")
+    result = {"seconds": seconds, "launches": launches,
+              "launches_total": total, "peak_mem_gb": peak_gb, **out,
+              "k2_timing_ms": k2, "tunnel_forms": tunnel_forms}
+    log("# galaxy_mocks " + json.dumps(result))
     return result
 
 
@@ -2251,10 +2684,12 @@ def main() -> None:
     k2 = phase_k2_timing(out_gr)["cic"]
     lane_launches, k4_err, lane_keys = phase_file_lane(dev, args.seed,
                                                        out_gr, mom_gr)
-    lightcone = phase_lightcone(dev, args.seed, out_gr)
+    lightcone, kappa_map = phase_lightcone(dev, args.seed, out_gr)
     clustering = phase_clustering(dev, args.seed, out_gr, mom_gr,
                                   k3_inputs[:2])
-    del out_gr, mom_gr
+    del mom_gr
+    galaxy = phase_galaxy_mocks(dev, args.seed, out_gr, kappa_map)
+    del out_gr, kappa_map
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -2330,6 +2765,15 @@ def main() -> None:
         "bound_by": cl_k2["bound_by"], "library_ms": None}
     k3_row["clustering_launches"] = clustering["launches_total"][
         "pairwise_accumulate"]
+    # the galaxy-mocks path's shapes: CIC counts of its galaxies onto
+    # 128^3 and of the 2^27-particle snapshot onto 768^3
+    k2_row["galaxy_mocks"] = {
+        "launches": galaxy["launches_total"]["paint_windowed"],
+        **{shape: {"n": t["n"], "ngrid": t["ngrid"], "weighted": False,
+                   "max_abs_err": t["max_abs_err"], "ms": t["mean"]["kernel"],
+                   "plain_ms": t["mean"]["plain"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"], "library_ms": None}
+           for shape, t in galaxy["k2_timing_ms"].items()}}
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

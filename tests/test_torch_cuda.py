@@ -1125,3 +1125,207 @@ def test_clustering_numpy_input_lands_on_the_card(cuda):
     got, want = v12.cpu()[:20][many], v12c[:20][many]
     assert float((got - want).abs().max()) <= 1e-4 * float(
         want.abs().max()) + 1e-3
+
+
+# ------------------------------------------------------ galaxy mocks
+@pytest.mark.parametrize("n, ngrid", [(1 << 20, 128), (1 << 22, 768)])
+def test_k2_at_the_galaxy_mocks_shapes(cuda, n, ngrid):
+    """K2 CIC counts at the galaxy-mocks path's two new grids (the galaxy
+    grid, 128^3, and the SO grid, 768^3) at a reduced particle count,
+    clustered: within 2e-5 of the plain version's largest cell, the mass
+    N to rtol 1e-5."""
+    rng = np.random.default_rng(23)
+    pos, _ = _clumpy(rng, n)
+    pf = torch.from_numpy(pos.T.copy().reshape(-1)).to(cuda)
+    got = TPC.paint_windowed(pf, None, ngrid, BOX, order=2)
+    want = TPC.paint_windowed_reference(pf, None, ngrid, BOX, order=2)
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.max())
+    assert abs(float(got.double().sum()) - n) <= 1e-5 * n
+
+
+def test_galaxy_mocks_numpy_input_lands_on_the_card(cuda):
+    """The galaxy-mocks path's entry points put numpy input on the card and
+    agree there with their CPU runs: counts, labels and catalog sizes
+    equal, the rest within 1e-4 of the largest value (FFTs and float32
+    sums in another order)."""
+    from astrild_tpu_torch.ops import halo_stats as THS
+    from astrild_tpu_torch.ops import hod as TH
+    from astrild_tpu_torch.ops import peaks as TK
+    from astrild_tpu_torch.ops import so_halos as TSO
+    from astrild_tpu_torch.ops import voids as TV
+    from astrild_tpu_torch.ops import voids3d as TV3
+
+    rng = np.random.default_rng(24)
+    pos, _ = _clumpy(rng, 20000)
+    # smooth fields (a void, two balls) centred on cells: on a noisy field
+    # cuFFT's rounding can move a finder's candidates across a tie
+    cell = BOX / 32
+    x = (np.arange(32) + 0.5) * cell
+    r2 = lambda c: sum((g - c) ** 2 for g in np.meshgrid(x, x, x,  # noqa
+                                                          indexing="ij"))
+    c0 = 16.5 * cell
+    delta = np.where(r2(c0) < 20.0 ** 2, -0.9, 0.1).astype(np.float32)
+    balls = (np.where(r2(c0) < 4.0 ** 2, 2000.0, 0.0)
+             + np.where(r2(c0 - 12 * cell) < 3.0 ** 2, 2000.0, 0.0)).astype(
+                 np.float32)
+    # broad wells: no flat region where the smoothed field's rounding would
+    # steer the watershed
+    wells = (-np.exp(-0.5 * r2(c0) / 25.0 ** 2)
+             - 0.8 * np.exp(-0.5 * r2(c0 - 12 * cell) / 20.0 ** 2)).astype(
+                 np.float32)
+    c_true = rng.uniform(3.0, 20.0, 500)
+    v200 = rng.uniform(50.0, 500.0, 500)
+    vmax = v200 * np.sqrt(0.216 * c_true / (np.log1p(c_true)
+                                            - c_true / (1.0 + c_true)))
+    v200, vmax = v200.astype(np.float32), vmax.astype(np.float32)
+    img = rng.normal(size=(64, 64)).astype(np.float32)
+    m = (10.0 ** rng.uniform(12, 15, 500)).astype(np.float32)
+    g = (np.arange(6) * 10 + 7).astype(np.float32)
+    peaks = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    peaks = peaks + rng.uniform(-1, 1, peaks.shape).astype(np.float32)
+    tc = Cosmology()
+    draws = (rng.uniform(size=500) < 0.5, rng.poisson(2.0, 500),
+             rng.uniform(size=(500, 4)).astype(np.float32),
+             rng.normal(size=(3, 500, 4)).astype(np.float32),
+             rng.normal(size=(3, 500, 4)).astype(np.float32))
+    exact = {
+        "svf_voids": lambda **kw: TV3.svf_voids(delta, BOX, -0.5,
+                                                max_voids=32, **kw).n,
+        "watershed_voids_3d_n": lambda **kw: TV3.watershed_voids_3d(
+            wells, BOX, 32, -0.3, **kw).n,
+        "watershed_labels_3d": lambda **kw: TV3.watershed_labels_3d(
+            delta, **kw),
+        "so_halos": lambda **kw: TSO.so_halos(balls, BOX, 0.3, max_halos=32,
+                                              **kw).n_candidates,
+        "watershed_labels": lambda **kw: TV.watershed_labels(img, **kw),
+        "find_tunnels_auto": lambda **kw: TV.find_tunnels_auto(
+            peaks, np.ones(len(peaks), bool), 64, max_voids=8, **kw).n,
+        "peak_counts": lambda **kw: TK.peak_counts(img, -1.0, 3.0, 8,
+                                                   **kw)[1],
+        "halo_mass_function": lambda **kw: THS.halo_mass_function(m,
+                                                                  **kw)[1],
+        "halo_environment": lambda **kw: THS.halo_environment(
+            pos, np.arange(27).reshape(3, 3, 3), (0, BOX, 0, BOX, 0, BOX),
+            **kw),
+    }
+    close = {
+        "svf_radius": lambda **kw: TV3.svf_voids(delta, BOX, -0.5,
+                                                 max_voids=32, **kw).radius,
+        "watershed_voids_3d": lambda **kw: TV3.watershed_voids_3d(
+            wells, BOX, 32, -0.3, **kw).radius,
+        "enclosed_density_radius": lambda **kw:
+            TV3.enclosed_density_radius(delta, BOX, 5.0, 25.0, 8, -0.5,
+                                        **kw),
+        "sphere_overlap_fraction": lambda **kw: TV3.sphere_overlap_fraction(
+            pos[:50], 3.0, pos[50:100], 4.0, BOX, **kw),
+        "so_mass": lambda **kw: TSO.so_halos(balls, BOX, 0.3, max_halos=32,
+                                             **kw).mass,
+        "watershed_voids": lambda **kw: TV.watershed_voids(img, 16,
+                                                           **kw).radius,
+        "zheng07_mean_occupation": lambda **kw: TH.zheng07_mean_occupation(
+            m, TH.HODParams(), **kw)[1],
+        "nfw_radius_sample": lambda **kw: TH.nfw_radius_sample(
+            m / m.max(), 5.0, **kw),
+        "hod_populate_from_draws": lambda **kw: TH.hod_populate_from_draws(
+            *draws, m, *pos[:500].T, *(100.0 * pos[:500].T), m / m.max() + 0.5,
+            c_true.astype(np.float32), BOX, max_sat=4, **kw)["gx"],
+        "binned_mean": lambda **kw: THS.binned_mean(
+            np.log10(m), m / m.max(), np.linspace(12, 15, 5), 4, **kw),
+        "histogram_density": lambda **kw: THS.histogram_density(
+            pos[:, 0], 5, (0.0, BOX), **kw)[1],
+        "concentration_prada": lambda **kw: THS.concentration_prada(
+            vmax, v200, **kw)[0],
+        "theory_hmf": lambda **kw: THS.theory_hmf(m[:16], tc, **kw),
+        "theory_vsf": lambda **kw: THS.theory_vsf(pos[:16, 0] / 10 + 2.0,
+                                                  tc, **kw),
+        "virial_radius": lambda **kw: THS.virial_radius(m, **kw),
+        "point_cloud_shape": lambda **kw: THS.point_cloud_shape(
+            pos - pos.mean(0), **kw)[0],
+    }
+    failed = {}
+    for name, call in {**exact, **close}.items():
+        got = call()
+        assert got.device.type == "cuda", name
+        want = call(device="cpu")
+        g = got.cpu().to(torch.float64).numpy()
+        w = want.to(torch.float64).numpy()
+        if name in exact:
+            ok = np.array_equal(g, w)
+        else:
+            ok = np.allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max())
+        if not ok:
+            failed[name] = (np.ravel(g)[:8].tolist(), np.ravel(w)[:8].tolist())
+    assert not failed, f"{sorted(failed)}: {failed}"
+
+
+def test_hod_populate_with_a_cuda_generator(cuda):
+    """hod_populate with a generator on the card: everything on the card,
+    the occupation means within the bars of the JAX package's test (40,000
+    halos: centrals within 0.01, four binomial sigmas; satellites within
+    3%), satellites inside Rvir, the same seed the same catalog."""
+    from astrild_tpu_torch.ops import hod as TH
+
+    nh, box = 40000, 100.0
+    rng = np.random.default_rng(25)
+    m = torch.full((nh,), 10.0 ** 13.2, device=cuda)
+    xyz = [torch.from_numpy(rng.uniform(0, box, nh).astype(np.float32)).to(
+        cuda) for _ in range(3)]
+    v = [torch.zeros(nh, device=cuda)] * 3
+    rvir = torch.full((nh,), 0.8, device=cuda)
+    conc = torch.full((nh,), 7.0, device=cuda)
+    p = TH.HODParams(log_mmin=13.0, sigma_logm=0.3, log_m0=12.0,
+                     log_m1=13.2, alpha=1.0)
+
+    def run(seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return TH.hod_populate(gen, m, *xyz, *v, rvir, conc, box, params=p,
+                               max_sat=24)
+
+    cat = run(1)
+    assert all(t.device.type == "cuda" for t in cat.values())
+    n_cen, n_sat = TH.zheng07_mean_occupation(m, p)
+    assert abs(float(cat["valid"][:nh].float().mean())
+               - float(n_cen[0])) < 0.01
+    sat = float(cat["valid"][nh:].float().sum()) / nh
+    assert abs(sat - float(n_sat[0])) / float(n_sat[0]) < 0.03
+    assert int(cat["overflow"]) == 0
+    com = TH.compact_catalog(cat)
+    s = ~com["is_central"]
+    h = com["halo_index"][s]
+    d2 = sum(((com[k][s] - xyz[a].cpu().numpy()[h] + box / 2) % box
+              - box / 2) ** 2 for a, k in enumerate(("gx", "gy", "gz")))
+    assert (np.sqrt(d2) <= 0.8 * 1.0001).all()
+    again = run(1)
+    assert torch.equal(again["gx"], cat["gx"])
+
+
+def test_find_tunnels_auto_escalates_on_the_card(cuda):
+    """A peak lattice with more candidates than the first capacity: on the
+    card find_tunnels_auto escalates to the capacity the CPU run reaches
+    and returns its catalog (counts equal, radii within 1e-6); above 4096
+    candidates' capacity the per-step form gives the 4096 catalog."""
+    from astrild_tpu_torch.ops import voids as TV
+
+    rng = np.random.default_rng(26)
+    g = (np.arange(6) * 10 + 7).astype(np.float32)
+    peaks = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    peaks = peaks + rng.uniform(-1, 1, peaks.shape).astype(np.float32)
+    valid = np.ones(len(peaks), bool)
+    got = TV.find_tunnels_auto(torch.from_numpy(peaks).to(cuda),
+                               torch.from_numpy(valid).to(cuda), 64,
+                               max_voids=8)
+    want = TV.find_tunnels_auto(torch.from_numpy(peaks),
+                                torch.from_numpy(valid), 64, max_voids=8)
+    assert got.radius.shape[0] == want.radius.shape[0] > 8
+    assert int(got.n) == int(want.n)
+    assert int(got.n_candidates) == int(want.n_candidates)
+    np.testing.assert_allclose(got.radius.cpu().numpy(),
+                               want.radius.numpy(), rtol=1e-6)
+    pos = torch.from_numpy(rng.uniform(0, 128, (700, 2)).astype(
+        np.float32)).to(cuda)
+    ok = torch.ones(700, dtype=torch.bool, device=cuda)
+    small = TV.find_tunnels(pos, ok, 128, max_voids=4096)
+    big = TV.find_tunnels(pos, ok, 128, max_voids=8192)
+    nv = int(small.n)
+    assert int(big.n) == nv > 10
+    assert torch.equal(big.radius[:nv], small.radius[:nv])
