@@ -1,11 +1,15 @@
 """Angular power spectra on the flat sky and the Limber convergence power.
 
 Port of `_flat_sky_binning`, `cl_flat_sky`, `flat_sky_mode_counts`,
-`cl_flat_sky_cross`, `cl_kappa_cross_limber` and `cl_kappa_limber` of
-astrild_tpu/ops/angular_power.py.
+`cl_flat_sky_cross`, `cl_kappa_cross_limber`, `cl_kappa_limber`,
+`cl_to_flat_map`, `shear_eb_maps`, `kappa_to_shear_maps` and `cl_shear_eb`
+of astrild_tpu/ops/angular_power.py. `cl_to_flat_map` draws its white
+noise from a `torch.Generator` where the JAX package takes a PRNG key;
+`cl_to_flat_map_from_white` takes the two white-noise fields themselves,
+so both packages make the same map from the same draws.
 
-Not ported yet: `cl_to_flat_map`, the shear E/B maps, the n(z) Limber
-kernels, the ISW spectrum and the masked (MASTER) estimators.
+Not ported yet: the n(z) Limber kernels, the ISW spectrum and the masked
+(MASTER) estimators.
 """
 from __future__ import annotations
 
@@ -17,12 +21,15 @@ import torch
 from .._device import as_tensor, default_device
 from ..utils.constants import DEG2RAD, H0_OVER_C_HMPC
 from ..utils.cosmology import Cosmology
+from .fftlog import _interp
 from .linear_power import (_halofit_power, _unnormalized_power,
                            halofit_parameters, normalization)
 from .power import _mode_numbers
 
 __all__ = ["cl_flat_sky", "cl_flat_sky_cross", "flat_sky_mode_counts",
-           "cl_kappa_cross_limber", "cl_kappa_limber"]
+           "cl_kappa_cross_limber", "cl_kappa_limber", "cl_to_flat_map",
+           "cl_to_flat_map_from_white", "shear_eb_maps",
+           "kappa_to_shear_maps", "cl_shear_eb"]
 
 
 def _segment_sum(values, binidx, nbins: int):
@@ -182,3 +189,132 @@ def cl_kappa_cross_limber(ells, cosmo: Cosmology, z_source_i: float,
               * dev32(cosmo.growth_factor(z_h) ** 2))
     weight = dev32(kern(chi_i) * kern(chi_j) / chi_h ** 2)
     return torch.trapezoid(weight * pk, chi, dim=-1)
+
+
+def _f32(x, device):
+    return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+
+def cl_to_flat_map_from_white(re, im, cl_tab_ell, cl_tab_val, npix: int,
+                              opening_angle_deg, device=None):
+    """Gaussian random flat-sky map of a C_ell table from the two (npix,
+    npix) N(0, 1) fields `re` and `im` (the JAX package's `normal(k1)` and
+    `normal(k2)` after `split(key)`).
+
+    The JAX package's float32 steps: theta = oa * DEG2RAD, l = (2 pi /
+    theta) |m| (m integer mode numbers), C(l) by `jnp.interp` of the table
+    (clamped at its ends, zero at l = 0), modes sqrt(C) npix^2 / theta
+    (re + i im) / sqrt 2, symmetrized with their l -> -l partner, times
+    sqrt 2, then the real part of the inverse FFT. A tensor `re` keeps its
+    device; numpy input goes to `device`, by default the CUDA card (it
+    raises without one).
+    """
+    re = _map(re, device)
+    dev = re.device
+    im = as_tensor(im, dev)
+    ell_tab = as_tensor(cl_tab_ell, dev).reshape(-1).contiguous()
+    val_tab = as_tensor(cl_tab_val, dev).reshape(-1).contiguous()
+    theta = _f32(opening_angle_deg, dev) * _f32(DEG2RAD, dev)
+    lf = _f32(2.0 * math.pi, dev) / theta
+    f = _mode_numbers(npix, dev)
+    lmag = lf * torch.sqrt(f[:, None] ** 2 + f[None, :] ** 2)
+    cl = _interp(lmag, ell_tab, val_tab)
+    cl = torch.where(lmag == 0.0, torch.zeros_like(cl), cl)
+    # |m_hat|^2 expectation = Cl * npix^4 / theta^2 (inverse of cl_flat_sky)
+    amp = torch.sqrt(torch.clamp_min(cl, 0.0)) * _f32(npix ** 2, dev) / theta
+    sqrt2 = torch.sqrt(_f32(2.0, dev))
+    m_re = amp * re / sqrt2
+    m_im = amp * im / sqrt2
+    # hermitianize by symmetrizing: (F + conj(F(-l))) / 2 -> real ifft
+    f_re = torch.roll(torch.flip(m_re, (0, 1)), (1, 1), (0, 1))
+    f_im = torch.roll(torch.flip(m_im, (0, 1)), (1, 1), (0, 1))
+    sym = torch.complex(0.5 * (m_re + f_re), 0.5 * (m_im - f_im))
+    # restore unit variance per independent mode after averaging
+    return torch.fft.ifft2(sym * sqrt2).real
+
+
+def cl_to_flat_map(generator: torch.Generator, cl_tab_ell, cl_tab_val,
+                   npix: int, opening_angle_deg, device=None):
+    """Gaussian random flat-sky map realization from a C_ell table
+    (flat-sky synfast): `cl_to_flat_map_from_white` of two (npix, npix)
+    white-noise fields drawn from `generator` (re first, then im), on
+    `device` (default: the generator's device)."""
+    dev = generator.device if device is None else torch.device(device)
+    re = torch.randn((npix, npix), generator=generator, device=dev,
+                     dtype=torch.float32)
+    im = torch.randn((npix, npix), generator=generator, device=dev,
+                     dtype=torch.float32)
+    return cl_to_flat_map_from_white(re, im, cl_tab_ell, cl_tab_val, npix,
+                                     opening_angle_deg)
+
+
+def _spin2_phase(n: int, device):
+    """(l1 column, l2 row, cos 2 phi_l, sin 2 phi_l) on the fft grid, in
+    float32 from integer mode numbers; the zero mode has cos 1, sin 0."""
+    f = _mode_numbers(n, device)
+    l1 = f[:, None]
+    l2 = f[None, :]
+    l2mag = l1 ** 2 + l2 ** 2
+    zero = l2mag == 0.0
+    safe = torch.where(zero, torch.ones_like(l2mag), l2mag)
+    cos2 = torch.where(zero, torch.ones_like(l2mag),
+                       (l1 ** 2 - l2 ** 2) / safe)
+    sin2 = torch.where(zero, torch.zeros_like(l2mag), 2.0 * l1 * l2 / safe)
+    return l1, l2, cos2, sin2
+
+
+def shear_eb_maps(gamma1, gamma2, opening_angle_deg=None, device=None):
+    """E/B decomposition of flat-sky shear maps (Kaiser-Squires rotation):
+
+        kappa_E(l) =  cos(2 phi_l) g1(l) + sin(2 phi_l) g2(l)
+        kappa_B(l) = -sin(2 phi_l) g1(l) + cos(2 phi_l) g2(l)
+
+    Born shear from a scalar potential is pure E; B is the post-Born and
+    systematics null. opening_angle_deg is accepted for API symmetry (the
+    rotation is scale-free). Maps are placed as in cl_flat_sky. Returns
+    (kappa_E, kappa_B) real maps.
+    """
+    gamma1 = _map(gamma1, device)
+    gamma2 = as_tensor(gamma2, gamma1.device)
+    _, _, cos2, sin2 = _spin2_phase(gamma1.shape[-1], gamma1.device)
+    g1 = torch.fft.fft2(gamma1)
+    g2 = torch.fft.fft2(gamma2)
+    ke = torch.fft.ifft2(cos2 * g1 + sin2 * g2).real
+    kb = torch.fft.ifft2(-sin2 * g1 + cos2 * g2).real
+    return ke, kb
+
+
+def kappa_to_shear_maps(kappa, device=None):
+    """Periodic (flat-sky, spin-2) shear from convergence, gamma_hat(l) =
+    e^{2 i phi_l} kappa_hat(l): the exact inverse of shear_eb_maps for a
+    pure-E field, and the way to make mock shear from periodic kappa maps
+    (the zero-padded kappa_to_alpha -> alpha_to_gamma chain attenuates the
+    shear near the edges). For even n the unpaired Nyquist row and column
+    are zeroed: those modes are their own l -> -l partner, where the spin-2
+    phase cannot be applied consistently. The map is placed as in
+    cl_flat_sky. Returns (gamma1, gamma2)."""
+    kappa = _map(kappa, device)
+    n = kappa.shape[-1]
+    l1, l2, cos2, sin2 = _spin2_phase(n, kappa.device)
+    kh = torch.fft.fft2(kappa)
+    if n % 2 == 0:
+        nyq = -(n // 2)
+        keep = (l1 != nyq) & (l2 != nyq)
+        kh = torch.where(keep, kh, torch.zeros_like(kh))
+    # cos2 / sin2 are even under l -> -l, so each product inverts to a
+    # real map
+    g1 = torch.fft.ifft2(cos2 * kh).real
+    g2 = torch.fft.ifft2(sin2 * kh).real
+    return g1, g2
+
+
+def cl_shear_eb(gamma1, gamma2, opening_angle_deg, nbins: int = 50,
+                ell_min=None, ell_max=None, device=None):
+    """(ell, Cl_EE, Cl_BB) of a flat-sky shear field: the E/B rotation,
+    then cl_flat_sky of each map. Maps are placed as in cl_flat_sky."""
+    ke, kb = shear_eb_maps(gamma1, gamma2, device=device)
+    ell, cl_ee = cl_flat_sky(ke, opening_angle_deg, nbins=nbins,
+                             ell_min=ell_min, ell_max=ell_max)
+    _, cl_bb = cl_flat_sky(kb, opening_angle_deg, nbins=nbins,
+                           ell_min=ell_min, ell_max=ell_max)
+    return ell, cl_ee, cl_bb

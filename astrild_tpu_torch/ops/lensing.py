@@ -2,8 +2,9 @@
 padded spectral solution, and Born integration over lens planes.
 
 Port of astrild_tpu/ops/lensing.py (`born_convergence`, `kappa_to_gamma`,
-`kappa_to_alpha`). Angles are in the unit of `opening_angle`; distances in
-Mpc/h.
+`kappa_to_alpha`, `kappa_to_phi`, `alpha_to_gamma` with its roll-based
+`_grad_axis`, `code_to_phy_units_factor`). Angles are in the unit of
+`opening_angle`; distances in Mpc/h.
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ import math
 import torch
 
 from ..utils.constants import C_LIGHT_KMS
+from .power import _mode_numbers
 
-__all__ = ["kappa_to_alpha", "kappa_to_gamma", "born_convergence"]
+__all__ = ["kappa_to_alpha", "kappa_to_gamma", "kappa_to_phi",
+           "alpha_to_gamma", "born_convergence", "code_to_phy_units_factor"]
 
 
 def _pad_size(n: int, padding_factor: int) -> int:
@@ -92,6 +95,68 @@ def kappa_to_gamma(kappa, opening_angle, padding_factor: int = 2):
     g1 = torch.fft.irfft2(t1 * kap_ft, s=(npad, npad))[:n, :n]
     g2 = torch.fft.irfft2(t2 * kap_ft, s=(npad, npad))[:n, :n]
     return g1, g2
+
+
+def kappa_to_phi(kappa, opening_angle, padding_factor: int = 4):
+    """Lensing potential phi from kappa, lap phi = 2 kappa, solved on the
+    zero-padded full FFT grid (fft2 with s=(npad, npad), as the JAX
+    package)."""
+    n = kappa.shape[-1]
+    npad = _pad_size(n, padding_factor)
+    lpad = opening_angle * npad / n
+    kf = 2.0 * math.pi / lpad
+    kx = _mode_numbers(npad, kappa.device) * kf
+    k2mag = kx[:, None] ** 2 + kx[None, :] ** 2
+    zero = k2mag == 0.0
+    k2safe = torch.where(zero, torch.ones_like(k2mag), k2mag)
+    kap_ft = torch.fft.fft2(kappa, s=(npad, npad))
+    phi_ft = torch.where(zero, torch.zeros_like(k2mag), -2.0 / k2safe) * kap_ft
+    return torch.fft.ifft2(phi_ft).real[:n, :n]
+
+
+def _grad_axis(a, ds, axis: int):
+    """The JAX package's roll form of central differences with one-sided
+    edges: (roll(a, -1) - roll(a, 1)) * (0.5 / ds) inside, (a[1] - a[0]) /
+    ds and (a[-1] - a[-2]) / ds on the two edge rows; `ds` a float32
+    tensor, so the factors round as in float32. (Not torch.gradient: the
+    (0.5 / ds) factor associates differently, in the last ulp.)"""
+    half = torch.tensor(0.5, dtype=torch.float32, device=a.device) / ds
+    c = (torch.roll(a, -1, axis) - torch.roll(a, 1, axis)) * half
+    a_m = torch.movedim(a, axis, 0)
+    c_m = torch.movedim(c, axis, 0).clone()
+    c_m[0] = (a_m[1] - a_m[0]) / ds
+    c_m[-1] = (a_m[-1] - a_m[-2]) / ds
+    return torch.movedim(c_m, 0, axis)
+
+
+def alpha_to_gamma(alpha1, alpha2, opening_angle):
+    """Shear (gamma1, gamma2) from deflection maps by finite differences:
+      gamma1 = (d1 alpha1 - d2 alpha2) / 2
+      gamma2 = (d1 alpha2 + d2 alpha1) / 2
+    with second-order central differences on pixel coordinates (pixel
+    size opening_angle / n in float32)."""
+    n = alpha1.shape[-1]
+    dev = alpha1.device
+    ds = (torch.tensor(float(opening_angle), dtype=torch.float32, device=dev)
+          / torch.tensor(float(n), dtype=torch.float32, device=dev))
+    d1a1 = _grad_axis(alpha1, ds, 0)
+    d2a1 = _grad_axis(alpha1, ds, 1)
+    d1a2 = _grad_axis(alpha2, ds, 0)
+    d2a2 = _grad_axis(alpha2, ds, 1)
+    gamma1 = 0.5 * (d1a1 - d2a2)
+    gamma2 = 0.5 * (d1a2 + d2a1)
+    return gamma1, gamma2
+
+
+def code_to_phy_units_factor(quantity: str) -> float:
+    """RayRamses code -> physical unit factor: kappa, shear and deflection
+    1/c^2; ISW-RS (dT/T) 1/c^3 (c in km/s)."""
+    if quantity in ("shear_x", "shear_y", "deflt_x", "deflt_y", "kappa_1",
+                    "kappa_2"):
+        return 1.0 / C_LIGHT_KMS ** 2
+    if quantity in ("isw_rs",):
+        return 1.0 / C_LIGHT_KMS ** 3
+    return 1.0
 
 
 def born_convergence(density_planes, chis, dchis, chi_s, omega_m,

@@ -122,7 +122,26 @@ exits non-zero before the final line:
      3e14, Poisson bounds of that band at 1e15) and the most massive
      halo's axis ratios; every output finite; K2 launches held stage by
      stage (exactly 2); K2 at both new shapes against its plain version
-     and timed in turns.
+     and timed in turns;
+ 13. the shear-survey path (examples/shear_survey.py stages 1-6 at twice
+     its side, 1024^2 over 10 deg, after phase 12): the example's halofit
+     Limber table -> a seeded Gaussian kappa map -> periodic spin-2 shear
+     in a SkyArray built from numpy (on the card) -> xi_pm (16 bins over
+     1.5-100') against the FFTLog theory, COSEBIs (n <= 5 over 3-85'), the
+     exact Gaussian covariance with shape noise (sigma_e 0.26, 30 per
+     arcmin^2) and without, and their COSEBIs propagation, the stacked
+     tangential shear around 64 peaks above 2 sigma, xi_pm of 2^15
+     catalog galaxies (periodic, tiles of 4096 rows), a full-grid 128^2
+     catalog against the map estimator, and the Monte-Carlo covariance of
+     200 maps; then phase 9's 2048^2 Born map through both shear routes
+     against the halofit xi_+ and its COSEBIs. Every output finite; xi_+
+     within 4 sigma of theory (the noise-free analytic diagonal) over
+     2-30'; |B_n| < 4 sigma_B; the Monte-Carlo variance within 30% of the
+     analytic one in every non-empty bin; gamma_t > 0 in the three inner
+     annuli and max |gamma_x| < 0.25 max gamma_t; the full-grid catalog
+     within 1e-5 of <|gamma|^2> of the map estimator; the Born xi_+ > 0
+     below 10'; numpy input to every new entry point on the card; K1-K4
+     launches exactly 0.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -205,6 +224,20 @@ GM_SUB, GM_S_EDGES, GM_NMU = 1 << 17, (2.0, 40.0, 16), 20
 GM_KAISER_S = 12.0  # xi_2's Kaiser check from ~3 halo-lattice spacings
 GM_PROFILE, GM_NVOIDS, GM_CENTRE_CHUNK = (2.0, 60.0, 12), 64, 8
 SO_NGRID, SO_MAX, SO_RADII = 768, 32768, 40
+# the shear-survey path (examples/shear_survey.py stages 1-6 at twice its
+# side, at its 0.59' pixel: 4x its area): map side and field [deg], xi bins
+# (n, theta_min', theta_max'), COSEBIs (nmax, theta_min', theta_max'), shape
+# noise (sigma_e, galaxies per arcmin^2), peaks (count, edge), the stack
+# (patch half-side, radial edges in pixels), the catalog (galaxies, edges
+# in arcmin, tile rows: 4096, not the JAX signature's 512, as phase 12's
+# pair tiles), realizations of the Monte-Carlo covariance; the full-grid
+# catalog check's map side
+SS_NPIX, SS_OA = 1024, 10.0
+SS_XI, SS_COSEBIS = (16, 1.5, 100.0), (5, 3.0, 85.0)
+SS_SIGMA_E, SS_NGAL = 0.26, 30.0
+SS_PEAKS, SS_EDGE_PIX, SS_PATCH, SS_R_EDGES = 64, 48, 48, (2.0, 40.0, 11)
+SS_NCAT, SS_CAT_EDGES, SS_CAT_BLOCK = 1 << 15, (3.0, 60.0, 9), 4096
+SS_NREAL, SS_GRID_CAT = 200, 128
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -2592,6 +2625,363 @@ def phase_galaxy_mocks(dev, seed: int, out_gr, kappa) -> dict:
     return result
 
 
+# ------------------------------------------------------- shear-survey path
+def _shear_placement_checks(dev) -> list:
+    """Each new entry point of the shear path given numpy input and no
+    device: its result must lie on the card. Returns the names checked."""
+    from astrild_tpu_torch.models import SkyArray
+    from astrild_tpu_torch.ops import angular_power, shear_2pt
+
+    rng = np.random.default_rng(13)
+    g = rng.normal(size=(32, 32)).astype(np.float32)
+    ells = np.geomspace(2.0, 2e4, 64)
+    cl = 1e-8 / (1.0 + (ells / 800.0) ** 2) ** 1.5
+    edges = np.array([0.1, 1.0, 3.0])
+    calls = {
+        "cl_to_flat_map_from_white": lambda:
+            angular_power.cl_to_flat_map_from_white(g, g, ells, cl, 32, 1.0),
+        "kappa_to_shear_maps": lambda:
+            angular_power.kappa_to_shear_maps(g)[0],
+        "shear_eb_maps": lambda: angular_power.shear_eb_maps(g, g)[0],
+        "cl_shear_eb": lambda: angular_power.cl_shear_eb(g, g, 1.0,
+                                                         nbins=4)[1],
+        "xi_pm_flat_sky": lambda: shear_2pt.xi_pm_flat_sky(g, g, 1.0,
+                                                           nbins=4)[1],
+        "tangential_shear_stack": lambda: shear_2pt.tangential_shear_stack(
+            g, g, np.array([[3, 4]]), np.array([1.0, 4.0, 8.0], np.float32),
+            8, 2)[1],
+        "xi_pm_catalog": lambda: shear_2pt.xi_pm_catalog(
+            g[0], g[1], g[2], g[3], edges, block=32)[0],
+        "gamma_t_catalog": lambda: shear_2pt.gamma_t_catalog(
+            g[0], g[1], g[2], g[3], g[4], g[5], edges, block=32)[0],
+        "xi_pm_from_cl": lambda: shear_2pt.xi_pm_from_cl(ells, cl,
+                                                         n=256)[1],
+        "xi_pm_from_cl_grid": lambda: shear_2pt.xi_pm_from_cl_grid(
+            ells, cl.astype(np.float32))[1],
+        "gamma_t_from_cl": lambda: shear_2pt.gamma_t_from_cl(ells, cl,
+                                                             n=256)[1],
+        "w_theta_from_cl": lambda: shear_2pt.w_theta_from_cl(ells, cl,
+                                                             n=256)[1],
+        "delta_sigma_from_pk": lambda: shear_2pt.delta_sigma_from_pk(
+            ells / 1e3, cl * 1e12, [1.0], 0.3),
+        "cosebis_from_xipm": lambda: shear_2pt.cosebis_from_xipm(
+            np.geomspace(1.0, 10.0, 8), np.ones(8), np.ones(8), 2, 1.0,
+            10.0, ntheta=64)[0],
+        "xi_pm_sample_covariance_from_white": lambda:
+            shear_2pt.xi_pm_sample_covariance_from_white(
+                rng.normal(size=(2, 2, 16, 16)), ells, cl, 16, 1.0, 3)[2],
+        "tomographic_xi_pm_sample_covariance_from_white": lambda:
+            shear_2pt.tomographic_xi_pm_sample_covariance_from_white(
+                rng.normal(size=(2, 16, 16, 1)),
+                rng.normal(size=(2, 16, 16, 1)), ells, cl[None, None], 16,
+                1.0, 3)[3],
+        "SkyArray.from_array": lambda: SkyArray.from_array(g, 1.0).data[
+            "orig"],
+    }
+    for name, fn in calls.items():
+        if fn().device.type != "cuda":
+            raise AssertionError(f"shear survey: {name} given numpy input "
+                                 "did not run on the card")
+    return sorted(calls)
+
+
+def phase_shear_survey(dev, seed: int, kappa_born) -> dict:
+    """examples/shear_survey.py stages 1-6 at twice its side (1024^2 over
+    10 deg, its 0.59' pixel) and phase 9's 2048^2 Born kappa map: each
+    stage on the host clock, synchronized, with K1-K4 held at 0 launches;
+    its checks raise. Returns the numbers printed in `# shear_survey`."""
+    from astrild_tpu_torch.models import SkyArray
+    from astrild_tpu_torch.ops import (angular_power, paint_cuda,
+                                       pairwise_cuda, peaks, shear_2pt)
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    seconds, launches, out = {}, {}, {}
+    stage = _stage_runner(seconds, launches)
+    arcmin = math.pi / 180.0 / 60.0
+
+    def finite(name, *arrays):
+        for a in arrays:
+            a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+            if not np.isfinite(a).all():
+                raise AssertionError(f"shear survey: {name} is not finite")
+
+    def theory_at(th_arcmin, tt, xt):
+        return np.interp(np.log(np.asarray(th_arcmin) * arcmin),
+                         np.log(tt.cpu().numpy()),
+                         xt.double().cpu().numpy())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launch counts cover exactly the path's stages: none of K1-K4
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+    n, oa = SS_NPIX, SS_OA
+    nbins, tmin, tmax = SS_XI
+    nmax, cmin, cmax = SS_COSEBIS
+
+    # ---- A1. the example's halofit Limber table -> Gaussian kappa ->
+    # periodic spin-2 shear -> SkyArray
+    def synthesis_stage():
+        lf = 2.0 * np.pi / np.deg2rad(oa)
+        ell_tab = np.concatenate([np.geomspace(2.0, 1.4 * lf * n / 2, 512),
+                                  [1.42 * lf * n / 2, 1e6]])
+        cl_tab = angular_power.cl_kappa_limber(
+            ell_tab, Cosmology(), z_source=1.0, nonlinear=True,
+            device=dev).double().cpu().numpy()
+        cl_tab[-2:] = 0.0  # explicit band limit (synthesis clamps)
+        gen = torch.Generator(device=dev).manual_seed(seed + 42)
+        kappa = angular_power.cl_to_flat_map(gen, ell_tab, cl_tab, n, oa)
+        g1, g2 = angular_power.kappa_to_shear_maps(kappa)
+        sky = SkyArray.from_array(kappa.cpu().numpy(), oa, "kappa_2")
+        sky.data["shearx"], sky.data["sheary"] = g1, g2
+        return ell_tab, cl_tab, kappa, g1, g2, sky
+
+    ell_tab, cl_tab, kappa, g1, g2, sky = stage("synthesis", synthesis_stage)
+    finite("synthesis", cl_tab, kappa, g1, g2)
+    if sky.device.type != dev.type:
+        raise AssertionError("shear survey: SkyArray of a numpy map is not "
+                             "on the card")
+    out["kappa_rms"] = float(kappa.std())
+
+    # ---- A2. xi_pm map estimator against the FFTLog theory
+    def xi_stage():
+        meas = sky.shear_xi_pm(nbins=nbins, theta_min_arcmin=tmin,
+                               theta_max_arcmin=tmax)
+        return meas, shear_2pt.xi_pm_from_cl(ell_tab, cl_tab)
+
+    (th, xip, xim, npair), (tt, xp_t, xm_t) = stage("xi_pm", xi_stage)
+    th, xip, xim, npair = (t.double().cpu().numpy()
+                           for t in (th, xip, xim, npair))
+    full = npair > 0
+    finite("xi_pm", th, xip[full], xim[full], xp_t, xm_t)
+    xp_i = theory_at(th, tt, xp_t)
+    xm_i = theory_at(th, tt, xm_t)
+
+    # ---- A3. COSEBIs
+    e_n, b_n = stage("cosebis", lambda: sky.cosebis(nmax, cmin, cmax))
+    e_n, b_n = e_n.double().cpu().numpy(), b_n.double().cpu().numpy()
+    finite("COSEBIs", e_n, b_n)
+
+    # ---- A4. exact Gaussian covariance (host float64), with shape noise
+    # and without, and the COSEBIs covariances
+    noise_cl = SS_SIGMA_E ** 2 / (2.0 * SS_NGAL / arcmin ** 2)
+
+    def covariance_stage():
+        kw = dict(theta_min_arcmin=tmin, theta_max_arcmin=tmax)
+        th_c, cov = shear_2pt.xi_pm_gaussian_covariance(
+            n, oa, ell_tab, cl_tab, nbins, noise_cl=noise_cl, **kw)
+        _, cov0 = shear_2pt.xi_pm_gaussian_covariance(
+            n, oa, ell_tab, cl_tab, nbins, **kw)
+        cb = (shear_2pt.cosebis_covariance(th_c, cov, nmax, cmin, cmax),
+              shear_2pt.cosebis_covariance(th_c, cov0, nmax, cmin, cmax))
+        return th_c, cov, cov0, cb
+
+    th_c, cov, cov0, ((cov_e, cov_b), (cov_e0, cov_b0)) = stage(
+        "covariance", covariance_stage)
+    finite("covariances", cov, cov0, cov_e, cov_b, cov_e0, cov_b0)
+    sig0 = np.sqrt(np.diag(cov0))
+    sig = np.sqrt(np.diag(cov))
+
+    # ---- A5. stacked tangential shear around the kappa peaks
+    def stack_stage():
+        cat = peaks.find_peaks(kappa, threshold=2.0 * float(
+            kappa.std(correction=0)), max_peaks=SS_PEAKS,
+            edge_pix=SS_EDGE_PIX)
+        nkeep = int(cat.n)
+        centers = cat.pos[:max(nkeep, 1)]
+        edges = np.linspace(*SS_R_EDGES).astype(np.float32)
+        return nkeep, shear_2pt.tangential_shear_stack(
+            g1, g2, centers, edges, SS_PATCH, SS_R_EDGES[2] - 1)
+
+    n_peaks, (r_st, gt, gx, cnt_st) = stage("peaks_stack", stack_stage)
+    r_st, gt, gx = (t.double().cpu().numpy() for t in (r_st, gt, gx))
+    finite("stack", r_st, gt, gx)
+
+    # ---- A6. catalog estimator on the example's galaxy density at 4x its
+    # area (periodic), and a full-grid catalog of a periodic 128^2 map
+    # against the map estimator (the JAX test's check at a larger size)
+    def catalog_stage():
+        rng = np.random.default_rng(1)
+        idx = rng.integers(0, n, (SS_NCAT, 2))
+        pixscale = oa * 60.0 / n
+        xq = (idx[:, 0] * pixscale).astype(np.float32)
+        yq = (idx[:, 1] * pixscale).astype(np.float32)
+        it = torch.from_numpy(idx).to(dev)
+        e1 = g1[it[:, 0], it[:, 1]]
+        e2 = g2[it[:, 0], it[:, 1]]
+        return shear_2pt.xi_pm_catalog(
+            xq, yq, e1, e2, np.geomspace(*SS_CAT_EDGES), boxsize=oa * 60.0,
+            block=SS_CAT_BLOCK)
+
+    cxp, cxm, ccnt = stage("catalog", catalog_stage)
+    cxp, cxm, ccnt = (t.double().cpu().numpy() for t in (cxp, cxm, ccnt))
+    finite("catalog xi", cxp, cxm)
+
+    def grid_catalog_stage():
+        m = SS_GRID_CAT
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        k_small = angular_power.cl_to_flat_map(gen, ell_tab, cl_tab, m,
+                                               oa * m / n)
+        s1, s2 = angular_power.kappa_to_shear_maps(k_small)
+        # the JAX test's geometry: 5 bins over 1-11.5 pixels, 1' pixels
+        _, xp_map, xm_map, _ = shear_2pt.xi_pm_flat_sky(
+            s1, s2, m / 60.0, nbins=5, theta_min_arcmin=1.0,
+            theta_max_arcmin=11.5)
+        ar = torch.arange(m, device=dev, dtype=torch.float32)
+        rr, cc = torch.meshgrid(ar, ar, indexing="ij")
+        xp_cat, xm_cat, pairs = shear_2pt.xi_pm_catalog(
+            rr.reshape(-1), cc.reshape(-1), s1.reshape(-1), s2.reshape(-1),
+            np.geomspace(1.0, 11.5, 6), boxsize=float(m),
+            block=SS_CAT_BLOCK)
+        var = float((s1 * s1 + s2 * s2).double().mean())
+        return xp_map, xm_map, xp_cat, xm_cat, pairs, var
+
+    xp_map, xm_map, xp_cat, xm_cat, grid_pairs, var = stage(
+        "grid_catalog", grid_catalog_stage)
+    # the JAX test's bar, atol 1e-5 on unit-variance maps: here 1e-5 of
+    # <|gamma|^2>
+    grid_err = max(float((xp_cat - xp_map).abs().max()),
+                   float((xm_cat - xm_map).abs().max()))
+
+    # ---- A7. Monte-Carlo covariance over map realizations (no noise)
+    def mc_stage():
+        gen = torch.Generator(device=dev).manual_seed(seed + 77)
+        return shear_2pt.xi_pm_sample_covariance(
+            gen, ell_tab, cl_tab, n, oa, nbins, n_real=SS_NREAL,
+            theta_min_arcmin=tmin, theta_max_arcmin=tmax)
+
+    _, mean_mc, cov_mc, samples = stage("sample_covariance", mc_stage)
+    cov_mc = cov_mc.double().cpu().numpy()
+    # the realizations' mean over the continuum theory: a periodic map
+    # lacks the modes below the fundamental (its xi integrates to zero
+    # over the box), so the mean falls below theory with theta
+    mc_mean_ratio = mean_mc[:nbins].double().cpu().numpy() / xp_i
+    both = np.concatenate([full, full])
+    finite("Monte-Carlo covariance", cov_mc[both][:, both])
+    mc_ratio = np.diag(cov_mc)[both] / np.diag(cov0)[both]
+    del samples
+
+    # ---- A8. numpy input to every new entry point lands on the card
+    placed = stage("placement", lambda: _shear_placement_checks(dev))
+
+    # ---- B. phase 9's ray-traced (Born) kappa map, 2048^2 over 0.2 rad
+    oa_b = math.degrees(LC_FOV)
+
+    def born_stage():
+        sky_b = SkyArray.from_array(kappa_born, oa_b, "kappa_2")
+        res = {"padded": sky_b.convert_convergence_to_shear()}
+        res["periodic"] = angular_power.kappa_to_shear_maps(kappa_born)
+        xi = {}
+        for name, (s1, s2) in res.items():
+            sky_b.data["shearx"], sky_b.data["sheary"] = s1, s2
+            xi[name] = sky_b.shear_xi_pm(nbins=nbins, theta_min_arcmin=tmin,
+                                         theta_max_arcmin=tmax)
+        eb = sky_b.cosebis(nmax, cmin, cmax)  # of the periodic shear
+        ell_b = np.geomspace(2.0, 1e5, 1024)
+        cl_b = angular_power.cl_kappa_limber(
+            ell_b, Cosmology(Om0=0.3, h=0.7), LC_Z_SOURCE, nonlinear=True,
+            device=dev)
+        return xi, eb, ell_b, cl_b, shear_2pt.xi_pm_from_cl(ell_b, cl_b)
+
+    xi_b, (e_b, b_b), ell_b, cl_b, (tt_b, xp_tb, _) = stage("born",
+                                                           born_stage)
+    e_b, b_b = e_b.double().cpu().numpy(), b_b.double().cpu().numpy()
+    finite("Born COSEBIs", e_b, b_b)
+    born = {}
+    for name, (thb, xpb, xmb, npb) in xi_b.items():
+        thb, xpb, xmb, npb = (t.double().cpu().numpy()
+                              for t in (thb, xpb, xmb, npb))
+        ok = npb > 0
+        finite(f"Born xi ({name})", xpb[ok], xmb[ok])
+        ratio = xpb / theory_at(thb, tt_b, xp_tb)
+        picks = [int(np.argmin(np.abs(thb - t))) for t in (2.0, 10.0, 50.0)]
+        born[name] = {"theta": thb.tolist(), "xi_plus": xpb.tolist(),
+                      "xi_minus": xmb.tolist(),
+                      "ratio_to_halofit": {f"{thb[i]:.2f}": float(ratio[i])
+                                           for i in picks}}
+        low = ok & (thb < 10.0)
+        if not (xpb[low] > 0).all():
+            raise AssertionError(f"Born map ({name} shear): xi+ <= 0 below "
+                                 f"10': {xpb[low].tolist()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- checks of A (each raises)
+    sel = full & (th > 2.0) & (th < 30.0)
+    pull = (xip - xp_i) / sig0[:nbins]
+    if not (np.abs(pull[sel]) < 4.0).all():
+        raise AssertionError(f"xi+ against theory (sigma units, 2-30'): "
+                             f"{pull[sel].tolist()}")
+    b_pull = np.abs(b_n) / np.sqrt(np.diag(cov_b0))
+    if not (b_pull < 4.0).all():
+        raise AssertionError(f"|B_n| / sigma_B: {b_pull.tolist()}")
+    if not (np.abs(mc_ratio - 1.0) < 0.3).all():
+        raise AssertionError(f"Monte-Carlo / analytic variance: "
+                             f"{mc_ratio.tolist()}")
+    if n_peaks < 1 or not (gt[:3] > 0).all() \
+            or not np.abs(gx).max() < 0.25 * gt.max():
+        raise AssertionError(f"stack of {n_peaks} peaks: gamma_t "
+                             f"{gt.tolist()}, gamma_x {gx.tolist()}")
+    if not ccnt.sum() > 0:
+        raise AssertionError("catalog: no pair in range")
+    if not grid_err <= 1e-5 * var:
+        raise AssertionError(f"full-grid catalog against the map estimator:"
+                             f" {grid_err} > 1e-5 * {var}")
+    total = _held_launches("shear survey", {k: {} for k in seconds},
+                           launches)
+
+    picks = [int(np.argmin(np.abs(th - t))) for t in (2.0, 10.0, 30.0)]
+    out.update({
+        "xi": {"theta": th.tolist(), "xi_plus": xip.tolist(),
+               "xi_minus": xim.tolist(), "npairs": npair.tolist(),
+               "theory_plus": xp_i.tolist(), "theory_minus": xm_i.tolist(),
+               "sigma_plus_no_noise": sig0[:nbins].tolist(),
+               "sigma_plus_noise": sig[:nbins].tolist(),
+               "pull_2_30": pull[sel].tolist(),
+               "ratio_at": {f"{th[i]:.2f}": float(xip[i] / xp_i[i])
+                            for i in picks}},
+        "cosebis": {"E": e_n.tolist(), "B": b_n.tolist(),
+                    "sigma_E_noise": np.sqrt(np.diag(cov_e)).tolist(),
+                    "sigma_B_noise": np.sqrt(np.diag(cov_b)).tolist(),
+                    "sigma_B_no_noise": np.sqrt(np.diag(cov_b0)).tolist(),
+                    "B_over_sigma_B": b_pull.tolist(),
+                    "max_B_over_max_E": float(np.abs(b_n).max()
+                                              / np.abs(e_n).max())},
+        "snr_xi_plus_4": float(xip[4] / sig[4]),
+        "stack": {"peaks": n_peaks, "r": r_st.tolist(), "gamma_t":
+                  gt.tolist(), "gamma_x_max": float(np.abs(gx).max())},
+        "catalog": {"galaxies": SS_NCAT, "pairs_in_range": int(ccnt.sum()),
+                    "block": SS_CAT_BLOCK, "xi_plus": cxp.tolist(),
+                    "xi_minus": cxm.tolist(), "pairs": ccnt.tolist()},
+        "grid_catalog": {"side": SS_GRID_CAT, "max_err": grid_err,
+                         "variance": var,
+                         "pairs": float(grid_pairs.sum())},
+        "monte_carlo": {"realizations": SS_NREAL,
+                        "var_ratio": mc_ratio.tolist(),
+                        "var_ratio_min": float(mc_ratio.min()),
+                        "var_ratio_max": float(mc_ratio.max()),
+                        "mean_over_theory": mc_mean_ratio.tolist()},
+        "born": {**born, "cosebis_E": e_b.tolist(), "cosebis_B": b_b.tolist()},
+        "placement": placed,
+    })
+    result = {"seconds": seconds, "seconds_total": sum(seconds.values()),
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peak_gb, **out}
+    log(f"# phase shear survey: {sum(seconds.values()):.2f} s; launches "
+        f"{total}; xi+/theory at "
+        + ", ".join(f"{k}' {v:.3f}" for k, v in out["xi"]["ratio_at"].items())
+        + f"; E_1 {e_n[0]:.3e}, max|B|/max|E| "
+        f"{out['cosebis']['max_B_over_max_E']:.4f}, max |B|/sigma_B "
+        f"{b_pull.max():.2f}; MC/analytic variance {mc_ratio.min():.3f}-"
+        f"{mc_ratio.max():.3f}; {n_peaks} peaks, gamma_t[0] {gt[0]:.3e}; "
+        f"catalog {int(ccnt.sum())} pairs; Born xi+/halofit "
+        + ", ".join(f"{k}' {v:.3f}" for k, v in
+                    born["periodic"]["ratio_to_halofit"].items())
+        + f"; peak {peak_gb:.2f} GB")
+    log("# shear_survey " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -2689,7 +3079,9 @@ def main() -> None:
                                   k3_inputs[:2])
     del mom_gr
     galaxy = phase_galaxy_mocks(dev, args.seed, out_gr, kappa_map)
-    del out_gr, kappa_map
+    del out_gr
+    phase_shear_survey(dev, args.seed, kappa_map)
+    del kappa_map
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)

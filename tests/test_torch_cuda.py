@@ -1329,3 +1329,195 @@ def test_find_tunnels_auto_escalates_on_the_card(cuda):
     nv = int(small.n)
     assert int(big.n) == nv > 10
     assert torch.equal(big.radius[:nv], small.radius[:nv])
+
+
+def test_shear_survey_numpy_input_lands_on_the_card(cuda):
+    """The shear-survey path's entry points put numpy input on the card and
+    agree there with their CPU runs: counts equal, the rest within 1e-4 of
+    the largest value (cuFFT and float32 sums in another order)."""
+    from astrild_tpu_torch.models import SkyArray
+    from astrild_tpu_torch.ops import angular_power as TAP
+    from astrild_tpu_torch.ops import lensing as TL
+    from astrild_tpu_torch.ops import shear_2pt as TS
+
+    rng = np.random.default_rng(31)
+    n = 64
+    g1 = rng.normal(size=(n, n)).astype(np.float32)
+    g2 = rng.normal(size=(n, n)).astype(np.float32)
+    ells = np.concatenate([np.arange(2.0, 3000.0), [3010.0, 40000.0]])
+    cl = 1e-8 / (1.0 + (ells / 800.0) ** 2) ** 1.5
+    cl[-2:] = 0.0
+    x, y = (rng.uniform(0, 60.0, 3000).astype(np.float32) for _ in "xy")
+    e1, e2 = (rng.normal(0, 0.2, 3000).astype(np.float32) for _ in "12")
+    edges = np.geomspace(1.0, 20.0, 7)
+    white = rng.normal(size=(3, 4, 32, 32)).astype(np.float32)
+    centers = np.array([[0, 0], [20, 40], [63, 1]])
+    r_edges = np.array([2.0, 4.0, 8.0, 16.0], np.float32)
+    sky = lambda **kw: SkyArray.from_array(g1, 2.0, **kw)  # noqa: E731
+
+    def sky_shear(**kw):
+        s = sky(**kw)
+        s.convert_convergence_to_deflection()
+        s.convert_deflection_to_shear()
+        return s.shear_xi_pm(nbins=6, theta_min_arcmin=2.0,
+                             theta_max_arcmin=40.0)[1]
+
+    exact = {
+        "xi_pm_flat_sky_counts": lambda **kw: TS.xi_pm_flat_sky(
+            g1, g2, 2.0, nbins=8, **kw)[3],
+        "xi_pm_catalog_pairs": lambda **kw: TS.xi_pm_catalog(
+            x, y, e1, e2, edges, boxsize=60.0, block=1024, **kw)[2],
+        "gamma_t_catalog_pairs": lambda **kw: TS.gamma_t_catalog(
+            x[:100], y[:100], x, y, e1, e2, edges, boxsize=60.0, block=512,
+            **kw)[2],
+        "tangential_shear_stack_counts": lambda **kw:
+            TS.tangential_shear_stack(g1, g2, centers, r_edges, 16, 3,
+                                      **kw)[3],
+    }
+    close = {
+        "cl_to_flat_map_from_white": lambda **kw:
+            TAP.cl_to_flat_map_from_white(g1, g2, ells, cl, n, 2.0, **kw),
+        "kappa_to_shear_maps": lambda **kw: TAP.kappa_to_shear_maps(
+            g1, **kw)[1],
+        "shear_eb_maps": lambda **kw: TAP.shear_eb_maps(g1, g2, **kw)[0],
+        "cl_shear_eb": lambda **kw: TAP.cl_shear_eb(g1, g2, 2.0, nbins=8,
+                                                    **kw)[1],
+        "xi_pm_flat_sky": lambda **kw: TS.xi_pm_flat_sky(
+            g1, g2, 2.0, nbins=8, **kw)[1],
+        "tangential_shear_stack": lambda **kw: TS.tangential_shear_stack(
+            g1, g2, centers, r_edges, 16, 3, **kw)[1],
+        "xi_pm_catalog": lambda **kw: TS.xi_pm_catalog(
+            x, y, e1, e2, edges, boxsize=60.0, block=1024, **kw)[0],
+        "gamma_t_catalog": lambda **kw: TS.gamma_t_catalog(
+            x[:100], y[:100], x, y, e1, e2, edges, boxsize=60.0, block=512,
+            **kw)[0],
+        "xi_pm_from_cl_grid": lambda **kw: TS.xi_pm_from_cl_grid(
+            np.geomspace(2.0, 2e4, 512),
+            1e-8 / (1 + np.geomspace(2.0, 2e4, 512) / 800.0) ** 3, **kw)[1],
+        "delta_sigma_from_pk": lambda **kw: TS.delta_sigma_from_pk(
+            np.geomspace(1e-3, 1e3, 512),
+            2e4 / (1 + np.geomspace(1e-3, 1e3, 512) / 0.1) ** 2,
+            [0.5, 2.0], 0.3, **kw),
+        "cosebis_from_xipm": lambda **kw: TS.cosebis_from_xipm(
+            np.geomspace(1.0, 100.0, 40), np.geomspace(1.0, 0.01, 40),
+            np.geomspace(0.5, 0.02, 40), 4, 2.0, 80.0, **kw)[0],
+        "xi_pm_sample_covariance_from_white": lambda **kw:
+            TS.xi_pm_sample_covariance_from_white(
+                white, ells, cl, 32, 1.0, 4, noise_std=1e-3, **kw)[3],
+        "tomographic_from_white": lambda **kw:
+            TS.tomographic_xi_pm_sample_covariance_from_white(
+                white[:, 0, :, :, None], white[:, 1, :, :, None], ells,
+                cl[None, None], 32, 1.0, 4, **kw)[4],
+        "skyarray_chain_xi": sky_shear,
+    }
+    failed = {}
+    for name, call in {**exact, **close}.items():
+        got = call()
+        assert got.device.type == "cuda", name
+        want = call(device="cpu")
+        g = got.cpu().to(torch.float64).numpy()
+        w = want.to(torch.float64).numpy()
+        if name in exact:
+            ok = np.array_equal(g, w)
+        else:
+            ok = np.allclose(g, w, rtol=1e-4, atol=1e-4 * np.nanmax(
+                np.abs(w)), equal_nan=True)
+        if not ok:
+            failed[name] = (np.ravel(g)[:8].tolist(), np.ravel(w)[:8].tolist())
+    assert not failed, f"{sorted(failed)}: {failed}"
+    # the FFTLog theory: within 4x the CPU run's error of a float64 series
+    # of the same table, or 5e-5 of its largest value (the two float32
+    # FFTs differ by up to ~1e-4 of the peak at the grid's small-r end,
+    # tests/test_torch_shear.py::_fftlog_parity)
+    from astrild_tpu_torch.ops import fftlog as TF
+
+    grid, vals = TS._log_ell_table(ells, cl, 2048, 2.0)
+    nn = grid.size
+    dln = float(np.log(grid[-1] / grid[0]) / (nn - 1))
+    r = np.exp(np.arange(nn) * dln) / (grid[0] * np.exp((nn - 1) * dln))
+    a = (vals.astype(np.float64) * (grid / grid[0])
+         * TF._taper(nn).astype(np.float64))
+    for name, fn, mu in (("xi_pm_from_cl", TS.xi_pm_from_cl, 0),
+                         ("gamma_t_from_cl", TS.gamma_t_from_cl, 2),
+                         ("w_theta_from_cl", TS.w_theta_from_cl, 0)):
+        kern = TF._fftlog_kernel_cyl(nn, dln, mu, 1.0)
+        b = np.fft.fft(a) * (kern[0].astype(np.float64)
+                             + 1j * kern[1].astype(np.float64))
+        ref = (np.real(np.fft.fft(b)) * grid[0] ** 2 / (grid[0] * r) / nn
+               / (2.0 * np.pi))
+        got = fn(ells, cl)[1]
+        assert got.device.type == "cuda", name
+        want = fn(ells, cl, device="cpu")[1].double().numpy()
+        err_t = np.abs(got.cpu().double().numpy() - ref).max()
+        err_c = np.abs(want - ref).max()
+        assert err_t <= max(4.0 * err_c, 5e-5 * np.abs(ref).max()), (
+            name, err_t, err_c)
+    # kappa_to_phi / alpha_to_gamma take tensors: on the card, as on the CPU
+    kt = torch.from_numpy(g1)
+    for fn in (lambda k: TL.kappa_to_phi(k, 0.03),
+               lambda k: TL.alpha_to_gamma(k, 0.5 * k, 0.03)[0]):
+        got, want = fn(kt.to(cuda)), fn(kt)
+        assert got.device.type == "cuda"
+        npt_ok = np.allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                             atol=1e-4 * float(want.abs().max()))
+        assert npt_ok
+
+
+def test_cosebis_b_modes_hold_with_tf32_allowed(cuda):
+    """With TF32 allowed by the caller, E_n and B_n on the card stay within
+    1e-5 of max |E| of a float64 evaluation of the same float32 inputs
+    (TF32's 10-bit mantissa would leave ~1e-3 of E in B)."""
+    from astrild_tpu_torch.ops import fftlog as TF
+    from astrild_tpu_torch.ops import shear_2pt as TS
+
+    ells = np.arange(2.0, 20000.0)
+    cl = 1e-8 / (1.0 + (ells / 300.0) ** 2) ** 1.5
+    th, xp, xm = TS.xi_pm_from_cl(ells, cl, device="cpu")
+    th_am = th.numpy() / (np.pi / 180.0 / 60.0)
+    sel = (th_am > 0.3) & (th_am < 300.0)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        e, b = TS.cosebis_from_xipm(th_am[sel], xp.numpy()[sel],
+                                    xm.numpy()[sel], 5, 1.0, 100.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert e.device.type == "cuda"
+    tg, Tp, Tm = TS.linear_cosebis_filters(5, 1.0, 100.0)
+    lt = torch.from_numpy(np.log(th_am[sel]).astype(np.float32))
+    ltg = torch.from_numpy(np.log(tg).astype(np.float32))
+    xpi = TF._interp(ltg, lt, xp[torch.from_numpy(sel)]).double().numpy()
+    xmi = TF._interp(ltg, lt, xm[torch.from_numpy(sel)]).double().numpy()
+    w = (TS._trap_weights(tg) * tg).astype(np.float32).astype(np.float64)
+    tp = Tp.astype(np.float32).astype(np.float64) @ (w * xpi)
+    tm = Tm.astype(np.float32).astype(np.float64) @ (w * xmi)
+    e64, b64 = 0.5 * (tp + tm), 0.5 * (tp - tm)
+    scale = np.abs(e64).max()
+    assert np.abs(e.cpu().numpy() - e64).max() < 1e-5 * scale
+    assert np.abs(b.cpu().numpy() - b64).max() < 1e-5 * scale
+
+
+def test_shear_generators_on_the_card(cuda):
+    """Random entry points with a CUDA generator: cl_to_flat_map and the
+    SkyArray noise / CMB layers land on the card, the same seed gives the
+    same map; the sampler's covariance is finite and symmetric."""
+    from astrild_tpu_torch.models import SkyArray
+    from astrild_tpu_torch.ops import angular_power as TAP
+    from astrild_tpu_torch.ops import shear_2pt as TS
+
+    ells = np.concatenate([np.arange(2.0, 3000.0), [3010.0, 40000.0]])
+    cl = 1e-8 / (1.0 + (ells / 800.0) ** 2) ** 1.5
+    cl[-2:] = 0.0
+    gen = lambda: torch.Generator(device=cuda).manual_seed(3)  # noqa: E731
+    a = TAP.cl_to_flat_map(gen(), ells, cl, 64, 2.0)
+    assert a.device.type == "cuda"
+    assert torch.equal(a, TAP.cl_to_flat_map(gen(), ells, cl, 64, 2.0))
+    sky = SkyArray.from_array(np.zeros((64, 64), np.float32), 2.0)
+    assert sky.device.type == "cuda"
+    assert sky.create_cmb(ells, cl, rnd_seed=3).device.type == "cuda"
+    assert sky.create_galaxy_shape_noise(0.26, 30.0).device.type == "cuda"
+    th, mean, cov, samples = TS.xi_pm_sample_covariance(
+        gen(), ells, cl, 32, 1.0, 4, n_real=20, noise_std=1e-3)
+    assert cov.device.type == "cuda" and samples.shape == (20, 8)
+    assert bool(torch.isfinite(cov).all())
+    assert torch.allclose(cov, cov.T)
