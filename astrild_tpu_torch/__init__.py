@@ -4,4 +4,9 @@ Modules mirror the JAX package's layout and names
 (`astrild_tpu_torch.ops.power` <-> `astrild_tpu.ops.power`, ...). The port
 imports torch and numpy only, never JAX. Its hand-written CUDA kernels live
 in `csrc/` and are built at first use (see `_ext.py`).
+
+`Cosmology` is exported here, as the JAX package exports its own.
 """
+from .utils.cosmology import Cosmology
+
+__all__ = ["Cosmology"]

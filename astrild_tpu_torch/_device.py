@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["default_device", "as_tensor", "as_points"]
+__all__ = ["default_device", "as_tensor", "as_theory_tensor", "as_points"]
 
 
 def default_device(device=None) -> torch.device:
@@ -37,6 +37,17 @@ def as_tensor(arr, device=None) -> torch.Tensor:
     if t.is_floating_point():
         t = t.to(torch.float32)
     return t if device is None else t.to(device)
+
+
+def as_theory_tensor(arr, device=None) -> torch.Tensor:
+    """`as_tensor` for the theory chain (FFTLog, the halo model, the n(z)
+    and shear transforms, the forecasts): placed the same way, and numpy
+    input arrives as float32 the same way, but a float64 tensor keeps its
+    dtype, so a caller that hands float64 (a forecast's mean model) gets a
+    float64 computation."""
+    if isinstance(arr, torch.Tensor) and arr.dtype == torch.float64:
+        return arr if device is None else arr.to(device)
+    return as_tensor(arr, device)
 
 
 def as_points(pos, device=None):

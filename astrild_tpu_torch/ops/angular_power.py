@@ -2,14 +2,21 @@
 
 Port of `_flat_sky_binning`, `cl_flat_sky`, `flat_sky_mode_counts`,
 `cl_flat_sky_cross`, `cl_kappa_cross_limber`, `cl_kappa_limber`,
-`cl_to_flat_map`, `shear_eb_maps`, `kappa_to_shear_maps` and `cl_shear_eb`
-of astrild_tpu/ops/angular_power.py. `cl_to_flat_map` draws its white
-noise from a `torch.Generator` where the JAX package takes a PRNG key;
+`cl_to_flat_map`, `shear_eb_maps`, `kappa_to_shear_maps`, `cl_shear_eb`
+and the n(z) Limber kernels of astrild_tpu/ops/angular_power.py.
+`cl_to_flat_map` draws its white noise from a `torch.Generator` where the
+JAX package takes a PRNG key;
 `cl_to_flat_map_from_white` takes the two white-noise fields themselves,
 so both packages make the same map from the same draws.
 
-Not ported yet: the n(z) Limber kernels, the ISW spectrum and the masked
-(MASTER) estimators.
+The Limber spectra take a cosmology with float fields (host node tables)
+or a traced one (tensor fields: every node quantity a float64 tensor in
+the graph, so a Fisher Jacobian runs through them); the n(z) kernels
+(`smail_nz`, `cl_kappa_limber_nz` with its NLA terms,
+`cl_galaxy_limber_nz`) always take the tensor route, on a float-field
+cosmology through `Cosmology.with_tensor_fields`.
+
+Not ported yet: the ISW spectrum and the masked (MASTER) estimators.
 """
 from __future__ import annotations
 
@@ -18,16 +25,17 @@ import math
 import numpy as np
 import torch
 
-from .._device import as_tensor, default_device
+from .._device import as_tensor, as_theory_tensor, default_device
 from ..utils.constants import DEG2RAD, H0_OVER_C_HMPC
 from ..utils.cosmology import Cosmology
-from .fftlog import _interp
+from ..utils.tables import interp
 from .linear_power import (_halofit_power, _unnormalized_power,
                            halofit_parameters, normalization)
 from .power import _mode_numbers
 
 __all__ = ["cl_flat_sky", "cl_flat_sky_cross", "flat_sky_mode_counts",
-           "cl_kappa_cross_limber", "cl_kappa_limber", "cl_to_flat_map",
+           "cl_kappa_cross_limber", "cl_kappa_limber", "cl_kappa_limber_nz",
+           "cl_galaxy_limber_nz", "smail_nz", "C1_RHO_CR", "cl_to_flat_map",
            "cl_to_flat_map_from_white", "shear_eb_maps",
            "kappa_to_shear_maps", "cl_shear_eb"]
 
@@ -156,14 +164,27 @@ def cl_kappa_cross_limber(ells, cosmo: Cosmology, z_source_i: float,
     W_i(chi) W_j(chi), integrated to min(chi_i, chi_j).
 
     ells: tensor (it keeps its device) or array-like (to `device`, by
-    default the CUDA card). The distances, redshifts, growth and the
-    halofit numbers of the nchi quadrature nodes are host tables (they
-    depend on chi only, not on ell); P(k) and the integral are float32
-    tensor ops on the ells' device.
+    default the CUDA card). With float fields the distances, redshifts,
+    growth and the halofit numbers of the nchi quadrature nodes are host
+    tables (they depend on chi only, not on ell); P(k) and the integral
+    are float32 tensor ops on the ells' device. A traced cosmology takes
+    the tensor route: every node quantity is a float64 tensor in the
+    graph, on the cosmology's device, and so is C_ell.
     """
     if amplitude is None:
         amplitude = normalization(cosmo)
-    ells = as_tensor(ells, device).reshape(-1)
+    ells = _ells_of(ells, cosmo, device, cosmo.traced)
+    if cosmo.traced:
+        ells = ells.to(cosmo.device)
+        chi_i = cosmo.comoving_distance(z_source_i)
+        chi_j = cosmo.comoving_distance(z_source_j)
+        chi = _chi_nodes(torch.minimum(chi_i, chi_j), nchi)
+        z = cosmo.redshift_at_comoving_distance(chi)
+        weight = (_lensing_kernel(cosmo, chi, z, chi_i)
+                  * _lensing_kernel(cosmo, chi, z, chi_j) / chi ** 2)
+        return torch.trapezoid(
+            weight * _pk_nodes(ells, chi, z, cosmo, nonlinear, amplitude),
+            chi, dim=-1)
     dev = ells.device
     chi_i = float(cosmo.comoving_distance(z_source_i))
     chi_j = float(cosmo.comoving_distance(z_source_j))
@@ -189,6 +210,197 @@ def cl_kappa_cross_limber(ells, cosmo: Cosmology, z_source_i: float,
               * dev32(cosmo.growth_factor(z_h) ** 2))
     weight = dev32(kern(chi_i) * kern(chi_j) / chi_h ** 2)
     return torch.trapezoid(weight * pk, chi, dim=-1)
+
+
+def _chi_nodes(chi_max, nchi: int):
+    """The Limber quadrature nodes jnp.linspace(1e-3 chi_max, chi_max,
+    nchi) of a tensor chi_max, in float64 and in the graph."""
+    t = torch.linspace(0.0, 1.0, nchi, dtype=torch.float64,
+                       device=chi_max.device)
+    lo = 1e-3 * chi_max
+    return lo + (chi_max - lo) * t
+
+
+def _lensing_kernel(cosmo, chi, z, chi_s):
+    """W(chi) = 1.5 Om0 (H0/c)^2 (1+z) chi (chi_s - chi)_+ / chi_s of a
+    source plane at chi_s."""
+    return (1.5 * cosmo.Om0 * H0_OVER_C_HMPC ** 2 * (1.0 + z) * chi
+            * torch.clamp_min(chi_s - chi, 0.0) / chi_s)
+
+
+def _pk_nodes(ells, chi, z, cosmo, nonlinear: bool, amplitude):
+    """P((ell + 1/2)/chi, z(chi)) of a traced cosmology at every (ell,
+    node), (nell, nchi), in float64: linear EH98 or halofit with the
+    nodes' own halofit numbers."""
+    k = (ells.to(chi.dtype)[:, None] + 0.5) / chi
+    if nonlinear:
+        return _halofit_power(k, cosmo, amplitude,
+                              halofit_parameters(cosmo, z, amplitude))
+    return (amplitude * _unnormalized_power(k, cosmo)
+            * cosmo.growth_factor(z) ** 2)
+
+
+def _ells_of(ells, cosmo, device, tensor_route: bool):
+    """The ells as a flat tensor: a tensor's own; other input on `device`,
+    else on a traced cosmology's device, else on the CUDA card
+    (`_device.as_tensor`: it raises without one). The tensor route keeps
+    float64 ells."""
+    if device is None and cosmo.traced and not isinstance(ells,
+                                                          torch.Tensor):
+        device = cosmo.device
+    place = as_theory_tensor if tensor_route else as_tensor
+    return place(ells, device).reshape(-1)
+
+
+def _traced(cosmo: Cosmology, device=None) -> Cosmology:
+    """`cosmo` on the tensor route: as it is if traced, else with its
+    fields as constant tensors on `device` (default the CUDA card)."""
+    return (cosmo if cosmo.traced
+            else cosmo.with_tensor_fields(default_device(device)))
+
+
+# ---------------------------------------------------- n(z) Limber kernels
+def smail_nz(z, z0: float = 0.9, alpha: float = 2.0, beta: float = 1.5,
+             device=None):
+    """Smail et al. source redshift distribution n(z) ~ z^alpha
+    exp(-(z/z0)^beta) (unnormalized: the Limber kernels normalize). A
+    tensor z keeps its device and dtype; other input goes to `device`, by
+    default the CUDA card (it raises without one), as float32, as the
+    JAX package's jnp.asarray makes it."""
+    z = as_theory_tensor(z, device)
+    return z ** alpha * torch.exp(-((z / z0) ** beta))
+
+
+C1_RHO_CR = 0.0134  # NLA normalization C1 rho_cr (Bridle & King 2007)
+
+
+def _nz_quad(cosmo, z_tab, nz_tab, nz_quad: int):
+    """Normalized n(z) on a uniform quadrature grid + chi(z): the shared
+    first step of every n(z)-weighted Limber kernel (float64, on the
+    traced cosmology's device)."""
+    ops = cosmo._ops
+    zt, nt = ops.asarray(z_tab).reshape(-1), ops.asarray(nz_tab).reshape(-1)
+    zq = zt[0] + (zt[-1] - zt[0]) * torch.linspace(
+        0.0, 1.0, nz_quad, dtype=torch.float64, device=cosmo.device)
+    nq = interp(zq, zt, nt)
+    nq = nq / torch.trapezoid(nq, zq)
+    return zq, nq, cosmo.comoving_distance(zq)
+
+
+def _lensing_efficiency(chi, zq, nq, chis):
+    """g(chi) = Int dz n(z) (chi_s - chi)_+/chi_s. chi_s(z=0) = 0 would
+    give 0/0 = NaN even though n(0) = 0 multiplies it away: a table
+    starting at z = 0 (the natural Smail grid) must not NaN the integral,
+    hence the clamp."""
+    safe = torch.clamp_min(chis, 1e-6)
+    frac = torch.clamp_min(chis[None, :] - chi[:, None], 0.0) / safe
+    return torch.trapezoid(nq[None, :] * frac, zq, dim=1)
+
+
+def _limber_sum(ells, cosmo, chi, z, ww, nonlinear: bool, amplitude):
+    """C_ell = Int dchi WW / chi^2 P((ell+1/2)/chi, z): the shared Limber
+    integrator of the kappa / galaxy n(z) kernels."""
+    pk = _pk_nodes(ells, chi, z, cosmo, nonlinear, amplitude)
+    return torch.trapezoid(ww / chi ** 2 * pk, chi, dim=-1)
+
+
+def _limber_nodes(cosmo, chi_max, nchi: int):
+    """(chi, z(chi), dz/dchi) at the Limber nodes up to chi_max."""
+    chi = _chi_nodes(chi_max, nchi)
+    z = cosmo.redshift_at_comoving_distance(chi)
+    return chi, z, H0_OVER_C_HMPC * cosmo.efunc(z)
+
+
+def cl_kappa_limber_nz(ells, cosmo: Cosmology, z_tab, nz_tab,
+                       z_tab2=None, nz_tab2=None, nchi: int = 256,
+                       nz_quad: int = 256, amplitude=None,
+                       nonlinear: bool = False, a_ia=0.0,
+                       eta_ia=0.0, z0_ia: float = 0.62, device=None):
+    """Convergence (cross-)power for EXTENDED source distributions:
+
+        W_i(chi) = 1.5 Om0 (H0/c)^2 (1+z) chi g_i(chi),
+        g_i(chi) = Int dz n_i(z) (chi_s(z) - chi)_+ / chi_s(z),
+
+    (a delta n(z) recovers `cl_kappa_limber`'s single source plane). n(z)
+    tables are normalized internally, so only the shape matters. Pass a
+    second (z_tab2, nz_tab2) for a tomographic cross bin.
+
+    a_ia != 0 adds nonlinear-alignment intrinsic alignments (NLA, Bridle &
+    King 2007): the total kernel becomes W_i + W_IA,i with
+
+        W_IA,i = -a_ia C1 rho_cr Om0 / D(z)
+                 ((1+z)/(1+z0_ia))^eta_ia n_i(z) dz/dchi,
+
+    so the spectrum is GG + GI + II in one integral. The NLA terms are
+    kept unconditional, so a_ia / eta_ia may be tensors (IA nuisance
+    parameters of a Fisher Jacobian), as may the cosmology's fields. The
+    integral is float64 on a traced cosmology's device, else on the ells'
+    (a tensor's own; numpy ells go to `device`, by default the CUDA card,
+    raising without one).
+    """
+    ells = _ells_of(ells, cosmo, device, True)
+    cosmo = _traced(cosmo, ells.device)
+    ells = ells.to(cosmo.device)
+    if amplitude is None:
+        amplitude = normalization(cosmo)
+    zq1, nq1, chis1 = _nz_quad(cosmo, z_tab, nz_tab, nz_quad)
+    if z_tab2 is None:
+        zq2, nq2, chis2 = zq1, nq1, chis1
+    else:
+        zq2, nq2, chis2 = _nz_quad(cosmo, z_tab2, nz_tab2, nz_quad)
+    chi, z, dz_dchi = _limber_nodes(
+        cosmo, torch.maximum(chis1[-1], chis2[-1]), nchi)
+    pref = 1.5 * cosmo.Om0 * H0_OVER_C_HMPC ** 2 * (1.0 + z) * chi
+    w1 = pref * _lensing_efficiency(chi, zq1, nq1, chis1)
+    w2 = pref * _lensing_efficiency(chi, zq2, nq2, chis2)
+    fz = ((1.0 + z) / (1.0 + z0_ia)) ** eta_ia
+    amp_ia = (-a_ia * C1_RHO_CR * cosmo.Om0 / cosmo.growth_factor(z) * fz
+              * dz_dchi)
+    w1 = w1 + amp_ia * interp(z, zq1, nq1, left=0.0, right=0.0)
+    w2 = w2 + amp_ia * interp(z, zq2, nq2, left=0.0, right=0.0)
+    return _limber_sum(ells, cosmo, chi, z, w1 * w2, nonlinear, amplitude)
+
+
+def cl_galaxy_limber_nz(ells, cosmo: Cosmology, z_tab, nz_tab,
+                        bias=1.0, kappa_nz=None, z_source=None,
+                        nchi: int = 256, nz_quad: int = 256, amplitude=None,
+                        nonlinear: bool = False, device=None):
+    """Angular galaxy-count spectra via Limber: C_gg, or C_g-kappa when a
+    source population is given:
+
+        W_g(chi)  = b n(z(chi)) dz/dchi
+        C_gg      = Int dchi W_g^2 / chi^2 P(k, z)
+        C_gkappa  = Int dchi W_g W_kappa / chi^2 P(k, z)
+
+    with W_kappa the n(z)-weighted lensing kernel of `cl_kappa_limber_nz`
+    (kappa_nz=(z_tab, nz_tab)) or a source plane (z_source=zs). `bias` may
+    be a tensor (a nuisance parameter). Placed as `cl_kappa_limber_nz`.
+    Returns C_ell at `ells`.
+    """
+    ells = _ells_of(ells, cosmo, device, True)
+    cosmo = _traced(cosmo, ells.device)
+    ells = ells.to(cosmo.device)
+    if amplitude is None:
+        amplitude = normalization(cosmo)
+    zq, nq, chi_l = _nz_quad(cosmo, z_tab, nz_tab, nz_quad)
+    chi_max = chi_l[-1]
+    if kappa_nz is not None:
+        zsq, nsq, chis_s = _nz_quad(cosmo, kappa_nz[0], kappa_nz[1],
+                                    nz_quad)
+        chi_max = torch.maximum(chi_max, chis_s[-1])
+    elif z_source is not None:
+        chi_s1 = cosmo.comoving_distance(z_source)
+        chi_max = torch.maximum(chi_max, chi_s1)
+    chi, z, dz_dchi = _limber_nodes(cosmo, chi_max, nchi)
+    w_g = bias * interp(z, zq, nq, left=0.0, right=0.0) * dz_dchi
+    pref = 1.5 * cosmo.Om0 * H0_OVER_C_HMPC ** 2 * (1.0 + z) * chi
+    if kappa_nz is not None:
+        w_2 = pref * _lensing_efficiency(chi, zsq, nsq, chis_s)
+    elif z_source is not None:
+        w_2 = pref * torch.clamp_min(chi_s1 - chi, 0.0) / chi_s1
+    else:
+        w_2 = w_g
+    return _limber_sum(ells, cosmo, chi, z, w_g * w_2, nonlinear, amplitude)
 
 
 def _f32(x, device):
@@ -218,7 +430,7 @@ def cl_to_flat_map_from_white(re, im, cl_tab_ell, cl_tab_val, npix: int,
     lf = _f32(2.0 * math.pi, dev) / theta
     f = _mode_numbers(npix, dev)
     lmag = lf * torch.sqrt(f[:, None] ** 2 + f[None, :] ** 2)
-    cl = _interp(lmag, ell_tab, val_tab)
+    cl = interp(lmag, ell_tab, val_tab)
     cl = torch.where(lmag == 0.0, torch.zeros_like(cl), cl)
     # |m_hat|^2 expectation = Cl * npix^4 / theta^2 (inverse of cl_flat_sky)
     amp = torch.sqrt(torch.clamp_min(cl, 0.0)) * _f32(npix ** 2, dev) / theta

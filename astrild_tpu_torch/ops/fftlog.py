@@ -17,7 +17,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .._device import as_tensor
+from .._device import as_theory_tensor
+from ..utils.tables import interp as _interp
 
 __all__ = ["sph_bessel_transform", "xi_multipoles_from_pk", "wp_from_pk",
            "correlation_from_power", "bessel_transform"]
@@ -101,12 +102,15 @@ def _host_grid(k, name: str):
 
 
 def _fftlog(fk, bias, kern, scale):
-    """Re FFT(FFT(f bias) M) * scale along the last axis, in float32."""
+    """Re FFT(FFT(f bias) M) * scale along the last axis, in float32, or
+    in float64 for a float64 integrand (the host tables cast up)."""
     dev = fk.device
-    bias, scale = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+    dt = torch.float64 if fk.dtype == torch.float64 else torch.float32
+    bias, scale = (torch.as_tensor(a, dtype=dt, device=dev)
                    for a in (bias, scale))
-    kern_re, kern_im = (torch.as_tensor(a, device=dev) for a in kern)
-    am = torch.fft.fft(fk.to(torch.float32) * bias, dim=-1)
+    kern_re, kern_im = (torch.as_tensor(a, dtype=dt, device=dev)
+                        for a in kern)
+    am = torch.fft.fft(fk.to(dt) * bias, dim=-1)
     ar, ai = am.real, am.imag
     b = torch.complex(ar * kern_re - ai * kern_im,
                       ar * kern_im + ai * kern_re)
@@ -122,7 +126,8 @@ def bessel_transform(k, fk, mu: int, q: float = 1.0,
       k: (n,) log-uniform grid (ascending) — wavenumbers or multipoles.
       fk: (n,) or (..., n) integrand f(k); a tensor keeps its device,
         numpy input goes to `device`, by default the CUDA card (it raises
-        without one).
+        without one). A float64 tensor is transformed in float64 (r and I
+        float64 too); everything else in float32.
       mu: Bessel order J_mu.
       q: FFTLog bias, must lie in the Mellin strip (-mu, 1.5).
     Returns:
@@ -136,10 +141,10 @@ def bessel_transform(k, fk, mu: int, q: float = 1.0,
     r = np.exp(j * dln) / (k0 * np.exp((n - 1) * dln))
     # k dk = k^2 dlnk: biased series a = f(k) (k/k0)^{2-q},
     # I_j = k0^2 (k0 r_j)^{-q} Re FFT(A_m M_m)[j] / N
-    fk = as_tensor(fk, device)
+    fk = as_theory_tensor(fk, device)
     out = _fftlog(fk, _bias(k, k0, 2.0 - q, w), kern,
                   k0 ** 2 * (k0 * r) ** (-q) / n)
-    return torch.as_tensor(r, dtype=torch.float32, device=fk.device), out
+    return torch.as_tensor(r, dtype=out.dtype, device=fk.device), out
 
 
 def sph_bessel_transform(k, fk, ell: int, q: float = 1.5,
@@ -164,10 +169,10 @@ def sph_bessel_transform(k, fk, ell: int, q: float = 1.5,
     s = np.exp(j * dln) / (k0 * np.exp((n - 1) * dln))  # 1/kmax .. 1/kmin
     # biased series a = f(k) (k/k0)^{3-q}; I_j = k0^3 (k0 s_j)^{-q} *
     #   Re FFT(A_m M_m)[j] / N
-    fk = as_tensor(fk, device)
+    fk = as_theory_tensor(fk, device)
     out = _fftlog(fk, _bias(k, k0, 3.0 - q, w), kern,
                   k0 ** 3 * (k0 * s) ** (-q) / n)
-    return torch.as_tensor(s, dtype=torch.float32, device=fk.device), out
+    return torch.as_tensor(s, dtype=out.dtype, device=fk.device), out
 
 
 def xi_multipoles_from_pk(k, p_ells, ells=(0, 2, 4), q: float = 1.5,
@@ -180,7 +185,7 @@ def xi_multipoles_from_pk(k, p_ells, ells=(0, 2, 4), q: float = 1.5,
     p_ells: (nell, n) stacked multipoles in the order of `ells`, placed as
     fk in `bessel_transform`. Returns (s, xi) with xi (nell, n).
     """
-    p_ells = as_tensor(p_ells, device)
+    p_ells = as_theory_tensor(p_ells, device)
     rows = []
     s = None
     for i, ell in enumerate(ells):
@@ -196,25 +201,9 @@ def xi_multipoles_from_pk(k, p_ells, ells=(0, 2, 4), q: float = 1.5,
 
 def correlation_from_power(k, pk, q: float = 1.5, device=None):
     """Real-space xi(r) from P(k): the ell=0 case."""
-    pk = as_tensor(pk, device)
+    pk = as_theory_tensor(pk, device)
     s, xi = xi_multipoles_from_pk(k, pk[None, :], ells=(0,), q=q)
     return s, xi[0]
-
-
-def _interp(x, xp, fp):
-    """jnp.interp (constant beyond the ends) on tensors, with its
-    formula: fp[i-1] + (x - xp[i-1]) / dx * df."""
-    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1,
-                    xp.shape[0] - 1)
-    df = fp[i] - fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
-    eps = float(np.spacing(np.finfo(np.float32).eps))
-    dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fp[i - 1],
-                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], fp[-1], f)
 
 
 def wp_from_pk(k, pk, rp, pi_max, q: float = 1.5, n_pi: int = 256,
@@ -236,11 +225,12 @@ def wp_from_pk(k, pk, rp, pi_max, q: float = 1.5, n_pi: int = 256,
     s, xi = correlation_from_power(k, pk, q=q, device=device)
     dev = xi.device
     lns = torch.log(s)
-    step = torch.arange(n_pi, dtype=torch.float32, device=dev) / float(n_pi)
-    # jnp.linspace(0, pi_max, n_pi + 1) in float32
+    step = torch.arange(n_pi, dtype=xi.dtype, device=dev) / float(n_pi)
+    # jnp.linspace(0, pi_max, n_pi + 1) in xi's dtype
     pi_grid = torch.cat([0.0 * (1 - step) + pi_max * step,
-                         torch.tensor([float(pi_max)], device=dev)])
-    rp = as_tensor(rp, dev).reshape(-1)
+                         torch.tensor([float(pi_max)], dtype=xi.dtype,
+                                      device=dev)])
+    rp = as_theory_tensor(rp, dev).reshape(-1).to(xi.dtype)
     r = torch.sqrt(rp[:, None] ** 2 + pi_grid[None, :] ** 2)
     xi_r = _interp(torch.log(torch.clamp_min(r, s[0])), lns, xi)
     return 2.0 * torch.trapezoid(xi_r, pi_grid, dim=-1)

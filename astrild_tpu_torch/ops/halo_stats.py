@@ -9,7 +9,9 @@ package's `jax.jvp`. The theory functions differentiate ln sigma by
 reverse-mode autograd through `linear_power.sigma_r`, which the port
 evaluates in float64 over a vector of radii (one backward for every
 derivative); the JAX package's is float32, so the two agree to float32
-precision, not to its rounding. Numpy input goes to `device`, by default
+precision, not to its rounding. `theory_hmf` of a traced cosmology takes
+the slope in closed form instead (`linear_power.sigma_r_slope`), since a
+nested backward does not compose with torch.func. Numpy input goes to `device`, by default
 the CUDA card (it raises without one); tensors keep their device.
 """
 from __future__ import annotations
@@ -226,21 +228,30 @@ def theory_hmf(m_msun_h, cosmo, z: float = 0.0, model: str = "st",
     a float64 tensor.
 
     sigma(M, z) = D(z) sigma(R(M)) with R = (3M / 4 pi rho_mean)^(1/3);
-    dln sigma/dlnM by autograd through the sigma_r quadrature. amplitude
-    overrides the sigma8 normalization.
+    dln sigma/dlnM by autograd through the sigma_r quadrature, or, for a
+    traced cosmology (tensor fields, a Fisher Jacobian), in closed form
+    (`linear_power.sigma_r_slope`: R ~ M^(1/3), so dlnR/dlnM = 1/3), which
+    composes with torch.func. amplitude overrides the sigma8
+    normalization.
     """
-    from .linear_power import normalization
+    from .linear_power import _scalar, normalization, sigma_r_slope
 
     m = as_tensor(m_msun_h, device)
     amp = normalization(cosmo) if amplitude is None else amplitude
     rho_mean = cosmo.Om0 * RHO_CRIT0  # (Msun/h) / (Mpc/h)^3
-    growth = float(cosmo.growth_factor(z))
+    growth = _scalar(cosmo.growth_factor(z))
 
     def radius(mass):
         return (3.0 * mass / (4.0 * math.pi * rho_mean)) ** (1.0 / 3.0)
 
     lnm = torch.log(m.to(torch.float64))
-    ln_sig, dlns_dlnm = _ln_sigma_and_slope(lnm, radius, cosmo, amp, growth)
+    if cosmo.traced:
+        sig, dlns_dlnr = sigma_r_slope(radius(torch.exp(lnm)), cosmo,
+                                       amplitude=amp)
+        ln_sig, dlns_dlnm = torch.log(sig * growth), dlns_dlnr / 3.0
+    else:
+        ln_sig, dlns_dlnm = _ln_sigma_and_slope(lnm, radius, cosmo, amp,
+                                                growth)
     f = _multiplicity(torch.exp(ln_sig), model, z=z)
     return f * rho_mean / torch.exp(lnm) * torch.abs(dlns_dlnm)
 

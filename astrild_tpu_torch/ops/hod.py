@@ -30,7 +30,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from .._device import as_tensor
+from .._device import as_tensor, as_theory_tensor
 from .voids3d import _f32
 
 __all__ = ["HODParams", "zheng07_mean_occupation", "nfw_radius_sample",
@@ -52,17 +52,21 @@ class HODParams(NamedTuple):
 def zheng07_mean_occupation(m, params: HODParams, device=None):
     """Mean central / satellite occupation of halos with mass m [Msun/h].
 
-    Returns (n_cen, n_sat), float32; <N_sat> carries the <N_cen>
-    modulation of Zheng+07 Eq. 5, so n_gal = integral dn/dM (<N_cen> +
-    <N_sat>).
+    Returns (n_cen, n_sat), float32 (float64 for a float64 tensor m);
+    <N_sat> carries the <N_cen> modulation of Zheng+07 Eq. 5, so n_gal =
+    integral dn/dM (<N_cen> + <N_sat>). The fields of `params` may be 0-d
+    tensors (HOD parameters of a Fisher Jacobian).
     """
-    m = as_tensor(m, device).to(torch.float32)
-    dev = m.device
+    m = as_theory_tensor(m, device)
+    if m.dtype != torch.float64:
+        m = m.to(torch.float32)
+    dev, dt = m.device, m.dtype
     logm = torch.log10(torch.clamp_min(m, 1.0))
-    n_cen = 0.5 * (1.0 + torch.erf((logm - params.log_mmin)
-                                   / _f32(params.sigma_logm, dev)))
+    n_cen = 0.5 * (1.0 + torch.erf(
+        (logm - params.log_mmin)
+        / torch.as_tensor(params.sigma_logm, dtype=dt, device=dev)))
     base = (torch.clamp_min(m - 10.0 ** params.log_m0, 0.0)
-            / _f32(10.0 ** params.log_m1, dev))
+            / torch.as_tensor(10.0 ** params.log_m1, dtype=dt, device=dev))
     n_sat = n_cen * base ** params.alpha
     return n_cen, n_sat
 

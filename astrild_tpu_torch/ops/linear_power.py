@@ -4,8 +4,11 @@ Port of astrild_tpu/ops/linear_power.py (`eh98_transfer`, the no-wiggle
 `eh98_transfer_nowiggle`, `_unnormalized_power`, `sigma_r`,
 `normalization`, `linear_power`, `linear_power_nowiggle`,
 `kaiser_multipoles`, and the halofit `_sigma2_gauss`, `nonlinear_power`).
-The k-dependent terms are torch ops in the dtype of `k`; the k-independent
-fit coefficients are host float64 scalars.
+The k-dependent terms are torch ops in the dtype of `k`. For a cosmology
+with float fields the k-independent fit coefficients are host float64
+scalars and the halofit numbers host numpy; for a traced one
+(`Cosmology.traced`, tensor fields) they are float64 tensor ops that
+autograd and torch.func follow, as the JAX package's are jnp ops.
 
 Not ported yet: `p_dpdp`.
 
@@ -22,8 +25,23 @@ from .._device import as_tensor
 from ..utils.cosmology import Cosmology
 
 __all__ = ["eh98_transfer", "eh98_transfer_nowiggle", "linear_power",
-           "linear_power_nowiggle", "sigma_r", "normalization",
+           "linear_power_nowiggle", "sigma_r", "sigma_r_slope",
+           "normalization",
            "kaiser_multipoles", "nonlinear_power", "halofit_parameters"]
+
+
+def _sqrt(x):
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
+def _log(x):
+    return torch.log(x) if isinstance(x, torch.Tensor) else math.log(x)
+
+
+def _scalar(x):
+    """x as a Python float, unless it is a tensor (a traced value keeps
+    its graph)."""
+    return x if isinstance(x, torch.Tensor) else float(x)
 
 
 def _as_tensor(k, device=None):
@@ -64,9 +82,9 @@ def eh98_transfer(k_hmpc, cosmo: Cosmology, device=None):
 
     r_d = r_of(z_d)
     r_eq = r_of(z_eq)
-    s = (2.0 / (3.0 * k_eq) * math.sqrt(6.0 / r_eq)
-         * math.log((math.sqrt(1.0 + r_d) + math.sqrt(r_d + r_eq))
-                    / (1.0 + math.sqrt(r_eq))))
+    s = (2.0 / (3.0 * k_eq) * _sqrt(6.0 / r_eq)
+         * _log((_sqrt(1.0 + r_d) + _sqrt(r_d + r_eq))
+                / (1.0 + _sqrt(r_eq))))
     k_silk = (1.6 * ob ** 0.52 * om ** 0.73
               * (1.0 + (10.4 * om) ** -0.95))
 
@@ -90,13 +108,13 @@ def eh98_transfer(k_hmpc, cosmo: Cosmology, device=None):
 
     # ---- baryon piece ----
     def g_of(y):
-        sq = math.sqrt(1.0 + y)
+        sq = _sqrt(1.0 + y)
         return y * (-6.0 * sq + (2.0 + 3.0 * y)
-                    * math.log((sq + 1.0) / (sq - 1.0)))
+                    * _log((sq + 1.0) / (sq - 1.0)))
 
     alpha_b = (2.07 * k_eq * s * (1.0 + r_d) ** -0.75
                * g_of((1.0 + z_eq) / (1.0 + z_d)))
-    beta_b = 0.5 + fb + (3.0 - 2.0 * fb) * math.sqrt((17.2 * om) ** 2 + 1.0)
+    beta_b = 0.5 + fb + (3.0 - 2.0 * fb) * _sqrt((17.2 * om) ** 2 + 1.0)
     beta_node = 8.41 * om ** 0.435
     ks = torch.clamp_min(k * s, 1e-12)
     s_tilde = s / (1.0 + (beta_node / ks) ** 3) ** (1.0 / 3.0)
@@ -124,10 +142,10 @@ def eh98_transfer_nowiggle(k_hmpc, cosmo: Cosmology, device=None):
     fb = ob / om
     theta = cosmo.Tcmb / 2.7
     # sound horizon, EH98 eq. 26 approximation [Mpc]
-    s = 44.5 * math.log(9.83 / om) / math.sqrt(1.0 + 10.0 * ob ** 0.75)
+    s = 44.5 * _log(9.83 / om) / _sqrt(1.0 + 10.0 * ob ** 0.75)
     # effective shape parameter, eq. 30-31
-    a_gamma = (1.0 - 0.328 * math.log(431.0 * om) * fb
-               + 0.38 * math.log(22.3 * om) * fb ** 2)
+    a_gamma = (1.0 - 0.328 * _log(431.0 * om) * fb
+               + 0.38 * _log(22.3 * om) * fb ** 2)
     ks = k_hmpc * h * s  # k [1/Mpc] * s [Mpc]
     gamma_eff = cosmo.Om0 * h * (a_gamma + (1.0 - a_gamma)
                                  / (1.0 + (0.43 * ks) ** 4))
@@ -141,15 +159,16 @@ def _unnormalized_power(k, cosmo: Cosmology):
     return k ** cosmo.ns * eh98_transfer(k, cosmo) ** 2
 
 
-def sigma_r(r_hmpc, cosmo: Cosmology, amplitude=1.0, nk: int = 1024):
-    """sigma(R) of the (amplitude-scaled) linear power at z=0 (trapezoid in
-    ln k over [1e-4, 50] h/Mpc), in float64 and of r's shape (0-d for a
-    scalar). A tensor r keeps its device and its autograd graph, so one
-    backward through a vector of radii gives every dsigma/dR."""
+def _tophat_terms(r_hmpc, cosmo: Cosmology, amplitude, nk: int):
+    """The pieces of sigma(R)'s trapezoid in ln k over [1e-4, 50] h/Mpc:
+    (k^3 P, x = kR, x clamped at 0.1, x < 0.1, the top-hat W(x), dlnk).
+    W takes its series below x = 0.1, where the closed form cancels; the
+    closed form sees a clamped argument, so the branch not taken is NaN-free
+    under autodiff."""
     if isinstance(r_hmpc, torch.Tensor):
         r = r_hmpc.to(torch.float64)
     else:
-        r = torch.tensor(r_hmpc, dtype=torch.float64)
+        r = torch.tensor(r_hmpc, dtype=torch.float64, device=cosmo.device)
     lnk = torch.linspace(math.log(1e-4), math.log(50.0), nk,
                          dtype=torch.float64, device=r.device)
     k = torch.exp(lnk)
@@ -158,17 +177,48 @@ def sigma_r(r_hmpc, cosmo: Cosmology, amplitude=1.0, nk: int = 1024):
     xs = torch.clamp_min(x, 0.1)
     w_formula = 3.0 * (torch.sin(xs) - xs * torch.cos(xs)) / xs ** 3
     w_series = 1.0 - x ** 2 / 10.0 + x ** 4 / 280.0
-    w = torch.where(x < 0.1, w_series, w_formula)
-    integrand = k ** 3 * p * w ** 2 / (2.0 * math.pi ** 2)  # d(ln k)
-    dlnk = lnk[1] - lnk[0]
-    var = torch.sum(0.5 * (integrand[..., 1:] + integrand[..., :-1]) * dlnk,
-                    dim=-1)
-    return torch.sqrt(var)
+    small = x < 0.1
+    w = torch.where(small, w_series, w_formula)
+    return k ** 3 * p, x, xs, small, w, lnk[1] - lnk[0]
 
 
-def normalization(cosmo: Cosmology) -> float:
-    """Amplitude A such that sigma(8 Mpc/h) = cosmo.sigma8."""
-    return float((cosmo.sigma8 / sigma_r(8.0, cosmo, amplitude=1.0)) ** 2)
+def _trapz_lnk(integrand, dlnk):
+    return torch.sum(0.5 * (integrand[..., 1:] + integrand[..., :-1]) * dlnk,
+                     dim=-1)
+
+
+def sigma_r(r_hmpc, cosmo: Cosmology, amplitude=1.0, nk: int = 1024):
+    """sigma(R) of the (amplitude-scaled) linear power at z=0 (trapezoid in
+    ln k over [1e-4, 50] h/Mpc), in float64 and of r's shape (0-d for a
+    scalar). A tensor r keeps its device and its autograd graph, so one
+    backward through a vector of radii gives every dsigma/dR; other r goes
+    to the cosmology's device (the CPU for float fields)."""
+    k3p, _, _, _, w, dlnk = _tophat_terms(r_hmpc, cosmo, amplitude, nk)
+    integrand = k3p * w ** 2 / (2.0 * math.pi ** 2)  # d(ln k)
+    return torch.sqrt(_trapz_lnk(integrand, dlnk))
+
+
+def sigma_r_slope(r_hmpc, cosmo: Cosmology, amplitude=1.0, nk: int = 1024):
+    """(sigma(R), d ln sigma / d ln R): `sigma_r` and its derivative in
+    closed form, with W'(x) = 3 (sin x (x^2 - 3) + 3 x cos x) / x^4 (series
+    -x/5 + x^3/70 below x = 0.1, where W takes its series), so
+    d sigma^2 / d ln R = Int dlnk k^3 P 2 W W'(x) x / (2 pi^2). No nested
+    autograd call: it composes with torch.func transforms of the
+    cosmology (a Fisher Jacobian through `theory_hmf`)."""
+    k3p, x, xs, small, w, dlnk = _tophat_terms(r_hmpc, cosmo, amplitude, nk)
+    dw_formula = (3.0 * (torch.sin(xs) * (xs ** 2 - 3.0)
+                         + 3.0 * xs * torch.cos(xs)) / xs ** 4)
+    dw = torch.where(small, -x / 5.0 + x ** 3 / 70.0, dw_formula)
+    var = _trapz_lnk(k3p * w ** 2 / (2.0 * math.pi ** 2), dlnk)
+    dvar = _trapz_lnk(k3p * (2.0 * w * dw * x) / (2.0 * math.pi ** 2), dlnk)
+    return torch.sqrt(var), 0.5 * dvar / var
+
+
+def normalization(cosmo: Cosmology):
+    """Amplitude A such that sigma(8 Mpc/h) = cosmo.sigma8: a float, or a
+    0-d float64 tensor for a traced cosmology."""
+    amp = (cosmo.sigma8 / sigma_r(8.0, cosmo, amplitude=1.0)) ** 2
+    return amp if cosmo.traced else float(amp)
 
 
 def linear_power(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
@@ -177,9 +227,9 @@ def linear_power(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
     scalar). k is placed as in `eh98_transfer`."""
     if amplitude is None:
         amplitude = normalization(cosmo)
-    d = float(cosmo.growth_factor(z))
+    d = _scalar(cosmo.growth_factor(z))
     k = _as_tensor(k_hmpc, device)
-    return float(amplitude) * _unnormalized_power(k, cosmo) * d ** 2
+    return _scalar(amplitude) * _unnormalized_power(k, cosmo) * d ** 2
 
 
 def linear_power_nowiggle(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
@@ -193,10 +243,10 @@ def linear_power_nowiggle(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
     """
     if amplitude is None:
         amplitude = normalization(cosmo)
-    d = float(cosmo.growth_factor(z))
+    d = _scalar(cosmo.growth_factor(z))
     k = _as_tensor(k_hmpc, device)
     t = eh98_transfer_nowiggle(k, cosmo)
-    return float(amplitude) * k ** cosmo.ns * t ** 2 * d ** 2
+    return _scalar(amplitude) * k ** cosmo.ns * t ** 2 * d ** 2
 
 
 def kaiser_multipoles(k_hmpc, cosmo: Cosmology, z=0.0, bias: float = 1.0,
@@ -210,7 +260,7 @@ def kaiser_multipoles(k_hmpc, cosmo: Cosmology, z=0.0, bias: float = 1.0,
     k is placed as in `eh98_transfer`.
     """
     p = linear_power(k_hmpc, cosmo, z=z, amplitude=amplitude, device=device)
-    f = float(cosmo.growth_rate(z))
+    f = _scalar(cosmo.growth_rate(z))
     beta = f / bias
     b2p = bias ** 2 * p
     p0 = (1.0 + 2.0 * beta / 3.0 + beta ** 2 / 5.0) * b2p
@@ -249,14 +299,40 @@ def _sigma2_gauss(lnR, cosmo: Cosmology, amplitude, growth2, nk: int = 512):
             trapz((4.0 * y * y - 4.0 * y) * base))
 
 
+def _takahashi(n, C, om_z, w, absolute):
+    """The Takahashi+12 fit coefficients (flat wCDM; w = w0 in the DE
+    correction) from n_eff, C and Omega_m(z): numpy arrays or tensors,
+    with `absolute` the matching np.abs or torch.abs."""
+    ode_z = 1.0 - om_z
+    n2, n3, n4 = n ** 2, n ** 3, n ** 4
+    return {
+        "a_n": 10.0 ** (1.5222 + 2.8553 * n + 2.3706 * n2 + 0.9903 * n3
+                        + 0.2250 * n4 - 0.6038 * C
+                        + 0.1749 * ode_z * (1.0 + w)),
+        "b_n": 10.0 ** (-0.5642 + 0.5864 * n + 0.5716 * n2 - 1.5474 * C
+                        + 0.2279 * ode_z * (1.0 + w)),
+        "c_n": 10.0 ** (0.3698 + 2.0404 * n + 0.8161 * n2 + 0.5869 * C),
+        "gam": 0.1971 - 0.0843 * n + 0.8460 * C,
+        "alp": absolute(6.0835 + 1.3373 * n - 0.1959 * n2 - 5.5274 * C),
+        "bet": (2.0379 - 0.7354 * n + 0.3157 * n2 + 1.2490 * n3
+                + 0.3980 * n4 - 0.1682 * C),
+        "nu_n": 10.0 ** (5.2105 + 3.6902 * n),
+        "f1": om_z ** -0.0307, "f2": om_z ** -0.0585, "f3": om_z ** 0.0743,
+    }
+
+
 def halofit_parameters(cosmo: Cosmology, z=0.0, amplitude=None) -> dict:
     """The redshift-dependent halofit numbers (Takahashi+2012, arXiv
-    1208.2701 eqs. A1-A14) as host float64 values, one per entry of `z`:
-    the nonlinear scale `k_sigma` (sigma_G(1/k_sigma, z) = 1, by
-    bisection), the effective index `n_eff`, the curvature `C` and the fit
-    coefficients derived from them. They do not depend on k."""
+    1208.2701 eqs. A1-A14), one per entry of `z`: the nonlinear scale
+    `k_sigma` (sigma_G(1/k_sigma, z) = 1, by bisection), the effective
+    index `n_eff`, the curvature `C` and the fit coefficients derived from
+    them. They do not depend on k. Host float64 values for a cosmology
+    with float fields; float64 tensors, in the graph, for a traced one
+    (`_halofit_parameters_traced`)."""
     if amplitude is None:
         amplitude = normalization(cosmo)
+    if cosmo.traced:
+        return _halofit_parameters_traced(cosmo, z, amplitude)
     z = np.asarray(z, np.float64)
     g2 = np.asarray(cosmo.growth_factor(z), np.float64) ** 2
 
@@ -272,34 +348,64 @@ def halofit_parameters(cosmo: Cosmology, z=0.0, amplitude=None) -> dict:
     dln = ds2 / s2                      # d ln sigma^2 / d ln R
     n = -3.0 - dln
     C = -(d2s2 / s2 - dln ** 2)
-
-    # Takahashi+12 coefficients (flat wCDM; w = w0 in the DE correction)
     om_z = cosmo.Om0 * (1.0 + z) ** 3 / cosmo.efunc_a(1.0 / (1.0 + z)) ** 2
-    ode_z = 1.0 - om_z
-    w = cosmo.w0
-    n2, n3, n4 = n ** 2, n ** 3, n ** 4
-    return {
-        "k_sigma": np.exp(-lnR_s), "n_eff": n, "C": C, "growth2": g2,
-        "a_n": 10.0 ** (1.5222 + 2.8553 * n + 2.3706 * n2 + 0.9903 * n3
-                        + 0.2250 * n4 - 0.6038 * C
-                        + 0.1749 * ode_z * (1.0 + w)),
-        "b_n": 10.0 ** (-0.5642 + 0.5864 * n + 0.5716 * n2 - 1.5474 * C
-                        + 0.2279 * ode_z * (1.0 + w)),
-        "c_n": 10.0 ** (0.3698 + 2.0404 * n + 0.8161 * n2 + 0.5869 * C),
-        "gam": 0.1971 - 0.0843 * n + 0.8460 * C,
-        "alp": np.abs(6.0835 + 1.3373 * n - 0.1959 * n2 - 5.5274 * C),
-        "bet": (2.0379 - 0.7354 * n + 0.3157 * n2 + 1.2490 * n3
-                + 0.3980 * n4 - 0.1682 * C),
-        "nu_n": 10.0 ** (5.2105 + 3.6902 * n),
-        "f1": om_z ** -0.0307, "f2": om_z ** -0.0585, "f3": om_z ** 0.0743,
-    }
+    return {"k_sigma": np.exp(-lnR_s), "n_eff": n, "C": C, "growth2": g2,
+            **_takahashi(n, C, om_z, cosmo.w0, np.abs)}
+
+
+def _halofit_parameters_traced(cosmo: Cosmology, z, amplitude,
+                               nk: int = 512) -> dict:
+    """`halofit_parameters` of a traced cosmology, as float64 tensors on
+    its device. As in the JAX package, the bisection for ln R_s runs on
+    detached values, so ln R_s (and k_sigma) carry no derivative: n_eff
+    and C move with the parameters only through sigma^2 and its closed-
+    form ln R derivatives (`_sigma2_gauss`) at that fixed ln R_s."""
+    dev = cosmo.device
+    z = cosmo._ops.asarray(z)
+    g2 = cosmo.growth_factor(z) ** 2
+    lnk = torch.linspace(math.log(1e-4), math.log(1e3), nk,
+                         dtype=torch.float64, device=dev)
+    k2 = torch.exp(2.0 * lnk)
+    pk = torch.exp(3.0 * lnk) * _unnormalized_power(torch.exp(lnk), cosmo)
+    d2l = amplitude * g2[..., None] * pk / (2.0 * math.pi ** 2)
+    dlnk = lnk[1] - lnk[0]
+
+    def trapz(f):
+        return torch.sum(0.5 * (f[..., 1:] + f[..., :-1]), dim=-1) * dlnk
+
+    lnR_s = _halofit_root(d2l.detach(), k2, dlnk)
+    y = k2 * torch.exp(2.0 * lnR_s)[..., None]
+    base = d2l * torch.exp(-y)
+    s2 = trapz(base)
+    dln = trapz(-2.0 * y * base) / s2
+    n = -3.0 - dln
+    C = -(trapz((4.0 * y * y - 4.0 * y) * base) / s2 - dln ** 2)
+    om_z = cosmo.Om0 * (1.0 + z) ** 3 / cosmo.efunc_a(1.0 / (1.0 + z)) ** 2
+    return {"k_sigma": torch.exp(-lnR_s), "n_eff": n, "C": C, "growth2": g2,
+            **_takahashi(n, C, om_z, cosmo.w0, torch.abs)}
+
+
+def _halofit_root(d2l, k2, dlnk):
+    """ln R_s with sigma_G^2(R_s) = 1, by 48 bisection steps on lnR in
+    [ln 1e-3, ln 1e2], of the Delta^2_lin(k) rows `d2l` (..., nk) on the
+    ln k grid whose k^2 is `k2`: plain values, no graph."""
+    lo = torch.full(d2l.shape[:-1], math.log(1e-3), dtype=d2l.dtype,
+                    device=d2l.device)
+    hi = torch.full_like(lo, math.log(1e2))
+    for _ in range(48):
+        mid = 0.5 * (lo + hi)
+        f = d2l * torch.exp(-k2 * torch.exp(2.0 * mid)[..., None])
+        high = torch.sum(0.5 * (f[..., 1:] + f[..., :-1]), dim=-1) \
+            * dlnk > 1.0
+        lo, hi = torch.where(high, mid, lo), torch.where(high, hi, mid)
+    return 0.5 * (lo + hi)
 
 
 def _halofit_power(k, cosmo: Cosmology, amplitude, par):
     """Halofit P(k) from `halofit_parameters`: `par` holds Python floats
     (one redshift) or tensors that broadcast against k (one redshift per
     row)."""
-    d2l = (k ** 3 * float(amplitude) * par["growth2"]
+    d2l = (k ** 3 * _scalar(amplitude) * par["growth2"]
            * _unnormalized_power(k, cosmo) / (2.0 * math.pi ** 2))
     y = k / par["k_sigma"]
     d2q = d2l * ((1.0 + d2l) ** par["bet"] / (1.0 + par["alp"] * d2l)) \
@@ -316,10 +422,15 @@ def nonlinear_power(k_hmpc, cosmo: Cosmology, z=0.0, amplitude=None,
     """Nonlinear matter P(k, z) via halofit (Takahashi+2012) on the EH98
     linear spectrum, z a scalar. A tensor k keeps its device and dtype;
     other input becomes float32 on `device`, by default the CUDA card (it
-    raises without one: pass device="cpu")."""
+    raises without one: pass device="cpu"). The halofit numbers are
+    Python floats for float fields and 0-d tensors for a traced
+    cosmology."""
     if amplitude is None:
         amplitude = normalization(cosmo)
-    par = {name: float(v) for name, v in halofit_parameters(
-        cosmo, float(z), amplitude).items()}
+    if cosmo.traced:
+        par = halofit_parameters(cosmo, z, amplitude)
+    else:
+        par = {name: float(v) for name, v in halofit_parameters(
+            cosmo, float(z), amplitude).items()}
     return _halofit_power(_as_tensor(k_hmpc, device), cosmo, amplitude,
                           par)

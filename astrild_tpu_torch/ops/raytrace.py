@@ -214,8 +214,13 @@ def multiplane_raytrace(density_planes, chis, dchis, chi_s, omega_m,
                          torch.stack([samp[3], samp[4]])]) * w
         d = d - alpha
         # D -= (U/chi) A   (U is d alpha/d theta on the plane's grid;
-        # d alpha/d x = U/chi)
-        dmat = dmat - torch.einsum("ij...,jk...->ik...", u, amat) / chi
+        # d alpha/d x = U/chi), the 2x2 product written out elementwise:
+        # kappa = 1 - (A00 + A11)/2 cancels, and an einsum would lower to
+        # a matmul that a caller's TF32 setting reaches
+        ua = torch.stack([
+            torch.stack([u[i, 0] * amat[0, k] + u[i, 1] * amat[1, k]
+                         for k in range(2)]) for i in range(2)])
+        dmat = dmat - ua / chi
     x = x + d * (src - chis[-1])
     amat = amat + dmat * (src - chis[-1])
     ahat = amat / src

@@ -34,7 +34,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .._device import as_tensor, default_device
+from .._device import as_tensor, as_theory_tensor, default_device
 from .angular_power import (_f32, cl_to_flat_map_from_white,
                             kappa_to_shear_maps)
 from .binred import masked_bin_reduce
@@ -102,8 +102,8 @@ def xi_pm_from_cl_grid(ell_grid, cl_e, cl_b=None, q: float = 1.0,
     No host-side interpolation of the values, so cl_e may be a tensor that
     requires grad: autograd flows through the FFTLog transform (the host
     Mellin kernels are constants). The grid itself must be a concrete
-    log-uniform array."""
-    cl_e = as_tensor(cl_e, device)
+    log-uniform array. A float64 tensor is transformed in float64."""
+    cl_e = as_theory_tensor(cl_e, device)
     tot_p = cl_e if cl_b is None else cl_e + as_tensor(cl_b, cl_e.device)
     tot_m = cl_e if cl_b is None else cl_e - as_tensor(cl_b, cl_e.device)
     th, xp = bessel_transform(ell_grid, tot_p, 0, q=q)
@@ -226,12 +226,12 @@ def delta_sigma_from_pk(k, p_gm, rp, omega_m: float, q: float = 1.0,
       omega_m: matter density parameter.
     Returns (m,) Delta Sigma in h Msun / pc^2 (comoving).
     """
-    p_gm = as_tensor(p_gm, device)
+    p_gm = as_theory_tensor(p_gm, device)
     r, ds = bessel_transform(_host(k), p_gm, 2, q=q)
     rho_m = omega_m * RHO_CRIT0_H2  # h^2 Msun / Mpc^3
     ds = ds * (rho_m / (2.0 * math.pi)) * 1e-12  # Mpc^-2 -> pc^-2
     lnr = torch.log(r)
-    rp = as_tensor(rp, ds.device).reshape(-1)
+    rp = as_theory_tensor(rp, ds.device).reshape(-1).to(ds.dtype)
     return _interp(torch.log(rp), lnr, ds)
 
 

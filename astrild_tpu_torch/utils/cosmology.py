@@ -1,27 +1,75 @@
-"""Background cosmology on the host: distances, growth, Hubble flow.
+"""Background cosmology: distances, growth, Hubble flow.
 
-Port of astrild_tpu/utils/cosmology.py, restricted to what the forward
-model needs. The JAX class builds its tables with jnp in float32 so that
-they can live inside traced code; the port keeps them as host numpy
-float64 tables (the repo's rule for host precomputes), so its values agree
-with the JAX package's to float32 rounding (~1e-6 relative). Methods take
-scalars or array-likes and return numpy values.
+Port of astrild_tpu/utils/cosmology.py, restricted to what the ported
+paths need. Flat (w0, wa)CDM. Units: Mpc/h for distances, km/s for
+velocities.
 
-Flat (w0, wa)CDM. Units: Mpc/h for distances, km/s for velocities.
+A numeric field is a Python float or a 0-d tensor. With float fields (the
+forward model, the lightcone, clustering, mocks and shear paths) the
+tables are host numpy float64 (the repo's rule for host precomputes) and
+every method takes scalars or array-likes and returns numpy: values agree
+with the JAX package's float32 tables to ~1e-6 relative. When any field is
+a tensor (a Fisher Jacobian builds `Cosmology(**params)` from traced
+parameters, as the JAX package's pytree leaves allow) the same tables are
+built with float64 torch ops on that tensor's device, so autograd and
+torch.func follow them, and every method returns a float64 tensor.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .constants import C_LIGHT_KMS, H0_HUNITS, H0_OVER_C_HMPC
+from .tables import interp
 
 __all__ = ["Cosmology"]
 
 _A_MIN = 1.0e-3
 _N_TABLE = 1024
 _Z_MAX_TABLE = 40.0
+_NUMERIC = ("Om0", "Ob0", "h", "ns", "sigma8", "w0", "wa", "Tcmb", "mu0",
+            "fR0", "fR_n")
+
+
+def _cumtrapz0(f, d):
+    """[0, cumulative trapezoid of f at spacing d]."""
+    return np.concatenate([[0.0], np.cumsum(0.5 * (f[1:] + f[:-1]) * d)])
+
+
+class _Host:
+    """The numpy route of the float-field tables."""
+    exp, log, sqrt, interp = np.exp, np.log, np.sqrt, np.interp
+    cumtrapz0 = staticmethod(_cumtrapz0)
+    grid = staticmethod(np.linspace)
+
+    @staticmethod
+    def asarray(x):
+        return np.asarray(x, np.float64)
+
+
+class _Traced:
+    """The float64 torch route of a cosmology with tensor fields."""
+    exp, log, sqrt = torch.exp, torch.log, torch.sqrt
+    interp = staticmethod(interp)
+
+    def __init__(self, device):
+        self.device = device
+
+    def asarray(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float64)
+        return torch.as_tensor(np.asarray(x, np.float64), device=self.device)
+
+    def grid(self, lo, hi, n):
+        # the host grid itself: the nodes do not depend on the parameters
+        return self.asarray(np.linspace(lo, hi, n))
+
+    @staticmethod
+    def cumtrapz0(f, d):
+        return torch.cat([f.new_zeros(1),
+                          torch.cumsum(0.5 * (f[1:] + f[:-1]) * d, 0)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +77,10 @@ class Cosmology:
     """Flat (w0, wa)CDM cosmology with precomputed distance/growth tables.
 
     Same fields and defaults as the JAX package's `Cosmology`. Only the
-    mu0 = 0 growth table is ported: mu0 != 0 (the growth ODE) raises.
+    mu0 = 0 growth table is ported: mu0 != 0 (the growth ODE) raises, and
+    so does a tensor mu0, whose value a table could not branch on.
+    A cosmology with tensor fields compares and hashes by identity: its
+    fields are never compared, and never turned into Python booleans.
     """
 
     Om0: float = 0.3089
@@ -45,7 +96,7 @@ class Cosmology:
     fR0: float = 0.0
     fR_n: float = 1.0
 
-    # host tables, built from the fields above
+    # tables, built from the fields above
     _z_tab: np.ndarray = dataclasses.field(init=False, repr=False,
                                           compare=False)
     _chi_tab: np.ndarray = dataclasses.field(init=False, repr=False,
@@ -58,10 +109,16 @@ class Cosmology:
                                           compare=False)
 
     def __post_init__(self):
-        if self.mu0 != 0.0:
+        # the JAX package's _concrete_zero: a tensor never takes the zero
+        # path, and its value is never read
+        if isinstance(self.mu0, torch.Tensor) or self.mu0 != 0.0:
             raise NotImplementedError(
                 "Cosmology(mu0 != 0): the modified-growth ODE table is not "
-                "ported yet; only mu0 = 0 is supported")
+                "ported yet; only a float mu0 = 0 is supported")
+        traced = [getattr(self, n) for n in _NUMERIC
+                  if isinstance(getattr(self, n), torch.Tensor)]
+        object.__setattr__(self, "_ops", _Traced(traced[0].device)
+                           if traced else _Host)
         ztab, chitab = self._build_distance_table()
         lna, lnD, f = self._build_growth_table()
         object.__setattr__(self, "_z_tab", ztab)
@@ -69,6 +126,32 @@ class Cosmology:
         object.__setattr__(self, "_lna_tab", lna)
         object.__setattr__(self, "_lnD_tab", lnD)
         object.__setattr__(self, "_f_tab", f)
+
+    @property
+    def traced(self) -> bool:
+        """True when a field is a tensor (the tables are then tensors)."""
+        return self._ops is not _Host
+
+    @property
+    def device(self):
+        """The tables' device: the tensor fields', None for float fields."""
+        return self._ops.device if self.traced else None
+
+    def _key(self):
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self)
+                     if f.compare)
+
+    def __eq__(self, other):
+        if other is self:
+            return True
+        if type(other) is not type(self):
+            return NotImplemented
+        if self.traced or other.traced:
+            return False
+        return self._key() == other._key()
+
+    def __hash__(self):
+        return id(self) if self.traced else hash(self._key())
 
     @classmethod
     def from_jax_fields(cls, fields: dict) -> "Cosmology":
@@ -79,6 +162,18 @@ class Cosmology:
         return cls(**{k: v if k == "mu_model" else float(v)
                       for k, v in kw.items()})
 
+    def with_tensor_fields(self, device=None) -> "Cosmology":
+        """This cosmology with its numeric fields (mu0 aside) as 0-d
+        float64 tensors on `device`: the traced route with constant
+        fields, for code that computes in tensors throughout."""
+        kw = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+              if f.init}
+        for name in _NUMERIC:
+            if name != "mu0":
+                kw[name] = torch.as_tensor(kw[name], dtype=torch.float64,
+                                           device=device)
+        return Cosmology(**kw)
+
     # ----------------------------------------------------------- background
     @property
     def Ode0(self) -> float:
@@ -87,13 +182,14 @@ class Cosmology:
     def _de_density_ratio(self, a):
         """rho_DE(a)/rho_DE(0) for CPL w(a) = w0 + wa(1-a)."""
         w0, wa = self.w0, self.wa
-        return a ** (-3.0 * (1.0 + w0 + wa)) * np.exp(-3.0 * wa * (1.0 - a))
+        return (a ** (-3.0 * (1.0 + w0 + wa))
+                * self._ops.exp(-3.0 * wa * (1.0 - a)))
 
     def efunc_a(self, a):
         """E(a) = H(a)/H0."""
-        a = np.asarray(a, np.float64)
-        return np.sqrt(self.Om0 * a ** -3
-                       + self.Ode0 * self._de_density_ratio(a))
+        a = self._ops.asarray(a)
+        return self._ops.sqrt(self.Om0 * a ** -3
+                              + self.Ode0 * self._de_density_ratio(a))
 
     def _dlnE_dlna(self, a):
         """d ln E / d ln a in closed form (the JAX package takes jax.grad):
@@ -105,60 +201,62 @@ class Cosmology:
         return 0.5 * num / self.efunc_a(a) ** 2
 
     def efunc(self, z):
-        return self.efunc_a(1.0 / (1.0 + np.asarray(z, np.float64)))
+        return self.efunc_a(1.0 / (1.0 + self._ops.asarray(z)))
 
     def Om(self, z):
         """Omega_m(z) = Om0 (1+z)^3 / E(z)^2."""
-        z = np.asarray(z, np.float64)
+        z = self._ops.asarray(z)
         return self.Om0 * (1.0 + z) ** 3 / self.efunc(z) ** 2
 
     # ------------------------------------------------------------ distances
     def _build_distance_table(self):
-        z = np.linspace(0.0, _Z_MAX_TABLE, _N_TABLE)
+        z = self._ops.grid(0.0, _Z_MAX_TABLE, _N_TABLE)
         integrand = 1.0 / self.efunc(z)
         dz = z[1] - z[0]
-        cum = np.concatenate(
-            [[0.0], np.cumsum(0.5 * (integrand[1:] + integrand[:-1]) * dz)])
-        return z, (C_LIGHT_KMS / H0_HUNITS) * cum
+        return z, (C_LIGHT_KMS / H0_HUNITS) * self._ops.cumtrapz0(integrand,
+                                                                  dz)
 
     def comoving_distance(self, z):
         """chi(z) in Mpc/h (flat universe: == transverse comoving)."""
-        return np.interp(np.asarray(z, np.float64), self._z_tab,
-                         self._chi_tab)
+        return self._ops.interp(self._ops.asarray(z), self._z_tab,
+                                self._chi_tab)
 
     def redshift_at_comoving_distance(self, chi):
         """Inverse of comoving_distance, by table inversion."""
-        return np.interp(np.asarray(chi, np.float64), self._chi_tab,
-                         self._z_tab)
+        return self._ops.interp(self._ops.asarray(chi), self._chi_tab,
+                                self._z_tab)
 
     # --------------------------------------------------------------- growth
     def _build_growth_table(self):
         """D(a) = 5/2 Om0 E(a) int_0^a da'/(a'E(a'))^3 on a log-a grid,
         normalized to D(1) = 1, and f = dlnD/dlna = dlnE/dlna + a
         (aE)^-3 / I."""
-        lna = np.linspace(np.log(_A_MIN), 0.0, _N_TABLE)
-        a = np.exp(lna)
+        ops = self._ops
+        lna = ops.grid(np.log(_A_MIN), 0.0, _N_TABLE)
+        a = ops.exp(lna)
         e = self.efunc_a(a)
         integrand = 1.0 / (a * e) ** 3 * a  # d(lna) measure
         dlna = lna[1] - lna[0]
-        cum = np.concatenate(
-            [[0.0], np.cumsum(0.5 * (integrand[1:] + integrand[:-1]) * dlna)])
+        cum = ops.cumtrapz0(integrand, dlna)
         # the [0, a_min] tail in matter domination: 2/5 a^(5/2)/sqrt(Om0)
-        integral = cum + 2.0 / 5.0 * _A_MIN ** 2.5 / np.sqrt(self.Om0)
+        integral = cum + 2.0 / 5.0 * _A_MIN ** 2.5 / ops.sqrt(
+            ops.asarray(self.Om0))
         d = 2.5 * self.Om0 * e * integral
-        lnD = np.log(d) - np.log(d[-1])
+        lnD = ops.log(d) - ops.log(d[-1])
         f = self._dlnE_dlna(a) + integrand / integral
         return lna, lnD, f
 
     def growth_factor(self, z):
         """D(z), normalized to D(z=0)=1."""
-        a = 1.0 / (1.0 + np.asarray(z, np.float64))
-        return np.exp(np.interp(np.log(a), self._lna_tab, self._lnD_tab))
+        ops = self._ops
+        a = 1.0 / (1.0 + ops.asarray(z))
+        return ops.exp(ops.interp(ops.log(a), self._lna_tab, self._lnD_tab))
 
     def growth_rate(self, z):
         """f(z) = dlnD/dlna."""
-        a = 1.0 / (1.0 + np.asarray(z, np.float64))
-        return np.interp(np.log(a), self._lna_tab, self._f_tab)
+        ops = self._ops
+        a = 1.0 / (1.0 + ops.asarray(z))
+        return ops.interp(ops.log(a), self._lna_tab, self._f_tab)
 
     # ------------------------------------ scale-dependent f(R) growth
     def scalaron_mass2(self, a):
@@ -166,6 +264,6 @@ class Cosmology:
         H0^2 (Om a^-3 + 4 Ode)^(n+2) / ((n+1)|fR0| (Om+4 Ode)^(n+1))."""
         n = self.fR_n
         om, ol = self.Om0, self.Ode0
-        base = om * np.asarray(a, np.float64) ** -3.0 + 4.0 * ol
+        base = om * self._ops.asarray(a) ** -3.0 + 4.0 * ol
         return (base ** (n + 2.0) / ((om + 4.0 * ol) ** (n + 1.0))
                 / ((n + 1.0) * abs(self.fR0)) * H0_OVER_C_HMPC ** 2)

@@ -141,7 +141,33 @@ exits non-zero before the final line:
      annuli and max |gamma_x| < 0.25 max gamma_t; the full-grid catalog
      within 1e-5 of <|gamma|^2> of the map estimator; the Born xi_+ > 0
      below 10'; numpy input to every new entry point on the card; K1-K4
-     launches exactly 0.
+     launches exactly 0;
+ 14. the theory and forecast path (examples/theory_and_rsd.py whole and
+     examples/shear_survey.py stages 7-8 at their own parameters, after
+     phase 13): linear, halofit and halo-model P(k) at 64 k in 1e-3-10
+     h/Mpc (finite; halofit / linear and halo model / linear >= 0.97 at
+     every k and > 1 beyond 1 h/Mpc); the Kaiser multipoles on 1024 k
+     through FFTLog (the BAO peak of s^2 xi_0 in 95-110 Mpc/h); the
+     Zel'dovich RSD closure with the example's toy P(k) at 64^3 in 1000
+     Mpc/h (16 bins) and at 256^3 in 4000 Mpc/h (2^24 particles, 64
+     bins), each painted through K2 (CIC): P2/P0 in the bin nearest k =
+     0.047 within 3 sigma of Kaiser, sigma from
+     `covariance.gaussian_multipole_covariance`; Born and ray-traced
+     `SkyArray.from_density_planes` of 8 seeded planes of 256^2 (finite,
+     omega not 0; the ray trace with TF32 allowed within 1e-6 of max
+     |kappa| of the run without); `shear_fisher` (10 ells, z_s 0.6 / 1.0
+     / 1.6, fsky 0.36, nchi 128), `xipm_survey_fisher` (512^2 over 5 deg,
+     12 bins from 2', 40 fields) and `threex2pt_fisher` (Om0, sigma8,
+     log_mmin, A_IA; Smail n(z), z0 0.64 on 120 nodes; 10 xi bins) from
+     numpy input: F symmetric to 1e-6 of its max and positive definite,
+     every marginalized error finite and > 0, F within 1e-3 of its max of
+     the same call on the CPU, the card's Jacobian of the mean model
+     (torch.func.jacfwd) within 5e-3 of each column's max of central
+     differences (step 1e-4 of each parameter) of the port in float64 on
+     the CPU; numpy input to every new theory entry point on the card; K2
+     launches exactly 2 (one each RSD paint), K1, K3 and K4 0; each
+     forecast's seconds on the card, again (warm) and on the CPU; then K2
+     at both RSD shapes against its plain version and timed in turns.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -238,6 +264,21 @@ SS_SIGMA_E, SS_NGAL = 0.26, 30.0
 SS_PEAKS, SS_EDGE_PIX, SS_PATCH, SS_R_EDGES = 64, 48, 48, (2.0, 40.0, 11)
 SS_NCAT, SS_CAT_EDGES, SS_CAT_BLOCK = 1 << 15, (3.0, 60.0, 9), 4096
 SS_NREAL, SS_GRID_CAT = 200, 128
+# the theory path (examples/theory_and_rsd.py and shear_survey.py stages
+# 7-8 at their own parameters): the halofit and halo-model P(k) may fall
+# below linear by this share at most; the BAO peak's window [Mpc/h]; the
+# RSD closure's (ngrid, box, bins): the example's, and 64x its particles
+# at its density (64 bins: a quarter of the example's bin width), the k
+# of its bin 3 and the pull allowed; the ray trace's kappa with TF32
+# allowed against the run without, relative to its max; the Fisher
+# matrices' asymmetry, card against CPU, and card Jacobian against
+# central differences of the port in float64 on the CPU, each relative
+# to the matrix's or the column's max
+THEORY_LIN_DROP, THEORY_BAO = 0.03, (95.0, 110.0)
+THEORY_RSD = ((64, 1000.0, 16), (256, 4000.0, 64))
+THEORY_RSD_K, THEORY_RSD_PULL = 0.047, 3.0
+THEORY_TF32_TOL = 1e-6
+THEORY_SYM_TOL, THEORY_CPU_TOL, THEORY_FD_TOL = 1e-6, 1e-3, 5e-3
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -1925,27 +1966,28 @@ def _held_launches(lane: str, predicted: dict, launches: dict) -> dict:
     return total
 
 
-def _k2_lane_timing(pf, w, ngrid: int) -> dict:
-    """K2 CIC of pf onto ngrid^3 (weighted by w, a signed velocity
-    component, or counts where w is None) against its plain version and
-    the bound, in turns (plain, kernel, kernel, plain), outside the lane's
-    counts; with the per-tile particle counts (the deposit's load balance).
+def _k2_lane_timing(pf, w, ngrid: int, box: float = BOX) -> dict:
+    """K2 CIC of pf onto ngrid^3 in a box of side `box` (weighted by w, a
+    signed velocity component, or counts where w is None) against its
+    plain version and the bound, in turns (plain, kernel, kernel, plain),
+    outside the lane's counts; with the per-tile particle counts (the
+    deposit's load balance).
     (A profiler trace here, after phase 9's, records none of K2's
     kernels.)"""
     from astrild_tpu_torch.ops import paint_cuda
 
     weighted = w is not None
-    err = compare_k2(pf, w, ngrid, BOX, 2)
-    err_counts = compare_k2(pf, None, ngrid, BOX, 2) if weighted else err
-    counts = paint_cuda.windowed_bins(pf, ngrid, BOX, 2)[1]
+    err = compare_k2(pf, w, ngrid, box, 2)
+    err_counts = compare_k2(pf, None, ngrid, box, 2) if weighted else err
+    counts = paint_cuda.windowed_bins(pf, ngrid, box, 2)[1]
     tiles = {"tile_particles_max": int(counts.max()),
              "tile_particles_mean": float(counts.double().mean()),
              "tiles_empty": int((counts == 0).sum()), "tiles": counts.numel()}
     del counts
     fns = {
         "plain": lambda: paint_cuda.paint_windowed_reference(pf, w, ngrid,
-                                                             BOX, 2),
-        "kernel": lambda: paint_cuda.paint_windowed(pf, w, ngrid, BOX, 2),
+                                                             box, 2),
+        "kernel": lambda: paint_cuda.paint_windowed(pf, w, ngrid, box, 2),
     }
     ms = {k: [] for k in fns}
     for turn in (["plain", "kernel"], ["kernel", "plain"]):
@@ -2982,6 +3024,296 @@ def phase_shear_survey(dev, seed: int, kappa_born) -> dict:
     return result
 
 
+# --------------------------------------------------- theory and forecasts
+def _theory_placement_checks() -> list:
+    """Each new theory entry point given numpy input and no device: its
+    result must lie on the card. Returns the names checked."""
+    from astrild_tpu_torch.ops import (angular_power, covariance,
+                                       halo_model, linear_power)
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    cosmo = Cosmology()
+    k = np.geomspace(1e-2, 1.0, 8)
+    ells = np.geomspace(50.0, 500.0, 4)
+    zt = np.linspace(0.01, 2.0, 32)
+    nz = angular_power.smail_nz(zt, z0=0.64)
+    calls = {
+        "smail_nz": lambda: nz,
+        "halo_model_power": lambda: halo_model.halo_model_power(
+            k, cosmo, nm=16)[2],
+        "hod_galaxy_power": lambda: halo_model.hod_galaxy_power(
+            k, cosmo, nm=16)[2],
+        "nfw_u": lambda: halo_model.nfw_u(k, np.array([5.0]),
+                                          np.array([1.0])),
+        "nfw_delta_sigma": lambda: halo_model.nfw_delta_sigma(
+            np.array([0.5, 1.0]), 1e14, 5.0),
+        "cl_kappa_limber_nz": lambda: angular_power.cl_kappa_limber_nz(
+            ells, cosmo, zt, nz, nchi=16, nz_quad=32),
+        "cl_galaxy_limber_nz": lambda: angular_power.cl_galaxy_limber_nz(
+            ells, cosmo, zt, nz, nchi=16, nz_quad=32),
+        "gaussian_pk_covariance": lambda: covariance.gaussian_pk_covariance(
+            k, np.full(8, 10.0)),
+        "gaussian_cl_covariance": lambda: covariance.gaussian_cl_covariance(
+            k, ells.repeat(2)),
+        "gaussian_multipole_covariance": lambda:
+            covariance.gaussian_multipole_covariance(
+                8, 100.0, 4, lambda q: 1e3 * torch.exp(-q))[1],
+        "kaiser_multipoles": lambda: linear_power.kaiser_multipoles(
+            k, cosmo)[0],
+    }
+    for name, fn in calls.items():
+        if fn().device.type != "cuda":
+            raise AssertionError(f"theory: {name} given numpy input did "
+                                 "not run on the card")
+    return sorted(calls)
+
+
+def phase_theory(dev, seed: int) -> dict:
+    """examples/theory_and_rsd.py whole and examples/shear_survey.py
+    stages 7-8, at the examples' own parameters, each stage on the host
+    clock, synchronized, with its K2 launches against its own count (one
+    paint in each RSD stage, none elsewhere): the linear, halofit and
+    halo-model P(k); the Kaiser multipoles through FFTLog and the BAO
+    peak of s^2 xi_0; the Zel'dovich RSD closure at the example's 64^3 in
+    1000 Mpc/h and at 256^3 in 4000 Mpc/h (2^24 particles, 64 bins)
+    against Kaiser with the Gaussian multipole covariance; Born and
+    ray-traced maps of 8 planes of 256^2, the ray trace again with TF32
+    allowed; the three Fisher forecasts from numpy input, each against
+    its CPU run and its Jacobian against central differences of the port
+    in float64 on the CPU. Then K2 at the two RSD shapes against its plain
+    version and timed. Returns the numbers printed in `# theory`."""
+    from astrild_tpu_torch import Cosmology
+    from astrild_tpu_torch.models import SkyArray
+    from astrild_tpu_torch.ops import (angular_power, covariance, fftlog,
+                                       forecast, halo_model, linear_power,
+                                       mocks, paint_cuda, pairwise_cuda,
+                                       power, tpcf)
+    from astrild_tpu_torch.ops.paint import paint
+
+    seconds, launches, out = {}, {}, {}
+    predicted = {"pk": {}, "xi_ell": {}, "rsd_64": {"paint_windowed": 1},
+                 "rsd_256": {"paint_windowed": 1}, "raytrace": {},
+                 "shear_fisher": {}, "xipm_fisher": {}, "threex2pt": {},
+                 "placement": {}}
+    stage = _stage_runner(seconds, launches)
+    cosmo = Cosmology()
+
+    def finite(name, *arrays):
+        for a in arrays:
+            a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+            if not np.isfinite(a).all():
+                raise AssertionError(f"theory: {name} is not finite")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launch counts cover exactly the path's stages
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+
+    # ---- 1. linear, halofit and halo-model P(k)
+    def pk_stage():
+        k = np.logspace(-3, 1, 64)
+        return (k, linear_power.linear_power(k, cosmo),
+                linear_power.nonlinear_power(k, cosmo),
+                halo_model.halo_model_power(k, cosmo)[2])
+
+    k, p_lin, p_hf, p_hm = stage("pk", pk_stage)
+    finite("P(k)", p_lin, p_hf, p_hm)
+    p_lin = p_lin.double().cpu().numpy()
+    r_hf = p_hf.double().cpu().numpy() / p_lin
+    r_hm = p_hm.double().cpu().numpy() / p_lin
+    for name, r in (("halofit", r_hf), ("halo model", r_hm)):
+        if r.min() < 1.0 - THEORY_LIN_DROP or not (r[k > 1.0] > 1.0).all():
+            raise AssertionError(f"theory: {name} / linear {r.tolist()}")
+    out["pk"] = {"halofit_over_linear_min": float(r_hf.min()),
+                 "halofit_min_at_k": float(k[np.argmin(r_hf)]),
+                 "halo_model_over_linear_min": float(r_hm.min()),
+                 "halofit_over_linear_at_k10": float(r_hf[-1]),
+                 "halo_model_over_linear_at_k10": float(r_hm[-1])}
+
+    # ---- 2. Kaiser multipoles -> FFTLog -> the BAO peak of s^2 xi_0
+    def xi_stage():
+        kk = np.logspace(-4, 2, 1024)
+        p0, p2, p4 = linear_power.kaiser_multipoles(kk, cosmo)
+        return fftlog.xi_multipoles_from_pk(kk, torch.stack([p0, p2, p4]))
+
+    s, xi = stage("xi_ell", xi_stage)
+    finite("xi_ell", xi)
+    s = s.double().cpu().numpy()
+    v = xi[0].double().cpu().numpy() * s ** 2
+    sel = (s > 90) & (s < 115)
+    s_peak = float(s[sel][np.argmax(v[sel])])
+    if not THEORY_BAO[0] <= s_peak <= THEORY_BAO[1]:
+        raise AssertionError(f"theory: BAO peak at s = {s_peak}")
+    out["xi_ell"] = {"bao_peak_s": s_peak, "s2xi0_peak": float(v[sel].max())}
+
+    # ---- 3. the Zel'dovich RSD closure at two sizes (K2 paints each)
+    f = float(cosmo.growth_rate(0.0))
+    kaiser = ((4 * f / 3 + 4 * f ** 2 / 7) / (1 + 2 * f / 3 + f ** 2 / 5))
+
+    def pk_fn(q):
+        return 2e4 * torch.exp(-((q / 0.08) ** 2))
+
+    rsd_pos = {}
+    for ngrid, box, nbins in THEORY_RSD:
+        def rsd_stage():
+            gen = torch.Generator(device=dev).manual_seed(seed + 14)
+            pos, vel = mocks.zeldovich_catalog_with_velocities(
+                gen, ngrid, box, pk_fn, f, device=dev)
+            pos_s = tpcf.to_redshift_space(pos, vel, box)
+            grid = paint(pos_s, ngrid, box, window="cic")
+            res = power.auto_power_multipoles(grid, box, nbins=nbins,
+                                              window="cic")
+            _, cov, _ = covariance.gaussian_multipole_covariance(
+                ngrid, box, nbins, pk_fn, beta=f, device=dev)
+            return pos_s, res, cov
+
+        pos_s, res, cov = stage(f"rsd_{ngrid}", rsd_stage)
+        finite(f"P_ell at {ngrid}^3", res.p_ell, cov)
+        kb = res.k.double().cpu().numpy()
+        b = int(np.argmin(np.abs(kb - THEORY_RSD_K)))
+        p0, p2 = float(res.p_ell[0][b]), float(res.p_ell[1][b])
+        sig = math.sqrt(float(cov[1, 1, b])) / p0
+        pull = (p2 / p0 - kaiser) / sig
+        if abs(pull) > THEORY_RSD_PULL:
+            raise AssertionError(f"theory: P2/P0 at {ngrid}^3 pull {pull}")
+        out[f"rsd_{ngrid}"] = {"ngrid": ngrid, "box": box, "nbins": nbins,
+                               "bin": b, "k": float(kb[b]),
+                               "p2_over_p0": p2 / p0, "sigma": sig,
+                               "kaiser": kaiser, "pull": pull}
+        rsd_pos[ngrid] = (torch.cat([pos_s[:, a] for a in range(3)]), box)
+        del pos_s, res, cov
+
+    # ---- 4. Born and ray-traced maps of the example's planes; the ray
+    # trace again with TF32 allowed for float32 matmuls
+    def raytrace_stage():
+        rng = np.random.default_rng(1)
+        planes = rng.normal(0, 0.3, (8, 256, 256)).astype(np.float32)
+        chis = np.linspace(300.0, 2400.0, 8)
+        dchis = np.full(8, 300.0)
+        args = (planes, chis, dchis, 2700.0, cosmo.Om0, 5.0)
+        born = SkyArray.from_density_planes(*args, method="born")
+        rt = SkyArray.from_density_planes(*args, method="raytrace")
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            rt32 = SkyArray.from_density_planes(*args, method="raytrace")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        return born, rt, rt32
+
+    born, rt, rt32 = stage("raytrace", raytrace_stage)
+    kb_, kr = born.data["orig"], rt.data["orig"]
+    finite("ray trace", kb_, kr, rt.data["omega"])
+    if kr.device.type != dev.type:
+        raise AssertionError("theory: the ray trace of numpy planes is not "
+                             "on the card")
+    omega_rms = float(rt.data["omega"].std())
+    tf32_err = float((rt32.data["orig"] - kr).abs().max()
+                     / kr.abs().max())
+    if omega_rms == 0.0 or tf32_err > THEORY_TF32_TOL:
+        raise AssertionError(f"theory: omega rms {omega_rms}, kappa with "
+                             f"TF32 off by {tf32_err} of its max")
+    out["raytrace"] = {"kappa_rms": float(kb_.std()),
+                       "post_born_rms": float((kr - kb_).std()),
+                       "omega_rms": omega_rms, "tf32_rel_err": tf32_err}
+
+    # ---- 5 and shear_survey.py 7-8: the three Fisher forecasts
+    zt = np.linspace(0.01, 3.0, 120)
+    nz = (zt, angular_power.smail_nz(zt, z0=0.64).cpu().numpy())
+    rp = np.array([2.0, 5.0, 10.0, 20.0])
+    cov_wp = np.diag((np.array([40.0, 15.0, 8.0, 4.0]) * 0.05) ** 2)
+    cov_ds = np.diag((np.array([2.0, 1.0, 0.5, 0.2]) * 0.08) ** 2)
+    hod_fixed = {"sigma_logm": 0.3, "log_m0": 12.0, "log_m1": 13.5,
+                 "alpha": 1.0}
+    shear_kw = dict(z_sources=[0.6, 1.0, 1.6], fsky=0.36, nchi=128)
+    xipm_kw = dict(npix=512, opening_angle_deg=5.0, nbins=12,
+                   theta_min_arcmin=2.0, z_source=1.0, n_fields=40)
+    x2_kw = dict(npix=512, opening_angle_deg=5.0, nz=nz, nbins_xi=10,
+                 theta_min_arcmin=2.0, n_fields=40, hod_fixed=hod_fixed)
+    ells = np.geomspace(100, 2000, 10)
+    forecasts = {
+        "shear_fisher": (
+            {"Om0": cosmo.Om0, "sigma8": cosmo.sigma8},
+            lambda p, **d: forecast.shear_fisher(ells, p, **shear_kw, **d)),
+        "xipm_fisher": (
+            {"Om0": cosmo.Om0, "sigma8": 0.8159},
+            lambda p, **d: forecast.xipm_survey_fisher(p, **xipm_kw, **d)),
+        "threex2pt": (
+            {"Om0": cosmo.Om0, "sigma8": 0.8159, "log_mmin": 12.5,
+             "A_IA": 1.0},
+            lambda p, **d: forecast.threex2pt_fisher(
+                p, rp, rp, cov_wp, cov_ds, **x2_kw, **d)),
+    }
+    for name, (params, run) in forecasts.items():
+        res = stage(name, lambda: run(params))
+        # the same call again: the first one pays the card's one-time costs
+        # (kernels loaded on first use, solver handles)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(params)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_cpu = run(params, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        fish = res["fisher"]
+        scale = np.abs(fish).max()
+        sym = float(np.abs(fish - fish.T).max() / scale)
+        evals = np.linalg.eigvalsh(0.5 * (fish + fish.T))
+        marg = res["marginalized"]
+        cpu_rel = float(np.abs(fish - res_cpu["fisher"]).max() / scale)
+        # the Jacobian of the very mean model the card's forecast
+        # differentiated, against central differences of the CPU run's
+        jac, _ = forecast._jacobian(res["mean_fn"], params, dev)
+        jac = jac.double().cpu().numpy()
+        fd = forecast.held_root_differences(res_cpu["mean_fn"], params)
+        col = (np.abs(jac - fd).reshape(-1, len(params)).max(0)
+               / np.abs(fd).reshape(-1, len(params)).max(0))
+        if (sym > THEORY_SYM_TOL or evals.min() <= 0.0
+                or not (np.isfinite(marg).all() and (marg > 0).all())
+                or cpu_rel > THEORY_CPU_TOL or col.max() > THEORY_FD_TOL):
+            raise AssertionError(
+                f"theory: {name} asymmetry {sym}, eigenvalues "
+                f"{evals.tolist()}, marginalized {marg.tolist()}, card/CPU "
+                f"{cpu_rel}, Jacobian/central differences {col.tolist()}")
+        out[name] = {"names": res["names"],
+                     "marginalized": marg.tolist(),
+                     "fisher": fish.tolist(), "asymmetry": sym,
+                     "eigenvalue_min": float(evals.min()),
+                     "card_vs_cpu": cpu_rel, "warm_seconds": warm_s,
+                     "cpu_seconds": cpu_s,
+                     "jacobian_vs_fd": col.tolist()}
+
+    out["placement"] = stage("placement", _theory_placement_checks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total = _held_launches("theory", predicted, launches)
+
+    # ---- K2 at the two RSD shapes, outside the counts
+    k2 = {f"rsd_{ng}": _k2_lane_timing(pf, None, ng, box)
+          for ng, (pf, box) in rsd_pos.items()}
+    del rsd_pos
+    log(f"# phase theory: {sum(seconds.values()):.2f} s; launches {total}; "
+        f"halofit / linear min {r_hf.min():.3f}, halo model / linear min "
+        f"{r_hm.min():.3f}; BAO peak {s_peak:.1f} Mpc/h; P2/P0 pulls "
+        + ", ".join(f"{ng}^3 {out[f'rsd_{ng}']['pull']:.2f}"
+                    for ng, _, _ in THEORY_RSD)
+        + f"; omega rms {omega_rms:.2e}, TF32 kappa {tf32_err:.1e}; "
+        + "; ".join(f"{n} sigma " + ", ".join(
+            f"{p} {e:.5f}" for p, e in zip(out[n]["names"],
+                                           out[n]["marginalized"]))
+            + f" in {seconds[n]:.2f} s (again {out[n]['warm_seconds']:.2f},"
+            f" CPU {out[n]['cpu_seconds']:.2f})"
+            for n in forecasts)
+        + f"; peak {peak_gb:.2f} GB")
+    result = {"seconds": seconds, "seconds_total": sum(seconds.values()),
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peak_gb, **out, "k2_timing_ms": k2}
+    log("# theory " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -3082,6 +3414,7 @@ def main() -> None:
     del out_gr
     phase_shear_survey(dev, args.seed, kappa_map)
     del kappa_map
+    theory = phase_theory(dev, args.seed)
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -3166,6 +3499,15 @@ def main() -> None:
                    "plain_ms": t["mean"]["plain"], "bound_ms": t["bound_ms"],
                    "bound_by": t["bound_by"], "library_ms": None}
            for shape, t in galaxy["k2_timing_ms"].items()}}
+    # the theory path's shapes: CIC counts of the RSD mocks, 2^18 onto
+    # 64^3 and 2^24 onto 256^3
+    k2_row["theory"] = {
+        "launches": theory["launches_total"]["paint_windowed"],
+        **{shape: {"n": t["n"], "ngrid": t["ngrid"], "weighted": False,
+                   "max_abs_err": t["max_abs_err"], "ms": t["mean"]["kernel"],
+                   "plain_ms": t["mean"]["plain"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"], "library_ms": None}
+           for shape, t in theory["k2_timing_ms"].items()}}
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

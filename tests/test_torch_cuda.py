@@ -1521,3 +1521,77 @@ def test_shear_generators_on_the_card(cuda):
     assert cov.device.type == "cuda" and samples.shape == (20, 8)
     assert bool(torch.isfinite(cov).all())
     assert torch.allclose(cov, cov.T)
+
+
+# ------------------------------------------------------ theory and forecasts
+def test_raytrace_holds_with_tf32_allowed(cuda):
+    """multiplane_raytrace on seeded planes with TF32 allowed for float32
+    matmuls equals the run without: kappa, gamma1, gamma2 and omega within
+    1e-6 of their max (the distortion matrix is built from elementwise
+    products and sums, so no matmul takes the caller's TF32)."""
+    from astrild_tpu_torch.ops import raytrace as TRT
+
+    rng = np.random.default_rng(1)
+    planes = torch.from_numpy(
+        rng.normal(0, 0.3, (8, 256, 256)).astype(np.float32)).to(cuda)
+    args = (planes, np.linspace(300.0, 2400.0, 8), np.full(8, 300.0),
+            2700.0, 0.3089, np.deg2rad(5.0))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = TRT.multiplane_raytrace(*args)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = TRT.multiplane_raytrace(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for name in ("kappa", "gamma1", "gamma2", "omega"):
+        scale = float(off[name].abs().max())
+        assert scale > 0.0, name
+        assert float((on[name] - off[name]).abs().max()) <= 1e-6 * scale, \
+            name
+
+
+def test_fisher_matrix_ignores_tf32(cuda):
+    """xipm_survey_fisher on the card with TF32 allowed equals the run
+    without to 1e-6 of max |F| (the chain, the contraction and the solve
+    are float64), and its numpy input lands on the card: F agrees with the
+    CPU run to 1e-3 of max |F|."""
+    from astrild_tpu_torch.ops import forecast as TFC
+
+    kw = dict(npix=128, opening_angle_deg=5.0, nbins=8,
+              theta_min_arcmin=3.0, nell=128, nchi=48, n_fields=10)
+    params = {"Om0": 0.3, "sigma8": 0.8}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = TFC.xipm_survey_fisher(params, **kw)["fisher"]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = TFC.xipm_survey_fisher(params, **kw)["fisher"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    scale = np.abs(off).max()
+    assert np.abs(on - off).max() <= 1e-6 * scale
+    cpu = TFC.xipm_survey_fisher(params, device="cpu", **kw)["fisher"]
+    assert np.abs(off - cpu).max() <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("ngrid, box", [(64, 1000.0), (256, 4000.0)])
+def test_k2_at_the_theory_rsd_shapes(cuda, ngrid, box):
+    """K2 CIC counts of a Zel'dovich mock in redshift space at the theory
+    path's two RSD shapes (64^3 in 1000 Mpc/h and 2^24 particles onto
+    256^3 in 4000 Mpc/h): within 2e-5 of the plain version's largest cell,
+    the mass N to rtol 1e-5."""
+    from astrild_tpu_torch.ops import mocks as TM
+    from astrild_tpu_torch.ops import tpcf as TT
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    pos, vel = TM.zeldovich_catalog_with_velocities(
+        gen, ngrid, box, lambda q: 2e4 * torch.exp(-((q / 0.08) ** 2)),
+        0.53, device=cuda)
+    pos_s = TT.to_redshift_space(pos, vel, box)
+    pf = torch.cat([pos_s[:, a] for a in range(3)])
+    got = TPC.paint_windowed(pf, None, ngrid, box, order=2)
+    want = TPC.paint_windowed_reference(pf, None, ngrid, box, order=2)
+    n = ngrid ** 3
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.max())
+    assert abs(float(got.double().sum()) - n) <= 1e-5 * n
