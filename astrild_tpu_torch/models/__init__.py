@@ -1,8 +1,15 @@
 """User-facing handles and pipeline classes of the port (the ported part
 of astrild_tpu/models)."""
-from .power import Bispectrum3D, PowerSpectrum3D, PowMes
+from .halos import Halos, Rockstar, SubFind
+from .lightcone import halo_lightcone_catalog, merge_lightcone_catalogs
+from .peaks import Peaks
+from .power import AngularPowerSpectrum, Bispectrum3D, PowerSpectrum3D, PowMes
 from .simulation import Ecosmog, RayRamses, Simulation
 from .skymap import SkyArray, SkyMap
+from .voids import TunnelsFinder, Voids, WatershedFinder
 
-__all__ = ["PowerSpectrum3D", "Bispectrum3D", "PowMes", "Simulation",
-           "Ecosmog", "RayRamses", "SkyArray", "SkyMap"]
+__all__ = ["Halos", "Rockstar", "SubFind", "Peaks", "AngularPowerSpectrum",
+           "PowerSpectrum3D", "Bispectrum3D", "PowMes", "Simulation",
+           "Ecosmog", "RayRamses", "SkyArray", "SkyMap", "TunnelsFinder",
+           "Voids", "WatershedFinder", "halo_lightcone_catalog",
+           "merge_lightcone_catalogs"]

@@ -1,14 +1,16 @@
-"""Spectra pipeline classes: PowerSpectrum3D, Bispectrum3D, PowMes.
+"""Spectra pipeline classes: PowerSpectrum3D, Bispectrum3D, PowMes and the
+flat-sky half of AngularPowerSpectrum.
 
 Port of astrild_tpu/models/power.py. The facades take numpy arrays or
 tensors and return numpy arrays, as the JAX facades do. Tensors stay on
 their own device unless `device=` is given; numpy input goes to `device=`,
 by default the CUDA card (as the JAX facades put it on the default
 device). With no card and no `device=` numpy input raises: pass
-`device="cpu"` to run on the CPU. `AngularPowerSpectrum`, `LinearPowerSpectrum`,
-`LinearAngularPowerSpectrum` and `Bispectrum2D` wait for their ops
-(`angular_power`, `nonlinear_power`, `p_dpdp`,
-`bispectrum_2d_equilateral`).
+`device="cpu"` to run on the CPU. `AngularPowerSpectrum.from_healpix` and
+`to_skyhealpix` wait for the SHT stack (ROADMAP.md queue 1 item 6);
+`LinearPowerSpectrum` and `LinearAngularPowerSpectrum` for item 5's
+`p_dpdp` and `Cosmology` methods; `Bispectrum2D` for item 4c's
+`bispectrum_2d_equilateral`.
 """
 from __future__ import annotations
 
@@ -18,13 +20,14 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .._device import as_tensor, default_device  # noqa: F401
+from .._device import as_tensor, default_device
 from ..io import columnar_h5
 from ..ops import bispectrum as bs_ops
 from ..ops import paint as paint_ops
 from ..ops import power as power_ops
 
-__all__ = ["PowerSpectrum3D", "Bispectrum3D", "PowMes"]
+__all__ = ["PowerSpectrum3D", "Bispectrum3D", "PowMes",
+           "AngularPowerSpectrum"]
 
 
 def _host(t) -> np.ndarray:
@@ -232,3 +235,59 @@ class PowMes:
         if not sel.any():
             raise ValueError(f"no modes inside the k band {band}")
         return lin[0] - np.mean(nonlin[sel])
+
+
+class AngularPowerSpectrum:
+    """Cl estimators on flat-sky maps (numpy out); maps are placed as
+    `ops.angular_power.cl_flat_sky` places them."""
+
+    @staticmethod
+    def from_array(img, opening_angle_deg: float, nbins: int = 50,
+                   device=None):
+        from ..ops import angular_power as ap_ops
+
+        ell, cl = ap_ops.cl_flat_sky(img, opening_angle_deg, nbins=nbins,
+                                     device=device)
+        return _host(ell), _host(cl)
+
+    @staticmethod
+    def from_skymap(skymap, on: str = "orig", nbins: int = 50):
+        return AngularPowerSpectrum.from_array(
+            skymap._layer(on), skymap.opening_angle, nbins=nbins)
+
+    @staticmethod
+    def from_shear(gamma1, gamma2, opening_angle_deg: float,
+                   nbins: int = 50, device=None):
+        """(ell, Cl_EE, Cl_BB) from flat-sky shear maps (Kaiser-Squires
+        E/B rotation; B is the post-Born / systematics null channel)."""
+        from ..ops import angular_power as ap_ops
+
+        ell, ee, bb = ap_ops.cl_shear_eb(gamma1, gamma2, opening_angle_deg,
+                                         nbins=nbins, device=device)
+        return _host(ell), _host(ee), _host(bb)
+
+    @staticmethod
+    def to_flat_map(ells, cls_vals, npix: int, opening_angle_deg: float,
+                    rnd_seed: int = 0, device=None):
+        """Gaussian realization of a Cl table on an (npix, npix) map, from
+        a `torch.Generator` seeded with rnd_seed on `device` (by default
+        the CUDA card): another realization than the JAX package's PRNG
+        key of the same seed. Returns numpy."""
+        from ..ops import angular_power as ap_ops
+
+        gen = torch.Generator(device=default_device(device)).manual_seed(
+            int(rnd_seed))
+        return _host(ap_ops.cl_to_flat_map(gen, ells, cls_vals, npix,
+                                           opening_angle_deg))
+
+    @staticmethod
+    def from_healpix(*args, **kwargs):
+        raise NotImplementedError(
+            "AngularPowerSpectrum.from_healpix is not ported yet: it waits "
+            "for the SHT stack, ROADMAP.md queue 1 item 6")
+
+    @staticmethod
+    def to_skyhealpix(*args, **kwargs):
+        raise NotImplementedError(
+            "AngularPowerSpectrum.to_skyhealpix is not ported yet: it waits "
+            "for the SHT stack, ROADMAP.md queue 1 item 6")

@@ -9,10 +9,9 @@ device="cpu"); a tensor keeps its device. Random layers draw from a
 `torch.Generator` seeded with `rnd_seed` (the same seed gives another
 realization than the JAX package's PRNG key).
 
-Methods whose ops the port does not have yet raise NotImplementedError
-naming their ROADMAP item: the filters, smoothing, Minkowski functionals
-and aperture mass (item 7), and the analytic NFW halo constructors (item
-5's NFW maps; their kSZ / Compton-y variants item 7's `sz`).
+The analytic NFW halo constructors wait for their ops (the NFW maps of
+`ops/lensing.py`, patch painting and `ops/sz.py`) and raise
+NotImplementedError naming ROADMAP.md queue 1 item 4b.
 """
 from __future__ import annotations
 
@@ -24,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import as_tensor
+from ..ops import filters as filter_ops
 
 __all__ = ["SkyArray", "SkyMap"]
 
@@ -171,15 +171,15 @@ class SkyArray:
     def from_halo_series(cls, *args, **kwargs) -> "SkyArray":
         """Analytic NFW halo signal patch: not ported yet."""
         raise _not_ported("from_halo_series",
-                          "item 5 (the NFW maps of ops/lensing.py)")
+                          "item 4b (the NFW maps of ops/lensing.py)")
 
     @classmethod
     def from_halo_dataframe(cls, *args, **kwargs) -> "SkyArray":
         """Many NFW / kSZ / Compton-y halo patches on one canvas: not
         ported yet."""
         raise _not_ported("from_halo_dataframe",
-                          "item 5 (the NFW maps and patch painting of "
-                          "ops/lensing.py) and item 7 (ops/sz.py)")
+                          "item 4b (the NFW maps and patch painting of "
+                          "ops/lensing.py, and ops/sz.py)")
 
     @classmethod
     def from_halo_catalogue_to_temperature_perturbation_map(
@@ -187,7 +187,7 @@ class SkyArray:
         """The NFW moving-cluster temperature map: not ported yet."""
         raise _not_ported(
             "from_halo_catalogue_to_temperature_perturbation_map",
-            "item 5 (nfw_temperature_perturbation_map of ops/lensing.py)")
+            "item 4b (nfw_temperature_perturbation_map of ops/lensing.py)")
 
     # -------------------------------------------------------------- analysis
     def pdf(self, nbins: int, of: str = "orig") -> dict:
@@ -216,15 +216,36 @@ class SkyArray:
         return {"kappa": centers.cpu().numpy(),
                 "counts": counts.cpu().numpy()}
 
-    def minkowski_functionals(self, *args, **kwargs) -> dict:
-        raise _not_ported("minkowski_functionals", "item 7 (ops/minkowski.py)")
+    def minkowski_functionals(self, nbins: int = 32, of: str = "orig",
+                              limits: Optional[tuple] = None) -> dict:
+        """Morphology of excursion sets (area, boundary, genus); thresholds
+        in map units, derivatives per radian (ops/minkowski.py)."""
+        from ..ops import minkowski as mf_ops
 
-    def aperture_mass(self, *args, **kwargs):
-        raise _not_ported("aperture_mass", "item 7 (ops/aperture_mass.py)")
+        return mf_ops.minkowski_functionals(
+            self._layer(of), nbins=nbins, limits=limits,
+            opening_angle_deg=self._opening_angle)
 
-    def aperture_mass_moments(self, *args, **kwargs) -> dict:
-        raise _not_ported("aperture_mass_moments",
-                          "item 7 (ops/aperture_mass.py)")
+    def aperture_mass(self, theta_ap_arcmin: float, of: str = "orig",
+                      rtn: bool = True):
+        """Map(theta0) field with the Schneider+98 compensated filter
+        (ops/aperture_mass.py); rtn=False stores it as a layer
+        '<of>_map<scale>'."""
+        from ..ops import aperture_mass as map_ops
+
+        out = map_ops.aperture_mass_map(self._layer(of), self._opening_angle,
+                                        theta_ap_arcmin)
+        if rtn:
+            return out
+        self.data[f"{of}_map{theta_ap_arcmin:g}"] = out
+
+    def aperture_mass_moments(self, scales_arcmin, of: str = "orig") -> dict:
+        """<Map^2>, <Map^3> and skewness over aperture scales."""
+        from ..ops import aperture_mass as map_ops
+
+        return map_ops.aperture_mass_moments(self._layer(of),
+                                             self._opening_angle,
+                                             scales_arcmin)
 
     # ------------------------------------------------------------ transforms
     def resize(self, npix: int, of: str = "orig", rtn: bool = False):
@@ -277,11 +298,39 @@ class SkyArray:
         self.data[of] = out
 
     # --------------------------------------------------------------- filters
-    def filter(self, *args, **kwargs):
-        raise _not_ported("filter", "item 7 (ops/filters.py)")
+    _FILTERS = {
+        "gaussian": lambda img, oa, **kw: filter_ops.gaussian(img, oa, **kw),
+        "gaussian_high_pass": lambda img, oa, **kw:
+            filter_ops.gaussian_high_pass(img, oa, **kw),
+        "gaussian_third_derivative": lambda img, oa, **kw:
+            filter_ops.dgd3(img, oa, **kw),
+        "gaussian_compensated": lambda img, oa, **kw:
+            filter_ops.gaussian_compensated(img, oa, **kw),
+        "apodization": lambda img, oa, **kw: filter_ops.apodization(img),
+        "aperture_photometry": lambda img, oa, **kw:
+            filter_ops.aperture_photometry(img, oa, **kw),
+    }
 
-    def smoothing(self, *args, **kwargs):
-        raise _not_ported("smoothing", "item 7 (ops/filters.py)")
+    def filter(self, filter_dsc: dict, on: str = "orig", rtn: bool = False):
+        """Chain filters by name. Each entry: {filter_name: {abbrev: str,
+        **kwargs}}; the result is returned (rtn) or stored as the layer
+        '<on>_<abbrev>_...'."""
+        img = self._layer(on)
+        names = [on]
+        for fname, args in filter_dsc.items():
+            args = dict(args)
+            names.append(args.pop("abbrev", fname[:3]))
+            img = self._FILTERS[fname](img, self._opening_angle, **args)
+        if rtn:
+            return img
+        self.data["_".join(names)] = img
+        return None
+
+    def smoothing(self, sigma_arcmin: float, on: str = "orig"):
+        """Gaussian smooth; adds the layer '<on>_smooth'."""
+        self.data[on + "_smooth"] = filter_ops.gaussian(
+            self._layer(on), self._opening_angle, sigma_arcmin=sigma_arcmin)
+        return self.data[on + "_smooth"]
 
     # ----------------------------------------------------------------- noise
     def _generator(self, rnd_seed: Optional[int]) -> torch.Generator:
@@ -435,7 +484,7 @@ class SkyArray:
 
 class SkyMap:
     """Facade dispatching to SkyArray (the healpix variants wait for
-    ROADMAP.md queue 1 item 9)."""
+    ROADMAP.md queue 1 item 6)."""
 
     @staticmethod
     def from_file(npix: int, theta: float, quantity: str, dir_in: str,

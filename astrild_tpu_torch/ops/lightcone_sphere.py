@@ -251,9 +251,14 @@ def born_convergence_healpix(delta_shells, chis, dchis, chi_s, omega_m,
     kap = effective_plane_kappa(delta_shells, chis[:, None], dchis[:, None],
                                 scale_factors[:, None], omega_m)
     chi_s = vec(chi_s)
-    # (nshell,) or (nsrc, nshell) weights against (nshell, npix)
+    # (nshell,) or (nsrc, nshell) weights against (nshell, npix), summed
+    # shell by shell from elementwise products (no matrix product, so a
+    # caller's TF32 setting cannot reach it)
     w = torch.clamp_min(1.0 - chis / chi_s[..., None], 0.0)
-    return w @ kap
+    out = w[..., 0, None] * kap[0]
+    for s in range(1, kap.shape[0]):
+        out = out + w[..., s, None] * kap[s]
+    return out
 
 
 def multiplane_raytrace_healpix(delta_shells, chis, dchis, chi_s, omega_m,

@@ -60,6 +60,14 @@ def _uniform_bins(dist, width, nbins: int):
                        nbins)
 
 
+def _dot3(a, b):
+    """(a0 b0 + a1 b1) + a2 b2 over the last axis of broadcastable (..., 3)
+    tensors: elementwise products and sums, so a caller's TF32 setting
+    cannot reach them as it reaches an einsum's matrix product."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
 def _pairwise_accumulate(pos, vel, n_valid, binnr: int, binwidth,
                          block: int = 512, edges=None):
     """Accumulate Yasini Eq. 6 numerator/denominator over all pairs i<j.
@@ -95,8 +103,8 @@ def _pairwise_accumulate(pos, vel, n_valid, binnr: int, binwidth,
             r2 = rij[..., 0] * rij[..., 0] + rij[..., 1] * rij[..., 1]
             rnorm = torch.sqrt(r2 + rij[..., 2] * rij[..., 2])
             rhat = rij / rnorm.clamp_min(1e-12)[..., None]
-            di = torch.einsum("abk,ak->ab", rhat, hi)
-            dj = torch.einsum("abk,bk->ab", rhat, hj)
+            di = _dot3(rhat, hi[:, None, :])
+            dj = _dot3(rhat, hj[None, :, :])
             q = (2.0 * rhat - hi[:, None, :] * di[..., None]
                  - hj[None, :, :] * dj[..., None]) * 0.5       # (B, B, 3)
             vij = velp[sa][:, None, :] - velp[sb][None, :, :]
@@ -289,8 +297,8 @@ def _ksz_accumulate(pos, dT, n_valid, binnr: int, binwidth,
                                + rij[..., 1] * rij[..., 1]
                                + rij[..., 2] * rij[..., 2])
             rhat = rij / rnorm.clamp_min(1e-12)[..., None]
-            cij = 0.5 * (torch.einsum("abk,ak->ab", rhat, phat[sa])
-                         + torch.einsum("abk,bk->ab", rhat, phat[sb]))
+            cij = 0.5 * (_dot3(rhat, phat[sa][:, None, :])
+                         + _dot3(rhat, phat[sb][None, :, :]))
             nom_ij = (dTp[sa][:, None] - dTp[sb][None, :]) * cij
             mask = ((ia[:, None] < jb[None, :])
                     & (ia[:, None] < n_valid) & (jb[None, :] < n_valid))

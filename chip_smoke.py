@@ -167,7 +167,33 @@ exits non-zero before the final line:
      the CPU; numpy input to every new theory entry point on the card; K2
      launches exactly 2 (one each RSD paint), K1, K3 and K4 0; each
      forecast's seconds on the card, again (warm) and on the CPU; then K2
-     at both RSD shapes against its plain version and timed in turns.
+     at both RSD shapes against its plain version and timed in turns;
+ 15. the map-analysis and catalog facades (after phase 14): (a)
+     examples/full_pipeline.py stages 1-4 at its own parameters (4
+     realizations of 64^3 clumpy particles from a torch generator in 250
+     Mpc/h, TSC P(k) on 128^3, the CIC bispectrum, Born kappa of 32
+     slabs, SkyArray.smoothing -> TunnelsFinder -> Voids -> trim_edges ->
+     profiles -> bootstrap statistics): the batch's P(k) within 1e-5 of
+     four separate calls, every output within 1e-4 of the same port on
+     the CPU with the same particles (the same void catalog); (b) the
+     void stage at full width on phase 9's 2048^2 Born map (mean profile
+     at r/R = 0 below 0, the bootstrap envelope bracketing the mean in
+     every bin), Peaks.from_tunnels_finder, WatershedFinder, troughs
+     (below the map's mean), the smoothed layer equal to filters.gaussian;
+     a seeded 2048^2 Gaussian map of the halofit C_ell through
+     AngularPowerSpectrum.to_flat_map (numpy, so onto the card): V0, V1,
+     V2 within the Gaussian prediction's tolerances of
+     tests/test_minkowski.py, <M_ap^2> within 12% of map2_theory at 2, 4,
+     8'; (c) phase 12's SO halos with velocities from the snapshot's CIC
+     velocity grids: Rockstar HMF (non-increasing), xi and v12 (< 0 in
+     the innermost bin of >= 100 pairs; K3), SubFind.power_spectrum at
+     256^3 (weighted TSC, K2), Halos.populate_hod, and
+     SphericalVoidFinder3D.from_particles of the 2^27 particles onto 256^3
+     (K2); numpy input to every new entry point that returns a tensor on
+     the card; K2 launches exactly 15 (4 + 4 + 1 + 4 + 1 + 1), K3 1, K1
+     and K4 0; then K2 at the new shapes (TSC and CIC of 2^18 onto 128^3, the
+     halos' weighted TSC onto 256^3, 2^27 onto 256^3) and K3 on the halos
+     against their plain versions and timed in turns.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -279,6 +305,22 @@ THEORY_RSD = ((64, 1000.0, 16), (256, 4000.0, 64))
 THEORY_RSD_K, THEORY_RSD_PULL = 0.047, 3.0
 THEORY_TF32_TOL = 1e-6
 THEORY_SYM_TOL, THEORY_CPU_TOL, THEORY_FD_TOL = 1e-6, 1e-3, 5e-3
+# the map-analysis and catalog facades: examples/full_pipeline.py stages 1-4
+# at its own parameters (box, grid, realizations of particles, P(k) bins,
+# bispectrum shells, Born slabs, the void stage's smoothing, profile reach
+# and bins, bootstrap resamples); the full-width void stage on phase 9's
+# map (its resamples; trough count, fraction, radius in arcmin, profile
+# bins); the Gaussian halofit map's smoothing for the Minkowski functionals
+# [pixels] and aperture scales [arcmin]; the halo facades' grids (velocity
+# sampling, SubFind P(k), the SVF of the snapshot) and the pairs a v12 bin
+# needs for its infall check; (a) on the card against the CPU, relative
+FP_BOX, FP_NGRID, FP_SIDE, FP_SIMS = 250.0, 128, 64, 4
+FP_PK_BINS, FP_BS_BINS, FP_SLABS = 32, 4, 32
+FP_SMOOTH, FP_REACH, FP_PROFILE_BINS, FP_BOOT = 2.0, 2.0, 10, 30
+MA_BOOT, MA_TROUGHS, MA_TROUGH_FRAC, MA_TROUGH_ARCMIN = 100, 20000, 0.2, 5.0
+MA_MF_SMOOTH_PIX, MA_MF_BINS, MA_AP_SCALES = 4.0, 24, (2.0, 4.0, 8.0)
+MA_VEL_NGRID, MA_PK_NGRID, MA_SVF_NGRID, MA_V12_MIN_PAIRS = 256, 256, 256, 100
+FP_CPU_TOL = 1e-4
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -1946,6 +1988,18 @@ def _stage_runner(seconds: dict, launches: dict):
     return stage
 
 
+def _stage_runner_cpu(seconds: dict):
+    """stage(name, fn): fn() on the host clock into seconds[name] (the CPU
+    runs of a path, which launch no kernel)."""
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        seconds[name] = time.perf_counter() - t0
+        return res
+
+    return stage
+
+
 def _held_launches(lane: str, predicted: dict, launches: dict) -> dict:
     """Each stage's launches against the count it predicts, and the lane's
     (the counts cleared at its start) against their sum; raises on a
@@ -1966,28 +2020,31 @@ def _held_launches(lane: str, predicted: dict, launches: dict) -> dict:
     return total
 
 
-def _k2_lane_timing(pf, w, ngrid: int, box: float = BOX) -> dict:
-    """K2 CIC of pf onto ngrid^3 in a box of side `box` (weighted by w, a
-    signed velocity component, or counts where w is None) against its
-    plain version and the bound, in turns (plain, kernel, kernel, plain),
-    outside the lane's counts; with the per-tile particle counts (the
-    deposit's load balance).
+def _k2_lane_timing(pf, w, ngrid: int, box: float = BOX,
+                    order: int = 2) -> dict:
+    """K2 of pf onto ngrid^3 in a box of side `box` (CIC, or TSC with
+    order 3; weighted by w, a signed velocity component or masses, or
+    counts where w is None) against its plain version and the bound, in
+    turns (plain, kernel, kernel, plain), outside the lane's counts; with
+    the per-tile particle counts (the deposit's load balance).
     (A profiler trace here, after phase 9's, records none of K2's
     kernels.)"""
     from astrild_tpu_torch.ops import paint_cuda
 
     weighted = w is not None
-    err = compare_k2(pf, w, ngrid, box, 2)
-    err_counts = compare_k2(pf, None, ngrid, box, 2) if weighted else err
-    counts = paint_cuda.windowed_bins(pf, ngrid, box, 2)[1]
+    err = compare_k2(pf, w, ngrid, box, order)
+    err_counts = compare_k2(pf, None, ngrid, box, order) if weighted \
+        else err
+    counts = paint_cuda.windowed_bins(pf, ngrid, box, order)[1]
     tiles = {"tile_particles_max": int(counts.max()),
              "tile_particles_mean": float(counts.double().mean()),
              "tiles_empty": int((counts == 0).sum()), "tiles": counts.numel()}
     del counts
     fns = {
         "plain": lambda: paint_cuda.paint_windowed_reference(pf, w, ngrid,
-                                                             box, 2),
-        "kernel": lambda: paint_cuda.paint_windowed(pf, w, ngrid, box, 2),
+                                                             box, order),
+        "kernel": lambda: paint_cuda.paint_windowed(pf, w, ngrid, box,
+                                                    order),
     }
     ms = {k: [] for k in fns}
     for turn in (["plain", "kernel"], ["kernel", "plain"]):
@@ -1996,8 +2053,8 @@ def _k2_lane_timing(pf, w, ngrid: int, box: float = BOX) -> dict:
     n = pf.shape[0] // 3
     # 12 B of positions a particle, 4 more of weight where weighted
     bound = bound_ms((16 if weighted else 12) * n + 4 * ngrid ** 3,
-                     K2_OPS[2] * n)
-    return {"n": n, "ngrid": ngrid, "weighted": weighted,
+                     K2_OPS[order] * n)
+    return {"n": n, "ngrid": ngrid, "weighted": weighted, "order": order,
             "max_abs_err": err, "max_abs_err_counts": err_counts,
             **tiles,
             "mean": {k: sum(v) / len(v) for k, v in ms.items()},
@@ -2331,7 +2388,7 @@ def _poisson_band(expect: float, lo: float, hi: float) -> tuple:
             int(poisson.ppf(0.999, hi * expect)))
 
 
-def phase_galaxy_mocks(dev, seed: int, out_gr, kappa) -> dict:
+def phase_galaxy_mocks(dev, seed: int, out_gr, kappa) -> tuple:
     """examples/galaxy_mocks_voids.py at twice its side (a 128^3 Zel'dovich
     halo mock in 500 Mpc/h, HOD galaxies, xi(s, mu) of 2^17 of them in
     redshift space, SVF and 3D watershed voids of their 128^3 CIC grid,
@@ -2340,7 +2397,8 @@ def phase_galaxy_mocks(dev, seed: int, out_gr, kappa) -> dict:
     768^3 against the Tinker08 mass function. Each stage on the host
     clock, its K2 launches against its own count (one galaxy paint, one
     snapshot paint), its checks; then K2 at both new shapes against its
-    plain version and timed."""
+    plain version and timed. Returns the numbers printed in
+    `# galaxy_mocks` and the SO catalog (host columns, for phase 15)."""
     from astrild_tpu_torch.ops import (halo_stats, hod, mocks, paint_cuda,
                                        pairwise_cuda, peaks, profiles3d,
                                        so_halos, tpcf, voids, voids3d)
@@ -2664,7 +2722,7 @@ def phase_galaxy_mocks(dev, seed: int, out_gr, kappa) -> dict:
               "launches_total": total, "peak_mem_gb": peak_gb, **out,
               "k2_timing_ms": k2, "tunnel_forms": tunnel_forms}
     log("# galaxy_mocks " + json.dumps(result))
-    return result
+    return result, d
 
 
 # ------------------------------------------------------- shear-survey path
@@ -2765,13 +2823,7 @@ def phase_shear_survey(dev, seed: int, kappa_born) -> dict:
     # ---- A1. the example's halofit Limber table -> Gaussian kappa ->
     # periodic spin-2 shear -> SkyArray
     def synthesis_stage():
-        lf = 2.0 * np.pi / np.deg2rad(oa)
-        ell_tab = np.concatenate([np.geomspace(2.0, 1.4 * lf * n / 2, 512),
-                                  [1.42 * lf * n / 2, 1e6]])
-        cl_tab = angular_power.cl_kappa_limber(
-            ell_tab, Cosmology(), z_source=1.0, nonlinear=True,
-            device=dev).double().cpu().numpy()
-        cl_tab[-2:] = 0.0  # explicit band limit (synthesis clamps)
+        ell_tab, cl_tab = _halofit_cl_table(dev, n, oa)
         gen = torch.Generator(device=dev).manual_seed(seed + 42)
         kappa = angular_power.cl_to_flat_map(gen, ell_tab, cl_tab, n, oa)
         g1, g2 = angular_power.kappa_to_shear_maps(kappa)
@@ -3314,6 +3366,591 @@ def phase_theory(dev, seed: int) -> dict:
     return result
 
 
+# ------------------------------------------ map analysis and catalog facades
+def _synthetic_particles(gen, n: int, box: float, dev):
+    """examples/full_pipeline.py's clumpy particles from a torch
+    generator: half Gaussian-smeared (2 Mpc/h) around 64 uniform centres,
+    half uniform, wrapped into the box."""
+    n_halo = n // 2
+    centers = torch.rand((64, 3), generator=gen, device=dev) * box
+    which = torch.randint(0, 64, (n_halo,), generator=gen, device=dev)
+    halo = centers[which] + 2.0 * torch.randn((n_halo, 3), generator=gen,
+                                              device=dev)
+    field = torch.rand((n - n_halo, 3), generator=gen, device=dev) * box
+    return torch.remainder(torch.cat([halo, field]), box)
+
+
+def _full_pipeline_stages(pos_batch, stage, cosmo):
+    """examples/full_pipeline.py stages 1-4 on a (sims, n, 3) batch of
+    positions, on its device: the TSC P(k) of each realization, the CIC
+    bispectrum and the Born kappa of the first 32 z-slabs of realization
+    0's grid, and the void pipeline on that map. `stage(name, fn)` runs
+    each. Returns the stages' outputs as tensors and numpy."""
+    from astrild_tpu_torch.models import (Bispectrum3D, SkyArray,
+                                          TunnelsFinder, Voids)
+    from astrild_tpu_torch.ops import lensing, power
+    from astrild_tpu_torch.ops.paint import paint
+
+    dev = pos_batch.device
+    n_part = pos_batch.shape[1]
+
+    def pk_one(pos):
+        g = paint(pos, FP_NGRID, FP_BOX, window="tsc")
+        return power.auto_power(g, FP_BOX, nbins=FP_PK_BINS, window="tsc",
+                                shotnoise=FP_BOX ** 3 / n_part)
+
+    res = stage("collection", lambda: [pk_one(p) for p in pos_batch])
+    pk = torch.stack([r.power for r in res])
+
+    def bispectrum_stage():
+        g = paint(pos_batch[0], FP_NGRID, FP_BOX, window="cic")
+        return g, Bispectrum3D.compute(g, FP_BOX, nbins=FP_BS_BINS)
+
+    g, bs = stage("bispectrum", bispectrum_stage)
+
+    def born_stage():
+        delta = g / torch.mean(g) - 1.0
+        planes = delta.permute(2, 0, 1)[:FP_SLABS]
+        chis = torch.linspace(100.0, 1500.0, FP_SLABS, device=dev)
+        dchis = torch.full((FP_SLABS,), FP_BOX / FP_NGRID, device=dev)
+        return lensing.born_convergence(planes, chis, dchis, 2000.0,
+                                        cosmo.Om0)
+
+    kappa = stage("born", born_stage)
+
+    def voids_stage():
+        sky = SkyArray.from_array(kappa, opening_angle=5.0,
+                                  quantity="kappa_2")
+        sky.smoothing(FP_SMOOTH)
+        finder = TunnelsFinder(sky)
+        finder.find_peaks(on="orig_smooth")
+        finder.find_voids(sigmas=[0.0])
+        voids = Voids.from_finder(finder, {"npix": sky.npix})
+        voids.trim_edges(sky.npix)
+        voids.get_profiles(FP_REACH, FP_PROFILE_BINS,
+                           skymap=sky.data["orig"])
+        return voids, voids.get_profile_stats(n_boot=FP_BOOT)
+
+    voids, ds = stage("voids", voids_stage)
+    return {"k": res[0].k, "pk": pk, "bs": bs, "kappa": kappa,
+            "voids": voids.data, "profiles": voids.profiles["values"],
+            "mean": ds["mean"], "lowerr": ds["lowerr"],
+            "higherr": ds["higherr"]}
+
+
+def _rel_err(got, want) -> float:
+    got = np.asarray(got.cpu() if isinstance(got, torch.Tensor) else got,
+                     np.float64)
+    want = np.asarray(want.cpu() if isinstance(want, torch.Tensor) else want,
+                      np.float64)
+    fin = np.isfinite(want)
+    if not np.array_equal(np.isfinite(got), fin):
+        return math.inf
+    if not fin.any():
+        return 0.0
+    return float(np.abs(got[fin] - want[fin]).max()
+                 / max(np.abs(want[fin]).max(), 1e-300))
+
+
+def _halofit_cl_table(dev, npix: int, oa_deg: float):
+    """The shear survey's halofit Limber C_ell table for an npix^2 map
+    over oa_deg: log-spaced to 1.4 x the axis Nyquist multipole, then 0
+    (an explicit band limit; the synthesis clamps the table's ends)."""
+    from astrild_tpu_torch.ops import angular_power
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    lf = 2.0 * np.pi / np.deg2rad(oa_deg)
+    ell_tab = np.concatenate([np.geomspace(2.0, 1.4 * lf * npix / 2, 512),
+                              [1.42 * lf * npix / 2, 1e6]])
+    cl_tab = angular_power.cl_kappa_limber(
+        ell_tab, Cosmology(), z_source=1.0, nonlinear=True,
+        device=dev).double().cpu().numpy()
+    cl_tab[-2:] = 0.0
+    return ell_tab, cl_tab
+
+
+def _k3_shape_timing(pos, vel, binw: float, nbins: int) -> dict:
+    """K3 against its plain version on a catalog (compare_k3's bars) and
+    timed in turns, outside the counts; the bound from its in-range
+    pairs."""
+    from astrild_tpu_torch.ops import pairwise_cuda
+
+    n = pos.shape[0]
+    err, _, _, counts = compare_k3(pos, vel, n, binw, nbins)
+    fns = {
+        "kernel": lambda: pairwise_cuda.pairwise_accumulate(pos, vel, n,
+                                                            binw, nbins),
+        "plain": lambda: pairwise_cuda.pairwise_accumulate_reference(
+            pos, vel, n, binw, nbins, block=K3_PLAIN_BLOCK),
+    }
+    ms = {k: [] for k in fns}
+    for turn in (["plain", "kernel"], ["kernel", "plain"]):
+        for name in turn:
+            ms[name].append(_event_ms(fns[name], 5))
+    in_range = int(counts.sum())
+    bound = bound_ms(24 * n + 8 * nbins, K3_OPS_PER_IN_RANGE_PAIR * in_range)
+    return {"n": n, "nbins": nbins, "max_abs_err": err,
+            "in_range_pairs": in_range,
+            "mean": {k: sum(v) / len(v) for k, v in ms.items()},
+            "turns": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def _map_analysis_placement_checks() -> list:
+    """Each new map-analysis entry point that returns a tensor, given
+    numpy input and no device: its result must lie on the card (those that
+    return numpy place their input by the same `_device` rule). Returns
+    the names checked."""
+    from astrild_tpu_torch.models import Peaks, SkyArray, Voids
+    from astrild_tpu_torch.models.voids import (SphericalVoidFinder3D,
+                                                WatershedFinder3D)
+    from astrild_tpu_torch.ops import (aperture_mass, filters,
+                                       map_transform, minkowski, profiles,
+                                       troughs)
+
+    rng = np.random.default_rng(15)
+    img = rng.normal(size=(64, 64)).astype(np.float32)
+    cen = rng.integers(8, 56, (6, 2)).astype(np.int32)
+    rad = rng.uniform(2.0, 6.0, 6).astype(np.float32)
+    prof = rng.normal(size=(6, 5)).astype(np.float32)
+    pos = rng.uniform(0, 50.0, (500, 3)).astype(np.float32)
+    delta = rng.normal(0, 0.3, (16, 16, 16)).astype(np.float32)
+    cat = {"x_pix": cen[:, 1], "y_pix": cen[:, 0], "rad_pix": rad}
+    calls = {
+        "filters.gaussian": lambda: filters.gaussian(img, 2.0,
+                                                     sigma_arcmin=3.0),
+        "filters.gaussian_high_pass": lambda: filters.gaussian_high_pass(
+            img, 2.0, sigma_arcmin=3.0),
+        "filters.gaussian_derivative": lambda:
+            filters.gaussian_derivative(img, 2.0, 3.0, (1, 0)),
+        "filters.dgd3": lambda: filters.dgd3(img, 2.0, 3.0),
+        "filters.dgd3_window": lambda: filters.dgd3_window(32, 2.0, 3.0),
+        "filters.gaussian_compensated": lambda:
+            filters.gaussian_compensated(img, 2.0, 3.0, 9.0),
+        "filters.aperture_photometry": lambda:
+            filters.aperture_photometry(img, 2.0, 10.0),
+        "filters.apodization": lambda: filters.apodization(img),
+        "filters.tophat_compensated": lambda:
+            filters.tophat_compensated(img, 2.0, 10.0),
+        "filters.pca_foreground_separation": lambda:
+            filters.pca_foreground_separation(img, 4, 2),
+        "profiles.object_profiles": lambda: profiles.object_profiles(
+            img, cen, rad, 12, 5, 2.0)[1],
+        "profiles.mean_and_interpolate": lambda:
+            profiles.mean_and_interpolate(prof),
+        "profiles.bootstrap_profiles_from_draws": lambda:
+            profiles.bootstrap_profiles_from_draws(
+                prof, cen, rng.integers(0, 4, (8, 4)), 32, 64)[0],
+        "profiles.tangential_shear": lambda: profiles.tangential_shear(
+            np.linspace(0.1, 1.0, 5), prof[0]),
+        "troughs.find_troughs_from_draws": lambda:
+            troughs.find_troughs_from_draws(img, cen, 0.5, 0.1, 2.0)[0],
+        "troughs.trough_profiles": lambda: troughs.trough_profiles(
+            img, cen[:2] * 2.0 / 64, 0.2, 4, 2.0)[1],
+        "minkowski.map_moments": lambda: minkowski.map_moments(
+            img)["sigma1"],
+        "minkowski.gaussian_minkowski": lambda:
+            minkowski.gaussian_minkowski(np.linspace(-2, 2, 5), 1.0,
+                                         0.5)[0],
+        "aperture_mass.aperture_mass_map": lambda:
+            aperture_mass.aperture_mass_map(img, 5.0, 4.0),
+        "aperture_mass.aperture_mass_from_shear": lambda:
+            aperture_mass.aperture_mass_from_shear(img, img.T, 5.0, 4.0),
+        "map_transform.gradient_3d": lambda: map_transform.gradient_3d(
+            delta),
+        "map_transform.scatter_points_to_grid": lambda:
+            map_transform.scatter_points_to_grid(pos, pos[:, 0], 8, 50.0),
+        "map_transform.slice_map": lambda: map_transform.slice_map(
+            pos, pos[:, 0], 8, 50.0),
+        "map_transform.object_cutouts": lambda:
+            map_transform.object_cutouts(img, cen, 3),
+        "map_transform.paint_objects_on_map": lambda:
+            map_transform.paint_objects_on_map(32, cen / 2.0, rad),
+        "SkyArray.smoothing": lambda: SkyArray.from_array(
+            img, 2.0).smoothing(3.0),
+        "SphericalVoidFinder3D": lambda: SphericalVoidFinder3D(
+            delta, 50.0).delta,
+        "WatershedFinder3D": lambda: WatershedFinder3D(delta, 50.0).delta,
+    }
+    for name, fn in calls.items():
+        if fn().device.type != "cuda":
+            raise AssertionError(f"map analysis: {name} given numpy input "
+                                 "did not run on the card")
+    # the catalog managers measure numpy maps where numpy goes
+    for cls in (Voids, Peaks):
+        obj = cls(dict(cat))
+        obj.get_profiles(1.0, 4, skymap=img)
+        if obj.device.type != "cuda":
+            raise AssertionError(f"map analysis: {cls.__name__} profiles "
+                                 "of a numpy map did not run on the card")
+    return sorted(calls) + ["Voids.get_profiles", "Peaks.get_profiles"]
+
+
+def phase_map_analysis(dev, seed: int, kappa_born, so_cat, out_gr,
+                       mom_gr) -> dict:
+    """The map-analysis and catalog facades, each stage on the host clock,
+    synchronized, with its K2 / K3 launches against its own count; the
+    checks raise. (a) examples/full_pipeline.py stages 1-4 at the
+    example's parameters (4 realizations of 64^3 clumpy particles from a
+    torch generator, TSC P(k) on 128^3 in 250 Mpc/h, the CIC bispectrum,
+    Born kappa of 32 slabs, the void pipeline): the batch against four
+    separate calls, and the whole against the same port on the CPU with
+    the same particles. (b) The void stage at full width on phase 9's
+    2048^2 Born map: smoothing, TunnelsFinder, Voids profiles and their
+    bootstrap, Peaks, WatershedFinder, troughs; a seeded Gaussian map of
+    the halofit C_ell (AngularPowerSpectrum.to_flat_map): Minkowski
+    functionals against the Gaussian prediction and <M_ap^2> against its
+    theory integral. (c) The halo facades on phase 12's SO catalog
+    (velocities sampled from the snapshot's CIC velocity grids): Rockstar
+    HMF, xi and v12 (K3), SubFind P(k) at 256^3 (K2), Halos.populate_hod,
+    and SphericalVoidFinder3D.from_particles of the 2^27 particles onto
+    256^3 (K2). Then K2 and K3 at the new shapes against their plain
+    versions and timed. Returns the numbers printed in `# map_analysis`."""
+    from astrild_tpu_torch import Cosmology
+    from astrild_tpu_torch.models import (AngularPowerSpectrum, Halos,
+                                          Peaks, Rockstar, SkyArray, SubFind,
+                                          TunnelsFinder, Voids,
+                                          WatershedFinder)
+    from astrild_tpu_torch.models.voids import SphericalVoidFinder3D
+    from astrild_tpu_torch.ops import (aperture_mass, filters, minkowski,
+                                       nbody, paint_cuda, pairwise_cuda,
+                                       troughs, velocity)
+
+    seconds, launches, out = {}, {}, {}
+    predicted = {"collection": {"paint_windowed": FP_SIMS},
+                 "bispectrum": {"paint_windowed": 1}, "born": {},
+                 "voids": {}, "collection_separate": {
+                     "paint_windowed": FP_SIMS},
+                 "tunnels": {}, "void_profiles": {}, "peaks": {},
+                 "watershed": {}, "troughs": {}, "gaussian_map": {},
+                 "minkowski": {}, "aperture_mass": {},
+                 "halo_velocities": {"paint_windowed": 4},
+                 "rockstar": {"pairwise_accumulate": 1},
+                 "subfind_pk": {"paint_windowed": 1}, "hod": {},
+                 "svf_particles": {"paint_windowed": 1}, "placement": {}}
+    stage = _stage_runner(seconds, launches)
+    cosmo = Cosmology()
+
+    def finite(name, *arrays):
+        for a in arrays:
+            a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+            if not np.isfinite(a).all():
+                raise AssertionError(f"map analysis: {name} is not finite")
+
+    def on_card(name, t):
+        if t.device.type != dev.type:
+            raise AssertionError(f"map analysis: {name} is on {t.device}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the launch counts cover exactly the path's stages
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+
+    # ---- (a) examples/full_pipeline.py stages 1-4
+    n_part = FP_SIDE ** 3
+    gens = [torch.Generator(device=dev).manual_seed(seed + 150 + i)
+            for i in range(FP_SIMS)]
+    pos_batch = torch.stack([_synthetic_particles(g, n_part, FP_BOX, dev)
+                             for g in gens])
+    card = _full_pipeline_stages(pos_batch, stage, cosmo)
+    finite("full pipeline", card["pk"], card["kappa"], card["profiles"][
+        np.isfinite(card["profiles"])], card["mean"], card["lowerr"],
+        card["higherr"])
+    finite("bispectrum", *[v[np.isfinite(v)] for v in card["bs"].values()])
+
+    def separate_stage():
+        from astrild_tpu_torch.ops import power
+        from astrild_tpu_torch.ops.paint import paint
+
+        out_pk = []
+        for i in range(FP_SIMS):
+            p = _synthetic_particles(torch.Generator(device=dev).manual_seed(
+                seed + 150 + i), n_part, FP_BOX, dev)
+            g = paint(p, FP_NGRID, FP_BOX, window="tsc")
+            out_pk.append(power.auto_power(
+                g, FP_BOX, nbins=FP_PK_BINS, window="tsc",
+                shotnoise=FP_BOX ** 3 / n_part).power)
+        return torch.stack(out_pk)
+
+    pk_sep = stage("collection_separate", separate_stage)
+    batch_err = _rel_err(card["pk"], pk_sep)
+    n_voids_ex = len(card["voids"]["rad_pix"])
+    # the same port on the CPU, with the same particles
+    cpu_seconds = {}
+    cpu = _full_pipeline_stages(pos_batch.cpu(), _stage_runner_cpu(
+        cpu_seconds), cosmo)
+    if len(cpu["voids"]["rad_pix"]) != n_voids_ex or n_voids_ex < 1:
+        raise AssertionError(f"full pipeline: {n_voids_ex} voids on the "
+                             f"card, {len(cpu['voids']['rad_pix'])} on the "
+                             "CPU")
+    cpu_err = {
+        "pk": _rel_err(card["pk"], cpu["pk"]),
+        "bispectrum": max(_rel_err(card["bs"][k], cpu["bs"][k])
+                          for k in cpu["bs"]),
+        "kappa": _rel_err(card["kappa"], cpu["kappa"]),
+        "void_radii": _rel_err(card["voids"]["rad_pix"],
+                               cpu["voids"]["rad_pix"]),
+        "profiles": _rel_err(card["profiles"], cpu["profiles"]),
+        "mean_profile": _rel_err(card["mean"], cpu["mean"])}
+    out["full_pipeline"] = {
+        "k": card["k"].cpu().numpy().tolist(),
+        "pk0": card["pk"][0].cpu().numpy().tolist(),
+        "batch_vs_separate": batch_err, "n_voids": n_voids_ex,
+        "mean_profile": card["mean"][0].tolist(),
+        "card_vs_cpu": cpu_err, "cpu_seconds": cpu_seconds}
+    if batch_err > 1e-5 or max(cpu_err.values()) > FP_CPU_TOL:
+        raise AssertionError(f"full pipeline: batch / separate {batch_err}, "
+                             f"card / CPU {cpu_err}")
+    del pos_batch, card, cpu, pk_sep
+
+    # ---- (b) the void stage at full width on phase 9's Born map
+    npix = kappa_born.shape[-1]
+    oa = math.degrees(LC_FOV)
+
+    def tunnels_stage():
+        sky = SkyArray.from_array(kappa_born, oa, "kappa_2")
+        sky.smoothing(FP_SMOOTH)
+        finder = TunnelsFinder(sky)
+        finder.find_peaks(on="orig_smooth")
+        finder.find_voids(sigmas=[0.0])
+        return sky, finder
+
+    sky, finder = stage("tunnels", tunnels_stage)
+    if not torch.equal(sky.data["orig_smooth"], filters.gaussian(
+            sky.data["orig"], oa, sigma_arcmin=FP_SMOOTH)):
+        raise AssertionError("map analysis: the smoothed layer is not "
+                             "filters.gaussian of the map")
+
+    def void_profiles_stage():
+        voids = Voids.from_finder(finder, {"npix": npix})
+        voids.trim_edges(npix)
+        voids.get_profiles(FP_REACH, FP_PROFILE_BINS,
+                           skymap=sky.data["orig"])
+        return voids, voids.get_profile_stats(n_boot=MA_BOOT)
+
+    voids, ds = stage("void_profiles", void_profiles_stage)
+    mean, lo, hi = ds["mean"][0], ds["lowerr"][0], ds["higherr"][0]
+    finite("void profile statistics", mean, lo, hi)
+    bracket = bool(np.all((lo <= mean) & (mean <= hi)))
+    out["voids"] = {"peaks": len(finder.peaks["snr"]),
+                    "voids": len(finder.voids["rad_pix"]),
+                    "voids_trimmed": len(voids.data["rad_pix"]),
+                    "radii": ds["radius"].tolist(),
+                    "mean": mean.tolist(), "lowerr": lo.tolist(),
+                    "higherr": hi.tolist(), "bracketed": bracket}
+    if not mean[0] < 0 or not bracket:
+        raise AssertionError(f"void profiles: mean {mean.tolist()}, "
+                             f"envelope {lo.tolist()} .. {hi.tolist()}")
+
+    def peaks_stage():
+        peaks = Peaks.from_tunnels_finder(finder)
+        keep = peaks.data["rad_pix"] >= 2
+        peaks = Peaks({k: v[keep] for k, v in peaks.data.items()},
+                      peaks.skymap_dsc, device=peaks.device)
+        peaks.get_profiles(1.0, 8, skymap=sky.data["orig"])
+        return peaks, peaks.get_profile_stats(n_boot=MA_BOOT)
+
+    peaks, pds = stage("peaks", peaks_stage)
+    finite("peak profile", pds["mean"])
+    out["peaks"] = {"n": len(peaks.data["x_pix"]),
+                    "mean": pds["mean"].tolist()}
+    if not pds["mean"][0] > pds["mean"][-1]:
+        raise AssertionError(f"peak profile {pds['mean'].tolist()}")
+
+    ws = stage("watershed", lambda: WatershedFinder(sky).find_voids())
+    finite("watershed voids", ws["rad_pix"])
+    if len(ws["rad_pix"]) < 1:
+        raise AssertionError("map analysis: no watershed void")
+    out["watershed_voids"] = len(ws["rad_pix"])
+
+    def troughs_stage():
+        gen = torch.Generator(device=dev).manual_seed(seed + 15)
+        rad_deg = MA_TROUGH_ARCMIN / 60.0
+        pos, means = troughs.find_troughs(kappa_born, gen, MA_TROUGHS,
+                                          MA_TROUGH_FRAC, rad_deg, oa)
+        return means, troughs.trough_profiles(kappa_born, pos, rad_deg, 8,
+                                              oa)
+
+    t_means, (t_r, t_prof) = stage("troughs", troughs_stage)
+    finite("troughs", t_means, t_prof)
+    k_mean = float(kappa_born.mean())
+    out["troughs"] = {"n": int(t_means.shape[0]),
+                      "mean_of_means": float(t_means.mean()),
+                      "profile": t_prof.cpu().numpy().tolist()}
+    if not float(t_means.max()) < k_mean or not float(t_prof[0]) < k_mean:
+        raise AssertionError(f"troughs: means up to {float(t_means.max())},"
+                             f" profile {t_prof.tolist()}, map mean "
+                             f"{k_mean}")
+
+    # ---- a seeded Gaussian map of the halofit C_ell
+    def gaussian_stage():
+        ell_tab, cl_tab = _halofit_cl_table(dev, npix, oa)
+        g = AngularPowerSpectrum.to_flat_map(ell_tab, cl_tab, npix, oa,
+                                             rnd_seed=seed + 15)
+        return ell_tab, cl_tab, SkyArray.from_array(g, oa, "kappa_2")
+
+    ell_tab, cl_tab, gsky = stage("gaussian_map", gaussian_stage)
+    on_card("the Gaussian map (numpy input)", gsky.data["orig"])
+    pix_arcmin = oa * 60.0 / npix
+
+    def minkowski_stage():
+        sm = gsky.smoothing(MA_MF_SMOOTH_PIX * pix_arcmin)
+        mom = {k: float(v) for k, v in minkowski.map_moments(sm).items()}
+        f = (sm - mom["mean"]) / mom["sigma0"]
+        res = minkowski.minkowski_functionals(f, nbins=MA_MF_BINS,
+                                              limits=(-3.0, 3.0))
+        m1 = {k: float(v) for k, v in minkowski.map_moments(f).items()}
+        res["nu"] = res["nu"] / m1["sigma0"]
+        theory = minkowski.gaussian_minkowski(res["nu"], m1["sigma0"],
+                                              m1["sigma1"])
+        facade = gsky.minkowski_functionals(nbins=MA_MF_BINS,
+                                            of="orig_smooth")
+        return res, [t.cpu().numpy() for t in theory], facade
+
+    mf, mf_theory, mf_facade = stage("minkowski", minkowski_stage)
+    finite("Minkowski functionals", mf["V0"], mf["V1"], mf["V2"],
+           *mf_facade.values())
+    core = np.abs(mf["nu"]) < 2.0
+    mf_rel = {k: float(np.max(np.abs(mf[k][core] / t[core] - 1.0)))
+              for k, t in zip(("V0", "V1"), mf_theory)}
+    v2_ok = np.all(np.abs(mf["V2"][core] - mf_theory[2][core])
+                   <= 0.2 * np.abs(mf_theory[2][core]) + 2e-5)
+    out["minkowski"] = {"nu": mf["nu"].tolist(),
+                        **{k: mf[k].tolist() for k in ("V0", "V1", "V2")},
+                        "theory": [t.tolist() for t in mf_theory],
+                        "max_rel_core": mf_rel, "v2_within": bool(v2_ok)}
+    if mf_rel["V0"] > 0.06 or mf_rel["V1"] > 0.08 or not v2_ok:
+        raise AssertionError(f"Minkowski functionals against the Gaussian "
+                             f"prediction: {mf_rel}, V2 within {v2_ok}")
+
+    ap = stage("aperture_mass", lambda: gsky.aperture_mass_moments(
+        list(MA_AP_SCALES)))
+    finite("aperture mass", ap["map2"], ap["map3"])
+    ratio = [float(ap["map2"][i] / aperture_mass.map2_theory(
+        ell_tab, cl_tab, th)) for i, th in enumerate(MA_AP_SCALES)]
+    out["aperture_mass"] = {"theta_ap_arcmin": list(MA_AP_SCALES),
+                            "map2": ap["map2"].tolist(),
+                            "map2_over_theory": ratio,
+                            "skewness": ap["skewness"].tolist()}
+    if (max(abs(r - 1.0) for r in ratio) > 0.12
+            or np.abs(ap["skewness"]).max() > 0.05):
+        raise AssertionError(f"<M_ap^2> / theory {ratio}, skewness "
+                             f"{ap['skewness'].tolist()}")
+    del sky, finder, voids, gsky
+
+    # ---- (c) the halo facades on phase 12's SO catalog
+    n_h = len(so_cat["mass"])
+    hpos = np.stack([so_cat["x"], so_cat["y"], so_cat["z"]], axis=-1)
+
+    def velocities_stage():
+        vel = nbody.velocities_kms(mom_gr, 1.0)
+        vgrid, _ = velocity.velocity_field(out_gr, vel, MA_VEL_NGRID, BOX)
+        cell = np.floor(hpos / (BOX / MA_VEL_NGRID)).astype(np.int64) \
+            % MA_VEL_NGRID
+        idx = torch.from_numpy(cell).to(dev)
+        return vgrid[:, idx[:, 0], idx[:, 1], idx[:, 2]].T.cpu().numpy()
+
+    hvel = stage("halo_velocities", velocities_stage)
+    finite("halo velocities", hvel)
+    r200c = so_cat["radius"] * 1e3                       # kpc/h
+    conc = 9.0 * (so_cat["mass"] / 1e13) ** -0.1        # toy c-M
+    snap = {"x": hpos[:, 0], "y": hpos[:, 1], "z": hpos[:, 2],
+            "vx": hvel[:, 0], "vy": hvel[:, 1], "vz": hvel[:, 2],
+            "m200c": so_cat["mass"], "r200c": r200c, "Rs": r200c / conc}
+
+    def rockstar_stage():
+        return (Rockstar.halo_mass_fct(snap),
+                Rockstar.two_point_corr_fct(snap, boxsize=BOX),
+                Rockstar.mean_pairwise_velocity(snap, boxsize=BOX))
+
+    (m_bins, hmf), (r_xi, xi), (r12, v12) = stage("rockstar", rockstar_stage)
+    finite("Rockstar statistics", hmf, xi)
+    # the pairs of each uniform v12 bin (the len(bins) bins of width
+    # 50/24 of the default edges)
+    binw = 50.0 / 24
+    hpos_t = torch.from_numpy(hpos.astype(np.float32)).to(dev)
+    pairs = _pair_counts(hpos_t, n_h, binw, len(v12)).cpu().numpy()
+    full = np.nonzero(pairs >= MA_V12_MIN_PAIRS)[0]
+    inner = int(full[0]) if full.size else -1
+    out["rockstar"] = {"n_halos": n_h, "hmf_bins": m_bins.tolist(),
+                       "hmf": hmf.tolist(), "r_xi": r_xi.tolist(),
+                       "xi": xi.tolist(), "r_v12": r12.tolist(),
+                       "v12": [float(v) if np.isfinite(v) else None
+                               for v in v12],
+                       "pairs": pairs.tolist(), "inner_bin": inner}
+    if (not np.all(np.diff(hmf) <= 0) or inner < 0
+            or not np.isfinite(v12[inner]) or not v12[inner] < 0):
+        raise AssertionError(f"Rockstar: HMF {hmf.tolist()}, v12 "
+                             f"{v12.tolist()} with pairs {pairs.tolist()}")
+
+    sf = {"GroupPos": hpos, "Group_M_Crit200": so_cat["mass"]}
+    k_sf, p_sf = stage("subfind_pk", lambda: SubFind.power_spectrum(
+        sf, boxsize=BOX, ngrid=MA_PK_NGRID))
+    finite("SubFind P(k)", k_sf, p_sf)
+    out["subfind_pk"] = {"k": k_sf[:8].tolist(), "p": p_sf[:8].tolist()}
+
+    gal = stage("hod", lambda: Halos(snap).populate_hod(
+        boxsize=BOX, key=seed + 15, max_sat=GM_MAX_SAT))
+    n_gal = int(gal["gx"].shape[0])
+    finite("HOD galaxies", gal["gx"], gal["gvx"])
+    out["hod"] = {"n_gal": n_gal, "overflow": int(gal["overflow"]),
+                  "central_share": float(gal["is_central"].mean())}
+    if n_gal < n_h // 2 or not ((gal["gx"] >= 0) & (gal["gx"] < BOX)).all():
+        raise AssertionError(f"HOD on the SO catalog: {out['hod']}")
+
+    def svf_stage():
+        svf = SphericalVoidFinder3D.from_particles(out_gr, MA_SVF_NGRID, BOX)
+        return svf, svf.find_voids()
+
+    svf, svf_voids = stage("svf_particles", svf_stage)
+    on_card("the SVF grid", svf.delta)
+    finite("SVF voids", svf_voids["radius"])
+    out["svf"] = {"n": len(svf_voids["radius"]),
+                  "r_max": float(svf_voids["radius"][0])
+                  if len(svf_voids["radius"]) else None}
+    if len(svf_voids["radius"]) < 1:
+        raise AssertionError("map analysis: SVF found no void in the "
+                             "snapshot")
+    del svf
+    out["placement"] = stage("placement", _map_analysis_placement_checks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total = _held_launches("map analysis", predicted, launches)
+
+    # ---- K2 and K3 at the new shapes, outside the counts
+    gen = torch.Generator(device=dev).manual_seed(seed + 150)
+    p0 = _synthetic_particles(gen, n_part, FP_BOX, dev)
+    pf0 = torch.cat([p0[:, a] for a in range(3)])
+    hpf = torch.cat([hpos_t[:, a] for a in range(3)])
+    hm = torch.from_numpy(so_cat["mass"].astype(np.float32)).to(dev)
+    k2 = {"example_tsc": _k2_lane_timing(pf0, None, FP_NGRID, FP_BOX, 3),
+          "example_cic": _k2_lane_timing(pf0, None, FP_NGRID, FP_BOX, 2),
+          "subfind_tsc": _k2_lane_timing(hpf, hm, MA_PK_NGRID, BOX, 3),
+          "snapshot_cic": _k2_lane_timing(torch.cat(out_gr), None,
+                                          MA_SVF_NGRID, BOX, 2)}
+    vel_t = torch.from_numpy(hvel.astype(np.float32)).to(dev)
+    k3 = _k3_shape_timing(hpos_t, vel_t, binw, len(v12))
+    log(f"# phase map analysis: {sum(seconds.values()):.2f} s; launches "
+        f"{total}; full pipeline: {n_voids_ex} voids, mean profile at r/R=0 "
+        f"{out['full_pipeline']['mean_profile'][0]:.3e}, card / CPU "
+        f"{max(cpu_err.values()):.1e}; Born map: {out['voids']['voids']} "
+        f"voids of {out['voids']['peaks']} peaks, mean profile {mean[0]:.3e}"
+        f" (envelope {lo[0]:.3e} .. {hi[0]:.3e}), {out['peaks']['n']} peaks,"
+        f" {out['watershed_voids']} watershed voids, troughs "
+        f"{out['troughs']['mean_of_means']:.3e}; Gaussian map: MF core "
+        f"max |rel| V0 {mf_rel['V0']:.3f} V1 {mf_rel['V1']:.3f}, <M_ap^2> / "
+        f"theory " + ", ".join(f"{r:.3f}" for r in ratio)
+        + f"; {n_h} SO halos: v12 {v12[inner]:.1f} km/s in bin {inner}, "
+        f"{n_gal} HOD galaxies, {out['svf']['n']} SVF voids; peak "
+        f"{peak_gb:.2f} GB")
+    result = {"seconds": seconds, "seconds_total": sum(seconds.values()),
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peak_gb, **out, "k2_timing_ms": k2,
+              "k3_timing_ms": k3}
+    log("# map_analysis " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -3409,12 +4046,12 @@ def main() -> None:
     lightcone, kappa_map = phase_lightcone(dev, args.seed, out_gr)
     clustering = phase_clustering(dev, args.seed, out_gr, mom_gr,
                                   k3_inputs[:2])
-    del mom_gr
-    galaxy = phase_galaxy_mocks(dev, args.seed, out_gr, kappa_map)
-    del out_gr
+    galaxy, so_cat = phase_galaxy_mocks(dev, args.seed, out_gr, kappa_map)
     phase_shear_survey(dev, args.seed, kappa_map)
-    del kappa_map
     theory = phase_theory(dev, args.seed)
+    mapping = phase_map_analysis(dev, args.seed, kappa_map, so_cat, out_gr,
+                                 mom_gr)
+    del out_gr, mom_gr, kappa_map, so_cat
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -3508,6 +4145,24 @@ def main() -> None:
                    "plain_ms": t["mean"]["plain"], "bound_ms": t["bound_ms"],
                    "bound_by": t["bound_by"], "library_ms": None}
            for shape, t in theory["k2_timing_ms"].items()}}
+    # the map-analysis path's shapes: the example's TSC and CIC paints of
+    # 2^18 particles onto 128^3, the SO halos' mass-weighted TSC onto
+    # 256^3, the 2^27-particle snapshot onto 256^3; K3 on the SO halos
+    k2_row["map_analysis"] = {
+        "launches": mapping["launches_total"]["paint_windowed"],
+        **{shape: {"n": t["n"], "ngrid": t["ngrid"], "order": t["order"],
+                   "weighted": t["weighted"],
+                   "max_abs_err": t["max_abs_err"], "ms": t["mean"]["kernel"],
+                   "plain_ms": t["mean"]["plain"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"], "library_ms": None}
+           for shape, t in mapping["k2_timing_ms"].items()}}
+    t = mapping["k3_timing_ms"]
+    k3_row["map_analysis"] = {
+        "launches": mapping["launches_total"]["pairwise_accumulate"],
+        "n": t["n"], "nbins": t["nbins"], "max_abs_err": t["max_abs_err"],
+        "ms": t["mean"]["kernel"], "plain_ms": t["mean"]["plain"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None}
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

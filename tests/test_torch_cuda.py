@@ -1595,3 +1595,191 @@ def test_k2_at_the_theory_rsd_shapes(cuda, ngrid, box):
     n = ngrid ** 3
     assert float((got - want).abs().max()) <= 2e-5 * float(want.max())
     assert abs(float(got.double().sum()) - n) <= 1e-5 * n
+
+
+# ------------------------------------------- map analysis and halo facades
+def _tf32_on_and_off(fn):
+    """fn() with TF32 refused, then allowed, for float32 matmuls."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = fn()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return off, on
+
+
+@pytest.mark.parametrize("chi_s", [2000.0, [1200.0, 2000.0]])
+def test_born_healpix_holds_with_tf32_allowed(cuda, chi_s):
+    """born_convergence_healpix with TF32 allowed equals the run without
+    to 1e-6 of max |kappa| (the shell weights are summed from elementwise
+    products, not by a matmul), for one source and for a batch."""
+    rng = np.random.default_rng(2)
+    nside = 64
+    shells = torch.from_numpy(rng.normal(
+        0, 0.5, (6, 12 * nside * nside)).astype(np.float32)).to(cuda)
+    chis = np.linspace(300.0, 1800.0, 6)
+    off, on = _tf32_on_and_off(lambda: TLS.born_convergence_healpix(
+        shells, chis, np.full(6, 250.0), np.asarray(chi_s), 0.3089))
+    assert off.shape == ((12 * nside * nside,) if np.ndim(chi_s) == 0
+                         else (2, 12 * nside * nside))
+    scale = float(off.abs().max())
+    assert scale > 0.0
+    assert float((on - off).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("site", ["v12", "ksz"])
+def test_plain_pair_tiles_hold_with_tf32_allowed(cuda, site):
+    """The plain pair tiles (v12's and the kSZ estimator's) with TF32
+    allowed equal the runs without to 1e-6 of max |estimate| (their
+    direction cosines are elementwise sums, not einsums)."""
+    rng = np.random.default_rng(3)
+    pos, vel = _clumpy(rng, 3000)
+    pos_t = torch.from_numpy(pos + 1000.0).to(cuda)
+    bins = np.linspace(0.0, 30.0, 16).astype(np.float32)
+    if site == "v12":
+        vel_t = torch.from_numpy(vel).to(cuda)
+        fn = lambda: TPW.mean_pairwise_velocity(  # noqa: E731
+            pos_t, vel_t, bins, backend="plain")[1]
+    else:
+        dT = torch.from_numpy(vel[:, 0].copy()).to(cuda)
+        fn = lambda: TPW.pairwise_ksz_momentum(  # noqa: E731
+            pos_t, dT, bins)[1]
+    off, on = _tf32_on_and_off(fn)
+    fin = torch.isfinite(off)
+    assert bool(fin.any()) and torch.equal(fin, torch.isfinite(on))
+    scale = float(off[fin].abs().max())
+    assert float((on[fin] - off[fin]).abs().max()) <= 1e-6 * scale
+
+
+def test_halo_and_void_facades_reach_k2_and_k3(cuda):
+    """SubFind.power_spectrum (weighted TSC) and
+    SphericalVoidFinder3D.from_particles (CIC) paint through K2 on the
+    card, Rockstar.mean_pairwise_velocity runs K3, one launch each; numpy
+    input lands on the card. Each is held against its plain version on the
+    same input: P(k) and delta within 1e-4 of their max, v12 within 1e-4
+    relative of the plain pair tiles."""
+    from astrild_tpu_torch.models import halos as THM
+    from astrild_tpu_torch.models import voids as TVM
+
+    rng = np.random.default_rng(5)
+    pos, vel = _clumpy(rng, 20000)
+    mass = 10 ** rng.uniform(12.0, 15.0, pos.shape[0])
+    snap = {"GroupPos": pos, "Group_M_Crit200": mass}
+    before = dict(TPC.LAUNCHES)
+    k, p = THM.SubFind.power_spectrum(snap, boxsize=BOX, ngrid=64)
+    assert TPC.LAUNCHES["paint_windowed"] == before.get("paint_windowed",
+                                                        0) + 1
+    kc, pc = THM.SubFind.power_spectrum(snap, boxsize=BOX, ngrid=64,
+                                        device="cpu")
+    np.testing.assert_allclose(k, kc, rtol=1e-6)
+    assert np.abs(p - pc).max() <= 1e-4 * np.abs(pc).max()
+
+    before = dict(TPC.LAUNCHES)
+    svf = TVM.SphericalVoidFinder3D.from_particles(pos, 64, BOX)
+    assert svf.delta.is_cuda
+    assert TPC.LAUNCHES["paint_windowed"] == before.get("paint_windowed",
+                                                        0) + 1
+    pf = torch.from_numpy(np.ascontiguousarray(pos.T).reshape(-1)).to(cuda)
+    grid = TPC.paint_windowed_reference(pf, None, 64, BOX, order=2)
+    want = grid / grid.mean() - 1.0
+    assert float((svf.delta - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+    cat = {"x": pos[:, 0], "y": pos[:, 1], "z": pos[:, 2],
+           "vx": vel[:, 0], "vy": vel[:, 1], "vz": vel[:, 2]}
+    before = dict(TPWC.LAUNCHES)
+    r, v12 = THM.Rockstar.mean_pairwise_velocity(cat, boxsize=BOX)
+    assert TPWC.LAUNCHES["pairwise_accumulate"] == before.get(
+        "pairwise_accumulate", 0) + 1
+    pos_t = torch.from_numpy(pos).to(cuda)
+    _, plain = TPW.mean_pairwise_velocity(
+        pos_t, torch.from_numpy(vel).to(cuda),
+        torch.from_numpy(np.linspace(0.0, 50.0, 25).astype(np.float32)).to(
+            cuda), backend="plain")
+    plain = plain.cpu().numpy()
+    fin = np.isfinite(plain)
+    np.testing.assert_array_equal(np.isfinite(v12), fin)
+    np.testing.assert_allclose(v12[fin], plain[fin], rtol=1e-4,
+                               atol=1e-4 * np.abs(plain[fin]).max())
+
+
+def test_map_analysis_numpy_input_lands_on_the_card(cuda):
+    """The sky-map operations and the 2D facades put numpy input on the
+    card and agree there with their CPU runs: catalogs and bin decisions
+    equal, maps within 1e-4 of their max (cuFFT rounds otherwise)."""
+    from astrild_tpu_torch.models import SkyArray, TunnelsFinder, Voids
+    from astrild_tpu_torch.ops import aperture_mass as TA
+    from astrild_tpu_torch.ops import filters as TF
+    from astrild_tpu_torch.ops import minkowski as TM
+    from astrild_tpu_torch.ops import profiles as TPR
+    from astrild_tpu_torch.ops import troughs as TT
+
+    rng = np.random.default_rng(6)
+    n = 128
+    e = np.arange(n)
+    img = rng.normal(0, 0.01, (n, n)).astype(np.float32)
+    for (r, c) in ((32.0, 32.0), (64.0, 96.0), (100.0, 40.0)):
+        img += (0.1 * np.exp(-((e[:, None] - r) ** 2 + (e[None, :] - c) ** 2)
+                             / 32.0)).astype(np.float32)
+    cen = rng.integers(0, n, (30, 2)).astype(np.int32)
+    rad = rng.uniform(2.0, 10.0, 30).astype(np.float32)
+    maps = {
+        "gaussian": lambda **kw: TF.gaussian(img, 10.0, sigma_arcmin=8.0,
+                                             **kw),
+        "dgd3": lambda **kw: TF.dgd3(img, 10.0, 10.0, **kw),
+        "compensated": lambda **kw: TF.gaussian_compensated(
+            img, 10.0, 5.0, 15.0, **kw),
+        "pca": lambda **kw: TF.pca_foreground_separation(img, 8, 5, **kw),
+        "profiles": lambda **kw: TPR.object_profiles(img, cen, rad, 25,
+                                                     8, 2.0, **kw)[1],
+        "aperture_mass": lambda **kw: TA.aperture_mass_map(img, 10.0, 8.0,
+                                                           **kw),
+        "trough_profiles": lambda **kw: TT.trough_profiles(
+            img, np.array([[2.0, 3.0], [5.0, 5.0]], np.float32), 0.5, 6,
+            10.0, **kw)[1],
+    }
+    for name, fn in maps.items():
+        got, want = fn(), fn(device="cpu")
+        assert got.is_cuda, name
+        got = got.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), name
+        fin = ~torch.isnan(want)
+        assert float((got[fin] - want[fin]).abs().max()) <= 1e-4 * float(
+            want[fin].abs().max()), name
+    a = TM.minkowski_functionals(img, nbins=10, limits=(-0.02, 0.08))
+    b = TM.minkowski_functionals(img, nbins=10, limits=(-0.02, 0.08),
+                                 device="cpu")
+    np.testing.assert_array_equal(a["V0"], b["V0"])
+    # the void pipeline on the card: the same catalog as on the CPU
+    out = []
+    for dev in (None, "cpu"):
+        sky = SkyArray.from_array(img, 10.0, device=dev)
+        sky.smoothing(2.0)
+        finder = TunnelsFinder(sky)
+        finder.find_peaks(on="orig_smooth")
+        finder.find_voids(sigmas=[0.0])
+        voids = Voids.from_finder(finder, {"npix": n})
+        voids.trim_edges(n)
+        prof = voids.get_profiles(2.0, 10, skymap=sky.data["orig"])
+        out.append((sky, voids, prof, voids.get_profile_stats(n_boot=30)))
+    (gs, gv, gp, gd), (cs, cv, cp, cd) = out
+    assert gs.device.type == "cuda"
+    for k in cv.data:
+        np.testing.assert_allclose(gv.data[k], cv.data[k], rtol=1e-5)
+    np.testing.assert_allclose(gp["values"], cp["values"], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(gd["mean"], cd["mean"], rtol=1e-4, atol=1e-6)
+    assert np.all(gd["lowerr"] <= gd["higherr"])
+    # the random entry points with CUDA generators
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    pos, m = TT.find_troughs(img, gen, 200, 0.2, 0.3, 10.0)
+    assert pos.is_cuda and bool(torch.isfinite(m).all())
+    lo, hi = TPR.bootstrap_profiles(
+        torch.from_numpy(rng.normal(2.0, 0.1, (64, 6)).astype(
+            np.float32)).to(cuda), cen[:1].repeat(64, 0),
+        torch.Generator(device=cuda).manual_seed(2), n_boot=50,
+        block_pix=32, npix=128)
+    assert lo.is_cuda and bool((lo <= hi).all())
