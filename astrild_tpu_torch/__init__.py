@@ -10,3 +10,13 @@ in `csrc/` and are built at first use (see `_ext.py`).
 from .utils.cosmology import Cosmology
 
 __all__ = ["Cosmology"]
+
+
+def __getattr__(name):
+    # lazy PLANCK18 (PEP 562): its tables are built on first use, not when
+    # the package is imported
+    if name == "PLANCK18":
+        from . import utils
+
+        return utils.PLANCK18
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

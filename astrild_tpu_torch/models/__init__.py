@@ -1,15 +1,20 @@
 """User-facing handles and pipeline classes of the port (the ported part
 of astrild_tpu/models)."""
+from .dipoles import Dipoles
 from .halos import Halos, Rockstar, SubFind
 from .lightcone import halo_lightcone_catalog, merge_lightcone_catalogs
 from .peaks import Peaks
-from .power import AngularPowerSpectrum, Bispectrum3D, PowerSpectrum3D, PowMes
+from .power import (AngularPowerSpectrum, Bispectrum2D, Bispectrum3D,
+                    LinearAngularPowerSpectrum, LinearPowerSpectrum,
+                    PowerSpectrum3D, PowMes)
 from .simulation import Ecosmog, RayRamses, Simulation
 from .skymap import SkyArray, SkyMap
 from .voids import TunnelsFinder, Voids, WatershedFinder
 
-__all__ = ["Halos", "Rockstar", "SubFind", "Peaks", "AngularPowerSpectrum",
-           "PowerSpectrum3D", "Bispectrum3D", "PowMes", "Simulation",
+__all__ = ["Dipoles", "Halos", "Rockstar", "SubFind", "Peaks",
+           "AngularPowerSpectrum", "PowerSpectrum3D", "Bispectrum3D",
+           "Bispectrum2D", "LinearPowerSpectrum",
+           "LinearAngularPowerSpectrum", "PowMes", "Simulation",
            "Ecosmog", "RayRamses", "SkyArray", "SkyMap", "TunnelsFinder",
            "Voids", "WatershedFinder", "halo_lightcone_catalog",
            "merge_lightcone_catalogs"]

@@ -1,5 +1,6 @@
-"""Spectra pipeline classes: PowerSpectrum3D, Bispectrum3D, PowMes and the
-flat-sky half of AngularPowerSpectrum.
+"""Spectra pipeline classes: PowerSpectrum3D, Bispectrum3D, Bispectrum2D,
+PowMes, the flat-sky half of AngularPowerSpectrum, and the theory facades
+LinearPowerSpectrum and LinearAngularPowerSpectrum.
 
 Port of astrild_tpu/models/power.py. The facades take numpy arrays or
 tensors and return numpy arrays, as the JAX facades do. Tensors stay on
@@ -7,10 +8,7 @@ their own device unless `device=` is given; numpy input goes to `device=`,
 by default the CUDA card (as the JAX facades put it on the default
 device). With no card and no `device=` numpy input raises: pass
 `device="cpu"` to run on the CPU. `AngularPowerSpectrum.from_healpix` and
-`to_skyhealpix` wait for the SHT stack (ROADMAP.md queue 1 item 6);
-`LinearPowerSpectrum` and `LinearAngularPowerSpectrum` for item 5's
-`p_dpdp` and `Cosmology` methods; `Bispectrum2D` for item 4c's
-`bispectrum_2d_equilateral`.
+`to_skyhealpix` wait for the SHT stack (ROADMAP.md queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -23,11 +21,14 @@ import torch
 from .._device import as_tensor, default_device
 from ..io import columnar_h5
 from ..ops import bispectrum as bs_ops
+from ..ops import linear_power as lp_ops
 from ..ops import paint as paint_ops
 from ..ops import power as power_ops
+from ..utils.cosmology import Cosmology
 
-__all__ = ["PowerSpectrum3D", "Bispectrum3D", "PowMes",
-           "AngularPowerSpectrum"]
+__all__ = ["PowerSpectrum3D", "Bispectrum3D", "Bispectrum2D", "PowMes",
+           "AngularPowerSpectrum", "LinearPowerSpectrum",
+           "LinearAngularPowerSpectrum"]
 
 
 def _host(t) -> np.ndarray:
@@ -291,3 +292,110 @@ class AngularPowerSpectrum:
         raise NotImplementedError(
             "AngularPowerSpectrum.to_skyhealpix is not ported yet: it waits "
             "for the SHT stack, ROADMAP.md queue 1 item 6")
+
+
+class LinearPowerSpectrum:
+    """Theory P(k) (EH98), its Kaiser multipoles, halofit / halo-model
+    P(k) and the linear ISW source power; numpy out. k given as numpy goes
+    to `device`, by default the CUDA card (it raises without one); a
+    tensor keeps its device."""
+
+    def __init__(self, cosmo=None, device=None):
+        self.cosmo = cosmo or Cosmology()
+        self.device = device
+        self._amp = lp_ops.normalization(self.cosmo)
+
+    def _k(self, k):
+        return k if isinstance(k, torch.Tensor) else as_tensor(k,
+                                                              self.device)
+
+    def P_dd(self, k, z=0.0):
+        return _host(lp_ops.linear_power(self._k(k), self.cosmo, z=z,
+                                         amplitude=self._amp))
+
+    def P_dpdp(self, z, k):
+        return _host(lp_ops.p_dpdp(self._k(k), z, self.cosmo,
+                                   amplitude=self._amp))
+
+    def growth_functions(self, z):
+        return (float(self.cosmo.growth_factor(z)),
+                float(self.cosmo.growth_rate(z)))
+
+    def kaiser_multipoles(self, k, z=0.0, bias: float = 1.0):
+        """Linear Kaiser (P0, P2, P4) theory anchor for RSD clustering."""
+        return tuple(_host(p) for p in lp_ops.kaiser_multipoles(
+            self._k(k), self.cosmo, z=z, bias=bias, amplitude=self._amp))
+
+    def P_nl(self, k, z=0.0, method: str = "halofit"):
+        """Nonlinear P(k): 'halofit' (Takahashi+12) or 'halomodel'
+        (1h+2h, ops/halo_model.py)."""
+        if method == "halofit":
+            return _host(lp_ops.nonlinear_power(
+                self._k(k), self.cosmo, z=z, amplitude=self._amp))
+        if method == "halomodel":
+            from ..ops.halo_model import halo_model_power
+
+            _, _, pt = halo_model_power(self._k(k), self.cosmo, z=z,
+                                        amplitude=self._amp)
+            return _host(pt)
+        raise ValueError(f"unknown nonlinear method {method!r}")
+
+
+class LinearAngularPowerSpectrum:
+    """Linear ISW Cl_TT via Limber (`ops.angular_power.cl_isw_limber`),
+    and the linear convergence Cl; numpy out, computed on `device`, by
+    default the CUDA card (it raises without one)."""
+
+    def __init__(self, ell_range, z_range, cosmo=None, device=None):
+        self._ell_range = np.asarray(ell_range, float)
+        self._z_range = np.asarray(z_range, float)
+        self.cosmo = cosmo or Cosmology()
+        self.device = device
+        self._C_tt = None
+        self._outdated = True
+
+    @property
+    def ells(self):
+        return self._ell_range
+
+    @property
+    def Cl(self):
+        if self._outdated:
+            self.compute_C_tt()
+        return self._C_tt
+
+    def compute_C_tt(self):
+        from ..ops import angular_power as ap_ops
+
+        self._C_tt = _host(ap_ops.cl_isw_limber(
+            self._ell_range, self.cosmo,
+            z_min=float(self._z_range.min()),
+            z_max=float(self._z_range.max()), device=self.device))
+        self._outdated = False
+        return self._C_tt
+
+    def compute_C_kappa(self, z_source: float = 1.0):
+        """Linear convergence Cl via Limber (the theory anchor for measured
+        kappa spectra)."""
+        from ..ops import angular_power as ap_ops
+
+        return _host(ap_ops.cl_kappa_limber(
+            self._ell_range, self.cosmo, z_source=z_source,
+            device=self.device))
+
+
+class Bispectrum2D:
+    """Equilateral B(ell) of flat-sky maps (numpy out); a numpy map goes to
+    `device`, by default the CUDA card (it raises without one)."""
+
+    @staticmethod
+    def compute(skymap_or_img, opening_angle_deg: Optional[float] = None,
+                nbins: int = 16, on: str = "orig", device=None):
+        if hasattr(skymap_or_img, "_layer"):  # a SkyArray
+            img = skymap_or_img._layer(on)
+            opening_angle_deg = skymap_or_img.opening_angle
+        else:
+            img = as_tensor(skymap_or_img, device)
+        ell, b, ntri = bs_ops.bispectrum_2d_equilateral(
+            img, opening_angle_deg, nbins=nbins)
+        return _host(ell), _host(b), _host(ntri)

@@ -9,29 +9,27 @@ device="cpu"); a tensor keeps its device. Random layers draw from a
 `torch.Generator` seeded with `rnd_seed` (the same seed gives another
 realization than the JAX package's PRNG key).
 
-The analytic NFW halo constructors wait for their ops (the NFW maps of
-`ops/lensing.py`, patch painting and `ops/sz.py`) and raise
-NotImplementedError naming ROADMAP.md queue 1 item 4b.
+The analytic NFW halo constructors (`from_halo_series`,
+`from_halo_dataframe` and its reference-named alias) paint the moving-lens
+dT/T, deflection, kSZ and Compton-y patches of `ops/lensing.py` and
+`ops/sz.py`; a catalog's patches are built as one broadcast over halos.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._device import as_tensor
+from .._device import as_tensor, default_device
 from ..ops import filters as filter_ops
 
 __all__ = ["SkyArray", "SkyMap"]
 
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"SkyArray.{what} is not ported yet: it waits for ROADMAP.md queue "
-        f"1 {item}")
+# halo-patch pixels one chunk of from_halo_dataframe holds at most
+_HALO_CHUNK_PIXELS = 1 << 23
 
 
 class SkyArray:
@@ -168,26 +166,138 @@ class SkyArray:
     from_dataframe = from_columns
 
     @classmethod
-    def from_halo_series(cls, *args, **kwargs) -> "SkyArray":
-        """Analytic NFW halo signal patch: not ported yet."""
-        raise _not_ported("from_halo_series",
-                          "item 4b (the NFW maps of ops/lensing.py)")
+    def from_halo_series(cls, halo, npix: int, extent: float,
+                         direction: Sequence[int], suppress: bool,
+                         suppression_R: float, to: str = "dT",
+                         device=None) -> "SkyArray":
+        """Analytic NFW halo signal patch: to="dT" (moving-lens dT/T),
+        "alpha" (deflection) or "ksz".
+
+        `halo` (a dict or an object with these attributes) gives r200_deg,
+        m200, c_NFW, Dc (angular-diameter distance [Mpc]), and
+        theta1_tv / theta2_tv for dT, v_los for kSZ. The patch runs on
+        `device`, by default the CUDA card (it raises without one).
+        """
+        from ..ops import lensing
+        from ..ops import sz as sz_ops
+
+        get = lambda k: float(halo[k] if isinstance(halo, dict) else  # noqa
+                              getattr(halo, k))
+        if to == "dT":
+            arr = lensing.nfw_temperature_perturbation_map(
+                get("r200_deg"), get("m200"), get("c_NFW"),
+                [get("theta1_tv"), get("theta2_tv")], get("Dc"), npix=npix,
+                extent=extent, directions=tuple(direction),
+                suppress=suppress, suppression_r=suppression_R,
+                device=device)
+            quantity = "rs"
+        elif to == "alpha":
+            arr = lensing.nfw_deflection_angle_map(
+                get("r200_deg"), get("m200"), get("c_NFW"), get("Dc"),
+                npix=npix, extent=extent, directions=tuple(direction),
+                suppress=suppress, suppression_r=suppression_R,
+                device=device)
+            quantity = "alpha"
+        elif to == "ksz":
+            r200_mpc = float(np.tan(np.deg2rad(get("r200_deg")))
+                             * get("Dc"))
+            arr = sz_ops.ksz_patch_from_halo(
+                get("m200"), get("c_NFW"), r200_mpc, get("v_los"),
+                npix=npix, extent=extent, device=device)
+            return cls(arr, 2 * get("r200_deg") * extent, "ksz")
+        else:
+            raise ValueError(f"unknown signal {to}")
+        if 0 in direction and 1 not in direction:
+            quantity += "_x"
+        elif 1 in direction and 0 not in direction:
+            quantity += "_y"
+        return cls(arr, 2 * get("r200_deg") * extent, quantity)
 
     @classmethod
-    def from_halo_dataframe(cls, *args, **kwargs) -> "SkyArray":
-        """Many NFW / kSZ / Compton-y halo patches on one canvas: not
-        ported yet."""
-        raise _not_ported("from_halo_dataframe",
-                          "item 4b (the NFW maps and patch painting of "
-                          "ops/lensing.py, and ops/sz.py)")
+    def from_halo_dataframe(cls, halo_cat, npix: int, extent: float,
+                            direction: Sequence[int], suppress: bool,
+                            suppression_R: float, to: str = "dT",
+                            opening_angle: Optional[float] = None,
+                            patch_npix: int = 101,
+                            device=None) -> "SkyArray":
+        """Paint many halos onto one (npix, npix) canvas: to="dT", "ksz",
+        "y" (Compton-y) or anything else for the deflection.
+
+        halo_cat: dict of columns: r200_deg, m200, c_NFW, Dc, theta1_pix,
+        theta2_pix, with theta1_tv / theta2_tv for dT, v_los for kSZ, and
+        m500 [Msun, physical], r500 [Mpc], e_z for y. The patches of all
+        halos are one broadcast over halos (in chunks of halos), each
+        element computed as the scalar patch function computes it, then
+        painted in halo order (`ops.lensing.paint_halo_patches`). Runs on
+        `device`, by default the CUDA card (it raises without one).
+        """
+        from ..ops import lensing
+        from ..ops import sz as sz_ops
+
+        get = lambda k: np.asarray(halo_cat[k], np.float64)  # noqa: E731
+        nh = len(get("m200"))
+        dirs = tuple(direction)
+
+        def patches(sl):
+            if to == "dT":
+                th, m, c, d, ext, sup, v1, v2 = lensing._halo_tensors(
+                    get("r200_deg")[sl], get("m200")[sl], get("c_NFW")[sl],
+                    get("Dc")[sl], extent, suppression_R,
+                    get("theta1_tv")[sl], get("theta2_tv")[sl],
+                    device=device)
+                return lensing._nfw_temperature_stack(
+                    th, m, c, torch.stack([v1, v2], dim=-1), d, patch_npix,
+                    ext, dirs, suppress, sup)
+            if to == "ksz":
+                r200_mpc = np.tan(np.deg2rad(get("r200_deg")[sl])) \
+                    * get("Dc")[sl]
+                m, c, r, v, ext = lensing._halo_tensors(
+                    get("m200")[sl], get("c_NFW")[sl], r200_mpc,
+                    get("v_los")[sl], extent, device=device)
+                return sz_ops._ksz_stack(m, c, r, v, patch_npix, ext)
+            if to == "y":
+                m5, r5, ez, ext = lensing._halo_tensors(
+                    get("m500")[sl], get("r500")[sl], get("e_z")[sl],
+                    extent, device=device)
+                return sz_ops._compton_y_stack(m5, r5, ez, patch_npix, ext)
+            th, m, c, d, ext, sup = lensing._halo_tensors(
+                get("r200_deg")[sl], get("m200")[sl], get("c_NFW")[sl],
+                get("Dc")[sl], extent, suppression_R, device=device)
+            return lensing._nfw_deflection_stack(th, m, c, d, patch_npix,
+                                                 ext, dirs, suppress, sup)
+
+        centers = np.stack([get("theta1_pix").astype(np.int32),
+                            get("theta2_pix").astype(np.int32)], axis=-1)
+        out = None
+        chunk = max(1, _HALO_CHUNK_PIXELS // patch_npix ** 2)
+        for a in range(0, nh, chunk):
+            sl = slice(a, a + chunk)
+            stack = patches(sl)
+            if out is None:
+                out = torch.zeros(npix * npix, device=stack.device)
+            lensing._add_patches_(out, npix, stack, centers[sl])
+        if out is None:
+            out = torch.zeros(npix * npix, device=default_device(device))
+        if opening_angle is None:
+            # the FOV from the pixel scale implied by the first halo
+            oa = float(get("r200_deg")[0] * npix
+                       / max(float(np.asarray(halo_cat["r200_pix"])[0]), 1))
+        else:
+            oa = opening_angle
+        quantity = {"dT": "rs", "ksz": "ksz", "y": "y"}.get(to, "alpha")
+        return cls(out.reshape(npix, npix), oa, quantity)
 
     @classmethod
     def from_halo_catalogue_to_temperature_perturbation_map(
-            cls, *args, **kwargs) -> "SkyArray":
-        """The NFW moving-cluster temperature map: not ported yet."""
-        raise _not_ported(
-            "from_halo_catalogue_to_temperature_perturbation_map",
-            "item 4b (nfw_temperature_perturbation_map of ops/lensing.py)")
+            cls, halo_cat, extent: float = 1.0, direction=(0, 1),
+            suppress: bool = False, suppression_R: float = 1.0,
+            npix: int = 8192, opening_angle: float = 20.0, **kw
+    ) -> "SkyArray":
+        """Reference-named alias (the moving-cluster dT map) for
+        from_halo_dataframe(to='dT')."""
+        return cls.from_halo_dataframe(
+            halo_cat, npix, extent, list(direction), suppress,
+            suppression_R, to="dT", opening_angle=opening_angle, **kw)
 
     # -------------------------------------------------------------- analysis
     def pdf(self, nbins: int, of: str = "orig") -> dict:

@@ -1,7 +1,8 @@
 """Angular power spectra on the flat sky and the Limber convergence power.
 
 Port of `_flat_sky_binning`, `cl_flat_sky`, `flat_sky_mode_counts`,
-`cl_flat_sky_cross`, `cl_kappa_cross_limber`, `cl_kappa_limber`,
+`cl_flat_sky_cross`, `cl_isw_limber`, `cl_kappa_cross_limber`,
+`cl_kappa_limber`,
 `cl_to_flat_map`, `shear_eb_maps`, `kappa_to_shear_maps`, `cl_shear_eb`
 and the n(z) Limber kernels of astrild_tpu/ops/angular_power.py.
 `cl_to_flat_map` draws its white noise from a `torch.Generator` where the
@@ -16,7 +17,7 @@ the graph, so a Fisher Jacobian runs through them); the n(z) kernels
 `cl_galaxy_limber_nz`) always take the tensor route, on a float-field
 cosmology through `Cosmology.with_tensor_fields`.
 
-Not ported yet: the ISW spectrum and the masked (MASTER) estimators.
+Not ported yet: the masked (MASTER) estimators.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ from .linear_power import (_halofit_power, _unnormalized_power,
 from .power import _mode_numbers
 
 __all__ = ["cl_flat_sky", "cl_flat_sky_cross", "flat_sky_mode_counts",
-           "cl_kappa_cross_limber", "cl_kappa_limber", "cl_kappa_limber_nz",
+           "cl_isw_limber", "cl_kappa_cross_limber", "cl_kappa_limber",
+           "cl_kappa_limber_nz",
            "cl_galaxy_limber_nz", "smail_nz", "C1_RHO_CR", "cl_to_flat_map",
            "cl_to_flat_map_from_white", "shear_eb_maps",
            "kappa_to_shear_maps", "cl_shear_eb"]
@@ -134,6 +136,40 @@ def cl_flat_sky_cross(img1, img2, opening_angle_deg, nbins: int = 50,
     _, cm = cl_flat_sky(img1 - img2, opening_angle_deg, nbins=nbins,
                         ell_min=ell_min, ell_max=ell_max)
     return ell, 0.25 * (cp - cm)
+
+
+def cl_isw_limber(ells, cosmo: Cosmology, z_min=0.08, z_max=0.9,
+                  nz: int = 256, amplitude=None, device=None):
+    """Linear ISW C_ell^TT via the Limber approximation:
+      C_ell = (4/c^5) int dz (1+z)^-2 chi^-2 P_dpdp(k = ell/chi, z)
+    by the trapezoid rule on nz redshifts, all ells at once.
+
+    ells are placed as in `cl_kappa_cross_limber`. With float fields the
+    redshift nodes are the JAX package's float32 jnp.linspace and their
+    distances and growth host values cast to float32; a traced cosmology
+    takes the tensor route: float64 nodes on its device, in the graph.
+    """
+    from ..utils.constants import C_LIGHT_KMS
+    from .linear_power import p_dpdp
+    from .profiles3d import _linspace_f32
+
+    if amplitude is None:
+        amplitude = normalization(cosmo)
+    ells = _ells_of(ells, cosmo, device, cosmo.traced)
+    if cosmo.traced:
+        ells = ells.to(cosmo.device)
+        z = torch.linspace(float(z_min), float(z_max), nz,
+                           dtype=torch.float64, device=cosmo.device)
+        chi = cosmo.comoving_distance(z)
+    else:
+        z = _linspace_f32(z_min, z_max, nz, ells.device)
+        chi = torch.as_tensor(np.asarray(cosmo.comoving_distance(
+            z.cpu().numpy()), np.float32), device=ells.device)
+    k = ells.to(chi.dtype)[:, None] / chi[None, :]       # (nell, nz)
+    integ = p_dpdp(k, z, cosmo, amplitude=amplitude) / ((1.0 + z) ** 2
+                                                        * chi ** 2)
+    cl = torch.trapezoid(integ, z, dim=-1)
+    return cl * 4.0 / C_LIGHT_KMS ** 5
 
 
 def cl_kappa_limber(ells, cosmo: Cosmology, z_source: float = 1.0,

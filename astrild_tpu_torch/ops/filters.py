@@ -12,6 +12,15 @@ float32 (not integer mode numbers: the reference's transfer functions are
 built from those floats), and every scalar enters as a float32 tensor, as
 a weakly typed Python scalar does in JAX. Numpy input goes to `device`, by
 default the CUDA card (it raises without one); tensors keep their device.
+
+`gaussian_derivative`, `dgd3`, `dgd3_window` and `aperture_photometry`
+also take their filter scale as a tensor, one scale per image of a batch
+(the moving-lens estimators of models/dipoles.py, which the JAX package
+vmaps): such a scale is a traced float32 value in JAX, so every quantity
+derived from it (the scale in pixels, the window's Gaussian widths, the
+aperture's ring radius, a decision) follows the float32 arithmetic in
+the JAX source's order, where a Python float scale is folded in float64
+first. A float scale keeps the scalar path.
 """
 from __future__ import annotations
 
@@ -77,6 +86,16 @@ def _sigma_pix(npix, theta_deg, scale_arcmin):
     return scale_arcmin / 60.0 * npix / theta_deg
 
 
+def _batched_scale_pix(npix: int, theta_deg, scale_arcmin):
+    """A tensor filter scale [arcmin], one per image, in pixels as the JAX
+    package's traced float32 arithmetic gives it: ((scale / 60) * npix) /
+    theta, shaped (nd, 1, 1) for (nd, npix, npix) images."""
+    scale = scale_arcmin.to(torch.float32).reshape(-1, 1, 1)
+    dev = scale.device
+    return ((scale / _f32(60.0, dev)) * _f32(float(npix), dev)
+            / _f32(theta_deg, dev))
+
+
 def _gaussian_transfer(n: int, sigma_pix, device):
     k1, k2 = _pix_freqs(n, device)
     sp = _f32(sigma_pix, device)
@@ -123,12 +142,16 @@ def gaussian_derivative(img, theta_deg, sigma_arcmin,
     """Derivative-of-Gaussian filter: conv with d^o0/dx0 d^o1/dx1 G_sigma.
 
     Spectral version of scipy.ndimage.gaussian_filter(..., order=orders);
-    derivatives are with respect to pixel coordinates.
+    derivatives are with respect to pixel coordinates. A tensor
+    sigma_arcmin (nd,) filters a batch of nd images with one scale each.
     """
     img = as_tensor(img, device)
     dev = img.device
     n = img.shape[-1]
-    sp = _f32(_sigma_pix(n, theta_deg, sigma_arcmin), dev)
+    if isinstance(sigma_arcmin, torch.Tensor):
+        sp = _batched_scale_pix(n, theta_deg, sigma_arcmin.to(dev))
+    else:
+        sp = _f32(_sigma_pix(n, theta_deg, sigma_arcmin), dev)
     k1, k2 = _pix_freqs(n, dev)
     transfer = torch.exp(_f32(-0.5, dev) * sp ** 2 * (k1 ** 2 + k2 ** 2)
                          ).to(torch.complex64)
@@ -142,7 +165,8 @@ def gaussian_derivative(img, theta_deg, sigma_arcmin,
 def dgd3(img, theta_deg, theta_i_arcmin, axis: int = 0, device=None):
     """DGD3 dipole filter (Yasini+18, arxiv:1812.04241): third-derivative
     Gaussians at scales (0.5, 1, 2) * theta_i, g(0.5) - g(1) + g(2), the
-    derivative along `axis`."""
+    derivative along `axis`. A tensor theta_i_arcmin (nd,) filters a batch
+    of nd images with one scale each."""
     img = as_tensor(img, device)
     orders = (3, 0) if axis == 0 else (0, 3)
     g1 = gaussian_derivative(img, theta_deg, 0.5 * theta_i_arcmin, orders)
@@ -156,7 +180,11 @@ def dgd3_window(npix: int, theta_deg, theta_i_arcmin, axis: int = 1,
     """Centered analytic DGD3 window W = sum_i s_i d^3/du^3 G(sigma_i), the
     matched filter of the moving-lens estimator (v_x = -c <W_x, dT> /
     <W_x, alpha_x>). axis=1 differentiates along array axis 1, axis=0
-    along axis 0. Made on `device`, by default the CUDA card."""
+    along axis 0. Made on `device`, by default the CUDA card. A tensor
+    theta_i_arcmin (nd,) gives (nd, npix, npix) windows, one per scale
+    (on the scale's device), in the traced float32 arithmetic."""
+    if isinstance(theta_i_arcmin, torch.Tensor):
+        return _dgd3_window_batched(npix, theta_deg, theta_i_arcmin, axis)
     dev = default_device(device)
     sp = _sigma_pix(npix, theta_deg, theta_i_arcmin)
     e = (torch.arange(npix, device=dev) - npix // 2).to(torch.float32)
@@ -171,6 +199,30 @@ def dgd3_window(npix: int, theta_deg, theta_i_arcmin, axis: int = 1,
         w = w + _f32(sign, dev) * (
             _f32(3.0, dev) * u / _f32(sig ** 4, dev)
             - _integer_pow(u, 3) / _f32(sig ** 6, dev)) * g
+    return w
+
+
+def _dgd3_window_batched(npix: int, theta_deg, theta_i_arcmin, axis: int):
+    """`dgd3_window` for (nd,) scales, each Gaussian width and its powers a
+    float32 value: g = exp(-r2 / (2 sig^2)) / (f32(2 pi) sig^2), term
+    sign * ((3 u) / sig^4 - u^3 / sig^6) * g, as lax.integer_pow forms
+    the powers."""
+    sp = _batched_scale_pix(npix, theta_deg, theta_i_arcmin)
+    dev = sp.device
+    e = (torch.arange(npix, device=dev) - npix // 2).to(torch.float32)
+    r2 = e[:, None] ** 2 + e[None, :] ** 2
+    ones = torch.ones(npix, device=dev)
+    u = e[None, :] * ones[:, None] if axis == 1 else e[:, None] * ones[None]
+    two_pi = _f32(2.0 * math.pi, dev)
+    w = None
+    for s, sign in ((0.5, 1.0), (1.0, -1.0), (2.0, 1.0)):
+        sig = _f32(s, dev) * sp
+        sig2 = _integer_pow(sig, 2)
+        g = torch.exp(-r2 / (_f32(2.0, dev) * sig2)) / (two_pi * sig2)
+        term = _f32(sign, dev) * (
+            _f32(3.0, dev) * u / _integer_pow(sig, 4)
+            - _integer_pow(u, 3) / _integer_pow(sig, 6)) * g
+        w = term if w is None else w + term
     return w
 
 
@@ -216,11 +268,25 @@ def _masked_mean(img, mask):
 def aperture_photometry(img, theta_deg, alpha_arcmin, device=None):
     """kSZ-style ring-mean subtraction (arxiv:1607.02139 Sec III.B):
     subtract from the whole image the mean of the ring [alpha,
-    alpha*sqrt(2)] around the image centre."""
+    alpha*sqrt(2)] around the image centre. A tensor alpha_arcmin (nd,)
+    takes a batch of nd images, one ring radius each."""
     img = as_tensor(img, device)
     dev = img.device
     n = img.shape[-1]
     dist = _centered_dist(n, dev)
+    if isinstance(alpha_arcmin, torch.Tensor):
+        # one ring per image: the radius ceil((alpha / 60) * f32(n /
+        # theta)) is a decision on a float32 value
+        alpha = alpha_arcmin.to(dev, torch.float32).reshape(-1, 1, 1)
+        alpha_pix = torch.ceil(alpha / _f32(60.0, dev)
+                               * _f32(n / theta_deg, dev))
+        ring = (dist > alpha_pix) & (dist < alpha_pix
+                                     * torch.sqrt(_f32(2.0, dev)))
+        zero = torch.zeros((), dtype=img.dtype, device=dev)
+        ringsum = torch.where(ring, img, zero).sum(dim=(-2, -1),
+                                                   keepdim=True)
+        cnt = torch.clamp_min(ring.sum(dim=(-2, -1), keepdim=True), 1)
+        return img - ringsum / cnt.to(img.dtype)
     alpha_pix = torch.ceil(_f32(alpha_arcmin / 60.0 * (n / theta_deg), dev))
     ring = (dist > alpha_pix) & (dist < alpha_pix
                                  * torch.sqrt(_f32(2.0, dev)))

@@ -3,14 +3,13 @@
 Port of astrild_tpu/ops/linear_power.py (`eh98_transfer`, the no-wiggle
 `eh98_transfer_nowiggle`, `_unnormalized_power`, `sigma_r`,
 `normalization`, `linear_power`, `linear_power_nowiggle`,
-`kaiser_multipoles`, and the halofit `_sigma2_gauss`, `nonlinear_power`).
+`kaiser_multipoles`, the linear ISW source power `p_dpdp`, and the
+halofit `_sigma2_gauss`, `nonlinear_power`).
 The k-dependent terms are torch ops in the dtype of `k`. For a cosmology
 with float fields the k-independent fit coefficients are host float64
 scalars and the halofit numbers host numpy; for a traced one
 (`Cosmology.traced`, tensor fields) they are float64 tensor ops that
 autograd and torch.func follow, as the JAX package's are jnp ops.
-
-Not ported yet: `p_dpdp`.
 
 Units: k in h/Mpc, P in (Mpc/h)^3.
 """
@@ -27,7 +26,8 @@ from ..utils.cosmology import Cosmology
 __all__ = ["eh98_transfer", "eh98_transfer_nowiggle", "linear_power",
            "linear_power_nowiggle", "sigma_r", "sigma_r_slope",
            "normalization",
-           "kaiser_multipoles", "nonlinear_power", "halofit_parameters"]
+           "kaiser_multipoles", "p_dpdp", "nonlinear_power",
+           "halofit_parameters"]
 
 
 def _sqrt(x):
@@ -267,6 +267,38 @@ def kaiser_multipoles(k_hmpc, cosmo: Cosmology, z=0.0, bias: float = 1.0,
     p2 = (4.0 * beta / 3.0 + 4.0 * beta ** 2 / 7.0) * b2p
     p4 = (8.0 * beta ** 2 / 35.0) * b2p
     return p0, p2, p4
+
+
+def _background(values, like):
+    """Cosmology values as tensors beside `like`: a traced cosmology's
+    float64 tensors as they are, the host route's float64 numpy cast to
+    `like`'s dtype and device (the JAX package's tables are float32)."""
+    if isinstance(values, torch.Tensor):
+        return values
+    return torch.as_tensor(np.asarray(values, np.float64), device=like.device
+                           ).to(like.dtype)
+
+
+def _host_z(z):
+    """z as the host route takes it (numpy for a tensor)."""
+    return z.detach().cpu().numpy() if isinstance(z, torch.Tensor) else z
+
+
+def p_dpdp(k_hmpc, z, cosmo: Cosmology, amplitude=None, device=None):
+    """Linear ISW source power (arxiv:0809.4488 Eq. 6):
+      P = (9/4) (H0/k)^4 Om^2 * H(z) * [D(z)(1-f(z))]^2 * P_dd(k, z=0)
+    with H0 = 100 (h-units). z is a scalar or broadcasts against k's last
+    axis. k is placed as in `eh98_transfer`; a traced cosmology gives its
+    background in float64 tensors, in the graph."""
+    k = _as_tensor(k_hmpc, device)
+    p_dd = linear_power(k, cosmo, z=0.0, amplitude=amplitude)
+    zq = z if cosmo.traced else _host_z(z)
+    d = _background(cosmo.growth_factor(zq), k)
+    f = _background(cosmo.growth_rate(zq), k)
+    hz = 100.0 * _background(cosmo.efunc(zq), k)
+    pref_static = 9.0 / 4.0 * (100.0 / k) ** 4 * cosmo.Om0 ** 2
+    pref_dyn = hz * (d * (1.0 - f)) ** 2
+    return pref_static * pref_dyn * p_dd
 
 
 # ----------------------------------------------------- halofit (nonlinear)

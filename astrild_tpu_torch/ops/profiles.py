@@ -39,13 +39,15 @@ def _linspace_jit_f32(start, stop, num: int, device):
     """jnp.linspace(start, stop, num) in float32 as XLA compiles it inside
     a jitted function: the division by num - 1 a product by its float32
     reciprocal r, and stop * (i r) reassociated to i (stop r), so
-    start (1 - i r) + i (stop r), then stop itself."""
+    start (1 - i r) + i (stop r), then stop itself. Tensor endpoints of
+    one shape give one such row each (shape (..., num))."""
     div = num - 1
     r = _f32(1.0 / div, device)
     i = torch.arange(div, device=device).to(torch.float32)
-    out = (_f32(start, device) * (1.0 - i * r)
-           + i * (_f32(stop, device) * r))
-    return torch.cat([out, _f32(stop, device).reshape(1)])
+    start, stop = torch.broadcast_tensors(_f32(start, device)[..., None],
+                                          _f32(stop, device)[..., None])
+    out = start * (1.0 - i * r) + i * (stop * r)
+    return torch.cat([out, stop], dim=-1)
 
 
 def object_profiles(skymap, centers_pix, radii_pix, patch_half: int,

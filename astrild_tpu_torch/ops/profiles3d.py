@@ -143,7 +143,8 @@ def fit_nfw(r, rho, n_iter: int = 60):
     Args: r (nbins,), rho (nh, nbins) tensors (zeros/NaN ignored).
     The JAX package takes the residual's jacobian by autodiff; here it is
     the closed form: with x = r / r_s, d model / d ln r_s = 1 + 2x/(1+x)
-    and d model / d ln rho_s = 1.
+    and d model / d ln rho_s = 1. The 2x2 normal equations are built from
+    elementwise products and sums and solved in closed form.
     Returns (rho_s (nh,), r_s (nh,)).
     """
     r = torch.as_tensor(r)
@@ -154,16 +155,21 @@ def fit_nfw(r, rho, n_iter: int = 60):
     lrs = torch.full((nh,), float(torch.log(r[r.shape[0] // 2])),
                      device=r.device)
     lrhos = torch.log(torch.where(good, rho, 1e-30).max(dim=1).values)
-    eye = 1e-6 * torch.eye(2, device=r.device)
     for _ in range(n_iter):
         x = r[None, :] / torch.exp(lrs)[:, None]
         model = lrhos[:, None] - torch.log(x) - 2.0 * torch.log1p(x)
         res = torch.where(good, model - logrho, 0.0)
-        jac = torch.stack([torch.where(good, 1.0 + 2.0 * x / (1.0 + x), 0.0),
-                           torch.where(good, 1.0, 0.0)], dim=-1)
-        jtj = jac.transpose(1, 2) @ jac + eye
-        step = torch.linalg.solve(jtj, (jac.transpose(1, 2)
-                                        @ res[..., None]))[..., 0]
-        lrs = lrs - step[:, 0]
-        lrhos = lrhos - step[:, 1]
+        j0 = torch.where(good, 1.0 + 2.0 * x / (1.0 + x), 0.0)
+        j1 = torch.where(good, 1.0, 0.0)
+        # the normal equations (J^T J + 1e-6 I) step = J^T res as sums of
+        # elementwise products, solved in closed form: no matrix product
+        # or solver a caller's TF32 setting could reach
+        a = torch.sum(j0 * j0, dim=1) + 1e-6
+        b = torch.sum(j0 * j1, dim=1)
+        d = torch.sum(j1 * j1, dim=1) + 1e-6
+        g0 = torch.sum(j0 * res, dim=1)
+        g1 = torch.sum(j1 * res, dim=1)
+        det = a * d - b * b
+        lrs = lrs - (d * g0 - b * g1) / det
+        lrhos = lrhos - (a * g1 - b * g0) / det
     return torch.exp(lrhos), torch.exp(lrs)

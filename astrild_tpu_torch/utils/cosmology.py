@@ -21,10 +21,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .constants import C_LIGHT_KMS, H0_HUNITS, H0_OVER_C_HMPC
+from .constants import (C_LIGHT_KMS, G_NEWTON, H0_HUNITS, H0_OVER_C_HMPC,
+                        MPC_KM, RHO_CRIT0)
 from .tables import interp
 
-__all__ = ["Cosmology"]
+__all__ = ["Cosmology", "PLANCK18"]
 
 _A_MIN = 1.0e-3
 _N_TABLE = 1024
@@ -40,7 +41,8 @@ def _cumtrapz0(f, d):
 
 class _Host:
     """The numpy route of the float-field tables."""
-    exp, log, sqrt, interp = np.exp, np.log, np.sqrt, np.interp
+    exp, log, sqrt, interp, where = np.exp, np.log, np.sqrt, np.interp, \
+        np.where
     cumtrapz0 = staticmethod(_cumtrapz0)
     grid = staticmethod(np.linspace)
 
@@ -48,11 +50,19 @@ class _Host:
     def asarray(x):
         return np.asarray(x, np.float64)
 
+    @staticmethod
+    def clamp0(x):
+        return np.clip(x, 0.0, None)
+
 
 class _Traced:
     """The float64 torch route of a cosmology with tensor fields."""
-    exp, log, sqrt = torch.exp, torch.log, torch.sqrt
+    exp, log, sqrt, where = torch.exp, torch.log, torch.sqrt, torch.where
     interp = staticmethod(interp)
+
+    @staticmethod
+    def clamp0(x):
+        return torch.clamp_min(x, 0.0)
 
     def __init__(self, device):
         self.device = device
@@ -203,10 +213,22 @@ class Cosmology:
     def efunc(self, z):
         return self.efunc_a(1.0 / (1.0 + self._ops.asarray(z)))
 
+    def H(self, z):
+        """H(z) in km/s/(Mpc/h)."""
+        return H0_HUNITS * self.efunc(z)
+
     def Om(self, z):
         """Omega_m(z) = Om0 (1+z)^3 / E(z)^2."""
         z = self._ops.asarray(z)
         return self.Om0 * (1.0 + z) ** 3 / self.efunc(z) ** 2
+
+    def rho_crit(self, z):
+        """Critical density at z in (Msun/h)/(Mpc/h)^3 (comoving h-units)."""
+        return RHO_CRIT0 * self.efunc(z) ** 2
+
+    def rho_mean0(self):
+        """Mean comoving matter density, (Msun/h)/(Mpc/h)^3."""
+        return RHO_CRIT0 * self.Om0
 
     # ------------------------------------------------------------ distances
     def _build_distance_table(self):
@@ -225,6 +247,61 @@ class Cosmology:
         """Inverse of comoving_distance, by table inversion."""
         return self._ops.interp(self._ops.asarray(chi), self._chi_tab,
                                 self._z_tab)
+
+    def angular_diameter_distance(self, z):
+        """D_A(z) = chi(z)/(1+z) in Mpc/h."""
+        z = self._ops.asarray(z)
+        return self.comoving_distance(z) / (1.0 + z)
+
+    def _hubble_time_gyr(self):
+        """1/H0 in Gyr: (Mpc/h / (km/s)) -> s -> Gyr."""
+        return MPC_KM / (H0_HUNITS * self.h) / 3.15576e16
+
+    def lookback_time(self, z):
+        """Lookback time in Gyr (h-free: uses physical H0 = 100 h), the
+        cumulative trapezoid of 1/((1+z) E(z)) on the distance table's z
+        grid, interpolated."""
+        ops = self._ops
+        z = ops.asarray(z)
+        zt = self._z_tab
+        cum = ops.cumtrapz0(1.0 / ((1.0 + zt) * self.efunc(zt)),
+                            zt[1] - zt[0])
+        return ops.interp(z, zt, cum) * self._hubble_time_gyr()
+
+    def age(self, z=0.0):
+        """Cosmic time (age of the universe) at redshift z, in Gyr: the
+        lookback integral over the background table plus the
+        matter-dominated closed form beyond the table's z_max = 40
+        (t = 2/(3 H sqrt(Om) (1+z)^{3/2})), which also answers for z
+        beyond the table."""
+        ops = self._ops
+        z = ops.asarray(z)
+        zmax = self._z_tab[-1]
+        t_h = self._hubble_time_gyr()
+        root = ops.sqrt(ops.asarray(self.Om0))
+        t_md = (2.0 / 3.0) / root * t_h * (1.0 + z) ** -1.5
+        t_tail = (2.0 / 3.0) / root * (1.0 + zmax) ** -1.5 * t_h
+        t_table = self.lookback_time(zmax) - self.lookback_time(z) + t_tail
+        return ops.where(z > zmax, t_md, t_table)
+
+    # -------------------------------------------------------------- lensing
+    def lensing_kernel(self, chi, chi_s):
+        """Lensing efficiency g(chi) = (chi_s - chi) * chi / chi_s."""
+        chi = self._ops.asarray(chi)
+        return self._ops.clamp0(chi_s - chi) * chi / chi_s
+
+    def sigma_crit_inv(self, z_l, z_s):
+        """1/Sigma_crit in (Mpc/h)^2/(Msun/h) (comoving)."""
+        ops = self._ops
+        z_l, z_s = ops.asarray(z_l), ops.asarray(z_s)
+        chi_l = self.comoving_distance(z_l)
+        chi_s = self.comoving_distance(z_s)
+        d_ls = ops.clamp0(chi_s - chi_l) / (1.0 + z_s)
+        d_l = chi_l / (1.0 + z_l)
+        d_s = chi_s / (1.0 + z_s)
+        # Sigma_crit = c^2 / (4 pi G) * D_s / (D_l D_ls)
+        pref = C_LIGHT_KMS ** 2 / (4.0 * np.pi * G_NEWTON)
+        return d_l * d_ls / (ops.where(d_s > 0, d_s, 1.0) * pref)
 
     # --------------------------------------------------------------- growth
     def _build_growth_table(self):
@@ -267,3 +344,18 @@ class Cosmology:
         base = om * self._ops.asarray(a) ** -3.0 + 4.0 * ol
         return (base ** (n + 2.0) / ((om + 4.0 * ol) ** (n + 1.0))
                 / ((n + 1.0) * abs(self.fR0)) * H0_OVER_C_HMPC ** 2)
+
+
+_PLANCK18_CACHE = None
+
+
+def __getattr__(name):
+    """PEP 562 lazy module attribute: `PLANCK18` (the default fields, the
+    JAX package's Planck-2018-like set) builds its tables on first use,
+    not when the module is imported."""
+    if name == "PLANCK18":
+        global _PLANCK18_CACHE
+        if _PLANCK18_CACHE is None:
+            _PLANCK18_CACHE = Cosmology()
+        return _PLANCK18_CACHE
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

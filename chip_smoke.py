@@ -193,7 +193,34 @@ exits non-zero before the final line:
      the card; K2 launches exactly 15 (4 + 4 + 1 + 4 + 1 + 1), K3 1, K1
      and K4 0; then K2 at the new shapes (TSC and CIC of 2^18 onto 128^3, the
      halos' weighted TSC onto 256^3, 2^27 onto 256^3) and K3 on the halos
-     against their plain versions and timed in turns.
+     against their plain versions and timed in turns;
+ 16. the moving-lens, SZ and ISW path (after phase 15): (a) a halo
+     lightcone of phase 12's SO halos with phase 15's velocities over 3
+     box replicas along the line of sight (100-1500 Mpc/h), its z, D_A,
+     Duffy concentrations, v_los and M500c / r500c / E(z) in physical
+     units; (b) dT/T, alpha_x, alpha_y, kSZ and Compton-y on the 8192^2,
+     20 deg canvas through SkyArray.from_halo_dataframe (101-pixel
+     patches); (c) SkyArray.filter (DGD3) -> Dipoles.from_sky ->
+     find_nearest -> both transverse-velocity estimators: on the matched
+     halos whose crop holds no other halo's patch (>= 10 of them), the
+     matched filter's median |v_rec - v_true| / |v_true| under 0.35 for
+     each component (the reference mode's printed beside it); (d) the kSZ
+     map's stacked aperture photometry at the halo centres, receding
+     stack < 0 < approaching stack; Cl_yy at ell 100-5000 beside the y
+     map's flat-sky C_ell (printed); (e) sph_surface_density of the 2^27
+     particles onto 2048^2 (4 buckets, log-uniform smoothing lengths;
+     mass to 1e-5), kappa_to_phi of phase 9's Born map ->
+     shear_from_potential (its kappa correlating > 0.9 with the Born
+     map) and fermat_potential, the image finder behind the most massive
+     halo's 1024^2 deflection patch (n_found and the magnifications'
+     signs printed), the Born map remapped by that deflection; (f)
+     LinearAngularPowerSpectrum's C_TT at ell 2-2000 and P_dpdp
+     (positive), Bispectrum2D of the Born map in 16 bins; (g) (b) and
+     (c) on a 2048^2 / 5 deg canvas, (e)'s image finder and remap and (f)
+     on the card against the same port on the CPU: maps within 2e-5 of
+     their max, the isolated matched halos' velocities and the image
+     positions within 1e-3, the rest within 1e-4; (h) numpy input to every new entry point on the card;
+     K1-K4 launches exactly 0.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -321,6 +348,30 @@ MA_BOOT, MA_TROUGHS, MA_TROUGH_FRAC, MA_TROUGH_ARCMIN = 100, 20000, 0.2, 5.0
 MA_MF_SMOOTH_PIX, MA_MF_BINS, MA_AP_SCALES = 4.0, 24, (2.0, 4.0, 8.0)
 MA_VEL_NGRID, MA_PK_NGRID, MA_SVF_NGRID, MA_V12_MIN_PAIRS = 256, 256, 256, 100
 FP_CPU_TOL = 1e-4
+# the moving-lens, SZ and ISW path: the halo lightcone's box replicas
+# along the line of sight from its nearest distance [Mpc/h]; the full-width
+# canvas and field [deg] and the patch side and extent (the defaults of
+# SkyArray.from_halo_catalogue_to_temperature_perturbation_map); the DGD3
+# detection (SNR cut and edge; its scale is the painted patches' R200, 50
+# pixels of the canvas), the estimators' crop half-side and the matched
+# filter's bar (the JAX package's test_dipoles_pipeline); the stacked
+# aperture [arcmin]; the Cl_yy ells; the SPH projection (pixels, buckets,
+# log-uniform smoothing lengths [Mpc/h]); the strong-lensing patch
+# (pixels, extent in R200; the source is the image of the point that many
+# Einstein radii out on the patch's axis); the ISW ells
+# and redshifts; the 2D bispectrum's bins; the card / CPU comparison's
+# canvas and field, and its bars (maps relative to their max, velocities
+# and the rest relative)
+ML_REPLICAS, ML_CHI_MIN = 3, 100.0
+ML_NPIX, ML_OA, ML_PATCH, ML_EXTENT = 8192, 20.0, 101, 1.0
+ML_SNR, ML_EDGE = 2.0, 4
+ML_CROP, ML_VT_BAR = 64, 0.35
+ML_AP_ARCMIN, ML_YY_ELLS = 3.0, (100.0, 5000.0, 16)
+ML_SPH_NPIX, ML_SPH_BUCKETS, ML_HSML = 2048, 4, (0.05, 2.0)
+ML_SL_NPIX, ML_SL_EXTENT, ML_SL_IMAGE = 1024, 0.2, 1.1
+ML_ISW_ELLS, ML_ISW_Z, ML_BS_BINS = (2, 2000), (0.08, 0.9), 16
+ML_SMALL_NPIX, ML_SMALL_OA = 2048, 5.0
+ML_MAP_TOL, ML_VT_TOL, ML_CPU_TOL = 2e-5, 1e-3, 1e-4
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -3948,6 +3999,592 @@ def phase_map_analysis(dev, seed: int, kappa_born, so_cat, out_gr,
               "peak_mem_gb": peak_gb, **out, "k2_timing_ms": k2,
               "k3_timing_ms": k3}
     log("# map_analysis " + json.dumps(result))
+    # the halos' velocities go on to phase 16 (not in the printed line)
+    result["halo_velocities"] = hvel
+    return result
+
+
+def _moving_lens_catalog(so_cat, hvel, cosmo, npix: int, oa: float) -> dict:
+    """Phase 12's SO halos (M200m, comoving R200m) with phase 15's
+    velocities in a halo lightcone of ML_REPLICAS box replicas along the
+    line of sight, on an (npix, npix) canvas over oa degrees, with the
+    columns the facades read in the physical units the NFW and SZ
+    functions document: z, Dc (angular-diameter distance [Mpc]), m200
+    [Msun], c_NFW (Duffy), v_los [km/s], m500 [Msun], r500 [Mpc], e_z."""
+    from astrild_tpu_torch.models import (halo_lightcone_catalog,
+                                          merge_lightcone_catalogs)
+    from astrild_tpu_torch.ops.halo_model import duffy_concentration
+    from astrild_tpu_torch.ops.sz import m500c_from_m200m
+
+    pos = np.stack([so_cat["x"], so_cat["y"], so_cat["z"]], axis=-1)
+    cat = merge_lightcone_catalogs([
+        halo_lightcone_catalog(pos, hvel, so_cat["mass"], so_cat["radius"],
+                               BOX, r * BOX,
+                               (max(r * BOX, ML_CHI_MIN), (r + 1) * BOX),
+                               oa, npix, box_nr=r)
+        for r in range(ML_REPLICAS)])
+    h = cosmo.h
+    z = np.asarray(cosmo.redshift_at_comoving_distance(cat["rad_dist"]))
+    m_h = cat["m200"]                                   # Msun/h, 200 mean
+    m500, r500 = (t.cpu().numpy().astype(np.float64)
+                  for t in m500c_from_m200m(m_h, z, cosmo))
+    cat.update(
+        z=z, m200_h=m_h, m200=m_h / h,
+        Dc=np.asarray(cosmo.angular_diameter_distance(z)) / h,
+        c_NFW=duffy_concentration(m_h, z=z),
+        v_los=(cat["x_vel"] * cat["x"] + cat["y_vel"] * cat["y"]
+               + cat["z_vel"] * cat["z"]) / cat["rad_dist"],
+        m500=m500 / h, r500=r500 / h,
+        e_z=np.asarray(cosmo.efunc(z)))
+    return cat
+
+
+def _sub_catalog(cat: dict, npix: int, oa: float) -> dict:
+    """The halos inside the central oa degrees of the full field, with
+    their angles and pixels on an (npix, npix) canvas over that field."""
+    lo = ML_OA / 2.0 - oa / 2.0
+    t1, t2 = cat["theta1_deg"] - lo, cat["theta2_deg"] - lo
+    sel = (t1 >= 0) & (t1 < oa) & (t2 >= 0) & (t2 < oa)
+    out = {k: v[sel] for k, v in cat.items()}
+    out["theta1_deg"], out["theta2_deg"] = t1[sel], t2[sel]
+    out["theta1_pix"] = np.rint(t1[sel] * npix / oa).astype(int)
+    out["theta2_pix"] = np.rint(t2[sel] * npix / oa).astype(int)
+    return out
+
+
+ML_SIGNALS = (("dT", "dT", (0, 1)), ("alpha_x", "alpha", (0,)),
+              ("alpha_y", "alpha", (1,)), ("ksz", "ksz", (0,)),
+              ("y", "y", (0,)))
+
+
+def _moving_lens_map(cat: dict, to: str, direction, npix: int, oa: float,
+                     device=None):
+    """One halo map of `cat` through SkyArray.from_halo_dataframe (numpy
+    columns: on the card unless `device` says otherwise)."""
+    from astrild_tpu_torch.models import SkyArray
+
+    return SkyArray.from_halo_dataframe(
+        cat, npix, ML_EXTENT, direction, False, 1.0, to=to,
+        opening_angle=oa, patch_npix=ML_PATCH, device=device).data["orig"]
+
+
+def _moving_lens_maps(cat: dict, npix: int, oa: float, device=None) -> dict:
+    """The five halo maps of `cat`."""
+    return {name: _moving_lens_map(cat, to, direction, npix, oa, device)
+            for name, to, direction in ML_SIGNALS}
+
+
+def _dipole_velocities(maps: dict, cat: dict, oa: float):
+    """DGD3-filtered dT -> Dipoles.from_sky -> find_nearest -> both vt
+    estimators; returns the dipole catalog's columns."""
+    from astrild_tpu_torch.models import Dipoles, SkyArray
+
+    sky = SkyArray.from_array(maps["dT"], oa, "isw_rs")
+    # the DGD3 scale: the patches' R200 (ML_PATCH // 2 canvas pixels)
+    theta_i = (ML_PATCH // 2) * oa * 60.0 / sky.npix
+    sky.filter({"gaussian_third_derivative": {
+        "abbrev": "dgd3", "theta_i_arcmin": theta_i, "axis": 1}})
+    dips = Dipoles.from_sky(sky, on="orig_dgd3", snr_threshold=ML_SNR,
+                            edge_pix=ML_EDGE)
+    dips.find_nearest(cat)
+    args = (maps["dT"], maps["alpha_x"], maps["alpha_y"], oa)
+    dips.get_transverse_velocities_from_sky(*args, patch_pix=ML_CROP)
+    dips.get_transverse_velocities_reference_mode(*args, patch_pix=ML_CROP)
+    return dips.data
+
+
+def _isolated(d: dict, cat: dict) -> np.ndarray:
+    """Dipoles matched to a halo whose crop holds no other halo's patch,
+    with a matched-filter velocity."""
+    idx = np.asarray(d["halo_idx"])
+    ok = (idx >= 0) & (np.asarray(d["theta1_mtvel"]) > -99999)
+    reach = ML_CROP + ML_PATCH // 2
+    t1, t2 = cat["theta1_pix"], cat["theta2_pix"]
+    for i in np.nonzero(ok)[0]:
+        j = idx[i]
+        near = np.maximum(np.abs(t1 - t1[j]), np.abs(t2 - t2[j])) <= reach
+        ok[i] = near.sum() == 1
+    return ok
+
+
+def _vt_errors(d: dict, ok: np.ndarray, suffix: str = "") -> dict:
+    """Median |v_rec - v_true| / |v_true| of each component over `ok`."""
+    out = {}
+    for comp in ("theta1", "theta2"):
+        v = np.asarray(d[f"{comp}_mtvel{suffix}"])[ok]
+        t = np.asarray(d[f"{comp}_tv"])[ok]
+        good = v > -99999
+        out[comp] = (float(np.median(np.abs(v[good] - t[good])
+                                     / np.abs(t[good])))
+                     if good.any() else None)
+    return out
+
+
+def _moving_lens_placement_checks() -> list:
+    """Each new public entry point of the path given numpy input and no
+    device: its result must lie on the card. Returns the names checked."""
+    from astrild_tpu_torch import Cosmology
+    from astrild_tpu_torch.models import (Bispectrum2D, Dipoles,
+                                          LinearAngularPowerSpectrum,
+                                          LinearPowerSpectrum, SkyArray)
+    from astrild_tpu_torch.ops import (angular_power, bispectrum, filters,
+                                       lensing, linear_power, strong_lensing,
+                                       sz)
+
+    rng = np.random.default_rng(16)
+    img = rng.normal(size=(64, 64)).astype(np.float32)
+    pos = rng.uniform(0, 10.0, (500, 2)).astype(np.float32)
+    w = rng.uniform(1, 2, 500).astype(np.float32)
+    c = np.linspace(-1, 1, 33).astype(np.float32)
+    x1, x2 = np.meshgrid(c, c, indexing="ij")
+    cosmo = Cosmology()
+    halo = {"r200_deg": 0.1, "m200": 5e14, "c_NFW": 6.0, "Dc": 1200.0,
+            "theta1_tv": 300.0, "theta2_tv": -200.0, "v_los": 400.0}
+    cat = {k: np.full(3, v) for k, v in halo.items()}
+    cat.update(theta1_pix=np.array([10, 30, 50]),
+               theta2_pix=np.array([12, 40, 20]), r200_pix=np.full(3, 4.0),
+               m500=np.full(3, 4e14), r500=np.full(3, 1.0),
+               e_z=np.full(3, 1.1))
+    calls = {
+        "lensing.nfw_deflection_angle_map": lambda:
+            lensing.nfw_deflection_angle_map(0.08, 3e14, 4.0, 900.0,
+                                             npix=33),
+        "lensing.nfw_temperature_perturbation_map": lambda:
+            lensing.nfw_temperature_perturbation_map(
+                0.08, 3e14, 4.0, np.array([300.0, -100.0]), 900.0, npix=33),
+        "lensing.nfw_dipole_patch": lambda: lensing.nfw_dipole_patch(
+            1e15, [1000.0, 0.0], 0.3, npix=32),
+        "sz.nfw_sigma_map": lambda: sz.nfw_sigma_map(1e15, 5.0, 2.0,
+                                                     npix=32),
+        "sz.nfw_tau_map": lambda: sz.nfw_tau_map(1e15, 5.0, 2.0, npix=32),
+        "sz.ksz_patch_from_halo": lambda: sz.ksz_patch_from_halo(
+            3e14, 6.0, 1.2, 300.0, npix=32),
+        "sz.compton_y_patch": lambda: sz.compton_y_patch(5e14, 1.3, 1.0,
+                                                         npix=32),
+        "sz.stacked_aperture_photometry": lambda:
+            sz.stacked_aperture_photometry(img, np.array([[20, 30]]), 2.0,
+                                           4.0, 8)[0],
+        "sz.m500c_from_m200m": lambda: sz.m500c_from_m200m(
+            np.array([1e14, 1e15]), 0.3, cosmo)[0],
+        "sz.y_ell": lambda: sz.y_ell(np.array([100.0, 1000.0]), 5e14, 1.3,
+                                     1.0, 1000.0),
+        "sz.cl_yy": lambda: sz.cl_yy(np.array([300.0, 3000.0]), cosmo,
+                                     nz=4, nm=8),
+        "strong_lensing.sph_surface_density": lambda:
+            strong_lensing.sph_surface_density(pos, w, w, 32, 10.0),
+        "strong_lensing.remap_image": lambda: strong_lensing.remap_image(
+            img, x1 * 20 + 30, x2 * 20 + 30),
+        "strong_lensing.shear_from_potential": lambda:
+            strong_lensing.shear_from_potential(img, 1.0)[0],
+        "strong_lensing.mapping_triangles": lambda:
+            strong_lensing.mapping_triangles(
+                np.array([0.1, -0.2], np.float32), x1, x2, x1, x2)[0],
+        "strong_lensing.fermat_potential": lambda:
+            strong_lensing.fermat_potential(img, 1e-4,
+                                            np.array([5e-5, 5e-5])),
+        "strong_lensing.time_delay_days": lambda:
+            strong_lensing.time_delay_days(img[0], 0.5, 1e3, 1.6e3, 900.0),
+        "linear_power.p_dpdp": lambda: linear_power.p_dpdp(
+            np.logspace(-2, 0, 8), 0.5, cosmo),
+        "angular_power.cl_isw_limber": lambda:
+            angular_power.cl_isw_limber(np.array([10.0, 100.0]), cosmo),
+        "bispectrum.bispectrum_2d_equilateral": lambda:
+            bispectrum.bispectrum_2d_equilateral(img, 5.0, nbins=4)[1],
+        "filters.dgd3_window (tensor scales)": lambda: filters.dgd3_window(
+            32, 2.0, torch.tensor([3.0, 5.0], device="cuda")),
+        "SkyArray.from_halo_series": lambda: SkyArray.from_halo_series(
+            halo, 33, 1.0, (0, 1), False, 1.0).data["orig"],
+        "SkyArray.from_halo_dataframe": lambda:
+            SkyArray.from_halo_dataframe(cat, 64, 1.0, (0, 1), False, 1.0,
+                                         to="y", opening_angle=2.0,
+                                         patch_npix=9).data["orig"],
+        "SkyArray.from_halo_catalogue_to_temperature_perturbation_map":
+            lambda: SkyArray.
+            from_halo_catalogue_to_temperature_perturbation_map(
+                cat, npix=64, opening_angle=2.0, patch_npix=9).data["orig"],
+        "Dipoles.get_single_transverse_velocity_from_sky": lambda:
+            Dipoles.get_single_transverse_velocity_from_sky(
+                img, img, img + 3.0, img + 3.0)[0],
+    }
+    for name, fn in calls.items():
+        if fn().device.type != "cuda":
+            raise AssertionError(f"moving lens: {name} given numpy input "
+                                 "did not run on the card")
+    # the numpy-out facades compute on the card by the same rule
+    from astrild_tpu_torch import _device
+    seen = []
+    orig = _device.default_device
+
+    def spy(device=None):
+        dev = orig(device)
+        seen.append(dev.type)
+        return dev
+
+    _device.default_device = spy
+    try:
+        LinearPowerSpectrum(cosmo).P_dpdp(0.5, np.logspace(-2, 0, 8))
+        LinearAngularPowerSpectrum(np.array([10.0, 100.0]), [0.1, 0.9],
+                                   cosmo).compute_C_tt()
+        Bispectrum2D.compute(img, 5.0, nbins=4)
+        d = Dipoles({"theta1_pix": np.array([32]),
+                     "theta2_pix": np.array([32]),
+                     "r200_deg": np.array([0.2])})
+        d.get_transverse_velocities_from_sky(img, img + 3.0, img + 3.0,
+                                             2.0, patch_pix=16)
+    finally:
+        _device.default_device = orig
+    if not seen or set(seen) != {"cuda"}:
+        raise AssertionError(f"moving lens: the numpy-out facades placed "
+                             f"their input on {sorted(set(seen))}")
+    return sorted(calls) + ["LinearPowerSpectrum", "LinearAngularPower"
+                            "Spectrum", "Bispectrum2D",
+                            "Dipoles.get_transverse_velocities_from_sky"]
+
+
+def phase_moving_lens(dev, seed: int, so_cat, hvel, kappa_born,
+                      out_gr) -> dict:
+    """The moving-lens, SZ and ISW path, each stage on the host clock,
+    synchronized, with K1-K4 held to 0 launches; the checks raise. (a) A
+    halo lightcone from phase 12's SO halos with phase 15's velocities over
+    ML_REPLICAS box replicas, and its columns (z, D_A, Duffy c, v_los,
+    M500c / r500c / E(z)) in physical units. (b) dT/T, alpha_x, alpha_y,
+    kSZ and Compton-y on the 8192^2, 20 deg canvas through
+    SkyArray.from_halo_dataframe (patches of 101 pixels). (c) DGD3 ->
+    Dipoles.from_sky -> find_nearest -> both vt estimators: on the matched
+    halos whose crop holds no other halo's patch, the matched filter's
+    median |v_rec - v_true| / |v_true| under 0.35 for each component; the
+    reference mode's printed. (d) stacked aperture photometry of the kSZ
+    map split by the sign of v_los (opposite signs); Cl_yy beside the y
+    map's flat-sky C_ell (printed). (e) sph_surface_density of the 2^27
+    snapshot particles onto 2048^2 (mass to 1e-5), kappa_to_phi of phase
+    9's Born map -> shear_from_potential and fermat_potential, the image
+    finder behind the most massive halo's 1024^2 deflection patch, and the
+    Born map remapped by that deflection. (f) LinearAngularPowerSpectrum's
+    C_TT at ell 2-2000, P_dpdp, and Bispectrum2D of the Born map. (g) (b)
+    and (c) on a 2048^2 / 5 deg canvas, (e)'s image finder and remap, and
+    (f), on the card against the same port on the CPU. (h) numpy input to
+    each new entry point on the card. Returns the numbers printed in
+    `# moving_lens`."""
+    from astrild_tpu_torch import Cosmology
+    from astrild_tpu_torch.models import (Bispectrum2D,
+                                          LinearAngularPowerSpectrum,
+                                          LinearPowerSpectrum)
+    from astrild_tpu_torch.ops import (angular_power, lensing, paint_cuda,
+                                       pairwise_cuda, strong_lensing, sz)
+
+    seconds, launches, out = {}, {}, {}
+    stage = _stage_runner(seconds, launches)
+    cosmo = Cosmology()
+
+    def finite(name, *arrays):
+        for a in arrays:
+            a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+                else np.asarray(a)
+            if not np.isfinite(a).all():
+                raise AssertionError(f"moving lens: {name} is not finite")
+
+    def rel(got, want, noise=None) -> float:
+        got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
+            else np.asarray(got)
+        want = want.detach().cpu().numpy() if isinstance(
+            want, torch.Tensor) else np.asarray(want)
+        keep = np.ones(want.shape, bool) if noise is None else ~noise
+        return float(np.abs(got - want)[keep].max()
+                     / max(np.abs(want[keep]).max(), 1e-300))
+
+    def centres(cat, npix):
+        # each halo's centre pixel: the NFW centre's float32 noise (g(x)
+        # below the rounding of ln 2), left out of the map comparisons
+        m = np.zeros((npix, npix), bool)
+        r, c = cat["theta2_pix"], cat["theta1_pix"]
+        ins = (r >= 0) & (r < npix) & (c >= 0) & (c < npix)
+        m[r[ins], c[ins]] = True
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+
+    # ---- (a) the halo lightcone
+    cat = stage("lightcone", lambda: _moving_lens_catalog(
+        so_cat, hvel, cosmo, ML_NPIX, ML_OA))
+    n_h = len(cat["m200"])
+    finite("the lightcone columns", *[cat[k] for k in (
+        "z", "Dc", "c_NFW", "v_los", "m500", "r500", "e_z", "r200_deg")])
+    if n_h < 500 or not (cat["m500"] < cat["m200"]).all():
+        raise AssertionError(f"moving lens: {n_h} halos in the lightcone, "
+                             f"M500c below M200m: "
+                             f"{bool((cat['m500'] < cat['m200']).all())}")
+    out["lightcone"] = {"halos": n_h, "z_max": float(cat["z"].max()),
+                        "m200_max": float(cat["m200"].max())}
+
+    # ---- (b) the maps at full width
+    maps = {}
+    for name, to, direction in ML_SIGNALS:
+        maps[name] = stage(f"map_{name}", lambda to=to, d=direction:
+                           _moving_lens_map(cat, to, d, ML_NPIX, ML_OA))
+        finite(f"the {name} map", maps[name])
+        if maps[name].device.type != dev.type or not float(
+                maps[name].abs().max()) > 0:
+            raise AssertionError(f"moving lens: the {name} map is empty or "
+                                 f"off the card")
+
+    # ---- (c) dipoles
+    dips = stage("dipoles", lambda: _dipole_velocities(maps, cat, ML_OA))
+    iso = _isolated(dips, cat)
+    mt, ref = _vt_errors(dips, iso), _vt_errors(dips, iso, "_ref")
+    out["dipoles"] = {"n": len(dips["snr"]),
+                      "matched": int((dips["halo_idx"] >= 0).sum()),
+                      "isolated": int(iso.sum()),
+                      "matched_filter_median_rel_err": mt,
+                      "reference_mode_median_rel_err": ref}
+    if iso.sum() < 10 or any(v is None or v >= ML_VT_BAR for v in
+                             mt.values()):
+        raise AssertionError(f"moving lens: matched filter {mt} on "
+                             f"{int(iso.sum())} isolated halos")
+
+    # ---- (d) SZ
+    def ksz_stage():
+        margin = 40
+        t1, t2 = cat["theta1_pix"], cat["theta2_pix"]
+        ins = ((t1 >= margin) & (t1 < ML_NPIX - margin) & (t2 >= margin)
+               & (t2 < ML_NPIX - margin))
+        centers = np.stack([t2[ins], t1[ins]], axis=-1)
+        alpha_pix = ML_AP_ARCMIN / 60.0 * ML_NPIX / ML_OA
+        ap, _ = sz.stacked_aperture_photometry(
+            maps["ksz"], centers, ML_OA, ML_AP_ARCMIN,
+            int(math.ceil(math.sqrt(2.0) * alpha_pix)) + 2)
+        v = torch.from_numpy(cat["v_los"][ins]).to(dev)
+        return ap[v > 0].mean(), ap[v < 0].mean()
+
+    away, toward = stage("ksz_stack", ksz_stage)
+    out["ksz_stack"] = {"receding": float(away),
+                        "approaching": float(toward)}
+    if not float(away) < 0 < float(toward):
+        raise AssertionError(f"moving lens: kSZ stacks {out['ksz_stack']}")
+
+    def cl_yy_stage():
+        ells = np.geomspace(*ML_YY_ELLS)
+        theory = sz.cl_yy(ells, cosmo)
+        ell_m, cl_m = angular_power.cl_flat_sky(
+            maps["y"], ML_OA, nbins=ML_YY_ELLS[2], ell_min=ML_YY_ELLS[0],
+            ell_max=ML_YY_ELLS[1])
+        return ells, theory, ell_m, cl_m
+
+    ells_y, cl_t, ell_m, cl_m = stage("cl_yy", cl_yy_stage)
+    finite("Cl_yy", cl_t, cl_m)
+    out["cl_yy"] = {"ell": ells_y.tolist(),
+                    "theory": cl_t.cpu().numpy().tolist(),
+                    "ell_map": ell_m.cpu().numpy().tolist(),
+                    "map": cl_m.cpu().numpy().tolist()}
+
+    # ---- (e) strong lensing
+    def sph_stage():
+        gen = torch.Generator(device=dev).manual_seed(seed + 16)
+        n = out_gr[0].shape[0]
+        lo, hi = math.log(ML_HSML[0]), math.log(ML_HSML[1])
+        hsml = torch.exp(lo + (hi - lo) * torch.rand(n, generator=gen,
+                                                     device=dev))
+        pos2d = torch.stack([out_gr[0], out_gr[1]], dim=-1)
+        sd = strong_lensing.sph_surface_density(
+            pos2d, torch.ones(n, device=dev), hsml, ML_SPH_NPIX, BOX,
+            n_buckets=ML_SPH_BUCKETS)
+        return sd, n
+
+    sd, n_part = stage("sph", sph_stage)
+    finite("the SPH map", sd)
+    mass = float(sd.double().sum()) * (BOX / ML_SPH_NPIX) ** 2
+    out["sph"] = {"particles": n_part, "mass_rel_err": mass / n_part - 1.0}
+    if abs(mass / n_part - 1.0) > 1e-5:
+        raise AssertionError(f"moving lens: SPH mass {mass} of {n_part}")
+    del sd
+
+    def potential_stage():
+        phi = lensing.kappa_to_phi(kappa_born, LC_FOV)
+        k, g1, g2 = strong_lensing.shear_from_potential(phi, LC_FOV)
+        tau = strong_lensing.fermat_potential(
+            kappa_born, LC_FOV, torch.tensor([LC_FOV / 2, LC_FOV / 2],
+                                             device=dev))
+        return phi, k, g1, g2, tau
+
+    phi, k_phi, g1, g2, tau = stage("potential", potential_stage)
+    finite("the potential and its derivatives", phi, k_phi, g1, g2, tau)
+    # (phi_11 + phi_22) / 2 by second differences returns kappa but for
+    # the stencil's damping of pixel-scale modes: held on 8 x 8 block means
+    inner = np.s_[16:-16, 16:-16]
+    corr = _corr(k_phi[inner], kappa_born[inner])
+    corr_blocks = _corr(_block_mean(k_phi[inner], 8),
+                        _block_mean(kappa_born[inner], 8))
+    out["potential"] = {"kappa_corr": corr, "kappa_corr_8x8": corr_blocks}
+    if corr_blocks < 0.95:
+        raise AssertionError(f"moving lens: kappa from the potential "
+                             f"correlates {corr_blocks} with the Born map "
+                             f"on block means ({corr} at the pixel)")
+    del phi, k_phi, g1, g2, tau
+
+    top = int(np.argmax(cat["m200"]))
+    sl_args = (cat["r200_deg"][top], cat["m200"][top], cat["c_NFW"][top],
+               cat["Dc"][top])
+
+    def lens_inputs(device=None):
+        ax = lensing.nfw_deflection_angle_map(
+            *sl_args, npix=ML_SL_NPIX, extent=ML_SL_EXTENT, directions=(0,),
+            device=device)
+        ay = lensing.nfw_deflection_angle_map(
+            *sl_args, npix=ML_SL_NPIX, extent=ML_SL_EXTENT, directions=(1,),
+            device=device)
+        r200 = math.tan(math.radians(sl_args[0])) * sl_args[3]
+        t = np.linspace(-1.0, 1.0, ML_SL_NPIX) * ML_SL_EXTENT * r200 \
+            / sl_args[3]                                   # [rad]
+        x1 = torch.tensor(t[None, :] * np.ones((ML_SL_NPIX, 1)),
+                          dtype=torch.float32, device=ax.device)
+        x2 = x1.T.contiguous()
+        return ax, ay, x1, x2, t
+
+    def images_stage(device=None):
+        ax, ay, x1, x2, t = lens_inputs(device)
+        mid = ML_SL_NPIX // 2
+        y1, y2 = x1 - ax, x2 - ay
+        # the Einstein radius: where alpha falls below theta on the axis
+        cross = np.nonzero((t > 0) & (y1[mid].cpu().numpy() > 0))[0]
+        theta_e = float(t[cross[0]]) if cross.size else float(t[-1]) / 2
+        col = int(np.argmin(np.abs(t - min(ML_SL_IMAGE * theta_e,
+                                           0.8 * t[-1]))))
+        src = torch.stack([y1[mid, col], y2[mid, col]])
+        found = strong_lensing.mapping_triangles(src, x1, x2, y1, y2)
+        return found, theta_e, bool(cross.size)
+
+    (i1, i2, mags, nf), theta_e, ring = stage("images", images_stage)
+    nf = int(nf)
+    out["images"] = {"n_found": nf, "theta_e_rad": theta_e,
+                     "einstein_radius_on_patch": ring,
+                     "mag_signs": np.sign(mags[:nf].cpu().numpy()).tolist()}
+    if nf < 1:
+        raise AssertionError("moving lens: the image finder found no image")
+
+    def remap_stage(kappa, device=None):
+        ax, ay = lens_inputs(device)[:2]
+        off = (LC_NPIX - ML_SL_NPIX) // 2
+        crop = kappa[off:off + ML_SL_NPIX, off:off + ML_SL_NPIX]
+        ii = torch.arange(ML_SL_NPIX, device=crop.device,
+                          dtype=torch.float32)
+        ds = LC_FOV / LC_NPIX
+        return strong_lensing.remap_image(crop, ii[:, None] + ay / ds,
+                                          ii[None, :] + ax / ds)
+
+    lensed = stage("remap", lambda: remap_stage(kappa_born))
+    finite("the remapped Born map", lensed)
+
+    # ---- (f) ISW theory and the 2D bispectrum
+    isw_ells = np.arange(ML_ISW_ELLS[0], ML_ISW_ELLS[1] + 1, dtype=float)
+    k_isw = np.geomspace(1e-3, 1.0, 32)
+
+    def isw_stage(device=None):
+        cl = LinearAngularPowerSpectrum(isw_ells, ML_ISW_Z, cosmo,
+                                        device=device).Cl
+        pdp = LinearPowerSpectrum(cosmo, device=device).P_dpdp(0.5, k_isw)
+        return cl, pdp
+
+    cl_tt, pdpdp = stage("isw", isw_stage)
+    finite("C_TT and P_dpdp", cl_tt, pdpdp)
+    if not (cl_tt > 0).all() or not (pdpdp > 0).all():
+        raise AssertionError("moving lens: C_TT or P_dpdp not positive")
+    oa_born = math.degrees(LC_FOV)
+    ell_b, b_born, ntri = stage("bispectrum_2d", lambda: Bispectrum2D.compute(
+        kappa_born, oa_born, nbins=ML_BS_BINS))
+    finite("the Born bispectrum", b_born[np.isfinite(b_born)], ell_b)
+    out["isw"] = {"ell": isw_ells[::200].tolist(),
+                  "cl_tt": cl_tt[::200].tolist(), "k": k_isw.tolist(),
+                  "p_dpdp_z0.5": pdpdp.tolist()}
+    out["bispectrum_2d"] = {"ell": ell_b.tolist(), "b": b_born.tolist()}
+
+    out["placement"] = stage("placement", _moving_lens_placement_checks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total = _held_launches("moving lens", {name: {} for name in seconds},
+                           launches)
+
+    # ---- (g) the card against the port on the CPU, on the same inputs
+    small = _sub_catalog(cat, ML_SMALL_NPIX, ML_SMALL_OA)
+    cpu_seconds = {}
+    cpu_stage = _stage_runner_cpu(cpu_seconds)
+    card_maps = _moving_lens_maps(small, ML_SMALL_NPIX, ML_SMALL_OA)
+    cpu_maps = cpu_stage("maps", lambda: _moving_lens_maps(
+        small, ML_SMALL_NPIX, ML_SMALL_OA, device="cpu"))
+    noise = centres(small, ML_SMALL_NPIX)
+    card_cpu = {f"map_{n}": rel(card_maps[n], cpu_maps[n],
+                                noise if n in ("dT", "alpha_x", "alpha_y")
+                                else None) for n in card_maps}
+    d_card = _dipole_velocities(card_maps, small, ML_SMALL_OA)
+    d_cpu = cpu_stage("dipoles", lambda: _dipole_velocities(
+        cpu_maps, small, ML_SMALL_OA))
+    # the velocities of halos matched in both runs: held on the isolated
+    # ones, where <W, alpha> is the halo's own (where patches overlap it
+    # may nearly cancel, and the maps' float32 differences grow there);
+    # the largest difference over all of them printed beside it
+    both = {}
+    for d in (d_card, d_cpu):
+        iso_d = _isolated(d, small)
+        both[id(d)] = {int(j): (i, bool(iso_d[i]))
+                       for i, j in enumerate(d["halo_idx"])
+                       if j >= 0 and d["theta1_mtvel"][i] > -99999}
+    common = sorted(set(both[id(d_card)]) & set(both[id(d_cpu)]))
+    vt_rel = {"isolated": 0.0, "all": 0.0}
+    n_iso_common = 0
+    for j in common:
+        (a, iso_a), (b, _) = both[id(d_card)][j], both[id(d_cpu)][j]
+        n_iso_common += iso_a
+        for col in ("theta1_mtvel", "theta2_mtvel"):
+            r = abs(d_card[col][a] - d_cpu[col][b]) / max(abs(d_cpu[col][b]),
+                                                           1.0)
+            vt_rel["all"] = max(vt_rel["all"], r)
+            if iso_a:
+                vt_rel["isolated"] = max(vt_rel["isolated"], r)
+    card_cpu["velocities"] = vt_rel["isolated"]
+    card_cpu_all_velocities = vt_rel["all"]
+    img_cpu = cpu_stage("images", lambda: images_stage("cpu"))
+    if int(img_cpu[0][3]) != nf:
+        raise AssertionError(f"moving lens: {nf} images on the card, "
+                             f"{int(img_cpu[0][3])} on the CPU")
+    card_cpu["images"] = float(np.abs(i1[:nf].cpu().numpy()
+                                      - img_cpu[0][0][:nf].numpy()).max()
+                               / max(abs(theta_e), 1e-30)) if nf else 0.0
+    card_cpu["remap"] = rel(lensed, cpu_stage(
+        "remap", lambda: remap_stage(kappa_born.cpu(), "cpu")))
+    cl_cpu, pdp_cpu = cpu_stage("isw", lambda: isw_stage("cpu"))
+    card_cpu["cl_tt"] = rel(cl_tt, cl_cpu)
+    card_cpu["p_dpdp"] = rel(pdpdp, pdp_cpu)
+    b_cpu = cpu_stage("bispectrum_2d", lambda: Bispectrum2D.compute(
+        kappa_born.cpu(), oa_born, nbins=ML_BS_BINS)[1])
+    fin = np.isfinite(b_cpu)
+    card_cpu["bispectrum_2d"] = rel(b_born[fin], b_cpu[fin])
+    out["card_vs_cpu"] = {"halos": len(small["m200"]),
+                          "common_matched": len(common),
+                          "common_isolated": n_iso_common, **card_cpu,
+                          "velocities_all_matched": card_cpu_all_velocities,
+                          "cpu_seconds": cpu_seconds}
+    bars = {**{f"map_{n}": ML_MAP_TOL for n in card_maps},
+            "velocities": ML_VT_TOL, "images": ML_VT_TOL,
+            "remap": ML_CPU_TOL, "cl_tt": ML_CPU_TOL, "p_dpdp": ML_CPU_TOL,
+            "bispectrum_2d": ML_CPU_TOL}
+    over = {k: card_cpu[k] for k, bar in bars.items() if card_cpu[k] > bar}
+    if over or n_iso_common < 3:
+        raise AssertionError(f"moving lens: card against CPU over the bars "
+                             f"{over}, {len(common)} halos matched in both, "
+                             f"{n_iso_common} of them isolated")
+
+    log(f"# phase moving lens: {sum(seconds.values()):.2f} s; launches "
+        f"{total}; {n_h} halos; maps " + ", ".join(
+            f"{n} {seconds['map_' + n]:.3f} s" for n, _, _ in ML_SIGNALS)
+        + f"; {out['dipoles']['n']} dipoles, {int(iso.sum())} isolated "
+        f"matched: matched filter median rel err {mt}, reference mode "
+        f"{ref}; kSZ stacks {float(away):.3e} / {float(toward):.3e} K; SPH "
+        f"mass {out['sph']['mass_rel_err']:.1e}; {nf} images; card / CPU "
+        f"max {max(card_cpu.values()):.1e}; peak {peak_gb:.2f} GB")
+    result = {"seconds": seconds, "seconds_total": sum(seconds.values()),
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peak_gb, **out}
+    log("# moving_lens " + json.dumps(result))
     return result
 
 
@@ -4051,6 +4688,9 @@ def main() -> None:
     theory = phase_theory(dev, args.seed)
     mapping = phase_map_analysis(dev, args.seed, kappa_map, so_cat, out_gr,
                                  mom_gr)
+    moving = phase_moving_lens(dev, args.seed, so_cat,
+                               mapping.pop("halo_velocities"), kappa_map,
+                               out_gr)
     del out_gr, mom_gr, kappa_map, so_cat
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
@@ -4163,6 +4803,10 @@ def main() -> None:
         "ms": t["mean"]["kernel"], "plain_ms": t["mean"]["plain"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None}
+    # the moving-lens, SZ and ISW path launches no kernel
+    for row in kernels:
+        row["moving_lens_launches"] = moving["launches_total"].get(
+            row["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

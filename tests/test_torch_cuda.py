@@ -1783,3 +1783,199 @@ def test_map_analysis_numpy_input_lands_on_the_card(cuda):
         torch.Generator(device=cuda).manual_seed(2), n_boot=50,
         block_pix=32, npix=128)
     assert lo.is_cuda and bool((lo <= hi).all())
+
+
+def test_fit_nfw_holds_with_tf32_allowed(cuda):
+    """profiles3d.fit_nfw on the card with TF32 allowed for float32 matmuls
+    equals the run without bit for bit (its normal equations are sums of
+    elementwise products, solved in closed form), and agrees with its CPU
+    run to rtol 1e-4."""
+    from astrild_tpu_torch.ops import profiles3d as TP3
+
+    rng = np.random.default_rng(4)
+    r = np.logspace(-1.5, 0.3, 24).astype(np.float32)
+    rs = rng.uniform(0.1, 0.5, 64)
+    rhos = 10 ** rng.uniform(13.0, 15.0, 64)
+    x = r[None, :] / rs[:, None]
+    rho = (rhos[:, None] / (x * (1 + x) ** 2)
+           * rng.lognormal(0, 0.05, x.shape)).astype(np.float32)
+    args = (torch.from_numpy(r).to(cuda), torch.from_numpy(rho).to(cuda))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = TP3.fit_nfw(*args)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = TP3.fit_nfw(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    cpu = TP3.fit_nfw(torch.from_numpy(r), torch.from_numpy(rho))
+    for a, b, c in zip(on, off, cpu):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), c.numpy(), rtol=1e-4)
+
+
+def _moving_lens_catalog(n, npix, seed=5):
+    rng = np.random.default_rng(seed)
+    return {"r200_deg": rng.uniform(0.03, 0.12, n),
+            "m200": 10 ** rng.uniform(13.5, 15.0, n),
+            "c_NFW": rng.uniform(3.0, 8.0, n),
+            "Dc": rng.uniform(500.0, 2000.0, n),
+            "theta1_tv": rng.normal(0, 400, n),
+            "theta2_tv": rng.normal(0, 400, n),
+            "v_los": rng.normal(0, 400, n),
+            "m500": 10 ** rng.uniform(13.5, 14.8, n),
+            "r500": rng.uniform(0.5, 1.5, n),
+            "e_z": rng.uniform(1.0, 1.6, n),
+            "theta1_pix": rng.integers(-5, npix + 5, n).astype(float),
+            "theta2_pix": rng.integers(-5, npix + 5, n).astype(float),
+            "r200_pix": rng.uniform(2.0, 6.0, n)}
+
+
+@pytest.mark.parametrize("to", ["dT", "alpha", "ksz", "y"])
+def test_halo_patch_painting_on_the_card(cuda, to):
+    """SkyArray.from_halo_dataframe of 3,000 overlapping halos on a 1024^2
+    canvas (patches of 41 pixels, in chunks): numpy columns land on the
+    card, and the map agrees with its CPU run to 2e-5 of max (the card's
+    atomics add overlapping patches in another order; its transcendental
+    functions differ in the last ulp), the halo centres' float32 noise
+    pixels (dT, alpha) left out."""
+    from astrild_tpu_torch.models import SkyArray
+
+    npix = 1024
+    cat = _moving_lens_catalog(3000, npix)
+    kw = dict(npix=npix, extent=2.0 if to == "y" else 1.0, direction=(0, 1),
+              suppress=False, suppression_R=1.0, to=to, opening_angle=5.0,
+              patch_npix=41)
+    card = SkyArray.from_halo_dataframe(cat, **kw)
+    assert card.device.type == "cuda"
+    cpu = SkyArray.from_halo_dataframe(cat, **kw, device="cpu")
+    got, want = card.data["orig"].cpu().numpy(), cpu.data["orig"].numpy()
+    keep = np.ones((npix, npix), bool)
+    if to in ("dT", "alpha"):
+        r, c = cat["theta2_pix"].astype(int), cat["theta1_pix"].astype(int)
+        inside = (r >= 0) & (r < npix) & (c >= 0) & (c < npix)
+        keep[r[inside], c[inside]] = False
+    scale = np.abs(want[keep]).max()
+    assert scale > 0
+    assert np.abs(got - want)[keep].max() <= 2e-5 * scale
+
+
+def test_batched_dipole_estimators_on_the_card(cuda):
+    """Both transverse-velocity estimators on a 512^2 field of 40 moving
+    NFW halos: numpy maps land on the card; the velocities agree with the
+    CPU run to rtol 1e-4 (the float32 ring and Hann decisions are the
+    same on both), and the matched filter recovers isolated halos'
+    velocities within 0.35."""
+    from astrild_tpu_torch.models import Dipoles, SkyArray
+
+    npix, oa, n = 512, 10.0, 40
+    rng = np.random.default_rng(8)
+    pix1 = rng.integers(40, npix - 40, n)
+    pix2 = rng.integers(40, npix - 40, n)
+    halos = {"theta1_pix": pix1.astype(float),
+             "theta2_pix": pix2.astype(float),
+             "theta1_deg": pix1 * oa / npix, "theta2_deg": pix2 * oa / npix,
+             "r200_deg": rng.uniform(0.08, 0.2, n),
+             "m200": 10 ** rng.uniform(14.3, 15.0, n),
+             "c_NFW": rng.uniform(3.0, 5.0, n), "Dc": np.full(n, 1000.0),
+             "theta1_tv": rng.normal(0, 400, n),
+             "theta2_tv": rng.normal(0, 400, n)}
+    halos["r200_pix"] = halos["r200_deg"] * npix / oa
+    halos["theta1_vel"] = halos["theta1_tv"]
+    halos["theta2_vel"] = halos["theta2_tv"]
+    kw = dict(npix=npix, extent=5.0, suppress=False, suppression_R=1.0,
+              opening_angle=oa, patch_npix=101)
+    maps = [SkyArray.from_halo_dataframe(halos, direction=d, to=t, **kw,
+                                         device="cpu").data["orig"].numpy()
+            for d, t in (((0, 1), "dT"), ((0,), "alpha"), ((1,), "alpha"))]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sky = SkyArray.from_array(maps[0], oa, "isw_rs",
+                                  device=None if dev == "cuda" else "cpu")
+        assert sky.device.type == dev
+        dips = Dipoles.from_sky(sky, snr_threshold=1.0, edge_pix=4)
+        dips.find_nearest(halos)
+        kwd = {} if dev == "cuda" else {"device": "cpu"}
+        dips.get_transverse_velocities_from_sky(*maps, oa, patch_pix=40,
+                                                **kwd)
+        dips.get_transverse_velocities_reference_mode(*maps, oa, **kwd)
+        out[dev] = dips.data
+    for k in ("theta1_mtvel", "theta2_mtvel", "theta1_mtvel_ref",
+              "theta2_mtvel_ref"):
+        ok = out["cpu"][k] > -99999
+        np.testing.assert_array_equal(out["cuda"][k] > -99999, ok)
+        assert ok.sum() >= 5, k
+        np.testing.assert_allclose(out["cuda"][k][ok], out["cpu"][k][ok],
+                                   rtol=1e-4)
+
+
+def test_moving_lens_numpy_input_lands_on_the_card(cuda):
+    """Each new entry point of the moving-lens, SZ and ISW path, given
+    numpy input and no device, computes on the card; its result agrees
+    with the CPU run (rtol 1e-4 of max)."""
+    from astrild_tpu_torch.models import Bispectrum2D
+    from astrild_tpu_torch.ops import angular_power as TAP
+    from astrild_tpu_torch.ops import bispectrum as TB
+    from astrild_tpu_torch.ops import lensing as TL
+    from astrild_tpu_torch.ops import linear_power as TLPW
+    from astrild_tpu_torch.ops import strong_lensing as TS
+    from astrild_tpu_torch.ops import sz as TZ
+
+    rng = np.random.default_rng(9)
+    img = rng.normal(size=(64, 64)).astype(np.float32)
+    pos = rng.uniform(0, 10.0, (500, 2)).astype(np.float32)
+    w = rng.uniform(1, 2, 500).astype(np.float32)
+    c = np.linspace(-1, 1, 33).astype(np.float32)
+    x1, x2 = np.meshgrid(c, c, indexing="ij")
+    cosmo = Cosmology()
+    calls = {
+        "nfw_deflection_angle_map": lambda **d: TL.nfw_deflection_angle_map(
+            0.08, 3e14, 4.0, 900.0, npix=33, **d),
+        "nfw_temperature_perturbation_map": lambda **d:
+            TL.nfw_temperature_perturbation_map(0.08, 3e14, 4.0,
+                                                np.array([300.0, -100.0]),
+                                                900.0, npix=33, **d),
+        "nfw_dipole_patch": lambda **d: TL.nfw_dipole_patch(
+            1e15, [1000.0, 0.0], 0.3, npix=32, **d),
+        "nfw_sigma_map": lambda **d: TZ.nfw_sigma_map(1e15, 5.0, 2.0,
+                                                      npix=32, **d),
+        "ksz_patch_from_halo": lambda **d: TZ.ksz_patch_from_halo(
+            3e14, 6.0, 1.2, 300.0, npix=32, **d),
+        "compton_y_patch": lambda **d: TZ.compton_y_patch(
+            5e14, 1.3, 1.0, npix=32, **d),
+        "stacked_aperture_photometry": lambda **d:
+            TZ.stacked_aperture_photometry(img, np.array([[20, 30]]), 2.0,
+                                           4.0, 8, **d)[0],
+        "m500c_from_m200m": lambda **d: TZ.m500c_from_m200m(
+            np.array([1e14, 1e15]), 0.3, cosmo, **d)[0],
+        "y_ell": lambda **d: TZ.y_ell(np.array([100.0, 1000.0]), 5e14, 1.3,
+                                      1.0, 1000.0, **d),
+        "cl_yy": lambda **d: TZ.cl_yy(np.array([300.0, 3000.0]), cosmo,
+                                      nz=4, nm=8, **d),
+        "sph_surface_density": lambda **d: TS.sph_surface_density(
+            pos, w, w, 32, 10.0, **d),
+        "remap_image": lambda **d: TS.remap_image(img, x1 * 20 + 30,
+                                                  x2 * 20 + 30, **d),
+        "shear_from_potential": lambda **d: TS.shear_from_potential(
+            img, 1.0, **d)[1],
+        "mapping_triangles": lambda **d: TS.mapping_triangles(
+            np.array([0.1, -0.2], np.float32), x1, x2, x1, x2, **d)[0],
+        "fermat_potential": lambda **d: TS.fermat_potential(
+            img, 1e-4, np.array([5e-5, 5e-5]), **d),
+        "p_dpdp": lambda **d: TLPW.p_dpdp(np.logspace(-2, 0, 8), 0.5,
+                                          cosmo, **d),
+        "cl_isw_limber": lambda **d: TAP.cl_isw_limber(
+            np.array([10.0, 100.0]), cosmo, **d),
+        "bispectrum_2d_equilateral": lambda **d:
+            TB.bispectrum_2d_equilateral(img, 5.0, nbins=4, **d)[1],
+    }
+    for name, fn in calls.items():
+        got = fn()
+        assert got.device.type == "cuda", name
+        want = fn(device="cpu").numpy()
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                   atol=1e-4 * scale, err_msg=name)
+    ell, b, _ = Bispectrum2D.compute(img, 5.0, nbins=4)
+    np.testing.assert_allclose(b, Bispectrum2D.compute(
+        img, 5.0, nbins=4, device="cpu")[1], rtol=1e-4)

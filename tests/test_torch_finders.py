@@ -545,9 +545,10 @@ def test_full_pipeline_stages_1_to_4_match_jax():
 
 
 def test_new_modules_import_without_jax_yaml_h5py_sklearn():
-    """The slice's modules import no JAX, no module of the JAX package and
-    none of PyYAML, h5py, sklearn or scipy: those load inside the
-    functions that need them."""
+    """The slice's modules (and the moving-lens, SZ and ISW modules after
+    them) import no JAX, no module of the JAX package and none of PyYAML,
+    h5py, sklearn or scipy: those load inside the functions that need
+    them."""
     import subprocess
     import sys
 
@@ -557,6 +558,10 @@ def test_new_modules_import_without_jax_yaml_h5py_sklearn():
         "from astrild_tpu_torch.ops import (filters, profiles, troughs,\n"
         "    minkowski, aperture_mass, map_transform, object_selection)\n"
         "from astrild_tpu_torch.io import rockstar\n"
+        "from astrild_tpu_torch.ops import (lensing, sz, strong_lensing,\n"
+        "    bispectrum, angular_power, linear_power)\n"
+        "from astrild_tpu_torch.models import (Dipoles, Bispectrum2D,\n"
+        "    LinearPowerSpectrum, LinearAngularPowerSpectrum)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'astrild_tpu', 'yaml', 'h5py', 'sklearn', 'scipy')]\n"
         "assert not bad, bad\n"

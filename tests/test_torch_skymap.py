@@ -375,22 +375,31 @@ def test_skyarray_from_columns_and_files_match_jax(tmp_path):
 
 
 def test_unported_methods_raise_naming_their_item():
-    # the filters, smoothing, Minkowski functionals and aperture mass are
-    # ported (tests/test_torch_finders.py holds them against JAX); the NFW
-    # halo constructors wait for queue 1 item 4b
+    # the NFW halo constructors are ported (tests/test_torch_moving_lens.py
+    # holds them against JAX): each runs, and an unknown signal raises
+    # ValueError, as in the JAX package
+    halo = {"r200_deg": 0.1, "m200": 5e14, "c_NFW": 6.0, "Dc": 1200.0,
+            "theta1_tv": 300.0, "theta2_tv": -200.0, "v_los": 400.0}
+    cat = {k: np.array([v, v]) for k, v in halo.items()}
+    cat.update(theta1_pix=np.array([10, 20]), theta2_pix=np.array([12, 5]),
+               r200_pix=np.array([4.0, 4.0]))
     calls = {
-        "from_halo_series": lambda: SkyArray.from_halo_series({}, 8, 1.0,
-                                                              [0, 1], False,
-                                                              1.0),
+        "from_halo_series": lambda: SkyArray.from_halo_series(
+            halo, 9, 1.0, [0, 1], False, 1.0, device="cpu"),
         "from_halo_dataframe": lambda: SkyArray.from_halo_dataframe(
-            {}, 8, 1.0, [0, 1], False, 1.0),
+            cat, 32, 1.0, [0, 1], False, 1.0, patch_npix=9, device="cpu"),
         "nfw temperature map": lambda: SkyArray.
-        from_halo_catalogue_to_temperature_perturbation_map({}),
+        from_halo_catalogue_to_temperature_perturbation_map(
+            cat, npix=32, opening_angle=2.0, patch_npix=9, device="cpu"),
     }
     for name, fn in calls.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                                                      "item 4b"):
-            fn()
+        sky = fn()
+        img = sky.data["orig"].numpy()
+        assert np.isfinite(img).all() and np.abs(img).max() > 0, name
+    assert sky.opening_angle == 2.0 and sky.quantity == "rs"
+    with pytest.raises(ValueError, match="unknown signal"):
+        SkyArray.from_halo_series(halo, 9, 1.0, [0, 1], False, 1.0,
+                                  to="isw", device="cpu")
 
 
 def test_skyarray_numpy_input_placement(monkeypatch):
