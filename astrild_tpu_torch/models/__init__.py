@@ -9,12 +9,14 @@ from .power import (AngularPowerSpectrum, Bispectrum2D, Bispectrum3D,
                     PowerSpectrum3D, PowMes)
 from .simulation import Ecosmog, RayRamses, Simulation
 from .skymap import SkyArray, SkyMap
+from .skynamaster import SkyNamaster
 from .voids import TunnelsFinder, Voids, WatershedFinder
 
 __all__ = ["Dipoles", "Halos", "Rockstar", "SubFind", "Peaks",
            "AngularPowerSpectrum", "PowerSpectrum3D", "Bispectrum3D",
            "Bispectrum2D", "LinearPowerSpectrum",
            "LinearAngularPowerSpectrum", "PowMes", "Simulation",
-           "Ecosmog", "RayRamses", "SkyArray", "SkyMap", "TunnelsFinder",
+           "Ecosmog", "RayRamses", "SkyArray", "SkyMap", "SkyNamaster",
+           "TunnelsFinder",
            "Voids", "WatershedFinder", "halo_lightcone_catalog",
            "merge_lightcone_catalogs"]

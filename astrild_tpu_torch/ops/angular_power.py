@@ -10,14 +10,23 @@ JAX package takes a PRNG key;
 `cl_to_flat_map_from_white` takes the two white-noise fields themselves,
 so both packages make the same map from the same draws.
 
+The flat-sky MASTER estimators (`cl_flat_sky_masked`,
+`flat_sky_coupling_matrix`, `cl_flat_sky_master`,
+`flat_sky_spin2_coupling_matrices`, `cl_flat_sky_shear_master`) take the
+pseudo spectra on the map's device and build the mode-coupling matrices in
+float64: for a mask on the CPU (numpy or a CPU tensor) with the JAX
+package's own numpy code, for a mask on the card with the same arithmetic
+in float64 torch.fft there, one band at a time (the card never holds the
+(nbins, N) indicator or convolution rows). The matrices come back as
+float64 numpy and the band solve is host float64 `np.linalg.solve`, as in
+the JAX package.
+
 The Limber spectra take a cosmology with float fields (host node tables)
 or a traced one (tensor fields: every node quantity a float64 tensor in
 the graph, so a Fisher Jacobian runs through them); the n(z) kernels
 (`smail_nz`, `cl_kappa_limber_nz` with its NLA terms,
 `cl_galaxy_limber_nz`) always take the tensor route, on a float-field
 cosmology through `Cosmology.with_tensor_fields`.
-
-Not ported yet: the masked (MASTER) estimators.
 """
 from __future__ import annotations
 
@@ -39,7 +48,9 @@ __all__ = ["cl_flat_sky", "cl_flat_sky_cross", "flat_sky_mode_counts",
            "cl_kappa_limber_nz",
            "cl_galaxy_limber_nz", "smail_nz", "C1_RHO_CR", "cl_to_flat_map",
            "cl_to_flat_map_from_white", "shear_eb_maps",
-           "kappa_to_shear_maps", "cl_shear_eb"]
+           "kappa_to_shear_maps", "cl_shear_eb", "cl_flat_sky_masked",
+           "flat_sky_coupling_matrix", "cl_flat_sky_master",
+           "flat_sky_spin2_coupling_matrices", "cl_flat_sky_shear_master"]
 
 
 def _segment_sum(values, binidx, nbins: int):
@@ -209,18 +220,10 @@ def cl_kappa_cross_limber(ells, cosmo: Cosmology, z_source_i: float,
     """
     if amplitude is None:
         amplitude = normalization(cosmo)
-    ells = _ells_of(ells, cosmo, device, cosmo.traced)
     if cosmo.traced:
-        ells = ells.to(cosmo.device)
-        chi_i = cosmo.comoving_distance(z_source_i)
-        chi_j = cosmo.comoving_distance(z_source_j)
-        chi = _chi_nodes(torch.minimum(chi_i, chi_j), nchi)
-        z = cosmo.redshift_at_comoving_distance(chi)
-        weight = (_lensing_kernel(cosmo, chi, z, chi_i)
-                  * _lensing_kernel(cosmo, chi, z, chi_j) / chi ** 2)
-        return torch.trapezoid(
-            weight * _pk_nodes(ells, chi, z, cosmo, nonlinear, amplitude),
-            chi, dim=-1)
+        return _cl_kappa_traced(ells, cosmo, z_source_i, z_source_j, nchi,
+                                nonlinear, amplitude, device)
+    ells = _ells_of(ells, cosmo, device, False)
     dev = ells.device
     chi_i = float(cosmo.comoving_distance(z_source_i))
     chi_j = float(cosmo.comoving_distance(z_source_j))
@@ -248,6 +251,26 @@ def cl_kappa_cross_limber(ells, cosmo: Cosmology, z_source_i: float,
     return torch.trapezoid(weight * pk, chi, dim=-1)
 
 
+def _cl_kappa_traced(ells, cosmo: Cosmology, z_i, z_j, nchi: int,
+                     nonlinear: bool, amplitude, device=None):
+    """`cl_kappa_cross_limber`'s tensor route: every node quantity a
+    float64 tensor in the graph, on the traced cosmology's device. z_i and
+    z_j are one source pair's redshifts, or sequences of them, one entry a
+    pair: C_ell then gains a leading pair axis, (npair, nell), each row the
+    elementwise arithmetic of its own call, so a tomographic stack costs
+    one pass of launches instead of one a pair."""
+    ells = _ells_of(ells, cosmo, device, True).to(cosmo.device)
+    chi_i = cosmo.comoving_distance(cosmo._ops.asarray(z_i))[..., None]
+    chi_j = cosmo.comoving_distance(cosmo._ops.asarray(z_j))[..., None]
+    chi = _chi_nodes(torch.minimum(chi_i, chi_j), nchi)     # (..., nchi)
+    z = cosmo.redshift_at_comoving_distance(chi)
+    weight = (_lensing_kernel(cosmo, chi, z, chi_i)
+              * _lensing_kernel(cosmo, chi, z, chi_j) / chi ** 2)
+    pk = _pk_nodes(ells, chi, z, cosmo, nonlinear, amplitude)
+    return torch.trapezoid(weight[..., None, :] * pk, chi[..., None, :],
+                           dim=-1)
+
+
 def _chi_nodes(chi_max, nchi: int):
     """The Limber quadrature nodes jnp.linspace(1e-3 chi_max, chi_max,
     nchi) of a tensor chi_max, in float64 and in the graph."""
@@ -266,14 +289,15 @@ def _lensing_kernel(cosmo, chi, z, chi_s):
 
 def _pk_nodes(ells, chi, z, cosmo, nonlinear: bool, amplitude):
     """P((ell + 1/2)/chi, z(chi)) of a traced cosmology at every (ell,
-    node), (nell, nchi), in float64: linear EH98 or halofit with the
-    nodes' own halofit numbers."""
-    k = (ells.to(chi.dtype)[:, None] + 0.5) / chi
+    node), (..., nell, nchi) for nodes chi (..., nchi), in float64: linear
+    EH98 or halofit with the nodes' own halofit numbers."""
+    k = (ells.to(chi.dtype)[:, None] + 0.5) / chi[..., None, :]
     if nonlinear:
-        return _halofit_power(k, cosmo, amplitude,
-                              halofit_parameters(cosmo, z, amplitude))
+        par = {name: v[..., None, :] for name, v in
+               halofit_parameters(cosmo, z, amplitude).items()}
+        return _halofit_power(k, cosmo, amplitude, par)
     return (amplitude * _unnormalized_power(k, cosmo)
-            * cosmo.growth_factor(z) ** 2)
+            * cosmo.growth_factor(z)[..., None, :] ** 2)
 
 
 def _ells_of(ells, cosmo, device, tensor_route: bool):
@@ -566,3 +590,263 @@ def cl_shear_eb(gamma1, gamma2, opening_angle_deg, nbins: int = 50,
     _, cl_bb = cl_flat_sky(kb, opening_angle_deg, nbins=nbins,
                            ell_min=ell_min, ell_max=ell_max)
     return ell, cl_ee, cl_bb
+
+
+# ---------------------------------------------------------------- MASTER
+def _masked_weight(mask, device, opening_angle_deg, apodize_arcmin):
+    """The mask as float32 on `device`, Gaussian-apodized when asked."""
+    from .filters import gaussian as gaussian_filter
+
+    w = as_tensor(mask, device)
+    if apodize_arcmin > 0:
+        w = gaussian_filter(w, opening_angle_deg,
+                            sigma_arcmin=apodize_arcmin)
+    return w
+
+
+def cl_flat_sky_masked(img, mask, opening_angle_deg, nbins: int = 50,
+                       apodize_arcmin: float = 0.0, device=None):
+    """Pseudo-Cl of a masked flat-sky map with mean-w^2 deconvolution:
+    the mask (optionally apodized with a Gaussian taper) multiplies the
+    map, and the measured Cl is divided by <w^2> (the diagonal of the
+    mode-coupling matrix; exact for masks smooth on the scales of
+    interest). The map is placed as in cl_flat_sky, the mask on its
+    device."""
+    img = _map(img, device)
+    w = _masked_weight(mask, img.device, opening_angle_deg, apodize_arcmin)
+    ell, cl = cl_flat_sky(img * w, opening_angle_deg, nbins=nbins)
+    w2 = torch.mean(w ** 2)
+    return ell, cl / torch.clamp_min(w2, 1e-12)
+
+
+def _mode_numbers_host(n: int) -> np.ndarray:
+    """The JAX package's host mode numbers, np.fft.fftfreq(n) * n."""
+    return np.fft.fftfreq(n) * n
+
+
+def _on_card(mask) -> bool:
+    return isinstance(mask, torch.Tensor) and mask.device.type != "cpu"
+
+
+def _flat_coupling_pieces(mask, opening_angle_deg, nbins: int,
+                          ell_min, ell_max):
+    """The host coupling core shared by the scalar and spin-2 matrices
+    (the JAX package's numpy code): the mode-grid binning indicator, the
+    in-band l(l+1) shape weights q (`sht.shape_binned_interp`, which
+    raises on an empty band), the mask mode power, and a `conv(trig)`
+    closure returning the circular convolutions Wn (*) (q * trig) as
+    (nbins, N) rows."""
+    from .sht import shape_binned_interp
+
+    if isinstance(mask, torch.Tensor):
+        mask = mask.detach().cpu().numpy()
+    w = np.asarray(mask, np.float64)
+    n = w.shape[-1]
+    npts = float(n * n)
+    binidx, inside, nm, _ = _flat_sky_binning(n, opening_angle_deg, nbins,
+                                              ell_min, ell_max,
+                                              device="cpu")
+    binidx = binidx.numpy()
+    inside = inside.numpy()
+    nm = np.asarray(nm.numpy(), np.float64)
+    ind = ((binidx[None, :] == np.arange(nbins)[:, None])
+           & (inside[None, :] > 0)).astype(np.float64)     # (nbins, N)
+    lf = 2.0 * np.pi / (opening_angle_deg * DEG2RAD)
+    f = _mode_numbers_host(n)
+    lmag = lf * np.sqrt(f[:, None] ** 2 + f[None, :] ** 2).reshape(-1)
+    q = shape_binned_interp(lmag, ind, nm, what="flat-sky grid modes")
+    Wn = (np.abs(np.fft.fft2(w)) ** 2) / npts ** 2   # mode-grid mask power
+    WnF = np.fft.fft2(Wn)
+
+    def conv(trig):
+        rows = q if trig is None else q * trig[None, :]
+        maps = rows.reshape(nbins, n, n)
+        out = np.real(np.fft.ifft2(WnF[None] * np.fft.fft2(maps)))
+        return out.reshape(nbins, -1)
+
+    return n, ind, nm, conv
+
+
+def _host_trig4(n: int):
+    """cos 4 phi and sin 4 phi of the modes, phi = atan2(l2, l1) (the zero
+    mode gets phi = 0; |l| = 0 lies outside every band)."""
+    f = _mode_numbers_host(n)
+    l1 = f[:, None] * np.ones((1, n))
+    l2 = np.ones((n, 1)) * f[None, :]
+    phi = np.arctan2(l2, l1)
+    return np.cos(4.0 * phi).reshape(-1), np.sin(4.0 * phi).reshape(-1)
+
+
+def _card_couplings(mask, opening_angle_deg, nbins: int, ell_min, ell_max,
+                    spin2: bool):
+    """The coupling matrices of a mask on the card: the host pieces'
+    arithmetic in float64 torch there, one band b' at a time (its q row,
+    its convolutions Wn (*) (q trig), their sums over each band b by an
+    index_add over the binning). Returns float64 numpy: M, or (M_pp,
+    M_pm) with spin2."""
+    from .sht import _band_scale, _check_bands, _shape
+
+    dev = mask.device
+    w = mask.detach().to(torch.float64)
+    n = w.shape[-1]
+    npts = float(n * n)
+    binidx, inside, nm, _ = _flat_sky_binning(n, opening_angle_deg, nbins,
+                                              ell_min, ell_max, device=dev)
+    member = inside > 0
+    nm64 = nm.to(torch.float64)
+    _check_bands(nm64.cpu().numpy(), "flat-sky grid modes")
+    lf = 2.0 * np.pi / (opening_angle_deg * DEG2RAD)
+    f = torch.from_numpy(_mode_numbers_host(n)).to(dev)
+    lmag = lf * torch.sqrt(f[:, None] ** 2 + f[None, :] ** 2).reshape(-1)
+    # sht.shape_binned_interp's rows, q_b = [l in b] s(l) scale_b, a band
+    # at a time below
+    s = _shape(lmag)
+    s_in = torch.where(member, s, torch.zeros_like(s))
+    ssum = torch.zeros(nbins, dtype=torch.float64, device=dev).index_add_(
+        0, binidx, s_in)
+    scale = _band_scale(nm64, ssum)
+    wn = torch.fft.fft2(w).abs() ** 2 / npts ** 2     # mode-grid mask power
+    wnf = torch.fft.fft2(wn)
+    del w, wn
+    if spin2:
+        c4, s4 = (torch.from_numpy(t).to(dev) for t in _host_trig4(n))
+
+    def conv(row):
+        out = torch.fft.ifft2(wnf * torch.fft.fft2(row.reshape(n, n))).real
+        return out.reshape(-1)
+
+    def band_sums(x):
+        x = torch.where(member, x, torch.zeros_like(x))
+        return torch.zeros(nbins, dtype=torch.float64,
+                           device=dev).index_add_(0, binidx, x)
+
+    cols = ([], []) if spin2 else ([],)
+    for b in range(nbins):
+        q = torch.where(member & (binidx == b), s * scale[b],
+                        torch.zeros_like(s))
+        half0 = conv(q)
+        if not spin2:
+            cols[0].append(band_sums(half0))
+            continue
+        cross = c4 * conv(q * c4) + s4 * conv(q * s4)
+        cols[0].append(band_sums(0.5 * (half0 + cross)))
+        cols[1].append(band_sums(0.5 * (half0 - cross)))
+    norm = torch.clamp_min(nm64, 1.0)[:, None]
+    mats = tuple((torch.stack(c, dim=1) / norm).cpu().numpy() for c in cols)
+    return mats if spin2 else mats[0]
+
+
+def flat_sky_coupling_matrix(mask, opening_angle_deg, nbins: int,
+                             ell_min=None, ell_max=None) -> np.ndarray:
+    """The exact discrete mode-coupling matrix M_bb' of the flat-sky
+    pseudo-Cl, as float64 numpy:
+
+        M_bb' = (1/(N_b N^2)) sum_{k in b} sum_{k' in b'} |w~(k - k')|^2
+
+    with the in-band l(l+1) shape model: the inner sum is a circular
+    convolution of the mask power |w~|^2/N^2 with band b''s q row, one FFT
+    pair per band. Built in float64 (float32 FFT noise in M couples the
+    large low-ell power into high bins): on the host for a mask on the CPU
+    (numpy or a CPU tensor), on the card for a mask there. The mode -> bin
+    assignment is cl_flat_sky's."""
+    if _on_card(mask):
+        return _card_couplings(mask, opening_angle_deg, nbins, ell_min,
+                               ell_max, spin2=False)
+    n, ind, nm, conv = _flat_coupling_pieces(mask, opening_angle_deg,
+                                             nbins, ell_min, ell_max)
+    M = ind @ conv(None).T
+    return M / np.maximum(nm, 1.0)[:, None]
+
+
+def flat_sky_spin2_coupling_matrices(mask, opening_angle_deg, nbins: int,
+                                     ell_min=None, ell_max=None):
+    """(M_pp, M_pm): binned mode-coupling matrices of masked shear E/B,
+
+        <pEE_b> = sum_b' [M_pp C_EE + M_pm C_BB]_b'
+        <pBB_b> = sum_b' [M_pm C_EE + M_pp C_BB]_b'
+        M_pp/pm[b,b'] = (1/(N_b N^2)) sum_{l in b, l' in b'}
+                        |w~(l-l')|^2 {cos^2, sin^2}(2(phi_l' - phi_l))
+
+    three circular convolutions per band (Wn (*) q, Wn (*) (q cos 4phi),
+    Wn (*) (q sin 4phi)), float64 numpy, placed as
+    flat_sky_coupling_matrix builds."""
+    if _on_card(mask):
+        return _card_couplings(mask, opening_angle_deg, nbins, ell_min,
+                               ell_max, spin2=True)
+    n, ind, nm, conv = _flat_coupling_pieces(mask, opening_angle_deg,
+                                             nbins, ell_min, ell_max)
+    c4, s4 = _host_trig4(n)
+    # rows: ind_b(l) . [ (conv0 +- (c4 conv_c + s4 conv_s))/2 ]
+    half0 = conv(None)
+    cross = c4[None, :] * conv(c4) + s4[None, :] * conv(s4)
+    M_pp = ind @ (0.5 * (half0 + cross)).T
+    M_pm = ind @ (0.5 * (half0 - cross)).T
+    norm = np.maximum(nm, 1.0)[:, None]
+    return M_pp / norm, M_pm / norm
+
+
+def _host64(x) -> np.ndarray:
+    return np.asarray(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                      else x, np.float64)
+
+
+def _apodize_guard(name: str, apodize_arcmin, coupling, what: str):
+    if apodize_arcmin > 0 and coupling is not None:
+        # the pseudo-Cl is measured under the apodized mask while the
+        # caller's matrix was (almost certainly) built from the raw one
+        raise ValueError(
+            f"{name}: apodize_arcmin > 0 with a precomputed coupling would "
+            f"decouple apodized pseudo-spectra with the raw mask's "
+            f"{what}; apodize the mask yourself, build the coupling from "
+            f"it, and pass apodize_arcmin=0")
+
+
+def cl_flat_sky_master(img, mask, opening_angle_deg, nbins: int = 16,
+                       apodize_arcmin: float = 0.0, ell_min=None,
+                       ell_max=None, coupling=None, device=None):
+    """Mask-decoupled flat-sky spectrum, the MASTER estimator: the
+    pseudo-Cl of the masked map on its device, then the float64 host
+    solve against the binned mode-coupling matrix (built from the mask on
+    the map's device unless `coupling` is given; for many maps under one
+    mask build it once with flat_sky_coupling_matrix). Returns
+    (ell_centers, cl_hat), float32 on the map's device."""
+    _apodize_guard("cl_flat_sky_master", apodize_arcmin, coupling,
+                   "matrix")
+    img = _map(img, device)
+    w = _masked_weight(mask, img.device, opening_angle_deg, apodize_arcmin)
+    ell, pcl = cl_flat_sky(img * w, opening_angle_deg, nbins=nbins,
+                           ell_min=ell_min, ell_max=ell_max)
+    if coupling is None:
+        coupling = flat_sky_coupling_matrix(w, opening_angle_deg, nbins,
+                                            ell_min=ell_min,
+                                            ell_max=ell_max)
+    cl_hat = np.linalg.solve(np.asarray(coupling, np.float64), _host64(pcl))
+    return ell, torch.from_numpy(cl_hat.astype(np.float32)).to(img.device)
+
+
+def cl_flat_sky_shear_master(gamma1, gamma2, mask, opening_angle_deg,
+                             nbins: int = 16, apodize_arcmin: float = 0.0,
+                             ell_min=None, ell_max=None, coupling=None,
+                             device=None):
+    """Mask-decoupled shear spectra (ell, Cl_EE, Cl_BB), the spin-2 MASTER
+    estimator: pseudo E/B of the masked shear maps (cl_shear_eb), then the
+    2x2-block float64 solve with flat_sky_spin2_coupling_matrices, which
+    undoes both the power the mask removes and the E -> B leakage it
+    makes. Placed as cl_flat_sky_master."""
+    _apodize_guard("cl_flat_sky_shear_master", apodize_arcmin, coupling,
+                   "matrices")
+    gamma1 = _map(gamma1, device)
+    dev = gamma1.device
+    w = _masked_weight(mask, dev, opening_angle_deg, apodize_arcmin)
+    ell, p_ee, p_bb = cl_shear_eb(gamma1 * w, as_tensor(gamma2, dev) * w,
+                                  opening_angle_deg, nbins=nbins,
+                                  ell_min=ell_min, ell_max=ell_max)
+    if coupling is None:
+        coupling = flat_sky_spin2_coupling_matrices(
+            w, opening_angle_deg, nbins, ell_min=ell_min, ell_max=ell_max)
+    M_pp, M_pm = (np.asarray(c, np.float64) for c in coupling)
+    big = np.block([[M_pp, M_pm], [M_pm, M_pp]])
+    sol = np.linalg.solve(big, np.concatenate([_host64(p_ee),
+                                               _host64(p_bb)]))
+    return (ell, torch.from_numpy(sol[:nbins].astype(np.float32)).to(dev),
+            torch.from_numpy(sol[nbins:].astype(np.float32)).to(dev))

@@ -32,8 +32,10 @@ import torch
 from .._device import as_tensor, as_theory_tensor, default_device
 from ..utils.cosmology import Cosmology
 from ..utils.tables import interp
-from .angular_power import (_traced, cl_kappa_cross_limber,
-                            cl_kappa_limber, cl_kappa_limber_nz)
+from .angular_power import (_cl_kappa_traced, _traced,
+                            cl_kappa_cross_limber, cl_kappa_limber,
+                            cl_kappa_limber_nz)
+from .linear_power import normalization
 
 __all__ = ["tomographic_shear_cls", "shear_cl_data_covariance",
            "fisher_matrix", "shear_fisher", "hod_wp_theory", "hod_wp_fisher",
@@ -60,18 +62,28 @@ def tomographic_shear_cls(ells, cosmo: Cosmology, z_sources: Sequence[float],
     """Full (nbin, nbin, nell) stack of convergence auto/cross spectra.
 
     Each unique pair runs through `cl_kappa_cross_limber` (the one home of
-    the Limber integrand); the stack is symmetrized. ells are placed as in
+    the Limber integrand) with the sigma8 amplitude computed once for all
+    of them; a traced cosmology takes all pairs in one batched pass of its
+    tensor route. The stack is symmetrized. ells are placed as in
     `cl_kappa_cross_limber`.
     """
     zs = [float(z) for z in z_sources]
     nb = len(zs)
+    amplitude = normalization(cosmo)
+    pairs = _pair_index(nb)
+    if cosmo.traced:
+        cls = _cl_kappa_traced(ells, cosmo, [zs[i] for i, _ in pairs],
+                               [zs[j] for _, j in pairs], nchi, nonlinear,
+                               amplitude, device)
+    else:
+        cls = [cl_kappa_cross_limber(ells, cosmo, zs[i], zs[j], nchi=nchi,
+                                     amplitude=amplitude,
+                                     nonlinear=nonlinear, device=device)
+               for i, j in pairs]
     out = [[None] * nb for _ in range(nb)]
-    for i in range(nb):
-        for j in range(i, nb):
-            cl = cl_kappa_cross_limber(ells, cosmo, zs[i], zs[j], nchi=nchi,
-                                       nonlinear=nonlinear, device=device)
-            out[i][j] = cl
-            out[j][i] = cl
+    for (i, j), cl in zip(pairs, cls):
+        out[i][j] = cl
+        out[j][i] = cl
     return torch.stack([torch.stack(row) for row in out])
 
 

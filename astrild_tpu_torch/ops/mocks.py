@@ -9,7 +9,8 @@ gives a different realization than JAX's. Each generator entry point is
 `linear_modes` followed by a `*_from_modes` function that takes the modes
 themselves, so handing both packages the same white-noise field
 (`modes_from_white`) gives the same field or catalog. `lognormal_map`
-waits for `angular_power.cl_to_flat_map`.
+draws its two white fields from a generator; `lognormal_map_from_white`
+takes them, as `angular_power.cl_to_flat_map_from_white` does.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from .power import _mode_numbers
 from .recon import _nyquist_masks
 
 __all__ = ["gaussian_field", "zeldovich_catalog",
-           "zeldovich_catalog_with_velocities"]
+           "zeldovich_catalog_with_velocities", "lognormal_map",
+           "lognormal_map_from_white"]
 
 
 def modes_from_white(white, ngrid: int, boxsize, pk_fn: Callable):
@@ -144,3 +146,32 @@ def zeldovich_catalog_with_velocities(generator: torch.Generator,
     return zeldovich_catalog_with_velocities_from_modes(
         linear_modes(generator, ngrid, boxsize, pk_fn, device), ngrid,
         boxsize, growth_rate, a_hubble)
+
+
+def lognormal_map_from_white(re, im, npix: int, opening_angle_deg,
+                             cl_tab_ell, cl_tab_val, device=None):
+    """`lognormal_map` of the two (npix, npix) N(0, 1) fields of
+    `angular_power.cl_to_flat_map_from_white`: exp(g - var(g) / 2) - 1 of
+    the Gaussian map g (population variance, jnp.var's), so delta > -1.
+    Placed as cl_to_flat_map_from_white places its map."""
+    from .angular_power import cl_to_flat_map_from_white
+
+    g = cl_to_flat_map_from_white(re, im, cl_tab_ell, cl_tab_val, npix,
+                                  opening_angle_deg, device=device)
+    var = torch.var(g, correction=0)
+    return torch.exp(g - var / 2.0) - 1.0
+
+
+def lognormal_map(generator: torch.Generator, npix: int, opening_angle_deg,
+                  cl_tab_ell, cl_tab_val, device=None):
+    """Lognormal (positive-definite) flat-sky map from a Cl table: its two
+    white fields drawn from `generator` (re first, then im, as
+    cl_to_flat_map draws them) on `device` (default: the generator's
+    device)."""
+    dev = generator.device if device is None else torch.device(device)
+    re = torch.randn((npix, npix), generator=generator, device=dev,
+                     dtype=torch.float32)
+    im = torch.randn((npix, npix), generator=generator, device=dev,
+                     dtype=torch.float32)
+    return lognormal_map_from_white(re, im, npix, opening_angle_deg,
+                                    cl_tab_ell, cl_tab_val)

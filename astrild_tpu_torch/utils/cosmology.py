@@ -1,7 +1,8 @@
 """Background cosmology: distances, growth, Hubble flow.
 
-Port of astrild_tpu/utils/cosmology.py, restricted to what the ported
-paths need. Flat (w0, wa)CDM. Units: Mpc/h for distances, km/s for
+Port of astrild_tpu/utils/cosmology.py. Flat (w0, wa)CDM with the
+modified-gravity growth of the JAX package (mu0 and the Hu-Sawicki f(R)
+scale-dependent growth). Units: Mpc/h for distances, km/s for
 velocities.
 
 A numeric field is a Python float or a 0-d tensor. With float fields (the
@@ -13,6 +14,13 @@ a tensor (a Fisher Jacobian builds `Cosmology(**params)` from traced
 parameters, as the JAX package's pytree leaves allow) the same tables are
 built with float64 torch ops on that tensor's device, so autograd and
 torch.func follow them, and every method returns a float64 tensor.
+
+The growth ODE D'' + (2 + dlnE/dlna) D' = 1.5 Om(a) (1 + mu) D is linear
+in (D, D'), so one RK4 step is a 2x2 matrix of the step's coefficients:
+`_growth_D_of_lna` builds the 1023 step matrices at once (each column the
+RK4 step of a unit vector) and chains them with a prefix product (10
+levels), the same RK4 as the JAX package's scan in a few hundred
+launches instead of a dozen a right-hand side.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import default_device
 from .constants import (C_LIGHT_KMS, G_NEWTON, H0_HUNITS, H0_OVER_C_HMPC,
                         MPC_KM, RHO_CRIT0)
 from .tables import interp
@@ -34,6 +43,12 @@ _NUMERIC = ("Om0", "Ob0", "h", "ns", "sigma8", "w0", "wa", "Tcmb", "mu0",
             "fR0", "fR_n")
 
 
+def _concrete_zero(x) -> bool:
+    """True iff x is a float zero: a tensor always takes the general path,
+    as a traced value does in the JAX package, and is never read."""
+    return not isinstance(x, torch.Tensor) and x == 0.0
+
+
 def _cumtrapz0(f, d):
     """[0, cumulative trapezoid of f at spacing d]."""
     return np.concatenate([[0.0], np.cumsum(0.5 * (f[1:] + f[:-1]) * d)])
@@ -43,8 +58,10 @@ class _Host:
     """The numpy route of the float-field tables."""
     exp, log, sqrt, interp, where = np.exp, np.log, np.sqrt, np.interp, \
         np.where
+    ones_like, stack = np.ones_like, np.stack
     cumtrapz0 = staticmethod(_cumtrapz0)
     grid = staticmethod(np.linspace)
+    cat = staticmethod(np.concatenate)
 
     @staticmethod
     def asarray(x):
@@ -58,7 +75,9 @@ class _Host:
 class _Traced:
     """The float64 torch route of a cosmology with tensor fields."""
     exp, log, sqrt, where = torch.exp, torch.log, torch.sqrt, torch.where
+    ones_like, stack = torch.ones_like, torch.stack
     interp = staticmethod(interp)
+    cat = staticmethod(torch.cat)
 
     @staticmethod
     def clamp0(x):
@@ -86,11 +105,12 @@ class _Traced:
 class Cosmology:
     """Flat (w0, wa)CDM cosmology with precomputed distance/growth tables.
 
-    Same fields and defaults as the JAX package's `Cosmology`. Only the
-    mu0 = 0 growth table is ported: mu0 != 0 (the growth ODE) raises, and
-    so does a tensor mu0, whose value a table could not branch on.
-    A cosmology with tensor fields compares and hashes by identity: its
-    fields are never compared, and never turned into Python booleans.
+    Same fields and defaults as the JAX package's `Cosmology`. A float
+    mu0 = 0 takes the integral growth table; a float mu0 != 0 and any
+    tensor mu0 (the JAX package's `_concrete_zero`: a traced value counts
+    as nonzero) take the growth ODE. A cosmology with tensor fields
+    compares and hashes by identity: its fields are never compared, and
+    never turned into Python booleans.
     """
 
     Om0: float = 0.3089
@@ -119,12 +139,6 @@ class Cosmology:
                                           compare=False)
 
     def __post_init__(self):
-        # the JAX package's _concrete_zero: a tensor never takes the zero
-        # path, and its value is never read
-        if isinstance(self.mu0, torch.Tensor) or self.mu0 != 0.0:
-            raise NotImplementedError(
-                "Cosmology(mu0 != 0): the modified-growth ODE table is not "
-                "ported yet; only a float mu0 = 0 is supported")
         traced = [getattr(self, n) for n in _NUMERIC
                   if isinstance(getattr(self, n), torch.Tensor)]
         object.__setattr__(self, "_ops", _Traced(traced[0].device)
@@ -307,7 +321,10 @@ class Cosmology:
     def _build_growth_table(self):
         """D(a) = 5/2 Om0 E(a) int_0^a da'/(a'E(a'))^3 on a log-a grid,
         normalized to D(1) = 1, and f = dlnD/dlna = dlnE/dlna + a
-        (aE)^-3 / I."""
+        (aE)^-3 / I. With mu0 != 0 (or a tensor mu0) the ODE table
+        (`_build_growth_table_ode`) is used instead."""
+        if not _concrete_zero(self.mu0):
+            return self._build_growth_table_ode()
         ops = self._ops
         lna = ops.grid(np.log(_A_MIN), 0.0, _N_TABLE)
         a = ops.exp(lna)
@@ -322,6 +339,84 @@ class Cosmology:
         lnD = ops.log(d) - ops.log(d[-1])
         f = self._dlnE_dlna(a) + integrand / integral
         return lna, lnD, f
+
+    def mu(self, a):
+        """MG growth-source enhancement: G_eff/G - 1 at scale factor a
+        ('const': mu0; 'lambda': mu0 times the dark-energy fraction over
+        Ode0, the Planck mu-Sigma form)."""
+        a = self._ops.asarray(a)
+        if self.mu_model == "lambda":
+            ode_frac = (self.Ode0 * self._de_density_ratio(a)
+                        / self.efunc_a(a) ** 2)
+            return self.mu0 * ode_frac / self.Ode0
+        return self.mu0 * self._ops.ones_like(a)
+
+    def _build_growth_table_ode(self):
+        """Growth from the linear ODE with the modified source term,
+        D'' + (2 + dlnE/dlna) D' = 1.5 Om(a) (1 + mu(a)) D, integrated by
+        RK4 from matter domination (D ~ a); f = D'/D, ln D normalized to
+        D(1) = 1."""
+        lna, d, dp = self._growth_D_of_lna(self.mu, with_derivative=True)
+        d, dp = d[:, 0], dp[:, 0]
+        lnD = self._ops.log(d) - self._ops.log(d[-1])
+        return lna, lnD, dp / d
+
+    def _growth_D_of_lna(self, mu_fn, with_derivative: bool = False):
+        """RK4 growth table D(lna) for a source enhancement mu_fn(a), the
+        JAX package's single growth integrator: 1024 nodes in ln a from
+        a = 1e-3, y0 = (a_min, a_min), the rows the states at the nodes.
+
+        mu_fn takes a (nsteps, 1) array of scale factors and returns
+        something that broadcasts to (nsteps, ncol): a scalar, mu(a), or
+        mu_k(a, k) over ncol wavenumbers. Returns (lna, D) or (lna, D, D')
+        with D and D' of shape (1024, ncol).
+
+        Each RK4 step of the linear system is the 2x2 matrix whose columns
+        are the step of (1, 0) and (0, 1), built for every step at once;
+        the states are the prefix products of those matrices applied to
+        y0 (a Hillis-Steele scan: 10 levels of elementwise 2x2 products)."""
+        ops = self._ops
+        lna = ops.grid(np.log(_A_MIN), 0.0, _N_TABLE)
+        h = lna[1] - lna[0]
+        l0 = lna[:-1].reshape(-1, 1)
+
+        def coefficients(l):
+            a = ops.exp(l)
+            om = self.Om0 * a ** -3 / self.efunc_a(a) ** 2
+            return -(2.0 + self._dlnE_dlna(a)), 1.5 * om * (1.0 + mu_fn(a))
+
+        stages = [coefficients(l) for l in (l0, l0 + 0.5 * h, l0 + h)]
+
+        def rhs(st, d, dp):
+            damp, src = stages[st]
+            return dp, damp * dp + src * d
+
+        one = ops.ones_like(stages[0][1])       # (nsteps, ncol)
+        zero = 0.0 * one
+        # the two unit vectors side by side: d, dp of shape (2, nsteps, ncol)
+        d0, dp0 = ops.stack([one, zero]), ops.stack([zero, one])
+        k1 = rhs(0, d0, dp0)
+        k2 = rhs(1, d0 + 0.5 * h * k1[0], dp0 + 0.5 * h * k1[1])
+        k3 = rhs(1, d0 + 0.5 * h * k2[0], dp0 + 0.5 * h * k2[1])
+        k4 = rhs(2, d0 + h * k3[0], dp0 + h * k3[1])
+        d1 = d0 + (h / 6.0) * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
+        dp1 = dp0 + (h / 6.0) * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
+        # step matrix [[m11, m12], [m21, m22]]: column j the step of e_j
+        m = [d1[0], d1[1], dp1[0], dp1[1]]
+        nsteps, s = _N_TABLE - 1, 1
+        while s < nsteps:
+            late = [x[s:] for x in m]
+            early = [x[:-s] for x in m]
+            prod = [late[0] * early[0] + late[1] * early[2],
+                    late[0] * early[1] + late[1] * early[3],
+                    late[2] * early[0] + late[3] * early[2],
+                    late[2] * early[1] + late[3] * early[3]]
+            m = [ops.cat([x[:s], p]) for x, p in zip(m, prod)]
+            s *= 2
+        y0 = _A_MIN * ops.ones_like(one[:1])
+        d = ops.cat([y0, (m[0] + m[1]) * _A_MIN])
+        dp = ops.cat([y0, (m[2] + m[3]) * _A_MIN])
+        return (lna, d, dp) if with_derivative else (lna, d)
 
     def growth_factor(self, z):
         """D(z), normalized to D(z=0)=1."""
@@ -344,6 +439,68 @@ class Cosmology:
         base = om * self._ops.asarray(a) ** -3.0 + 4.0 * ol
         return (base ** (n + 2.0) / ((om + 4.0 * ol) ** (n + 1.0))
                 / ((n + 1.0) * abs(self.fR0)) * H0_OVER_C_HMPC ** 2)
+
+    def mu_k(self, a, k):
+        """G_eff/G - 1 at comoving k [h/Mpc]: k^2 / (3 (k^2 + a^2 M^2)):
+        unscreened (1/3) for k/a >> M, GR (0) for k/a << M; zeros for a
+        float fR0 = 0."""
+        ops = self._ops
+        a, k = ops.asarray(a), ops.asarray(k)
+        if _concrete_zero(self.fR0):
+            return 0.0 * (a * k)
+        k2 = k ** 2.0
+        return k2 / (3.0 * (k2 + a ** 2 * self.scalaron_mass2(a)))
+
+    def _k_and_out(self, k, device):
+        """k rounded to float32 (the JAX package's jnp.asarray(k,
+        float32)) as a float64 (nk,) array of the route, and a function
+        that returns a result where the route returns it: a float32 tensor
+        on k's device (numpy k: `device`, by default the CUDA card) on the
+        host route, the float64 tensor itself on the traced route."""
+        host = (k.detach().cpu().numpy() if isinstance(k, torch.Tensor)
+                else np.asarray(k))
+        k32 = np.atleast_1d(host.astype(np.float32)).astype(np.float64)
+        if self.traced:
+            return self._ops.asarray(k32.reshape(-1)), lambda r: r
+        dev = k.device if isinstance(k, torch.Tensor) else \
+            default_device(device)
+        return k32.reshape(-1), lambda r: torch.from_numpy(
+            np.asarray(r, np.float32)).to(dev)
+
+    def _growth_at(self, lna, d, a_t):
+        """Rows of a growth table D (1024, ncol) on its ln a nodes at a_t,
+        by the port's jnp.interp (its edge rule: clamped at the table's
+        ends)."""
+        if not self.traced:
+            lna, d = torch.from_numpy(lna), torch.from_numpy(d)
+        x = torch.log(torch.as_tensor(a_t, dtype=torch.float64,
+                                      device=lna.device))
+        out = interp(x.reshape(1), lna, d)[0]
+        return out if self.traced else out.numpy()
+
+    def growth_factor_k(self, k, z=0.0, device=None):
+        """Scale-dependent linear growth D(k, z) of Hu-Sawicki f(R): the
+        mu_k(a, k)-modified growth ODE per k, normalized to D ~ a in
+        matter domination (the GR table's convention, so ratios against
+        growth_factor are meaningful). Float fields: the host float64
+        route, returned as float32 on k's device (numpy k: `device`, by
+        default the CUDA card); tensor fields: float64 on theirs."""
+        k, out = self._k_and_out(k, device)
+        lna, d = self._growth_D_of_lna(lambda a: self.mu_k(a, k))
+        return out(self._growth_at(lna, d, 1.0 / (1.0 + z)))
+
+    def fofr_pk_enhancement(self, k, z=0.0, device=None):
+        """Linear fifth-force power enhancement P_f(R)(k)/P_GR(k) =
+        (D_f(R)(k, z) / D_GR(z))^2 with a common early-time
+        normalization: exactly 1 at fR0 = 0 and at k -> 0, the
+        scale-independent mu = 1/3 enhancement as k -> inf. Placed as
+        growth_factor_k places its result."""
+        k, out = self._k_and_out(k, device)
+        a_t = 1.0 / (1.0 + z)
+        lna, d_gr = self._growth_D_of_lna(lambda a: 0.0)
+        _, d_k = self._growth_D_of_lna(lambda a: self.mu_k(a, k))
+        return out((self._growth_at(lna, d_k, a_t)
+                    / self._growth_at(lna, d_gr, a_t)) ** 2)
 
 
 _PLANCK18_CACHE = None

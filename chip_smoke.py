@@ -220,7 +220,55 @@ exits non-zero before the final line:
      on the card against the same port on the CPU: maps within 2e-5 of
      their max, the isolated matched halos' velocities and the image
      positions within 1e-3, the rest within 1e-4; (h) numpy input to every new entry point on the card;
-     K1-K4 launches exactly 0.
+     K1-K4 launches exactly 0;
+ 17. the modified-gravity growth, flat-sky MASTER, HMC and the analysis
+     toolbox (after phase 16): (a) GR and fR0 = 1e-4 KDK evolutions (16
+     steps from 2LPT at z = 9, the same ICs) of 512^3 particles on 512^3
+     in 6400 Mpc/h under a flat P(k) = 20 (tests/test_nbody.py's f(R)
+     test at the pm_catalog width), both snapshots painted through K2 and
+     binned in 10 bins: P_fR/P_GR on bins 1-8 within 3% of linear theory,
+     fofr_pk_enhancement(k, 0) / fofr_pk_enhancement(k, 9), which exceeds
+     1.1 there; K2 exactly 2 x 17 + 2 launches; (b) the mu0 = 1/3 growth
+     tables ('const', 'lambda') on the traced route on the card within
+     1e-10 of the host tables; growth_factor_k and fofr_pk_enhancement at
+     256 k in 1e-4-10 h/Mpc for fR0 1e-4, 1e-5, 1e-6, n 1 and 2, z 0 and
+     1: the float route's card result equal to its CPU placement, the
+     traced route on the card within 1e-6 of it and rising in k above
+     0.01 h/Mpc; F4 at k = 0.1 in 1.15-1.32 and F5 in 1.03-1.12; GR
+     within 1e-6 of 1; the traced enhancement's CUDA kernels and those of
+     its jacfwd in fR0 (profiler), and the jacfwd's seconds; the
+     full_pipeline theory anchors on the card within 1e-5 of the CPU;
+     (c) MASTER on MA_REALIZATIONS seeded 2048^2 maps over 10 deg of the
+     example's C_ell = 1/(l(l+1)) on a table with unit ell steps, under
+     its edge mask (the columns below 30/128 of the width) with 256 seeded
+     holes of 2' radius, 16 bands: the realizations' mean of MASTER within
+     5% of the unmasked maps' mean C_ell on bands of >= 10^4 modes and
+     under half the largest <w^2> pseudo-Cl bias there (printed), and of
+     their E-only shear (kappa_to_shear_maps)
+     spin-2 MASTER: BB/EE summed below 1e-2 (raw pseudo BB/EE printed),
+     EE within 5% of the unmasked EE; the coupling builds' seconds at
+     2048^2 on the card; at 512^2 the couplings within 1e-10 of the CPU
+     build's max and the spectra within 1e-5; SkyNamaster on
+     distributed_and_masked.py's stages 3 and 6 at its own parameters and
+     at 2048^2, where the second compute_cl reuses the cached coupling
+     (its seconds printed); every full-sky SkyNamaster path raises
+     NotImplementedError naming queue 1 item 6; (d) HMC from CUDA
+     generators: tests/test_inference.py's correlated Gaussian with its
+     checks, its shear posterior (sigma8) with its checks against
+     shear_fisher, a 3-bin (z 0.5, 1, 1.5) posterior in (Om0, sigma8)
+     over 16 ells (nchi 64, fsky 0.3, inv_mass from shear_fisher; 150
+     warm-up steps and 200 samples of 8 leapfrogs): means within 3
+     sigma_F, std / sigma_F in 0.5-2, acceptance > 0.5, ms and CUDA
+     kernels per log-density gradient printed; the 3x2pt posterior
+     at tests/test_inference.py's settings: |logp(truth)| < 1e-6, a
+     finite gradient, the barrier below -1e3; (e) lognormal_map at
+     2048^2 (min >= -1 - 1e-5, |mean| < 0.2) against the same port on
+     the CPU from the same white fields within 1e-5 of max; (f)
+     bootstrap_statistic of 10^6 values with 1000 resamples (and 100
+     resamples' medians from the same indices on the CPU),
+     nonlinear_least_squares of a noisy NFW profile, pca,
+     covariance_from_realizations and snapshot_info_table (F5, traced on
+     the card) against the CPU within 1e-5; K1-K4 0 launches but (a).
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -372,6 +420,41 @@ ML_SL_NPIX, ML_SL_EXTENT, ML_SL_IMAGE = 1024, 0.2, 1.1
 ML_ISW_ELLS, ML_ISW_Z, ML_BS_BINS = (2, 2000), (0.08, 0.9), 16
 ML_SMALL_NPIX, ML_SMALL_OA = 2048, 5.0
 ML_MAP_TOL, ML_VT_TOL, ML_CPU_TOL = 2e-5, 1e-3, 1e-4
+# the modified-gravity growth, MASTER and inference phase: (a) the f(R) PM
+# pair at the pm_catalog width with the JAX test's cell (12.5 Mpc/h) and
+# flat P(k), its steps, fR0 and P(k) bins, the bar on bins 1-8 and the
+# theory's least peak there; (b) the growth grid (k range, fR0, n, z), the
+# k above which the traced enhancement must rise, the traced route / mu0
+# tables / theory anchors on the card against the CPU (relative); (c) the
+# survey map and field [deg], bands, holes and their radius ['], the
+# example's masked edge share, the bar against the unmasked C_ell on bands
+# of >= MA_MIN_MODES modes, the spin-2 BB/EE bar, the card / CPU side and
+# bars, the realizations averaged (a single map's two lowest bands scatter
+# by 2-10%: the few lowest modes hold most of a steep spectrum's power); (d) HMC (samples, warm-up, leapfrogs, step): the Gaussian of
+# tests/test_inference.py, its shear posterior, the wider 3-bin one (ells,
+# source redshifts, chi nodes; 200 samples, not 400: its chain took over
+# 90 s), fsky and prior box; (e) the lognormal
+# map's side and card / CPU bar; (f) bootstrap values and resamples (and
+# those compared with the CPU), PCA and covariance shapes, the bar
+MG_SIDE, MG_BOX, MG_PK, MG_STEPS, MG_FR0, MG_BINS = (512, 6400.0, 20.0, 16,
+                                                      1e-4, 10)
+MG_RATIO_TOL, MG_TEETH = 0.03, 1.1
+MG_K, MG_FR0S, MG_NS, MG_ZS = (1e-4, 10.0, 256), (1e-4, 1e-5, 1e-6), \
+    (1.0, 2.0), (0.0, 1.0)
+MG_MONO_K, MG_TRACED_TOL, MG_TABLE_TOL, MG_ANCHOR_TOL = 1e-2, 1e-6, 1e-10, \
+    1e-5
+MA_NPIX, MA_FOV, MA_NBINS, MA_HOLES, MA_HOLE_ARCMIN = 2048, 10.0, 16, 256, 2.0
+MA_EDGE, MA_MIN_MODES, MA_TOL, MA_BB = 30 / 128, 10 ** 4, 0.05, 1e-2
+MA_CPU_NPIX, MA_COUP_TOL, MA_SPEC_TOL = 512, 1e-10, 1e-5
+MA_REALIZATIONS, MA_REPEAT_TOL = 16, 1e-4
+HMC_GAUSS, HMC_SHEAR, HMC_WIDE = (2000, 500, 12, 0.3), (400, 150, 8, 0.01), \
+    (200, 150, 8)
+HMC_WIDE_ELLS, HMC_WIDE_Z, HMC_WIDE_NCHI = (100.0, 3000.0, 16), \
+    (0.5, 1.0, 1.5), 64
+HMC_FSKY, HMC_BOUNDS = 0.3, {"sigma8": (0.6, 1.0), "Om0": (0.1, 0.6)}
+LN_NPIX, LN_TOL = 2048, 1e-5
+BOOT_N, BOOT_NB, BOOT_CPU_NB = 10 ** 6, 1000, 100
+PCA_N, PCA_F, COV_SHAPE, TOOLBOX_TOL = 100000, 16, (1000, 64), 1e-5
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -1236,6 +1319,12 @@ def phase_forward(dev, seed: int):
                              f"{d_ratio}")
     ratio = (results["fofr"].power / results["gr"].power)[has_modes][:16]
     ratio = ratio.double().cpu().numpy()
+    # linear theory's P_fR/P_GR beside it, printed (no check: fR0 = 1e-5
+    # at the 500 Mpc/h box's k is beyond linear at z = 0)
+    k16 = results["gr"].k[has_modes][:16]
+    ratio_theory = (fr.fofr_pk_enhancement(k16, 0.0)
+                    / fr.fofr_pk_enhancement(k16, Z_INIT)).double().cpu(
+                        ).numpy()
     if ratio.min() < 1.0 or np.any(np.diff(ratio) < 0.0):
         raise AssertionError(f"P_fR/P_GR over the first 16 bins is not >= 1 "
                              f"and rising: {ratio.tolist()}")
@@ -1278,7 +1367,8 @@ def phase_forward(dev, seed: int):
     log(f"# phase forward: finite; K2 launches per evolution "
         f"{evolve_paints}; K3 launches {k3_launches}; |sum p|/sum|p| "
         f"{max(net):.2e}; growth {growth:.5f} vs D(0)/D(9) {d_ratio:.5f}; "
-        f"P_fR/P_GR first 16 bins {ratio[0]:.5f} .. {ratio[-1]:.5f}; "
+        f"P_fR/P_GR first 16 bins {ratio[0]:.5f} .. {ratio[-1]:.5f} "
+        f"(linear theory {ratio_theory[0]:.5f} .. {ratio_theory[-1]:.5f}); "
         f"v12 innermost {v12_in.tolist()}; K3 vs plain on the {V12_N} "
         f"tracers max err {k3_err:.3e} on bin sums up to {k3_scale:.3e}, "
         f"v12 max diff {v12_diff:.3e} km/s; "
@@ -1290,6 +1380,7 @@ def phase_forward(dev, seed: int):
         "step_split_s": split, "launches": launches,
         "growth": growth, "d_ratio": d_ratio, "momentum": net,
         "pk_ratio_first16": ratio.tolist(),
+        "pk_ratio_linear_theory_first16": ratio_theory.tolist(),
         "k_first16": results["gr"].k[has_modes][:16].tolist(),
         "k3_max_abs_err": k3_err, "k3_bin_sum_max": k3_scale,
         "v12": v12.tolist(), "v12_plain": v12_p.tolist(),
@@ -4588,6 +4679,644 @@ def phase_moving_lens(dev, seed: int, so_cat, hvel, kappa_born,
     return result
 
 
+# ------------------------- MG growth, flat-sky MASTER, HMC, the toolbox
+def _kernel_launches(fn) -> tuple:
+    """(fn(), the CUDA kernels it launched): every kernel, of the port's
+    own and of torch, counted from a profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, n
+
+
+def _master_mask(npix: int, seed: int) -> np.ndarray:
+    """examples/distributed_and_masked.py's edge mask at width npix (the
+    columns below MA_EDGE of it) with MA_HOLES seeded circular holes of
+    MA_HOLE_ARCMIN radius."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones((npix, npix), np.float32)
+    mask[:, : int(round(MA_EDGE * npix))] = 0.0
+    r_pix = MA_HOLE_ARCMIN / 60.0 / MA_FOV * npix
+    yy, xx = np.meshgrid(np.arange(npix), np.arange(npix), indexing="ij")
+    for cy, cx in rng.uniform(0, npix, (MA_HOLES, 2)):
+        y0, y1 = int(max(cy - r_pix - 1, 0)), int(min(cy + r_pix + 2, npix))
+        x0, x1 = int(max(cx - r_pix - 1, 0)), int(min(cx + r_pix + 2, npix))
+        sub = ((yy[y0:y1, x0:x1] - cy) ** 2 + (xx[y0:y1, x0:x1] - cx) ** 2
+               < r_pix ** 2)
+        mask[y0:y1, x0:x1][sub] = 0.0
+    return mask
+
+
+def _example_cl_table():
+    """examples/distributed_and_masked.py's C_ell = 1/(l(l+1)) table."""
+    ell = np.linspace(1.0, 40000.0, 1024)
+    return ell, 1.0 / (ell * (ell + 1.0))
+
+
+def phase_mg_master_inference(dev, seed: int) -> dict:
+    """The modified-gravity growth, flat-sky MASTER, HMC and the analysis
+    toolbox, each stage on the host clock, synchronized, with its K1-K4
+    launches held to its own count and its peak memory; the checks
+    raise. (a) GR and fR0 = 1e-4 KDK evolutions (16 steps from 2LPT at z
+    = 9) of the same 512^3 particles on 512^3 in 6400 Mpc/h under a flat
+    P(k) = 20, both painted through K2: P_fR/P_GR on bins 1-8 within 3% of
+    fofr_pk_enhancement(k, 0) / fofr_pk_enhancement(k, 9), which exceeds
+    1.1 there; K2 2 x 17 + 2 launches. (b) the mu0 = 1/3 growth tables
+    ('const', 'lambda') and growth_factor_k / fofr_pk_enhancement at 256
+    k for fR0 in {1e-4, 1e-5, 1e-6}, n in {1, 2}, z in {0, 1}: the float
+    route on the card equal to its CPU placement, the traced route
+    (tensor fields on the card) within 1e-6 of it; F4 / F5 at k = 0.1 in
+    the published window, monotonic in k, GR within 1e-6 of 1; the traced
+    jacfwd in fR0 (seconds and CUDA kernel launches printed); the
+    full_pipeline theory anchors on the card against the CPU. (c) a
+    2048^2, 10 deg map of the example's C_ell table under its edge mask
+    with 256 holes: MASTER within 5% of the unmasked map's C_ell on bands
+    of >= 10^4 modes and under half the <w^2> pseudo-Cl's largest bias
+    there (printed); its E-only shear: MASTER
+    BB/EE summed < 1e-2, EE within 5% of the unmasked; couplings and
+    spectra on the card against the CPU at 512^2; SkyNamaster on the
+    example's stages 3 and 6 and at 2048^2 (the cached second call
+    timed). (d) HMC: the correlated Gaussian, the shear posterior of
+    tests/test_inference.py with its checks, a 3-bin (Om0, sigma8)
+    posterior against shear_fisher, the 3x2pt posterior at the truth.
+    (e) lognormal_map at 2048^2. (f) bootstrap_statistic of 10^6 values,
+    nonlinear_least_squares of an NFW profile, pca,
+    covariance_from_realizations, snapshot_info_table for F5; (e) and
+    (f) on the card against the CPU. Returns the numbers printed in
+    `# mg_master_inference`."""
+    from astrild_tpu_torch import Cosmology
+    from astrild_tpu_torch.models import SkyNamaster, siminfo
+    from astrild_tpu_torch.ops import (angular_power, halo_stats, inference,
+                                       linear_power, mocks, nbody,
+                                       paint_cuda, pairwise_cuda, power)
+    from astrild_tpu_torch.ops.forecast import (shear_fisher,
+                                                threex2pt_mean_builder,
+                                                tomographic_shear_cls)
+    from astrild_tpu_torch.ops.paint import paint
+    from astrild_tpu_torch.utils import analysis
+
+    seconds, launches, peaks, out = {}, {}, {}, {}
+    run = _stage_runner(seconds, launches)
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run(name, fn)
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"#   mg/master/inference stage {name}: {seconds[name]:.3f} s, "
+            f"launches {launches[name]}, peak {peaks[name]:.2f} GB")
+        return res
+
+    def host(x) -> np.ndarray:
+        return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x))
+
+    def rel(got, want) -> float:
+        got, want = host(got).astype(np.float64), host(want).astype(
+            np.float64)
+        return float(np.abs(got - want).max()
+                     / max(np.abs(want).max(), 1e-300))
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"mg/master/inference: {msg}")
+
+    torch.cuda.synchronize()
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+
+    # ---- (a) f(R) PM against linear theory
+    gr = Cosmology(Om0=0.3, h=0.7)
+    fr = Cosmology(Om0=0.3, h=0.7, fR0=MG_FR0)
+    a0 = 1.0 / (1.0 + Z_INIT)
+
+    def pk_flat(k):
+        return MG_PK * torch.ones_like(k)
+
+    def fofr_pm():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        comps, mom = nbody.lpt_catalog(gen, MG_SIDE, MG_BOX, pk_flat, gr,
+                                       Z_INIT)
+        res = {}
+        for name, cosmo in (("gr", gr), ("fr", fr)):
+            snap, _ = nbody.pm_evolve(comps, mom, cosmo, MG_SIDE, MG_BOX,
+                                      a0, 1.0, MG_STEPS)
+            res[name] = power.auto_power(paint(snap, MG_SIDE, MG_BOX,
+                                               window="cic"), MG_BOX,
+                                         nbins=MG_BINS)
+            del snap
+        return res
+
+    pm = stage("fofr_pm", fofr_pm)
+    k = pm["gr"].k
+    measured = host(pm["fr"].power / pm["gr"].power)
+    theory = host(fr.fofr_pk_enhancement(k, 0.0)
+                  / fr.fofr_pk_enhancement(k, Z_INIT))
+    sel = slice(1, 9)
+    err = np.abs(measured[sel] / theory[sel] - 1.0)
+    check(np.isfinite(measured).all(), "P_fR/P_GR is not finite")
+    check(theory[sel].max() > MG_TEETH,
+          f"linear theory {theory[sel].max()} not above {MG_TEETH}")
+    check(err.max() < MG_RATIO_TOL, f"P_fR/P_GR {measured[sel].tolist()} "
+          f"against linear theory {theory[sel].tolist()}")
+    out["fofr_pm"] = {"k": host(k).tolist(), "measured": measured.tolist(),
+                      "theory": theory.tolist(),
+                      "max_rel_err_bins_1_8": float(err.max())}
+    del pm
+
+    # ---- (b) growth tables on the card against the CPU
+    kk = np.geomspace(*MG_K).astype(np.float32)
+
+    def growth_grid(device):
+        res = {}
+        for fr0 in MG_FR0S:
+            for n in MG_NS:
+                c = Cosmology(fR0=fr0, fR_n=n)
+                for z in MG_ZS:
+                    res[(fr0, n, z)] = (
+                        c.growth_factor_k(kk, z, device=device),
+                        c.fofr_pk_enhancement(kk, z, device=device))
+        return res
+
+    grid_card = stage("growth_float_route", lambda: growth_grid(dev))
+
+    def traced_grid():
+        res = {}
+        for fr0 in MG_FR0S:
+            for n in MG_NS:
+                c = Cosmology(fR0=torch.tensor(fr0, dtype=torch.float64,
+                                               device=dev), fR_n=n)
+                for z in MG_ZS:
+                    res[(fr0, n, z)] = (c.growth_factor_k(kk, z),
+                                        c.fofr_pk_enhancement(kk, z))
+        return res
+
+    grid_traced = stage("growth_traced_route", traced_grid)
+    mu0_models = ({"mu0": 1.0 / 3.0},
+                  {"mu0": 1.0 / 3.0, "mu_model": "lambda"})
+    tables_card = stage("mu0_tables", lambda: [
+        Cosmology(**{**m, "mu0": torch.tensor(
+            m["mu0"], dtype=torch.float64, device=dev)})
+        for m in mu0_models])
+    t_cpu = time.perf_counter()
+    grid_cpu = growth_grid("cpu")
+    tables_cpu = [Cosmology(**m) for m in mu0_models]
+    seconds["growth_cpu"] = time.perf_counter() - t_cpu
+    diffs = {"float_card_vs_cpu": 0.0, "traced_card_vs_cpu": 0.0,
+             "mu0_tables": 0.0}
+    for key, (g_card, e_card) in grid_card.items():
+        g_cpu, e_cpu = grid_cpu[key]
+        check(g_card.device.type == dev.type
+              and e_card.dtype == torch.float32,
+              f"growth {key} not float32 on the card")
+        diffs["float_card_vs_cpu"] = max(diffs["float_card_vs_cpu"],
+                                         rel(g_card, g_cpu),
+                                         rel(e_card, e_cpu))
+        g_tr, e_tr = grid_traced[key]
+        diffs["traced_card_vs_cpu"] = max(diffs["traced_card_vs_cpu"],
+                                          rel(g_tr, g_cpu), rel(e_tr, e_cpu))
+        check(bool((torch.diff(e_tr[kk >= MG_MONO_K]) > 0).all()),
+              f"enhancement {key} not rising in k")
+    for tc, tg in zip(tables_cpu, tables_card):
+        diffs["mu0_tables"] = max(diffs["mu0_tables"],
+                                  rel(tg._lnD_tab, tc._lnD_tab),
+                                  rel(tg._f_tab, tc._f_tab))
+    check(diffs["float_card_vs_cpu"] == 0.0,
+          f"float route on the card differs from the CPU: {diffs}")
+    check(diffs["traced_card_vs_cpu"] < MG_TRACED_TOL,
+          f"traced route on the card against the CPU: {diffs}")
+    check(diffs["mu0_tables"] < MG_TABLE_TOL, f"mu0 tables: {diffs}")
+    k01 = np.array([0.1], np.float32)
+    f4 = float(Cosmology(fR0=1e-4).fofr_pk_enhancement(k01)[0])
+    f5 = float(Cosmology(fR0=1e-5).fofr_pk_enhancement(k01)[0])
+    check(1.15 < f4 < 1.32 and 1.03 < f5 < 1.12,
+          f"F4 {f4}, F5 {f5} at k = 0.1 outside the published window")
+    gr_enh = host(Cosmology(fR0=0.0).fofr_pk_enhancement(kk))
+    check(np.abs(gr_enh - 1.0).max() <= 1e-6, "GR enhancement is not 1")
+
+    def traced_one(x):
+        return Cosmology(fR0=x).fofr_pk_enhancement(kk)
+
+    x0 = torch.tensor(1e-5, dtype=torch.float64, device=dev)
+    _, n_value = _kernel_launches(lambda: traced_one(x0))
+    jac, n_jac = stage("growth_jacfwd", lambda: _kernel_launches(
+        lambda: torch.func.jacfwd(traced_one)(x0)))
+    check(bool(torch.isfinite(jac).all()) and float(jac[-1]) > 0,
+          "the fR0 Jacobian is not finite and positive at high k")
+
+    def anchors(device):
+        cosmo = Cosmology()
+        k2 = torch.tensor([0.1, 1.0], device=device)
+        boost = (linear_power.nonlinear_power(k2, cosmo)
+                 / linear_power.linear_power(k2, cosmo))
+        clk = angular_power.cl_kappa_limber(
+            torch.tensor([500.0], device=device), cosmo, z_source=1.0)
+        fr5 = Cosmology(fR0=1e-5).fofr_pk_enhancement(host(k2),
+                                                      device=device)
+        hmf = halo_stats.theory_hmf(np.asarray([1e13]), cosmo,
+                                    model="tinker08", device=device)
+        return [boost, clk, fr5, hmf]
+
+    anc = stage("theory_anchors", lambda: anchors(dev))
+    t_cpu = time.perf_counter()
+    anc_cpu = anchors("cpu")
+    seconds["theory_anchors_cpu"] = time.perf_counter() - t_cpu
+    diffs["theory_anchors"] = max(rel(a, b) for a, b in zip(anc, anc_cpu))
+    check(all(a.device.type == dev.type for a in anc),
+          "a theory anchor did not run on the card")
+    check(diffs["theory_anchors"] < MG_ANCHOR_TOL,
+          f"theory anchors card vs CPU {diffs['theory_anchors']}")
+    out["growth"] = {"f4_k01": f4, "f5_k01": f5, "card_vs_cpu": diffs,
+                     "traced_value_launches": n_value,
+                     "traced_jacfwd_launches": n_jac,
+                     "anchors": [host(a).tolist() for a in anc]}
+
+    # ---- (c) flat-sky MASTER at survey size
+    ell_tab, cl_tab = _example_cl_table()
+    ell_fine = np.linspace(1.0, 40000.0, 40000)
+    cl_fine = 1.0 / (ell_fine * (ell_fine + 1.0))
+    mask = _master_mask(MA_NPIX, seed)
+    w = torch.from_numpy(mask).to(dev)
+    _, nmodes = angular_power.flat_sky_mode_counts(MA_NPIX, MA_FOV,
+                                                   MA_NBINS, device=dev)
+    full = host(nmodes) >= MA_MIN_MODES
+    coupling = stage("master_coupling", lambda: angular_power
+                     .flat_sky_coupling_matrix(w.double(), MA_FOV,
+                                               MA_NBINS))
+    coupling2 = stage("master_spin2_coupling", lambda: angular_power
+                      .flat_sky_spin2_coupling_matrices(w.double(), MA_FOV,
+                                                        MA_NBINS))
+
+    def realizations():
+        gen = torch.Generator(device=dev).manual_seed(seed + 17)
+        acc = {}
+        for _ in range(MA_REALIZATIONS):
+            img = angular_power.cl_to_flat_map(gen, ell_fine, cl_fine,
+                                               MA_NPIX, MA_FOV)
+            g1, g2 = angular_power.kappa_to_shear_maps(img)
+            _, ee_ms, bb_ms = angular_power.cl_flat_sky_shear_master(
+                g1, g2, w, MA_FOV, nbins=MA_NBINS, coupling=coupling2)
+            _, pee, pbb = angular_power.cl_shear_eb(g1 * w, g2 * w, MA_FOV,
+                                                    nbins=MA_NBINS)
+            spectra = {
+                "true": angular_power.cl_flat_sky(img, MA_FOV,
+                                                  nbins=MA_NBINS)[1],
+                "master": angular_power.cl_flat_sky_master(
+                    img, w, MA_FOV, nbins=MA_NBINS, coupling=coupling)[1],
+                "w2": angular_power.cl_flat_sky_masked(img, w, MA_FOV,
+                                                       nbins=MA_NBINS)[1],
+                "ee_true": angular_power.cl_shear_eb(g1, g2, MA_FOV,
+                                                     nbins=MA_NBINS)[1],
+                "ee": ee_ms, "bb": bb_ms, "pee": pee, "pbb": pbb}
+            for name, v in spectra.items():
+                acc.setdefault(name, []).append(host(v).astype(np.float64))
+        return img, {name: np.mean(v, 0) for name, v in acc.items()}, \
+            np.abs(np.array(acc["master"]) / np.array(acc["true"]) - 1.0)
+
+    img, mean, single = stage("master_realizations", realizations)
+    master_err = np.abs(mean["master"] / mean["true"] - 1.0)[full]
+    w2_bias = (mean["w2"] / mean["true"] - 1.0)[full]
+    ee_err = np.abs(mean["ee"] / mean["ee_true"] - 1.0)[full]
+    bb_ee = float(mean["bb"][full].sum() / mean["ee"][full].sum())
+    raw_bb_ee = float(mean["pbb"][full].sum() / mean["pee"][full].sum())
+    check(full.sum() >= 4, f"only {int(full.sum())} bands of >= "
+          f"{MA_MIN_MODES} modes")
+    # under the bar, and well under the plain <w^2> pseudo-Cl's own bias on
+    # the same bands, so that a coupling which reduced to <w^2> fails here
+    check(master_err.max() < MA_TOL
+          and master_err.max() < 0.5 * np.abs(w2_bias).max(),
+          f"MASTER against the unmasked C_ell: {master_err.tolist()}, "
+          f"<w^2> bias {w2_bias.tolist()}")
+    check(abs(bb_ee) < MA_BB and ee_err.max() < MA_TOL,
+          f"spin-2 MASTER BB/EE {bb_ee}, EE err {ee_err.tolist()}")
+    # the card against the CPU at MA_CPU_NPIX
+    small = _master_mask(MA_CPU_NPIX, seed + 1)
+    gen_s = torch.Generator(device=dev).manual_seed(seed + 18)
+    img_s = angular_power.cl_to_flat_map(gen_s, ell_tab, cl_tab,
+                                         MA_CPU_NPIX, MA_FOV)
+    ws = torch.from_numpy(small).to(dev)
+
+    def small_run(im, mk, coupling_mask):
+        gg1, gg2 = angular_power.kappa_to_shear_maps(im)
+        return ([angular_power.flat_sky_coupling_matrix(
+                    coupling_mask, MA_FOV, MA_NBINS)]
+                + list(angular_power.flat_sky_spin2_coupling_matrices(
+                    coupling_mask, MA_FOV, MA_NBINS)),
+                [angular_power.cl_flat_sky_masked(im, mk, MA_FOV,
+                                                  nbins=MA_NBINS)[1],
+                 angular_power.cl_flat_sky_master(im, mk, MA_FOV,
+                                                  nbins=MA_NBINS)[1],
+                 *angular_power.cl_flat_sky_shear_master(
+                     gg1, gg2, mk, MA_FOV, nbins=MA_NBINS)[1:]])
+
+    small_card = stage("master_512", lambda: small_run(img_s, ws,
+                                                       ws.double()))
+    t_cpu = time.perf_counter()
+    small_cpu = small_run(img_s.cpu(), small, small)
+    seconds["master_512_cpu"] = time.perf_counter() - t_cpu
+    coup_err = max(float(np.abs(a - b).max() / np.abs(small_cpu[0][0]).max())
+                   for a, b in zip(small_card[0], small_cpu[0]))
+    spec_err = max(rel(a, b) for a, b in zip(small_card[1], small_cpu[1]))
+    check(coup_err < MA_COUP_TOL and spec_err < MA_SPEC_TOL,
+          f"MASTER at {MA_CPU_NPIX}^2 card vs CPU: couplings {coup_err}, "
+          f"spectra {spec_err}")
+    # SkyNamaster on the example's stages 3 and 6, then at 2048^2
+    ex_n = 128
+    ex_img = angular_power.cl_to_flat_map(
+        torch.Generator(device=dev).manual_seed(seed + 1), ell_tab, cl_tab,
+        ex_n, MA_FOV)
+    ex_mask = np.ones((ex_n, ex_n), np.float32)
+    ex_mask[:, :30] = 0.0
+    rng = np.random.default_rng(seed)
+    g1m = rng.standard_normal((ex_n, ex_n)).astype(np.float32)
+    g2m = rng.standard_normal((ex_n, ex_n)).astype(np.float32)
+
+    def example():
+        sn = SkyNamaster.from_array(host(ex_img), opening_angle=MA_FOV)
+        sn.set_mask(ex_mask)
+        res = [sn.compute_cl(nbins=8, decouple=False),
+               sn.compute_cl(nbins=8), sn.compute_cl_spin2(g1m, g2m,
+                                                           nbins=8)]
+        return sn, res
+
+    sn_ex, ex_res = stage("skynamaster_example", example)
+    for part in ex_res:
+        check(all(bool(torch.isfinite(t).all()) and t.device.type == dev.type
+                  for t in part), "SkyNamaster example not finite on card")
+    sn_big = SkyNamaster.from_array(host(img), opening_angle=MA_FOV)
+    sn_big.set_mask(mask)
+    big1 = stage("skynamaster_2048_first", lambda: sn_big.compute_cl(
+        nbins=MA_NBINS))
+    big2 = stage("skynamaster_2048_cached", lambda: sn_big.compute_cl(
+        nbins=MA_NBINS))
+    big_direct = angular_power.cl_flat_sky_master(img, w, MA_FOV,
+                                                  nbins=MA_NBINS,
+                                                  coupling=coupling)[1]
+    # the pseudo-Cl's band sums are float32 atomics over ~2^18 modes a band
+    # on the card: a second call agrees to their rounding (~sqrt(2^18)
+    # ulps), not bit for bit
+    check(sn_big._workspace.get(("flat", MA_NBINS)) is not None
+          and rel(big2[1], big1[1]) < MA_REPEAT_TOL
+          and rel(big1[1], big_direct) < MA_REPEAT_TOL,
+          f"SkyNamaster's cached call differs: {rel(big2[1], big1[1])}, "
+          f"{rel(big1[1], big_direct)}")
+    for call in (lambda: SkyNamaster.from_array(
+            np.zeros(12 * 16 * 16)).compute_cl(),
+            lambda: SkyNamaster.from_file("sky.h5")):
+        try:
+            call()
+        except NotImplementedError as e:
+            check("item 6" in str(e), f"full-sky raise: {e}")
+        else:
+            check(False, "a full-sky SkyNamaster path did not raise")
+    out["master"] = {
+        "realizations": MA_REALIZATIONS,
+        "bands_ge_1e4_modes": int(full.sum()),
+        "master_max_rel_err": float(master_err.max()),
+        "master_per_map_max_rel_err_median": float(np.median(
+            single.max(1))),
+        "w2_bias": w2_bias.tolist(),
+        "w2": float(np.mean(mask.astype(np.float64) ** 2)),
+        "shear_ee_max_rel_err": float(ee_err.max()),
+        "shear_master_bb_over_ee": bb_ee, "raw_pseudo_bb_over_ee": raw_bb_ee,
+        "card_vs_cpu_512": {"couplings": coup_err, "spectra": spec_err},
+        "example_cl_w2": host(ex_res[0][1])[:4].tolist(),
+        "example_cl_master": host(ex_res[1][1])[:4].tolist()}
+    del img, w, sn_big
+
+    # ---- (d) HMC
+    icov = torch.linalg.inv(torch.tensor([[1.0, 0.6], [0.6, 1.0]],
+                                         device=dev))
+
+    def gauss():
+        return inference.hmc_sample(
+            torch.Generator(device=dev).manual_seed(seed),
+            lambda x: -0.5 * torch.sum(x * (icov * x[None, :]).sum(1)),
+            torch.zeros(2, device=dev), n_samples=HMC_GAUSS[0],
+            n_warmup=HMC_GAUSS[1], n_leapfrog=HMC_GAUSS[2],
+            step_size=HMC_GAUSS[3])
+
+    g = stage("hmc_gaussian", gauss)
+    s = host(g.samples)
+    check(0.6 < float(g.accept_rate) <= 1.0
+          and np.abs(s.mean(0)).max() < 0.1
+          and np.abs(np.cov(s.T) - [[1.0, 0.6], [0.6, 1.0]]).max() < 0.12,
+          f"HMC on the correlated Gaussian: rate {float(g.accept_rate)}, "
+          f"mean {s.mean(0)}, cov {np.cov(s.T).tolist()}")
+
+    def posterior_run(ells, zs, names, truth, hmc, x0, step, nchi):
+        stack = tomographic_shear_cls(ells, Cosmology(**truth), zs,
+                                      nchi=nchi, device=dev)
+        logp, _ = inference.shear_log_posterior(
+            ells, stack, zs, names, fsky=HMC_FSKY, nchi=nchi,
+            prior_bounds=HMC_BOUNDS)
+        fish = shear_fisher(ells, {k: truth[k] for k in names}, zs,
+                            fsky=HMC_FSKY, nchi=nchi,
+                            fixed={k: v for k, v in truth.items()
+                                   if k not in names})
+        sig = fish["marginalized"]
+        xt = torch.tensor([truth[k] for k in names], device=dev)
+        _, n_grad = _kernel_launches(lambda: inference._value_and_grad(
+            logp, xt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            inference._value_and_grad(logp, xt)
+        torch.cuda.synchronize()
+        ms_grad = (time.perf_counter() - t0) / 5 * 1e3
+        res = inference.hmc_sample(
+            torch.Generator(device=dev).manual_seed(seed + 2), logp,
+            torch.tensor(x0, device=dev), n_samples=hmc[0],
+            n_warmup=hmc[1], n_leapfrog=hmc[2], step_size=step,
+            inv_mass=torch.tensor(sig ** 2, dtype=torch.float32,
+                                  device=dev))
+        return logp, sig, res, ms_grad, n_grad
+
+    shear_ells = np.geomspace(100, 800, 5).astype(np.float32)
+    truth = {"Om0": 0.3089, "sigma8": 0.8159}
+    logp1, sig1, res1, ms1, n1 = stage("hmc_shear", lambda: posterior_run(
+        shear_ells, [1.0], ["sigma8"], truth, HMC_SHEAR, [0.79],
+        HMC_SHEAR[3], 48))
+    s1 = host(res1.samples)[:, 0]
+    check(float(logp1(torch.tensor([0.8159], device=dev)))
+          > float(logp1(torch.tensor([0.9], device=dev))),
+          "the shear posterior does not peak at the truth")
+    check(abs(s1.mean() - 0.8159) < 3 * sig1[0]
+          and 0.5 < s1.std() / sig1[0] < 2.0,
+          f"shear HMC: mean {s1.mean()}, std {s1.std()}, sigma_F {sig1}")
+    wide_ells = np.geomspace(*HMC_WIDE_ELLS).astype(np.float32)
+    logp2, sig2, res2, ms2, n2 = stage("hmc_wide", lambda: posterior_run(
+        wide_ells, list(HMC_WIDE_Z), ["Om0", "sigma8"], truth, HMC_WIDE,
+        [0.3089, 0.8159], 0.01, HMC_WIDE_NCHI))
+    s2 = host(res2.samples)
+    tv = np.array([truth["Om0"], truth["sigma8"]])
+    ratio = s2.std(0) / sig2
+    check(np.all(np.abs(s2.mean(0) - tv) < 3 * sig2)
+          and np.all((ratio > 0.5) & (ratio < 2.0))
+          and float(res2.accept_rate) > 0.5,
+          f"wide HMC: mean {s2.mean(0)}, std/sigma_F {ratio}, rate "
+          f"{float(res2.accept_rate)}")
+    zt = np.linspace(0.01, 3.0, 100)
+    nz = (zt, host(angular_power.smail_nz(zt, z0=0.64, device="cpu")))
+    rp = np.array([2.0, 5.0, 10.0])
+    hod_fixed = {"sigma_logm": 0.3, "log_m0": 12.0, "log_m1": 13.5,
+                 "alpha": 1.0}
+    t3 = {"Om0": 0.3, "sigma8": 0.8, "log_mmin": 12.5}
+
+    def threex2pt():
+        mean_fn, _, _ = threex2pt_mean_builder(
+            rp, rp, 128, 5.0, nz, 60.0, 6, 3.0, 100.0, 0.0, 128, 32, True,
+            {}, hod_fixed)
+        data = mean_fn({k: torch.tensor(v, dtype=torch.float64, device=dev)
+                        for k, v in t3.items()})
+        cov = np.diag((0.05 * np.abs(host(data)) + 1e-8) ** 2)
+        logp, _ = inference.threex2pt_log_posterior(
+            data, cov, list(t3), rp, rp, 128, 5.0, nz, nbins_xi=6,
+            theta_min_arcmin=3.0, theta_max_arcmin=100.0, nell=128, nchi=32,
+            hod_fixed=hod_fixed, prior_bounds={"Om0": (0.1, 0.6)})
+        at = float(logp(torch.tensor([0.3, 0.8, 12.5], dtype=torch.float64,
+                                     device=dev)))
+        _, grad = inference._value_and_grad(
+            logp, torch.tensor([0.31, 0.81, 12.55], device=dev))
+        barrier = float(logp(torch.tensor([0.05, 0.8, 12.5], device=dev)))
+        return at, host(grad), barrier
+
+    at3, grad3, bar3 = stage("threex2pt_posterior", threex2pt)
+    check(abs(at3) < 1e-6 and np.isfinite(grad3).all() and bar3 < -1e3,
+          f"3x2pt posterior: logp(truth) {at3}, grad {grad3}, barrier {bar3}")
+    out["hmc"] = {
+        "gaussian": {"accept_rate": float(g.accept_rate),
+                     "step_size": float(g.step_size),
+                     "mean": s.mean(0).tolist(),
+                     "cov": np.cov(s.T).tolist()},
+        "shear": {"mean": float(s1.mean()), "std": float(s1.std()),
+                  "sigma_fisher": sig1.tolist(),
+                  "accept_rate": float(res1.accept_rate),
+                  "step_size": float(res1.step_size), "ms_per_grad": ms1,
+                  "launches_per_grad": n1, "settings": HMC_SHEAR},
+        "wide": {"mean": s2.mean(0).tolist(), "std": s2.std(0).tolist(),
+                 "sigma_fisher": sig2.tolist(),
+                 "accept_rate": float(res2.accept_rate),
+                 "step_size": float(res2.step_size), "ms_per_grad": ms2,
+                 "launches_per_grad": n2, "settings": HMC_WIDE},
+        "threex2pt": {"logp_truth": at3, "grad": grad3.tolist(),
+                      "barrier": bar3}}
+
+    # ---- (e) lognormal map
+    ln_ell = np.geomspace(30.0, 20000.0, 256)
+    ln_cl = 1e-6 * (ln_ell / 1000.0) ** -2
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    re = torch.randn((LN_NPIX, LN_NPIX), generator=gen, device=dev)
+    im = torch.randn((LN_NPIX, LN_NPIX), generator=gen, device=dev)
+    ln = stage("lognormal_map", lambda: mocks.lognormal_map_from_white(
+        re, im, LN_NPIX, 10.0, ln_ell, ln_cl))
+    ln_gen = mocks.lognormal_map(torch.Generator(device=dev).manual_seed(
+        seed + 3), LN_NPIX, 10.0, ln_ell, ln_cl)
+    ln_cpu = mocks.lognormal_map_from_white(re.cpu(), im.cpu(), LN_NPIX,
+                                            10.0, ln_ell, ln_cl)
+    check(float(ln.min()) >= -1.0 - 1e-5 and abs(float(ln.mean())) < 0.2,
+          f"lognormal map min {float(ln.min())}, mean {float(ln.mean())}")
+    check(torch.equal(ln, ln_gen), "lognormal_map differs from its draws")
+    diffs["lognormal"] = rel(ln, ln_cpu)
+    check(diffs["lognormal"] < LN_TOL, f"lognormal card vs CPU "
+          f"{diffs['lognormal']}")
+
+    # ---- (f) the analysis toolbox and snapshot_info_table
+    rng = np.random.default_rng(seed)
+    vals = torch.from_numpy(rng.normal(5.0, 1.0, BOOT_N).astype(
+        np.float32)).to(dev)
+    boot = stage("bootstrap", lambda: analysis.bootstrap_statistic(
+        vals, torch.Generator(device=dev).manual_seed(seed), n_boot=BOOT_NB))
+    # the band of the mean brackets the sample mean, 2 sigma / sqrt(n)
+    # wide (the 16th to 84th percentile of the resampled means) to 20%
+    width = (float(boot[2]) - float(boot[0])) / (2.0 / math.sqrt(BOOT_N))
+    check(all(bool(torch.isfinite(b).all()) for b in boot)
+          and float(boot[0]) < float(vals.double().mean()) < float(boot[2])
+          and abs(width - 1.0) < 0.2,
+          f"bootstrap band {[float(b) for b in boot]}, width / (2 / sqrt "
+          f"n) {width}")
+    idx = torch.randint(0, BOOT_N, (BOOT_CPU_NB, BOOT_N), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    b_card = analysis.bootstrap_statistic_from_draws(vals, idx, "median")
+    b_cpu = analysis.bootstrap_statistic_from_draws(vals.cpu(), idx.cpu(),
+                                                    "median")
+    diffs["bootstrap"] = max(rel(a, b) for a, b in zip(b_card, b_cpu))
+    del idx
+    r = np.geomspace(0.05, 3.0, 64).astype(np.float32)
+    prof = (np.log(2.5) - np.log(r / 0.4) - 2 * np.log(1 + r / 0.4)
+            + rng.normal(0, 0.01, r.size))
+
+    def nfw(rr, p):
+        xx = rr / p[1]
+        return torch.log(p[0]) - torch.log(xx) - 2.0 * torch.log(1.0 + xx)
+
+    fit = stage("nonlinear_least_squares", lambda: analysis
+                .nonlinear_least_squares(nfw, r, prof, [1.0, 1.0],
+                                         device=dev))
+    fit_cpu = analysis.nonlinear_least_squares(nfw, r, prof, [1.0, 1.0],
+                                               device="cpu")
+    check(fit[2] and np.abs(fit[0] / [2.5, 0.4] - 1).max() < 0.05,
+          f"NFW fit {fit}")
+    diffs["nfw_fit"] = rel(fit[0], fit_cpu[0])
+    d = rng.normal(size=(PCA_N, 1)) * np.linspace(3.0, 0.5, PCA_F)[None, :] \
+        + rng.normal(size=(PCA_N, PCA_F)) * 0.1
+    d = d.astype(np.float32)
+    reals = rng.normal(size=COV_SHAPE).astype(np.float32)
+    pc = stage("pca_covariance", lambda: (
+        analysis.pca(d, 4, device=dev),
+        analysis.covariance_from_realizations(reals, device=dev),
+        analysis.covariance_from_realizations(reals, True, device=dev)))
+    pc_cpu = (analysis.pca(d, 4, device="cpu"),
+              analysis.covariance_from_realizations(reals, device="cpu"),
+              analysis.covariance_from_realizations(reals, True,
+                                                    device="cpu"))
+    diffs["pca"] = max(rel(pc[0][1], pc_cpu[0][1]),
+                       rel(pc[0][0][0].abs(), pc_cpu[0][0][0].abs()))
+    diffs["covariance"] = max(rel(pc[1], pc_cpu[1]), rel(pc[2], pc_cpu[2]))
+    cosmo_f5 = Cosmology(fR0=1e-5)
+    boxes = {1: [3.0, 2.0, 1.0, 0.5, 0.0], 2: [1.0, 0.0]}
+    tab = stage("snapshot_info", lambda: siminfo.snapshot_info_table(
+        boxes, cosmo_f5.with_tensor_fields(dev)))
+    tab_cpu = siminfo.snapshot_info_table(boxes, cosmo_f5)
+    diffs["snapshot_info"] = max(rel(tab[c], tab_cpu[c])
+                                 for c in ("Hz", "lookback_time", "Dc"))
+    for name in ("bootstrap", "nfw_fit", "pca", "covariance",
+                 "snapshot_info"):
+        check(diffs[name] < TOOLBOX_TOL, f"{name} card vs CPU {diffs[name]}")
+    out["toolbox"] = {"bootstrap_band": [float(b) for b in boot],
+                      "nfw_fit": fit[0].tolist(),
+                      "pca_var": host(pc[0][1]).tolist()}
+    out["card_vs_cpu"] = diffs
+
+    predicted = {name: {} for name in seconds if not name.endswith("_cpu")}
+    predicted["fofr_pm"] = {"paint_windowed": 2 * (MG_STEPS + 1) + 2}
+    total = _held_launches("mg/master/inference", predicted, {
+        k: v for k, v in launches.items() if k in predicted})
+    card_s = sum(v for k, v in seconds.items() if not k.endswith("_cpu"))
+    log(f"# phase mg/master/inference: {card_s:.2f} s of card stages "
+        f"({sum(seconds.values()):.2f} s with the CPU runs); launches "
+        f"{total}; P_fR/P_GR / linear theory bins 1-8 max err "
+        f"{err.max():.4f} (theory up to {theory[sel].max():.3f}); F4 {f4:.4f}"
+        f", F5 {f5:.4f} at k = 0.1; traced fofr {n_value} kernels, its "
+        f"jacfwd {n_jac} in {seconds['growth_jacfwd']:.3f} s; MASTER max "
+        f"err {master_err.max():.4f} (<w^2> bias {np.abs(w2_bias).max():.4f}"
+        f"), spin-2 BB/EE {bb_ee:.2e} (raw {raw_bb_ee:.2e}); coupling "
+        f"{seconds['master_coupling']:.3f} s, cached SkyNamaster "
+        f"{seconds['skynamaster_2048_cached']:.3f} s; HMC grads "
+        f"{ms1:.1f} / {ms2:.1f} ms ({n1} / {n2} kernels); card vs CPU max "
+        f"{max(diffs.values()):.1e}; peak {max(peaks.values()):.2f} GB")
+    result = {"seconds": seconds, "seconds_card": card_s,
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peaks, **out}
+    log("# mg_master_inference " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -4692,6 +5421,7 @@ def main() -> None:
                                mapping.pop("halo_velocities"), kappa_map,
                                out_gr)
     del out_gr, mom_gr, kappa_map, so_cat
+    mg = phase_mg_master_inference(dev, args.seed)
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -4806,6 +5536,11 @@ def main() -> None:
     # the moving-lens, SZ and ISW path launches no kernel
     for row in kernels:
         row["moving_lens_launches"] = moving["launches_total"].get(
+            row["name"], 0)
+    # the modified-gravity, MASTER and inference phase: K2 paints both PM
+    # evolutions and their P(k); K1, K3 and K4 launch 0 times there
+    for row in kernels:
+        row["mg_master_inference_launches"] = mg["launches_total"].get(
             row["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1979,3 +1979,214 @@ def test_moving_lens_numpy_input_lands_on_the_card(cuda):
     ell, b, _ = Bispectrum2D.compute(img, 5.0, nbins=4)
     np.testing.assert_allclose(b, Bispectrum2D.compute(
         img, 5.0, nbins=4, device="cpu")[1], rtol=1e-4)
+
+
+# ------------------------------------- MG growth, MASTER, HMC, analysis
+def _master_inputs(n, oa, seed):
+    """A seeded map, shear pair and edge-and-holes mask of side n."""
+    from astrild_tpu_torch.ops import angular_power as TA
+
+    rng = np.random.default_rng(seed)
+    ell = np.linspace(1.0, 40000.0, 2048)
+    cl = 1.0 / (ell * (ell + 1.0))
+    gen = torch.Generator().manual_seed(seed)
+    img = TA.cl_to_flat_map(gen, ell, cl, n, oa, device="cpu")
+    g1, g2 = TA.kappa_to_shear_maps(img)
+    mask = np.ones((n, n), np.float32)
+    mask[:, : 30 * n // 128] = 0.0
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    for cy, cx in rng.uniform(0, n, (16, 2)):
+        mask[(yy - cy) ** 2 + (xx - cx) ** 2 < (n / 64) ** 2] = 0.0
+    return img, g1, g2, mask
+
+
+def test_master_couplings_on_the_card_match_the_cpu(cuda):
+    """At 256^2 over 10 deg, 12 bands: the card's float64 couplings
+    (scalar and spin-2) within 1e-10 of the CPU's numpy build's max; the
+    three masked spectra on the card within 1e-5 of their CPU runs; the
+    spectra of numpy maps land on the card."""
+    from astrild_tpu_torch.ops import angular_power as TA
+
+    img, g1, g2, mask = _master_inputs(256, 10.0, 3)
+    mc = torch.from_numpy(mask.astype(np.float64)).to(cuda)
+    want = TA.flat_sky_coupling_matrix(mask, 10.0, 12)
+    got = TA.flat_sky_coupling_matrix(mc, 10.0, 12)
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+    want2 = TA.flat_sky_spin2_coupling_matrices(mask, 10.0, 12)
+    got2 = TA.flat_sky_spin2_coupling_matrices(mc, 10.0, 12)
+    for g, w in zip(got2, want2):
+        assert np.abs(g - w).max() <= 1e-10 * np.abs(want2[0]).max()
+    for fn, args in (("cl_flat_sky_masked", (img, mask)),
+                     ("cl_flat_sky_master", (img, mask)),
+                     ("cl_flat_sky_shear_master", (g1, g2, mask))):
+        cpu = getattr(TA, fn)(*args, 10.0, nbins=12)
+        card = getattr(TA, fn)(*[a.numpy() if isinstance(a, torch.Tensor)
+                                 else a for a in args], 10.0, nbins=12)
+        for c, w in zip(card, cpu):
+            assert c.device.type == "cuda"
+            scale = float(w.abs().max())
+            assert float((c.cpu() - w).abs().max()) <= 1e-5 * scale, fn
+
+
+def test_skynamaster_on_the_card(cuda):
+    """The facade with its default device: the coupling is built on the
+    card, cached, and the spectra equal the CPU facade's within 1e-5."""
+    from astrild_tpu_torch.models import SkyNamaster
+
+    img, g1, g2, mask = _master_inputs(128, 10.0, 4)
+    out = {}
+    for dev in (None, "cpu"):
+        sn = SkyNamaster.from_array(img.numpy(), opening_angle=10.0,
+                                    device=dev)
+        sn.set_mask(mask)
+        out[dev] = (sn.compute_cl(nbins=8)[1], sn.compute_cl(nbins=8)[1],
+                    sn.compute_cl_spin2(g1.numpy(), g2.numpy(),
+                                        nbins=8)[1])
+        assert set(sn._workspace) == {("flat", 8), ("flat-spin2", 8)}
+    assert out[None][0].device.type == "cuda"
+    # the band sums are float atomics on the card: the cached second call
+    # agrees to rounding
+    assert float((out[None][0] - out[None][1]).abs().max()) <= 1e-6 * float(
+        out[None][0].abs().max())
+    for c, w in zip(out[None], out["cpu"]):
+        assert float((c.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+def test_fofr_growth_on_the_card(cuda):
+    """fofr_pk_enhancement and growth_factor_k: the float route returns
+    float32 on the card, equal to its CPU placement; the traced route
+    (tensor fR0) on the card within 1e-10 of the same on the CPU, and its
+    jacfwd in fR0 within 1e-8 of its max."""
+    k = np.geomspace(1e-4, 10.0, 256).astype(np.float32)
+    c = Cosmology(fR0=1e-5)
+    card = c.fofr_pk_enhancement(k)
+    assert card.device.type == "cuda" and card.dtype == torch.float32
+    assert torch.equal(card.cpu(), c.fofr_pk_enhancement(k, device="cpu"))
+    kt = torch.from_numpy(k).to(cuda)
+    assert c.growth_factor_k(kt, 1.0).device.type == "cuda"
+
+    def traced(dev):
+        def fn(x):
+            return Cosmology(fR0=x).fofr_pk_enhancement(k, 1.0)
+        x = torch.tensor(1e-5, dtype=torch.float64, device=dev)
+        return fn(x), torch.func.jacfwd(fn)(x)
+
+    (v_gpu, j_gpu), (v_cpu, j_cpu) = traced(cuda), traced("cpu")
+    assert v_gpu.device.type == "cuda"
+    assert float((v_gpu.cpu() - v_cpu).abs().max()) <= 1e-10
+    assert float((j_gpu.cpu() - j_cpu).abs().max()) <= 1e-8 * float(
+        j_cpu.abs().max())
+
+
+def test_hmc_on_the_card(cuda):
+    """hmc_sample from a CUDA generator on a correlated Gaussian: mean
+    within 0.1, covariance within 0.12, acceptance in (0.6, 1]; a
+    fixed-step chain from given draws on the card takes the CPU run's
+    accept decisions and stays within 1e-4 of it."""
+    from astrild_tpu_torch.ops import inference as TI
+
+    icov = torch.linalg.inv(torch.tensor([[1.0, 0.6], [0.6, 1.0]]))
+
+    def logp_on(dev):
+        a = icov.to(dev)
+        return lambda x: -0.5 * torch.sum(x * (a * x[None, :]).sum(1))
+
+    res = TI.hmc_sample(torch.Generator(device=cuda).manual_seed(0),
+                        logp_on(cuda), torch.zeros(2, device=cuda),
+                        n_samples=2000, n_warmup=500, n_leapfrog=12,
+                        step_size=0.3)
+    s = res.samples.cpu().numpy()
+    assert res.samples.device.type == "cuda"
+    assert 0.6 < float(res.accept_rate) <= 1.0
+    assert np.abs(s.mean(0)).max() < 0.1
+    assert np.abs(np.cov(s.T) - [[1.0, 0.6], [0.6, 1.0]]).max() < 0.12
+    gen = torch.Generator().manual_seed(1)
+    n, u = torch.randn(300, 2, generator=gen), torch.rand(300, generator=gen)
+    runs = [TI.hmc_sample_from_draws(n.to(d), u.to(d), logp_on(d),
+                                     torch.full((2,), 0.5, device=d),
+                                     n_samples=300, n_warmup=0,
+                                     n_leapfrog=12, step_size=0.9)
+            for d in (cuda, "cpu")]
+    a, b = (r.samples.cpu().numpy() for r in runs)
+    moved = [np.any(np.diff(np.concatenate([[[0.5, 0.5]], x]), axis=0) != 0,
+                    axis=1) for x in (a, b)]
+    assert np.array_equal(*moved) and np.abs(a - b).max() < 1e-4
+
+
+def test_analysis_fits_hold_with_tf32_allowed(cuda):
+    """least_squares_fit, pca, covariance_from_realizations,
+    nonlinear_least_squares, the MASTER coupling and the shear
+    log-posterior on the card with TF32 allowed for float32 matmuls equal
+    the runs without to 1e-12 of their max (they compute in float64 or
+    from elementwise products: TF32 would move them by ~1e-3; the
+    coupling's band sums are float64 atomics, equal to rounding), and
+    agree with their CPU runs to 1e-5."""
+    from astrild_tpu_torch.ops import angular_power as TA
+    from astrild_tpu_torch.ops import inference as TI
+    from astrild_tpu_torch.ops.forecast import tomographic_shear_cls
+    from astrild_tpu_torch.utils import analysis as TAN
+
+    rng = np.random.default_rng(5)
+    x = np.linspace(0, 10, 200).astype(np.float32)
+    y = (2 * x + 1 + 0.05 * x ** 2 + rng.normal(0, 0.1, 200)).astype(
+        np.float32)
+    d = (rng.normal(size=(400, 1)) * np.array([[3.0, 1.0, 0.5]])
+         + rng.normal(size=(400, 3)) * 0.1).astype(np.float32)
+    r = np.geomspace(0.05, 3.0, 40).astype(np.float32)
+    prof = np.log(2.5) - np.log(r / 0.4) - 2 * np.log(1 + r / 0.4)
+    _, _, _, mask = _master_inputs(128, 10.0, 6)
+    ells = np.geomspace(100, 800, 5).astype(np.float32)
+    stack = tomographic_shear_cls(ells, Cosmology(), [0.8, 1.2], nchi=32,
+                                  device=cuda)
+    logp, _ = TI.shear_log_posterior(ells, stack, [0.8, 1.2],
+                                     ["Om0", "sigma8"], nchi=32)
+
+    def nfw(rr, p):
+        xx = rr / p[1]
+        return torch.log(p[0]) - torch.log(xx) - 2.0 * torch.log(1.0 + xx)
+
+    def run(dev):
+        return [TAN.least_squares_fit(x, y, 2, device=dev),
+                TAN.pca(d, 2, device=dev)[1],
+                TAN.covariance_from_realizations(d, True, device=dev),
+                torch.as_tensor(TAN.nonlinear_least_squares(
+                    nfw, r, prof, [1.0, 1.0], device=dev)[0]),
+                torch.as_tensor(TA.flat_sky_coupling_matrix(
+                    torch.from_numpy(mask.astype(np.float64)).to(dev),
+                    10.0, 8))]
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = run(cuda) + [logp(torch.tensor([0.31, 0.8], device=cuda))]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = run(cuda) + [logp(torch.tensor([0.31, 0.8], device=cuda))]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(on, off):
+        a, b = a.cpu().double(), b.cpu().double()
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+    for a, b in zip(off, run("cpu")):
+        b = b.cpu().double()
+        assert float((a.cpu().double() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max())
+
+
+def test_new_entry_points_put_numpy_on_the_card(cuda):
+    """Numpy input to the slice's entry points lands on the card:
+    lognormal_map_from_white, bootstrap_statistic_from_draws, percentiles,
+    pca, the posterior's data, hmc_sample_from_draws's start."""
+    from astrild_tpu_torch.ops import mocks as TM
+    from astrild_tpu_torch.utils import analysis as TAN
+
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((2, 64, 64)).astype(np.float32)
+    ell = np.geomspace(30.0, 20000.0, 64)
+    m = TM.lognormal_map_from_white(w[0], w[1], 64, 10.0, ell,
+                                    1e-6 * (ell / 1000.0) ** -2)
+    v = rng.normal(size=(100, 2)).astype(np.float32)
+    outs = [m, TAN.bootstrap_statistic_from_draws(
+        v, rng.integers(0, 100, (20, 100)))[0], TAN.percentiles(v),
+        TAN.pca(v)[0]]
+    assert all(o.device.type == "cuda" for o in outs)

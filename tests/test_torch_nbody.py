@@ -112,8 +112,17 @@ def test_cosmology_from_jax_fields_and_unported_mu0():
     assert tc == Cosmology(Om0=0.31, h=0.68, fR0=1e-6, w0=-0.95)
     npt.assert_allclose(tc.growth_factor(1.0), np.asarray(
         jc.growth_factor(1.0)), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="mu0"):
-        Cosmology(mu0=0.1)
+    # mu0 != 0 is ported: the growth ODE table, against the JAX package's
+    # float32 RK4 to 1.5e-4 (tests/test_torch_mg_growth.py states the gap)
+    jm = JCosmology(mu0=0.1)
+    tm = Cosmology.from_jax_fields(
+        {f.name: getattr(jm, f.name) for f in dataclasses.fields(jm)})
+    assert tm == Cosmology(mu0=0.1)
+    z = np.array([0.0, 1.0, 3.0])
+    npt.assert_allclose(tm.growth_factor(z), np.asarray(
+        jm.growth_factor(jnp.asarray(z, jnp.float32))), rtol=1.5e-4)
+    npt.assert_allclose(tm.growth_rate(z), np.asarray(
+        jm.growth_rate(jnp.asarray(z, jnp.float32))), atol=4e-6)
 
 
 def test_linear_power_matches_jax():

@@ -146,17 +146,23 @@ def test_traced_route_equals_float_route():
 
 
 def test_traced_cosmology_compares_by_identity():
-    """Tensor fields are never compared or hashed; a tensor mu0 raises up
-    front, as does mu0 != 0 (the growth ODE is not ported)."""
+    """Tensor fields are never compared or hashed. mu0 is ported: a tensor
+    mu0 is a traced cosmology on the growth ODE (never read as zero, as
+    the JAX package's _concrete_zero), and mu0 != 0 takes the ODE on
+    both routes, its growth within 1.5e-4 of the JAX package's float32
+    RK4 (the gap tests/test_torch_mg_growth.py states)."""
     a = TC(Om0=torch.tensor(0.3, dtype=torch.float64))
     b = TC(Om0=torch.tensor(0.3, dtype=torch.float64))
     assert a == a and a != b and hash(a) != hash(b)
     assert TC() == TC() and hash(TC()) == hash(TC())
     assert TC() != a
-    with pytest.raises(NotImplementedError):
-        TC(mu0=torch.tensor(0.0))
-    with pytest.raises(NotImplementedError):
-        TC(mu0=0.1)
+    t0 = TC(mu0=torch.tensor(0.0))
+    assert t0.traced and t0 != TC(mu0=torch.tensor(0.0))
+    z = np.array([0.0, 1.0, 3.0])
+    want = np.asarray(JC(mu0=0.1).growth_factor(jnp.asarray(z, jnp.float32)))
+    npt.assert_allclose(TC(mu0=0.1).growth_factor(z), want, rtol=1.5e-4)
+    npt.assert_allclose(TC(mu0=torch.tensor(0.1, dtype=torch.float64))
+                        .growth_factor(z).numpy(), want, rtol=1.5e-4)
 
 
 def test_float_route_is_bit_identical_to_before():
