@@ -8,6 +8,7 @@ from .power import (AngularPowerSpectrum, Bispectrum2D, Bispectrum3D,
                     LinearAngularPowerSpectrum, LinearPowerSpectrum,
                     PowerSpectrum3D, PowMes)
 from .simulation import Ecosmog, RayRamses, Simulation
+from .skyhealpix import SkyHealpix
 from .skymap import SkyArray, SkyMap
 from .skynamaster import SkyNamaster
 from .voids import TunnelsFinder, Voids, WatershedFinder
@@ -16,7 +17,8 @@ __all__ = ["Dipoles", "Halos", "Rockstar", "SubFind", "Peaks",
            "AngularPowerSpectrum", "PowerSpectrum3D", "Bispectrum3D",
            "Bispectrum2D", "LinearPowerSpectrum",
            "LinearAngularPowerSpectrum", "PowMes", "Simulation",
-           "Ecosmog", "RayRamses", "SkyArray", "SkyMap", "SkyNamaster",
+           "Ecosmog", "RayRamses", "SkyArray", "SkyHealpix", "SkyMap",
+           "SkyNamaster",
            "TunnelsFinder",
            "Voids", "WatershedFinder", "halo_lightcone_catalog",
            "merge_lightcone_catalogs"]

@@ -1,6 +1,6 @@
 """Spectra pipeline classes: PowerSpectrum3D, Bispectrum3D, Bispectrum2D,
-PowMes, the flat-sky half of AngularPowerSpectrum, and the theory facades
-LinearPowerSpectrum and LinearAngularPowerSpectrum.
+PowMes, AngularPowerSpectrum, and the theory facades LinearPowerSpectrum
+and LinearAngularPowerSpectrum.
 
 Port of astrild_tpu/models/power.py. The facades take numpy arrays or
 tensors and return numpy arrays, as the JAX facades do. Tensors stay on
@@ -8,7 +8,7 @@ their own device unless `device=` is given; numpy input goes to `device=`,
 by default the CUDA card (as the JAX facades put it on the default
 device). With no card and no `device=` numpy input raises: pass
 `device="cpu"` to run on the CPU. `AngularPowerSpectrum.from_healpix` and
-`to_skyhealpix` wait for the SHT stack (ROADMAP.md queue 1 item 6).
+`to_skyhealpix` go through SkyHealpix.
 """
 from __future__ import annotations
 
@@ -282,16 +282,24 @@ class AngularPowerSpectrum:
                                            opening_angle_deg))
 
     @staticmethod
-    def from_healpix(*args, **kwargs):
-        raise NotImplementedError(
-            "AngularPowerSpectrum.from_healpix is not ported yet: it waits "
-            "for the SHT stack, ROADMAP.md queue 1 item 6")
+    def from_healpix(skyhealpix, lmax: int, of: str = "orig",
+                     niter: int = 3):
+        """(ell, Cl) of a full-sky SkyHealpix layer (native SHT
+        analysis)."""
+        cl = skyhealpix.anafast(lmax, of=of, niter=niter)
+        return np.arange(cl.shape[0]), cl
 
     @staticmethod
-    def to_skyhealpix(*args, **kwargs):
-        raise NotImplementedError(
-            "AngularPowerSpectrum.to_skyhealpix is not ported yet: it waits "
-            "for the SHT stack, ROADMAP.md queue 1 item 6")
+    def to_skyhealpix(cls_vals, nside: int, quantity: str = "kappa_2",
+                      lmax=None, rnd_seed: int = 0, device=None):
+        """Gaussian full-sky realization of a Cl table as a SkyHealpix
+        (SkyHealpix.from_Cl_array: a `torch.Generator` seeded with
+        rnd_seed on `device`, by default the CUDA card)."""
+        from .skyhealpix import SkyHealpix
+
+        return SkyHealpix.from_Cl_array(cls_vals, quantity, nside,
+                                        lmax=lmax, rnd_seed=rnd_seed,
+                                        device=device)
 
 
 class LinearPowerSpectrum:

@@ -593,8 +593,7 @@ class SkyArray:
 
 
 class SkyMap:
-    """Facade dispatching to SkyArray (the healpix variants wait for
-    ROADMAP.md queue 1 item 6)."""
+    """Facade dispatching to SkyArray (full-sky maps: SkyHealpix)."""
 
     @staticmethod
     def from_file(npix: int, theta: float, quantity: str, dir_in: str,

@@ -1,18 +1,19 @@
-"""SkyNamaster: mask-decoupled angular power spectra, the flat-sky half.
+"""SkyNamaster: mask-decoupled angular power spectra, flat and full sky.
 
 Port of astrild_tpu/models/skynamaster.py. Flat-sky patches go through the
 MASTER estimators of ops.angular_power (the exact discrete DFT coupling
-matrix, cached per stored mask and binning, so many maps under one mask
-pay the build once). The full-sky HEALPix branches (anafast_master and
-its spin-2 twin) and the `.h5` branch of `from_file` (it needs
-SkyHealpix) raise NotImplementedError: they wait for the SHT stack,
-ROADMAP.md queue 1 item 6.
+matrix); full-sky HEALPix maps through ops.sht.anafast_master and
+ops.sht_spin.anafast_spin2_master (coupling matrices from the mask's own
+Cl by exact Gauss-Legendre quadrature, host float64; a unit mask takes
+its exact spectrum 4 pi delta_l0). The couplings cache per stored mask and
+binning, so many maps under one mask pay the build once. The `.h5` branch
+of `from_file` bins ray columns through SkyHealpix.
 
 Maps are stored as numpy, as in the JAX package; `compute_cl` and
 `compute_cl_spin2` run on `device` (by default the CUDA card; it raises
 without one, pass device="cpu" there) and return tensors there. On the
-card the coupling matrices are built on the card, on the CPU with the
-JAX package's numpy code.
+card the flat-sky coupling matrices are built on the card, on the CPU
+with the JAX package's numpy code.
 """
 from __future__ import annotations
 
@@ -26,13 +27,8 @@ from ..utils import healpix as hp
 
 __all__ = ["SkyNamaster"]
 
-_FULL_SKY = ("SkyNamaster: full-sky HEALPix spectra are not ported yet: "
-             "they wait for the SHT stack, ROADMAP.md queue 1 item 6")
-
-
 class SkyNamaster:
-    """Masked-spectrum analysis of one sky layer (flat-sky; full-sky maps
-    are stored but their spectra raise)."""
+    """Masked-spectrum analysis of one sky layer (full- or flat-sky)."""
 
     def __init__(self, skyfield: np.ndarray, opening_angle: float = 0.0,
                  quantity: str = "kappa_2",
@@ -70,14 +66,17 @@ class SkyNamaster:
                   quantity: str = "kappa_2", dir_in: str = "",
                   nside: Optional[int] = None, convert_unit: bool = True,
                   device=None) -> "SkyNamaster":
-        """A layer from a `.npy` map (the `.h5` ray columns need
-        SkyHealpix and raise)."""
+        """A layer from .h5 ray columns (unit-converted and binned to
+        nside on the host by SkyHealpix) or a `.npy` map."""
         ext = map_file.rsplit(".", 1)[-1]
         if ext == "h5":
-            raise NotImplementedError(
-                "SkyNamaster.from_file(.h5) needs SkyHealpix, which is not "
-                "ported yet: it waits for the SHT stack, ROADMAP.md queue 1 "
-                "item 6")
+            from .skyhealpix import SkyHealpix
+
+            sh = SkyHealpix.from_file(map_file, quantity, nside=nside,
+                                      convert_unit=convert_unit,
+                                      device="cpu")
+            return cls.from_array(sh.data["orig"].numpy(), opening_angle,
+                                  quantity, dir_in, map_file, device)
         if ext == "npy":
             return cls.from_array(np.load(map_file), opening_angle,
                                   quantity, dir_in, map_file, device)
@@ -120,6 +119,22 @@ class SkyNamaster:
                 self._workspace[key] = coupling
         return coupling
 
+    def _mask_cl(self, mask, lmax_mask: int, niter: int, dev):
+        """Mask pseudo-spectrum (host float64) for the full-sky coupling
+        builds, through the table or scan path by lmax on `dev`; a unit
+        mask returns the exact 4 pi delta_l0 (the estimated wl of a ones
+        map carries niter noise and costs a transform for a matrix that is
+        the identity)."""
+        from ..ops import sht
+
+        m = sht._host64(mask)
+        if np.all(m == 1.0):
+            wl = np.zeros(lmax_mask + 1)
+            wl[0] = 4.0 * np.pi
+            return wl
+        return sht._host64(sht._analysis_cl(as_tensor(m, dev), lmax_mask,
+                                            niter))
+
     # -------------------------------------------------------------- spectra
     def compute_cl(self, mask=None, lmax: Optional[int] = None,
                    nbins: int = 16, of: str = "orig",
@@ -131,12 +146,13 @@ class SkyNamaster:
         (ell, cl)."""
         from ..ops import angular_power as AP
 
-        if not self.flat:
-            raise NotImplementedError(_FULL_SKY)
         mask, mask_is_stored = self._resolve_mask(mask, self.data[of])
         dev = default_device(self.device)
         m = as_tensor(self.data[of], dev)
         w = as_tensor(mask, dev)
+        if not self.flat:
+            return self._compute_cl_full(m, w, mask, mask_is_stored, lmax,
+                                         nbins, decouple, niter, dev)
         if not decouple:
             return AP.cl_flat_sky_masked(m, w, self.opening_angle,
                                          nbins=nbins)
@@ -158,7 +174,8 @@ class SkyNamaster:
         from ..ops import angular_power as AP
 
         if not self.flat:
-            raise NotImplementedError(_FULL_SKY)
+            return self._compute_cl_spin2_full(gamma1, gamma2, mask, nbins,
+                                               decouple, lmax, niter)
         if lmax is not None:
             raise ValueError(
                 "compute_cl_spin2: lmax applies to full-sky HEALPix "
@@ -179,3 +196,51 @@ class SkyNamaster:
                                   AP.flat_sky_spin2_coupling_matrices, dev)
         return AP.cl_flat_sky_shear_master(g1, g2, w, self.opening_angle,
                                            nbins=nbins, coupling=coupling)
+
+    def _compute_cl_full(self, m, w, mask, mask_is_stored, lmax, nbins,
+                         decouple, niter, dev):
+        """compute_cl of a HEALPix map: lmax defaults to min(2 nside, 512)
+        (anafast_master takes the scan path above 512)."""
+        from ..ops import sht
+
+        if lmax is None:
+            lmax = min(2 * self.nside, 512)
+        if not decouple:
+            ell = torch.arange(lmax + 1, dtype=torch.float32, device=dev)
+            return ell, sht.anafast_masked(m, w, lmax, niter=niter)
+        # niter is part of the key: the coupling is built from a mask
+        # pseudo-Cl estimated at that niter
+        coupling = self._coupling(
+            ("full", lmax, niter), mask, mask_is_stored,
+            lambda m64, *_: sht.coupling_matrix_from_mask_cl(
+                self._mask_cl(m64, min(2 * lmax, 2 * self.nside), niter,
+                              dev), lmax), dev)
+        return sht.anafast_master(m, w, lmax, nbins=nbins, niter=niter,
+                                  coupling=coupling)
+
+    def _compute_cl_spin2_full(self, gamma1, gamma2, mask, nbins, decouple,
+                               lmax, niter):
+        """compute_cl_spin2 of HEALPix (Q, U) maps through the spin-2
+        MASTER solve; the couplings cache like compute_cl's."""
+        from ..ops import sht_spin
+
+        mask, mask_is_stored = self._resolve_mask(mask, gamma1)
+        dev = (gamma1.device if isinstance(gamma1, torch.Tensor)
+               else default_device(self.device))
+        g1, g2 = as_tensor(gamma1, dev), as_tensor(gamma2, dev)
+        w = as_tensor(mask, dev)
+        if lmax is None:
+            lmax = min(2 * self.nside, 512)
+        if not decouple:
+            w2 = torch.clamp_min(torch.mean(w ** 2), 1e-12)
+            ee, bb, _ = sht_spin._analysis_spin2_cl(g1 * w, g2 * w, lmax,
+                                                    niter)
+            ell = torch.arange(lmax + 1, dtype=torch.float32, device=dev)
+            return ell, ee / w2, bb / w2
+        coupling = self._coupling(
+            ("full-spin2", lmax, niter), mask, mask_is_stored,
+            lambda m64, *_: sht_spin.spin2_coupling_matrices_from_mask_cl(
+                self._mask_cl(m64, min(2 * lmax, 2 * self.nside), niter,
+                              dev), lmax), dev)
+        return sht_spin.anafast_spin2_master(g1, g2, w, lmax, nbins=nbins,
+                                             niter=niter, coupling=coupling)

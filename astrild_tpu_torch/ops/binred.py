@@ -11,10 +11,13 @@ from __future__ import annotations
 
 import torch
 
+from .._device import as_tensor
+
 __all__ = ["masked_bin_reduce"]
 
 
-def masked_bin_reduce(chans, binidx, nbins: int, chunk: int = 65536):
+def masked_bin_reduce(chans, binidx, nbins: int, chunk: int = 65536,
+                      device=None):
     """sum of chans[c, i] over i with binidx[i] == b, for each (c, b).
 
     Args:
@@ -26,10 +29,11 @@ def masked_bin_reduce(chans, binidx, nbins: int, chunk: int = 65536):
       chunk: flattened-pair chunk size bounding the one-hot selection at
         C x chunk x nbins floats (at most 2^24 of them).
 
-    Returns (C, nbins) float32 sums.
+    Numpy input goes to `device`, by default the CUDA card (binidx follows
+    chans). Returns (C, nbins) float32 sums.
     """
-    chans = torch.as_tensor(chans, dtype=torch.float32)
-    binidx = torch.as_tensor(binidx, device=chans.device)
+    chans = as_tensor(chans, device).to(torch.float32)
+    binidx = as_tensor(binidx, chans.device)
     nch, n = chans.shape
     chunk = max(1024, min(chunk, (1 << 24) // max(nch * nbins, 1)))
     sel = torch.arange(nbins, dtype=binidx.dtype, device=chans.device)

@@ -51,16 +51,19 @@ def lattice_query_points(n_side: int, boxsize, device=None):
     return torch.stack([c.reshape(-1) for c in g], dim=-1)
 
 
-def density_at_points(field, boxsize, points):
+def density_at_points(field, boxsize, points, device=None):
     """Trilinear (CIC) interpolation of a periodic grid at points.
 
     points: (n, 3) tensor or a tuple of flat (x, y, z) tensors (the tuple
-    saves an (n, 3) copy at large n).
+    saves an (n, 3) copy at large n). Numpy input goes to `device`, by
+    default the CUDA card; the points follow the field.
     """
+    field = as_tensor(field, device)
     ngrid = field.shape[-1]
     cell = boxsize / ngrid
+    points = as_points(points, field.device)
     if isinstance(points, (tuple, list)):
-        comps = tuple(torch.as_tensor(c).reshape(-1) for c in points)
+        comps = tuple(c.reshape(-1) for c in points)
     else:
         comps = (points[:, 0], points[:, 1], points[:, 2])
     u = [c / cell - 0.5 for c in comps]
@@ -173,11 +176,12 @@ def counts_in_cells(pos, boxsize, n_cells: int, max_count: int = 64,
     return pdf, counts
 
 
-def counts_in_cells_moments(counts):
+def counts_in_cells_moments(counts, device=None):
     """(mean, variance, skewness) of per-cell counts (float32, population
     variance as jnp.var); for a Poisson sample variance == mean and the
-    reduced skewness ~ 1/sqrt(mean)."""
-    c = torch.as_tensor(counts).to(torch.float32)
+    reduced skewness ~ 1/sqrt(mean). Numpy counts go to `device`, by
+    default the CUDA card."""
+    c = as_tensor(counts, device).to(torch.float32)
     mu = torch.mean(c)
     var = torch.var(c, correction=0)
     m3 = torch.mean((c - mu) ** 3)

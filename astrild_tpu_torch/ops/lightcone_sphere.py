@@ -15,8 +15,9 @@ keys are gathered into groups that share one deposit; a group
 is flushed when the next image's keys would pass the card's room for them
 (`lens_planes._entry_budget`).
 
-Not ported yet: `multiplane_raytrace_healpix` (it needs the spherical
-harmonic transforms of ops/sht*.py and the HEALPix interpolation stencil).
+Not ported yet: `multiplane_raytrace_healpix` (it needs the spin-1
+transforms and the torch HEALPix interpolation stencil, ROADMAP.md queue 1
+item 6b).
 """
 from __future__ import annotations
 
@@ -269,8 +270,8 @@ def multiplane_raytrace_healpix(delta_shells, chis, dchis, chi_s, omega_m,
     """Full-sky post-Born ray tracing through HEALPix density shells: not
     ported yet."""
     raise NotImplementedError(
-        "multiplane_raytrace_healpix needs the spherical harmonic "
-        "transforms (ops/sht.py, sht_large.py, sht_spin.py, "
-        "sht_spin_large.py) and the HEALPix interpolation stencil "
-        "(get_interp_weights), which are not ported yet; "
-        "born_convergence_healpix gives the Born-level kappa")
+        "multiplane_raytrace_healpix needs the spin-1 spherical harmonic "
+        "transforms (ops/sht_spin.py, sht_spin_large.py) and the torch "
+        "HEALPix interpolation stencil, which are not ported yet "
+        "(ROADMAP.md queue 1 item 6b); born_convergence_healpix gives the "
+        "Born-level kappa")

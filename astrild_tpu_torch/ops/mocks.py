@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from .._device import as_tensor
 from .power import _mode_numbers
 from .recon import _nyquist_masks
 
@@ -26,12 +27,14 @@ __all__ = ["gaussian_field", "zeldovich_catalog",
            "lognormal_map_from_white"]
 
 
-def modes_from_white(white, ngrid: int, boxsize, pk_fn: Callable):
+def modes_from_white(white, ngrid: int, boxsize, pk_fn: Callable,
+                     device=None):
     """Complex linear modes FFT(delta) (unnormalized fftn convention) from
     an N(0, 1) white-noise field `white` (n, n, n): the JAX package's
     convention, <|FFT(delta)/N^3|^2> V = P(k). `pk_fn` maps a tensor of
-    |k| [h/Mpc] to P(k)."""
-    white = torch.as_tensor(white)
+    |k| [h/Mpc] to P(k). Numpy white noise goes to `device`, by default
+    the CUDA card."""
+    white = as_tensor(white, device)
     kf = 2.0 * torch.pi / boxsize
     f = _mode_numbers(ngrid, white.device)
     m2 = (f[:, None, None] ** 2 + f[None, :, None] ** 2

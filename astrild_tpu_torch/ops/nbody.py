@@ -41,7 +41,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._device import as_tensor
+from .._device import as_points, as_tensor
 from .lens_planes import density_planes_from_particles
 from .mocks import linear_modes
 from .paint import paint
@@ -154,10 +154,12 @@ def lpt_growth(cosmo, z_init: float, order: int = 2):
 
 
 def lpt_catalog_from_modes(delta_k_full, ngrid: int, boxsize, cosmo,
-                           z_init: float, order: int = 2, growth=None):
+                           z_init: float, order: int = 2, growth=None,
+                           device=None):
     """2LPT (or Zel'dovich, order=1) particle ICs at z_init from explicit
     linear modes (unnormalized fftn coefficients of the z=0 field, a
-    complex tensor or numpy array).
+    complex tensor, or a numpy array placed on `device`: by default the
+    CUDA card).
 
     growth: optional precomputed (d1, f1, d2, f2, e_init) host scalars.
     Returns (comps, mom): flat position buffers (x, y, z) in [0, boxsize]
@@ -171,7 +173,7 @@ def lpt_catalog_from_modes(delta_k_full, ngrid: int, boxsize, cosmo,
     else:
         d1, f1, d2, f2, e = (float(g) for g in growth)
     a = 1.0 / (1.0 + z_init)
-    delta_k_full = torch.as_tensor(delta_k_full)
+    delta_k_full = as_tensor(delta_k_full, device)
     psi1, psi2 = lpt_displacements_from_modes(delta_k_full, ngrid, boxsize)
     lattice = _lattice_comps(ngrid, boxsize, delta_k_full.device)
     comps, mom = [], []
@@ -325,21 +327,24 @@ def _pm_loop(comps, mom, factors, am2_edges, ngrid: int, boxsize, om0,
 
 def pm_evolve(comps, mom, cosmo, ngrid: int, boxsize, a_init: float,
               a_final: float, nsteps: int, window: str = "cic",
-              spacing: str = "loga"):
+              spacing: str = "loga", device=None):
     """Evolve (comps, mom) from a_init to a_final with nsteps KDK
     leapfrog steps on an ngrid^3 force mesh.
 
     comps/mom: flat per-component buffers (x, y, z) / (px, py, pz) as
-    produced by lpt_catalog. One paint + 4 FFTs + 3 gathers per step, plus
-    one force evaluation before the first step. Returns new (comps, mom);
-    the inputs are copied, not changed.
+    produced by lpt_catalog (numpy components go to `device`, by default
+    the CUDA card; the momenta follow the positions). One paint + 4 FFTs +
+    3 gathers per step, plus one force evaluation before the first step.
+    Returns new (comps, mom); the inputs are copied, not changed.
 
     cosmo.fR0 != 0 turns on the linearized Hu-Sawicki fifth force
     (per-step comoving scalaron mass^2 a^2 M^2(a) from the host, spectral
     Geff(k) in the Poisson solve); fR0 = 0 is exact GR.
     """
-    comps = tuple(torch.as_tensor(c).reshape(-1).clone() for c in comps)
-    mom = tuple(torch.as_tensor(p).reshape(-1).clone() for p in mom)
+    comps = tuple(c.reshape(-1).clone() for c in as_points(tuple(comps),
+                                                           device))
+    dev = comps[0].device
+    mom = tuple(as_tensor(p, dev).reshape(-1).clone() for p in mom)
     edges = _a_edges(a_init, a_final, nsteps, spacing)
     factors = _factors_from_edges(cosmo, edges, spacing=spacing)
     if float(getattr(cosmo, "fR0", 0.0)) != 0.0:

@@ -117,13 +117,15 @@ def radial_velocity_profiles(pos, vel, centers, r_min, r_max,
     return r, v_r, nsum
 
 
-def stacked_profile(profile, counts):
+def stacked_profile(profile, counts, device=None):
     """Count-weighted stack of per-object profiles (NaN bins excluded).
 
-    profile/counts: (nc, nbins) from radial_*_profiles. Returns (nbins,).
+    profile/counts: (nc, nbins) from radial_*_profiles (numpy goes to
+    `device`, by default the CUDA card; counts follow the profiles).
+    Returns (nbins,).
     """
-    profile = torch.as_tensor(profile)
-    counts = torch.as_tensor(counts, device=profile.device)
+    profile = as_tensor(profile, device)
+    counts = as_tensor(counts, profile.device)
     good = torch.isfinite(profile) & (counts > 0)
     w = torch.where(good, counts, 0.0)
     num = torch.sum(torch.where(good, profile, 0.0) * w, dim=0)
@@ -137,18 +139,19 @@ def nfw_profile(r, rho_s, r_s):
     return rho_s / (x * (1.0 + x) ** 2)
 
 
-def fit_nfw(r, rho, n_iter: int = 60):
+def fit_nfw(r, rho, n_iter: int = 60, device=None):
     """Fit (rho_s, r_s) by Gauss-Newton on log rho; batched over halos.
 
     Args: r (nbins,), rho (nh, nbins) tensors (zeros/NaN ignored).
     The JAX package takes the residual's jacobian by autodiff; here it is
     the closed form: with x = r / r_s, d model / d ln r_s = 1 + 2x/(1+x)
     and d model / d ln rho_s = 1. The 2x2 normal equations are built from
-    elementwise products and sums and solved in closed form.
+    elementwise products and sums and solved in closed form. Numpy input
+    goes to `device`, by default the CUDA card (rho follows r).
     Returns (rho_s (nh,), r_s (nh,)).
     """
-    r = torch.as_tensor(r)
-    rho = torch.as_tensor(rho, device=r.device)
+    r = as_tensor(r, device)
+    rho = as_tensor(rho, r.device)
     good = torch.isfinite(rho) & (rho > 0)
     logrho = torch.where(good, torch.log(torch.where(good, rho, 1.0)), 0.0)
     nh = rho.shape[0]

@@ -208,13 +208,13 @@ def tpcf_real(pos, boxsize, r_edges, n_valid=None, block: int = 512,
     return s, xi[:, 0]
 
 
-def tpcf_multipoles(xi_s_mu, ell: int):
+def tpcf_multipoles(xi_s_mu, ell: int, device=None):
     """xi_ell(s) = (2 ell + 1) * mean_mu [xi(s, mu) L_ell(mu)].
 
     mu is folded to [0, 1] (pair counts use |mu|), which is exact for even
-    multipoles.
+    multipoles. Numpy input goes to `device`, by default the CUDA card.
     """
-    xi_s_mu = torch.as_tensor(xi_s_mu)
+    xi_s_mu = as_tensor(xi_s_mu, device)
     nmu = xi_s_mu.shape[-1]
     mu = (torch.arange(nmu, device=xi_s_mu.device) + 0.5) / nmu
     w = _legendre_even(ell, mu ** 2)

@@ -251,10 +251,9 @@ exits non-zero before the final line:
      build's max and the spectra within 1e-5; SkyNamaster on
      distributed_and_masked.py's stages 3 and 6 at its own parameters and
      at 2048^2, where the second compute_cl reuses the cached coupling
-     (its seconds printed); every full-sky SkyNamaster path raises
-     NotImplementedError naming queue 1 item 6; (d) HMC from CUDA
-     generators: tests/test_inference.py's correlated Gaussian with its
-     checks, its shear posterior (sigma8) with its checks against
+     (its seconds printed; its full-sky paths run in phase 18); (d) HMC
+     from CUDA generators: tests/test_inference.py's correlated Gaussian
+     with its checks, its shear posterior (sigma8) with its checks against
      shear_fisher, a 3-bin (z 0.5, 1, 1.5) posterior in (Om0, sigma8)
      over 16 ells (nchi 64, fsky 0.3, inv_mass from shear_fisher; 150
      warm-up steps and 200 samples of 8 leapfrogs): means within 3
@@ -268,7 +267,10 @@ exits non-zero before the final line:
      resamples' medians from the same indices on the CPU),
      nonlinear_least_squares of a noisy NFW profile, pca,
      covariance_from_realizations and snapshot_info_table (F5, traced on
-     the card) against the CPU within 1e-5; K1-K4 0 launches but (a).
+     the card) against the CPU within 1e-5; K1-K4 0 launches but (a);
+ 18. the full sky (after phase 17, on phase 7's GR z=0 snapshot kept
+     for it): see phase_full_sky's docstring; K1 launches once a flush of
+     phase 9's shells, K2-K4 0 times.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -455,6 +457,29 @@ HMC_FSKY, HMC_BOUNDS = 0.3, {"sigma8": (0.6, 1.0), "Om0": (0.1, 0.6)}
 LN_NPIX, LN_TOL = 2048, 1e-5
 BOOT_N, BOOT_NB, BOOT_CPU_NB = 10 ** 6, 1000, 100
 PCA_N, PCA_F, COV_SHAPE, TOOLBOX_TOL = 100000, 16, (1000, 64), 1e-5
+# the full-sky phase: (b) nside, lmax and the super-Nyquist lmax (3 nside -
+# 1, healpy's default); 32 log bands over 10 <= l <= 1536, the EE / kk bar,
+# the BB / EE bar, the round trip's pull, CG's bias bar above 2 nside and
+# the xi_pm angles [arcmin]; (c) the largest table case and its bars
+# (synthesis relative to the map's max, analysis to the largest alm), the
+# card / CPU size and bar; (d) MASTER's nside, lmax, bands, mask (galactic
+# cut half-width, holes, hole radius [deg]), scalar and spin-2 maps, pull
+# and BB / EE bars, repeats of the cached facade; (e) the example's (nside,
+# lmax, fwhm), ray samples, the projection (pixels, deg), the beam
+# [arcmin] and its bar
+FS_NSIDE, FS_LMAX, FS_LMAX_HI = 1024, 2048, 3071
+FS_BANDS, FS_ELL_RANGE, FS_EE_TOL, FS_BB_TOL = 32, (10, 1536), 0.02, 1e-3
+FS_PULL, FS_CG_BIAS, FS_XI_ARCMIN = 5.0, 0.02, (2.0, 200.0, 16)
+FS_TABLE_NSIDE, FS_TABLE_LMAX, FS_SYNTH_TOL, FS_ANA_TOL = 256, 512, 5e-4, \
+    1e-4
+FS_CPU_NSIDE, FS_CPU_LMAX, FS_CPU_TOL = 64, 128, 1e-5
+FS_MASTER_NSIDE, FS_MASTER_LMAX, FS_MASTER_NBINS = 512, 1024, 16
+FS_MASK_CUT_DEG, FS_MASK_HOLES, FS_MASK_HOLE_DEG = 20.0, 128, 2.0
+FS_MASTER_MAPS, FS_MASTER_SPIN_MAPS, FS_MASTER_PULL, FS_MASTER_BB = 8, 16, \
+    4.0, 1e-2
+FS_REPEAT_TOL = 1e-6
+FS_EXAMPLE, FS_COLUMNS, FS_PROJ = (32, 64, 0.05), 10 ** 7, (2048, 10.0)
+FS_BEAM_ARCMIN, FS_BEAM_TOL = 10.0, 0.05
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -5065,15 +5090,6 @@ def phase_mg_master_inference(dev, seed: int) -> dict:
           and rel(big1[1], big_direct) < MA_REPEAT_TOL,
           f"SkyNamaster's cached call differs: {rel(big2[1], big1[1])}, "
           f"{rel(big1[1], big_direct)}")
-    for call in (lambda: SkyNamaster.from_array(
-            np.zeros(12 * 16 * 16)).compute_cl(),
-            lambda: SkyNamaster.from_file("sky.h5")):
-        try:
-            call()
-        except NotImplementedError as e:
-            check("item 6" in str(e), f"full-sky raise: {e}")
-        else:
-            check(False, "a full-sky SkyNamaster path did not raise")
     out["master"] = {
         "realizations": MA_REALIZATIONS,
         "bands_ge_1e4_modes": int(full.sum()),
@@ -5317,6 +5333,657 @@ def phase_mg_master_inference(dev, seed: int) -> dict:
     return result
 
 
+# ------------------------------------------------------------ full sky
+def _log_bands(lo: int, hi: int, n: int) -> np.ndarray:
+    """n + 1 integer band edges spaced evenly in log between lo and hi + 1
+    (band b holds lo_b <= ell < hi_b)."""
+    edges = np.unique(np.round(np.geomspace(lo, hi + 1, n + 1)).astype(int))
+    if edges.size != n + 1:
+        raise ValueError(f"{n} log bands over [{lo}, {hi}] are not distinct")
+    return edges
+
+
+def _band_sums(x, edges) -> np.ndarray:
+    x = np.asarray(x, np.float64)
+    return np.array([x[a:b].sum() for a, b in zip(edges[:-1], edges[1:])])
+
+
+def _host_peak_gb(fn):
+    """(fn(), the process's peak resident memory in GB): the kernel's
+    high-water mark, reset before fn where /proc allows it; else the
+    process's peak so far (getrusage), flagged by reset False."""
+    import resource
+
+    reset = True
+    try:
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+    except OSError:
+        reset = False
+    res = fn()
+    peak = None
+    if reset:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    peak = int(line.split()[1]) * 1024 / 1e9
+    if peak is None:
+        reset = False
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return res, {"gb": peak, "reset": reset}
+
+
+def _tensor_gb(tables) -> float:
+    return sum(t.numel() * t.element_size() for t in tables
+               if isinstance(t, torch.Tensor)) / 1e9
+
+
+def _galactic_mask(nside: int, dev, rng) -> torch.Tensor:
+    """1 off a galactic cut |theta - pi/2| < FS_MASK_CUT_DEG and off
+    FS_MASK_HOLES holes of FS_MASK_HOLE_DEG radius around centres uniform
+    on the sphere (numpy-seeded), float32 on `dev`."""
+    from astrild_tpu_torch.utils import healpix as hpx
+
+    theta, phi = hpx.pix2ang_ring(nside, np.arange(hpx.nside2npix(nside)))
+    vec = torch.from_numpy(hpx.ang2vec(theta, phi).astype(np.float32)).to(dev)
+    mask = (torch.from_numpy(np.abs(theta - np.pi / 2)).to(dev)
+            >= np.deg2rad(FS_MASK_CUT_DEG)).to(torch.float32)
+    centres = hpx.ang2vec(np.arccos(rng.uniform(-1, 1, FS_MASK_HOLES)),
+                          rng.uniform(0, 2 * np.pi, FS_MASK_HOLES))
+    cos_r = float(np.cos(np.deg2rad(FS_MASK_HOLE_DEG)))
+    for c in centres.astype(np.float32):
+        inside = (vec[:, 0] * float(c[0]) + vec[:, 1] * float(c[1])
+                  + vec[:, 2] * float(c[2])) > cos_r
+        mask[inside] = 0.0
+    return mask
+
+
+def _sht_profile(fn) -> dict:
+    """One call of fn on the host clock, synchronized, then one under
+    torch.profiler: its CUDA kernel launches, device time and the shares
+    of the sht.legendre / sht.caps / sht.belt_fft spans in it; and the
+    call's peak memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    spans = ("sht.legendre", "sht.caps", "sht.belt_fft")
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.key not in spans]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    span_ms = {k: v["ms"] for k, v in _span_ms(rows, spans).items()}
+    # the shares of the spans' device time and the rest's (a graph
+    # replay's kernels are attributed to its span, not always listed)
+    whole = max(sum(span_ms.values()), busy, 1e-9)
+    return {"seconds": seconds, "peak_gb": peak,
+            "kernels": int(sum(e.count for e in kernels)),
+            "device_ms": busy, "span_ms": span_ms,
+            "span_share": {k: v / whole for k, v in span_ms.items()}}
+
+
+def phase_full_sky(dev, seed: int, out_gr, shell_flushes: int) -> dict:
+    """The spherical-harmonic stack at full width, each stage on the host
+    clock, synchronized, with its K1-K4 launches held to its own count
+    and its peak memory; the checks raise. (a) phase 9's HEALPix shells of
+    the GR z=0 snapshot through K1 (its flushes' launches) ->
+    SkyHealpix.from_density_shells; (b) on that map at nside 1024, lmax
+    2048 (the scan path): anafast, shear_from_kappa, shear_eb_spectra
+    (C_EE / C_kk (l+2)(l-1)/(l(l+1)) within 2% in 32 log bands over 10 <=
+    l <= 1536, sum BB / sum EE < 1e-3) and shear_xi_pm's transform of
+    them at 16 angles (the facade itself in (e)); a
+    synfast_large / anafast_large round trip of examples/full_pipeline.py's
+    C_l = 2e-9 / max(l(l+1), 1) (every band within 5 sigma); at lmax 3071
+    CG against Jacobi (niter 3) on one realization: CG's mean bias over
+    2048 < l <= 3071 under 2% and under Jacobi's; (c) table against scan
+    path at nside 256, lmax 512, scalar and spin-2 (synthesis within 5e-4
+    of the map's max, analysis within 1e-4 of the largest alm), the host
+    tables' seconds, GB and host peak; every transform at nside 64, lmax
+    128 on the card against the CPU within 1e-5; (d) full-sky MASTER at
+    nside 512, lmax 1024 under a galactic cut and 128 holes: 8 scalar and
+    4 E-only spin-2 realizations (their mean within 4 sigma of the input
+    in 16 bands, sigma each multipole's 2 C_l^2 / ((2l + 1) f_sky)
+    through the binning, over the maps (their means from the maps' pseudo
+    spectra, the estimators being linear in them; anafast_master,
+    anafast_masked and anafast_spin2_master on the first map against the
+    same);
+    the worst band against the unmasked maps' (niter 0, unbiased at lmax
+    = 2 nside) within half the largest <w^2> bias; MASTER BB/EE < 1e-2),
+    SkyNamaster with its cached second call; (e)
+    examples/full_pipeline.py's full-sky SHT stage at its own parameters
+    on the card against the CPU, AngularPowerSpectrum.from_healpix /
+    to_skyhealpix, SkyHealpix.from_columns of 10^7 ray samples at nside
+    1024, rotate at nside 256 against the CPU, to_skyarray onto 2048^2
+    over 10 deg, a 10' smoothing of (b)'s round-trip map (C_l ratio within
+    5% of b_l^2 where b_l^2 > 0.1); (f) one synthesize_large,
+    analyze_large(niter=0) and their spin-2 twins at nside 1024, lmax
+    2048: seconds, CUDA kernels, the span shares and peak memory.
+    Returns the numbers printed in `# full_sky`."""
+    from astrild_tpu_torch.models import (AngularPowerSpectrum, SkyHealpix,
+                                          SkyNamaster)
+    from astrild_tpu_torch.ops import (lightcone_sphere, paint_cuda,
+                                       pairwise_cuda, sht, sht_large,
+                                       sht_spin, sht_spin_large)
+    from astrild_tpu_torch.ops.shear_2pt import xi_pm_from_cl_curved
+    from astrild_tpu_torch.utils.constants import C_LIGHT_KMS
+
+    seconds, launches, peaks, out = {}, {}, {}, {}
+    run = _stage_runner(seconds, launches)
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run(name, fn)
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"#   full_sky stage {name}: {seconds[name]:.3f} s, launches "
+            f"{launches[name]}, peak {peaks[name]:.2f} GB")
+        return res
+
+    def host(x) -> np.ndarray:
+        return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x))
+
+    def rel(got, want) -> float:
+        got, want = host(got).astype(np.float64), host(want).astype(
+            np.float64)
+        return float(np.abs(got - want).max()
+                     / max(np.abs(want).max(), 1e-300))
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"full_sky: {msg}")
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    nside, lmax = FS_NSIDE, FS_LMAX
+
+    # ---- (a) Born kappa on the sphere through K1
+    edges = np.linspace(*LC_EDGES)
+
+    def born():
+        delta, chis, dchis = lightcone_sphere.density_shells_healpix(
+            out_gr, edges, LC_NSIDE, BOX)
+        sky = SkyHealpix.from_density_shells(delta, chis, dchis,
+                                             LC_SHELL_SOURCE, 0.3)
+        chis, dchis = host(chis).astype(np.float64), host(dchis).astype(
+            np.float64)
+        w = (1.5 * 0.3 * (100.0 / C_LIGHT_KMS) ** 2
+             * np.clip(LC_SHELL_SOURCE - chis, 0.0, None) * chis
+             / LC_SHELL_SOURCE * dchis)
+        return sky, float((w * host(delta.double().mean(dim=1))).sum())
+
+    sky, weighted_mean = stage("born_shells", born)
+    kmap = sky.data["orig"]
+    map_mean = float(kmap.double().mean())
+    check(tuple(kmap.shape) == (12 * nside ** 2,)
+          and bool(torch.isfinite(kmap).all()), "Born map not finite")
+    check(abs(map_mean - weighted_mean) <= 1e-3 * abs(weighted_mean),
+          f"Born map mean {map_mean} against the shells' weighted mean "
+          f"{weighted_mean}")
+    out["born"] = {"mean": map_mean, "shells_weighted_mean": weighted_mean,
+                   "rms": float(kmap.double().std()),
+                   "k1_flushes": shell_flushes}
+
+    # ---- (b) the scan path at nside 1024, lmax 2048
+    bands = _log_bands(*FS_ELL_RANGE, FS_BANDS)
+    ell = np.arange(FS_LMAX_HI + 1, dtype=np.float64)
+    cl_in = 2e-9 / np.maximum(ell * (ell + 1.0), 1.0)
+    cl_kk = stage("anafast_2048", lambda: sky.anafast(lmax))
+    stage("shear_from_kappa_2048", lambda: sky.shear_from_kappa(lmax=lmax))
+    ee, bb, eb = stage("shear_eb_2048",
+                       lambda: sky.shear_eb_spectra(lmax=lmax))
+    e = ell[: lmax + 1]
+    fac = np.where(e >= 2, (e + 2) * (e - 1) / np.maximum(e * (e + 1), 1),
+                   0.0)
+    ee_ratio = _band_sums(ee, bands) / _band_sums(cl_kk * fac, bands)
+    bb_ee = float(bb[2:].sum() / ee[2:].sum())
+    check(bool(np.all(np.abs(ee_ratio - 1.0) < FS_EE_TOL)),
+          f"C_EE / C_kk fac off by {np.abs(ee_ratio - 1).max():.4f}")
+    check(bb_ee < FS_BB_TOL, f"BB/EE {bb_ee}")
+    # shear_xi_pm's transform of these spectra (its own spin-2 analysis
+    # again is (e)'s, at the example's size)
+    theta = np.geomspace(*FS_XI_ARCMIN)
+    xi_p, xi_m = stage("shear_xi_pm_2048", lambda: xi_pm_from_cl_curved(
+        ee, theta * np.pi / 180.0 / 60.0, cl_b=bb))
+    check(bool(np.all(np.isfinite(xi_p)) and np.all(np.isfinite(xi_m))),
+          "xi_pm not finite")
+    out["lensing"] = {"ee_over_kk_max_dev": float(
+        np.abs(ee_ratio - 1).max()), "bb_over_ee": bb_ee,
+        "eb_over_ee": float(np.abs(eb[2:]).sum() / ee[2:].sum()),
+        "theta_arcmin": theta.tolist(), "xi_plus": xi_p.tolist(),
+        "xi_minus": xi_m.tolist()}
+    del ee, bb, eb
+
+    m_rt = stage("synfast_large_2048", lambda: sht_large.synfast_large(
+        gen, cl_in[: lmax + 1], nside, lmax))
+    c_rt = host(stage("anafast_large_2048",
+                      lambda: sht_large.anafast_large(m_rt, lmax)))
+    nmodes = _band_sums(2 * e + 1, bands)
+    c_b = _band_sums((2 * e + 1) * cl_in[: lmax + 1], bands) / nmodes
+    pulls = ((_band_sums((2 * e + 1) * c_rt, bands) / nmodes - c_b)
+             / (c_b * np.sqrt(2.0 / nmodes)))
+    check(bool(np.all(np.abs(pulls) < FS_PULL)),
+          f"round trip pulls {np.abs(pulls).max():.2f} sigma")
+    out["round_trip_max_pull"] = float(np.abs(pulls).max())
+
+    L = FS_LMAX_HI
+    white = tuple(torch.randn((L + 1, L + 1), generator=gen, device=dev)
+                  for _ in range(2))
+    a_re, a_im = sht._gaussian_alms(*white, torch.as_tensor(
+        cl_in[: L + 1], dtype=torch.float32, device=dev), L)
+    cl_real = host(sht.alm2cl(a_re, a_im)).astype(np.float64)
+    m_hi = stage("synthesize_large_3071", lambda: sht_large.synthesize_large(
+        a_re, a_im, nside, L))
+    del white, a_re, a_im
+    hi = ell > 2 * nside
+    bias = {}
+    for method in ("cg", "jacobi"):
+        c = host(stage(f"anafast_large_3071_{method}",
+                       lambda: sht_large.anafast_large(m_hi, L,
+                                                       method=method)))
+        bias[method] = float(c[hi].mean() / cl_real[hi].mean() - 1.0)
+    check(abs(bias["cg"]) < FS_CG_BIAS and abs(bias["cg"])
+          < abs(bias["jacobi"]), f"above 2 nside: bias {bias}")
+    out["above_2nside_bias"] = bias
+    del m_hi
+
+    # ---- (c) table against scan, card against CPU
+    nt, lt = FS_TABLE_NSIDE, FS_TABLE_LMAX
+    rng = np.random.default_rng(seed + 18)
+    tables = {}
+    tables["scalar"], peak_s = _host_peak_gb(lambda: stage(
+        "tables_scalar_256", lambda: sht.sht_tables(nt, lt, dev)))
+    tables["spin2"], peak_p = _host_peak_gb(lambda: stage(
+        "tables_spin2_256", lambda: sht_spin.spin2_tables(nt, lt, dev)))
+    out["tables"] = {
+        "scalar": {"seconds": seconds["tables_scalar_256"],
+                   "gb": _tensor_gb(tables["scalar"]), "host_peak": peak_s},
+        "spin2": {"seconds": seconds["tables_spin2_256"],
+                  "gb": _tensor_gb(tables["spin2"][:2]),
+                  "host_peak": peak_p}}
+    lg, mg = np.arange(lt + 1)[:, None], np.arange(lt + 1)[None, :]
+
+    def alms(lmin):
+        valid = (mg <= lg) & (lg >= lmin)
+        return (torch.from_numpy((rng.standard_normal((lt + 1,) * 2)
+                                  * valid).astype(np.float32)).to(dev),
+                torch.from_numpy((rng.standard_normal((lt + 1,) * 2) * valid
+                                  * (mg > 0)).astype(np.float32)).to(dev))
+
+    s_alm, e_alm, b_alm = alms(0), alms(2), alms(2)
+    qu = tuple(torch.randn(12 * nt * nt, generator=gen, device=dev)
+               for _ in range(2))
+    m_tab = stage("synthesize_table_512", lambda: sht.synthesize(
+        *s_alm, nt, lt, tables=tables["scalar"]))
+    m_scan = stage("synthesize_large_512", lambda: sht_large.synthesize_large(
+        *s_alm, nt, lt))
+    g_tab = stage("synthesize_spin2_table_512", lambda: sht_spin
+                  .synthesize_spin2(*e_alm, *b_alm, nt, lt,
+                                    tables=tables["spin2"]))
+    g_scan = stage("synthesize_spin2_large_512", lambda: sht_spin_large
+                   .synthesize_spin2_large(*e_alm, *b_alm, nt, lt))
+    a_tab = stage("analyze_table_512", lambda: sht.analyze(
+        qu[0], nt, lt, tables=tables["scalar"]))
+    a_scan = stage("analyze_large_512", lambda: sht_large.analyze_large(
+        qu[0], nt, lt))
+    p_tab = stage("analyze_spin2_table_512", lambda: sht_spin.analyze_spin2(
+        *qu, nt, lt, tables=tables["spin2"]))
+    p_scan = stage("analyze_spin2_large_512", lambda: sht_spin_large
+                   .analyze_spin2_large(*qu, nt, lt))
+    synth_err = max(rel(m_scan, m_tab),
+                    *(rel(a, b) for a, b in zip(g_scan, g_tab)))
+    alm_scale = max(float(a.abs().max()) for a in (*a_tab, *p_tab))
+    ana_err = max(float((a - b).abs().max()) for a, b in
+                  zip((*a_scan, *p_scan), (*a_tab, *p_tab))) / alm_scale
+    check(synth_err < FS_SYNTH_TOL, f"table vs scan synthesis {synth_err}")
+    check(ana_err < FS_ANA_TOL, f"table vs scan analysis {ana_err}")
+    out["table_vs_scan"] = {"synthesis": synth_err, "analysis": ana_err}
+    rot_map = m_scan
+    del tables, m_tab, g_tab, g_scan, a_tab, a_scan, p_tab, p_scan, qu
+    sht._sht_tables.cache_clear()
+    sht_spin._spin2_tables.cache_clear()
+    torch.cuda.empty_cache()
+
+    nc, lc = FS_CPU_NSIDE, FS_CPU_LMAX
+    crng = np.random.default_rng(seed + 19)
+    c_lg, c_mg = np.arange(lc + 1)[:, None], np.arange(lc + 1)[None, :]
+
+    def c_alms(lmin):
+        valid = (c_mg <= c_lg) & (c_lg >= lmin)
+        return ((crng.standard_normal((lc + 1,) * 2) * valid).astype(
+            np.float32), (crng.standard_normal((lc + 1,) * 2) * valid
+                          * (c_mg > 0)).astype(np.float32))
+
+    cs, ce, cb = c_alms(0), c_alms(2), c_alms(2)
+    cmaps = tuple(crng.standard_normal(12 * nc * nc).astype(np.float32)
+                  for _ in range(2))
+    cmask = (crng.uniform(size=12 * nc * nc) > 0.3).astype(np.float32)
+
+    def every_transform(d):
+        res = [sht.synthesize(*cs, nc, lc, device=d),
+               *sht.analyze(cmaps[0], nc, lc, device=d),
+               sht.smoothing(cmaps[0], 0.05, lc, device=d),
+               sht.anafast_masked(cmaps[0], cmask, lc, device=d),
+               *sht.anafast_master(cmaps[0], cmask, lc, device=d),
+               sht_large.synthesize_large(*cs, nc, lc, device=d),
+               *sht_large.analyze_large(cmaps[0], nc, lc, device=d),
+               *sht_large.analyze_large(cmaps[0], nc, lc, method="cg",
+                                        device=d),
+               sht_large.smoothing_large(cmaps[0], 0.05, lc, device=d),
+               *sht_spin.synthesize_spin2(*ce, *cb, nc, lc, device=d),
+               *sht_spin.analyze_spin2(*cmaps, nc, lc, device=d),
+               *sht_spin.anafast_spin2_master(*cmaps, cmask, lc, device=d),
+               *sht_spin_large.synthesize_spin2_large(*ce, *cb, nc, lc,
+                                                      device=d),
+               *sht_spin_large.analyze_spin2_large(*cmaps, nc, lc,
+                                                   device=d),
+               *sht_spin_large.analyze_spin2_large(*cmaps, nc, lc,
+                                                   method="cg", device=d)]
+        return [host(r) for r in res]
+
+    card = stage("transforms_64_card", lambda: every_transform(dev))
+    cpu = stage("transforms_64_cpu", lambda: every_transform("cpu"))
+    card_cpu = max(rel(a, b) for a, b in zip(card, cpu))
+    check(card_cpu < FS_CPU_TOL, f"nside 64 card vs CPU {card_cpu}")
+    out["card_vs_cpu_64"] = {"transforms": len(card), "max_rel": card_cpu}
+
+    # ---- (d) full-sky MASTER at nside 512, lmax 1024
+    nm, lm = FS_MASTER_NSIDE, FS_MASTER_LMAX
+    mask = stage("master_mask", lambda: _galactic_mask(nm, dev, rng))
+    fsky = float(mask.mean())
+    w2 = float((mask ** 2).mean())
+    wl = stage("master_mask_cl", lambda: sht_large.anafast_large(
+        mask, min(2 * lm, 2 * nm)))
+    M = stage("master_coupling", lambda: sht.coupling_matrix_from_mask_cl(
+        host(wl), lm))
+    M_s = stage("master_coupling_spin2", lambda: sht_spin
+                .spin2_coupling_matrices_from_mask_cl(host(wl), lm))
+    B = sht._bin_operator(lm, FS_MASTER_NBINS, lmin=2)
+    em = ell[: lm + 1]
+    # (b)'s spectrum without its monopole and dipole, which the mask would
+    # couple into every band below the bins' lmin = 2 (the JAX package's
+    # MASTER tests zero them too)
+    cl_m = np.where(em >= 2, cl_in[: lm + 1], 0.0)
+    c_in_b = B @ cl_m
+
+    def band_sigma(n_maps):
+        """The Gaussian error of a band power (a flat band average of C_l)
+        over n_maps realizations: each multipole's 2 C_l^2 / ((2l + 1)
+        f_sky) through the binning (for a steep spectrum a band's lowest
+        multipoles carry most of it)."""
+        var_l = 2.0 * cl_m ** 2 / ((2.0 * em + 1.0) * fsky)
+        return np.sqrt((B ** 2) @ var_l / n_maps)
+
+
+    _, Qs, _ = sht._binned_shape_ops(lm, FS_MASTER_NBINS, 2)
+    Mb = B @ M @ Qs
+    Mb_s = np.block([[B @ M_s[0] @ Qs, B @ M_s[1] @ Qs],
+                     [B @ M_s[1] @ Qs, B @ M_s[0] @ Qs]])
+
+    def master_maps():
+        """Each map's pseudo-Cl and unmasked C_l; MASTER and <w^2> of
+        their mean (both linear in the pseudo-Cl), and anafast_master /
+        anafast_masked themselves on the first map against the same."""
+        pcl, truth, first = [], [], None
+        for i in range(FS_MASTER_MAPS):
+            m = sht_large.synfast_large(gen, cl_m, nm, lm)
+            pcl.append(host(sht_large.anafast_large(m * mask, lm)))
+            truth.append(B @ host(sht_large.anafast_large(m, lm,
+                                                          niter=0)))
+            if first is None:
+                first = (host(m), host(sht.anafast_master(
+                    m, mask, lm, nbins=FS_MASTER_NBINS, coupling=M)[1]),
+                    host(sht.anafast_masked(m, mask, lm)))
+        pcl = np.array(pcl, np.float64)
+        ms = np.linalg.solve(Mb, (B @ pcl.T)).T
+        check(rel(first[1], ms[0]) < FS_REPEAT_TOL
+              and rel(first[2], pcl[0] / w2) < FS_REPEAT_TOL,
+              f"anafast_master / anafast_masked against the pseudo-Cl's "
+              f"solve: {rel(first[1], ms[0])}, {rel(first[2], pcl[0] / w2)}")
+        return ms, (B @ pcl.T).T / w2, np.array(truth), first[0]
+
+    ms, w2s, truth, map0 = stage("master_scalar_maps", master_maps)
+    pull_s = (ms.mean(0) - c_in_b) / band_sigma(len(ms))
+    t_b = truth.mean(0)
+    err_s = np.abs(ms.mean(0) / t_b - 1.0)
+    w2_bias = np.abs(w2s.mean(0) / t_b - 1.0)
+    check(bool(np.all(np.abs(pull_s) < FS_MASTER_PULL)),
+          f"scalar MASTER pulls {np.abs(pull_s).max():.2f} sigma")
+    check(err_s.max() < 0.5 * w2_bias.max(),
+          f"scalar MASTER worst band {err_s.max():.4f} against half the "
+          f"<w^2> bias {w2_bias.max():.4f}")
+    zeros = np.zeros(lm + 1)
+
+    def master_spin2():
+        """As master_maps for E-only spin-2 maps: the 2x2-block solve of
+        the pseudo EE / BB, anafast_spin2_master on the first map."""
+        raw_ee, raw_bb, ee_t, first = [], [], [], None
+        for i in range(FS_MASTER_SPIN_MAPS):
+            w4 = tuple(torch.randn((lm + 1, lm + 1), generator=gen,
+                                   device=dev) for _ in range(4))
+            alms = sht_spin._spin2_alms_from_white(
+                w4, torch.as_tensor(cl_m, dtype=torch.float32, device=dev),
+                torch.as_tensor(zeros, dtype=torch.float32, device=dev), lm)
+            q, u = sht_spin_large.synthesize_spin2_large(*alms, nm, lm)
+            pe, pb, _ = sht_spin_large.anafast_spin2_large(q * mask,
+                                                           u * mask, lm)
+            raw_ee.append(B @ host(pe))
+            raw_bb.append(B @ host(pb))
+            ee_t.append(B @ host(sht_spin_large.anafast_spin2_large(
+                q, u, lm, niter=0)[0]))
+            if first is None:
+                first = (host(q), host(u), [host(c) for c in
+                                            sht_spin.anafast_spin2_master(
+                    q, u, mask, lm, nbins=FS_MASTER_NBINS,
+                    coupling=M_s)[1:]])
+        raw_ee, raw_bb = np.array(raw_ee), np.array(raw_bb)
+        sol = np.linalg.solve(Mb_s, np.concatenate([raw_ee, raw_bb], 1).T).T
+        ee, bb = sol[:, :FS_MASTER_NBINS], sol[:, FS_MASTER_NBINS:]
+        check(max(rel(first[2][0], ee[0]), rel(first[2][1], bb[0]))
+              < FS_REPEAT_TOL, "anafast_spin2_master against the pseudo "
+              "spectra's solve")
+        return ee, bb, np.array(ee_t), raw_ee, raw_bb, first[:2]
+
+    ee_m, bb_m, ee_t, raw_ee, raw_bb, qu0 = stage("master_spin2_maps",
+                                                  master_spin2)
+    pull_e = (ee_m.mean(0) - c_in_b) / band_sigma(len(ee_m))
+    te_b = ee_t.mean(0)
+    err_e = np.abs(ee_m.mean(0) / te_b - 1.0)
+    w2_bias_e = np.abs(raw_ee.mean(0) / w2 / te_b - 1.0)
+    bb_ee_m = float(bb_m.mean(0).sum() / ee_m.mean(0).sum())
+    raw_bb_ee = float(raw_bb.mean(0).sum() / raw_ee.mean(0).sum())
+    check(bool(np.all(np.abs(pull_e) < FS_MASTER_PULL)),
+          f"spin-2 MASTER EE pulls {np.abs(pull_e).max():.2f} sigma")
+    check(err_e.max() < 0.5 * w2_bias_e.max(),
+          f"spin-2 MASTER EE worst band {err_e.max():.4f} against half "
+          f"the <w^2> bias {w2_bias_e.max():.4f}")
+    check(abs(bb_ee_m) < FS_MASTER_BB, f"spin-2 MASTER BB/EE {bb_ee_m}")
+
+    mask_h = host(mask).astype(np.float64)
+    sn = SkyNamaster.from_array(map0)
+    sn.set_mask(mask_h)
+    sn1 = stage("skynamaster_cl", lambda: sn.compute_cl(
+        lmax=lm, nbins=FS_MASTER_NBINS))
+    sn2 = stage("skynamaster_cl_cached", lambda: sn.compute_cl(
+        lmax=lm, nbins=FS_MASTER_NBINS))
+    sn3 = stage("skynamaster_cl_spin2", lambda: sn.compute_cl_spin2(
+        *qu0, lmax=lm, nbins=FS_MASTER_NBINS))
+    sn4 = stage("skynamaster_cl_spin2_cached", lambda: sn.compute_cl_spin2(
+        *qu0, lmax=lm, nbins=FS_MASTER_NBINS))
+    sn_err = max(rel(sn1[1], ms[0]), rel(sn2[1], sn1[1]),
+                 rel(sn3[1], ee_m[0]), rel(sn4[1], sn3[1]),
+                 rel(sn4[2], sn3[2]))
+    check(sn_err < FS_REPEAT_TOL, f"SkyNamaster against the estimators "
+          f"{sn_err}")
+    out["master"] = {
+        "fsky": fsky, "w2": w2, "scalar_max_pull": float(
+            np.abs(pull_s).max()), "scalar_max_err": float(err_s.max()),
+        "w2_bias": w2_bias.tolist(), "ee_max_pull": float(
+            np.abs(pull_e).max()), "ee_max_err": float(err_e.max()),
+        "ee_w2_bias": w2_bias_e.tolist(), "bb_over_ee": bb_ee_m,
+        "raw_bb_over_ee": raw_bb_ee, "skynamaster_max_rel": sn_err}
+    del mask, map0, qu0
+
+    # ---- (e) the example's full-sky SHT stage and the facades
+    n_ex, l_ex, fwhm_ex = FS_EXAMPLE
+    ell_ex = np.arange(l_ex + 1, dtype=float)
+    cl_tt = 2e-9 / np.maximum(ell_ex * (ell_ex + 1.0), 1.0)
+    white_ex = tuple(torch.randn((l_ex + 1, l_ex + 1),
+                                 generator=torch.Generator().manual_seed(
+                                     seed + 42 + i)) for i in range(2))
+
+    def example(d):
+        cmb = sht.synfast_from_white(*(w.to(d) for w in white_ex), cl_tt,
+                                     n_ex, device=d)
+        cl_meas = sht.anafast(cmb, lmax=l_ex)
+        smooth = sht.smoothing(cmb, fwhm_rad=fwhm_ex, lmax=l_ex)
+        return [host(cmb), host(cl_meas), host(smooth)]
+
+    ex_card = stage("example_sht", lambda: example(dev))
+    ex_cpu = stage("example_sht_cpu", lambda: example("cpu"))
+    ex_err = max(rel(a, b) for a, b in zip(ex_card, ex_cpu))
+    check(ex_err < FS_CPU_TOL, f"example stage card vs CPU {ex_err}")
+    ex_line = (int(ex_card[0].shape[0]), float(cl_tt[10]),
+               float(ex_card[1][10]),
+               float(ex_card[2].std() / ex_card[0].std()))
+    log(f"#   full-sky CMB: npix={ex_line[0]}, Cl(10) in/out "
+        f"{ex_line[1]:.2e}/{ex_line[2]:.2e}, smoothed std ratio "
+        f"{ex_line[3]:.3f}")
+
+    def healpix_facades():
+        sky_a = AngularPowerSpectrum.to_skyhealpix(cl_tt, n_ex,
+                                                   rnd_seed=seed)
+        sky_b = SkyHealpix.from_Cl_array(cl_tt, "kappa_2", n_ex,
+                                         rnd_seed=seed)
+        ell_a, cl_a = AngularPowerSpectrum.from_healpix(sky_a, l_ex)
+        return (sky_a, bool(torch.equal(sky_a.data["orig"],
+                                        sky_b.data["orig"])),
+                ell_a, cl_a, sky_a.anafast(l_ex))
+
+    sky_a, same_sky, ell_a, cl_a, cl_direct = stage("angular_power_healpix",
+                                                    healpix_facades)
+    check(same_sky and sky_a.device == kmap.device
+          and np.array_equal(ell_a, np.arange(l_ex + 1))
+          and np.array_equal(cl_a, cl_direct),
+          "AngularPowerSpectrum.to_skyhealpix / from_healpix")
+
+    def xi_facade():
+        sky_a.shear_from_kappa(lmax=l_ex)
+        ce, cb, _ = sky_a.shear_eb_spectra(lmax=l_ex)
+        got = sky_a.shear_xi_pm(theta, lmax=l_ex)
+        return got, xi_pm_from_cl_curved(ce, theta * np.pi / 180.0 / 60.0,
+                                         cl_b=cb)
+
+    xi_got, xi_want = stage("shear_xi_pm_example", xi_facade)
+    check(max(rel(a, b) for a, b in zip(xi_got, xi_want)) < FS_REPEAT_TOL,
+          "SkyHealpix.shear_xi_pm against its spectra's transform")
+
+    crng = np.random.default_rng(seed + 20)
+    cols = {"the_co": np.arccos(crng.uniform(-1, 1, FS_COLUMNS)),
+            "phi_co": crng.uniform(0, 2 * np.pi, FS_COLUMNS),
+            "kappa_2": crng.normal(0, 0.01, FS_COLUMNS)}
+    sky_c = stage("from_columns_1e7", lambda: SkyHealpix.from_columns(
+        cols, "kappa_2", nside))
+    empty = float((sky_c.data["orig"] == float(np.float32(-1.6375e30)))
+                  .double().mean())
+    expect_empty = float(np.exp(-FS_COLUMNS / (12 * nside ** 2)))
+    check(sky_c.device == kmap.device
+          and abs(empty - expect_empty) < 0.01,
+          f"from_columns empty share {empty} against {expect_empty}")
+    del sky_c, cols
+
+    rot = (20.0, 35.0, -10.0)
+    r_card = stage("rotate_256", lambda: SkyHealpix(rot_map).rotate(rot))
+    r_cpu = stage("rotate_256_cpu", lambda: SkyHealpix(
+        rot_map.cpu()).rotate(rot))
+    rot_err = rel(r_card, r_cpu)
+    check(rot_err < FS_CPU_TOL, f"rotate card vs CPU {rot_err}")
+    proj = stage("to_skyarray_2048", lambda: sky.to_skyarray(
+        FS_PROJ[1], FS_PROJ[0]))
+    pimg = proj.data["orig"]
+    check(tuple(pimg.shape) == (FS_PROJ[0],) * 2
+          and pimg.device == kmap.device
+          and bool(torch.isfinite(pimg).all()), "to_skyarray")
+    del proj, pimg
+
+    sky_rt = SkyHealpix(m_rt)
+    fwhm = np.deg2rad(FS_BEAM_ARCMIN / 60.0)
+    stage("smoothing_2048", lambda: sky_rt.smoothing(fwhm, lmax=lmax))
+    c_sm = host(stage("anafast_smoothed_2048", lambda: sky_rt.anafast(
+        lmax, of="orig_smooth")))
+    b2 = host(sht._beam_window(fwhm, lmax, "cpu"))[:, 0].astype(
+        np.float64) ** 2
+    sel = (b2 > 0.1) & (e >= 2)
+    beam_dev = float(np.abs(c_sm[sel] / c_rt[sel] / b2[sel] - 1.0).max())
+    check(beam_dev < FS_BEAM_TOL, f"smoothing C_l ratio off b_l^2 by "
+          f"{beam_dev}")
+    out["facades"] = {"example_card_vs_cpu": ex_err,
+                      "example_log_line": ex_line,
+                      "from_columns_empty_share": empty,
+                      "from_columns_expected_empty": expect_empty,
+                      "rotate_card_vs_cpu": rot_err,
+                      "smoothing_max_dev": beam_dev}
+    del sky_rt, m_rt, rot_map
+
+    # ---- (f) where the time goes at nside 1024, lmax 2048
+    alm2 = tuple(torch.randn((lmax + 1, lmax + 1), generator=gen,
+                             device=dev).tril() for _ in range(4))
+    g1, g2 = sky.data["gamma1"], sky.data["gamma2"]
+    profiles = {
+        "synthesize_large": _sht_profile(lambda: sht_large.synthesize_large(
+            alm2[0], alm2[1], nside, lmax)),
+        "analyze_large_niter0": _sht_profile(
+            lambda: sht_large.analyze_large(kmap, nside, lmax, niter=0)),
+        "synthesize_spin2_large": _sht_profile(
+            lambda: sht_spin_large.synthesize_spin2_large(*alm2, nside,
+                                                          lmax)),
+        "analyze_spin2_large_niter0": _sht_profile(
+            lambda: sht_spin_large.analyze_spin2_large(g1, g2, nside, lmax,
+                                                       niter=0))}
+    for name, p in profiles.items():
+        log(f"#   full_sky profile {name}: {p['seconds']:.3f} s, "
+            f"{p['kernels']} CUDA kernels, device {p['device_ms']:.1f} ms, "
+            f"shares " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   p["span_share"].items())
+            + f", peak {p['peak_gb']:.2f} GB")
+    out["profiles"] = profiles
+    del alm2, g1, g2, sky, kmap
+
+    predicted = {name: {} for name in seconds if not name.endswith("_cpu")}
+    predicted["born_shells"] = {"deposit_sorted": shell_flushes}
+    total = _held_launches("full_sky", predicted, {
+        k: v for k, v in launches.items() if k in predicted})
+    phase_s = time.perf_counter() - t_phase
+    log(f"# phase full_sky: {phase_s:.1f} s; launches {total}; C_EE/C_kk "
+        f"max dev {out['lensing']['ee_over_kk_max_dev']:.2e}, BB/EE "
+        f"{bb_ee:.1e}; round trip max pull {out['round_trip_max_pull']:.2f}"
+        f"; l > 2 nside bias CG {bias['cg']:+.4f}, Jacobi "
+        f"{bias['jacobi']:+.4f}; table vs scan {synth_err:.1e} / "
+        f"{ana_err:.1e}; card vs CPU {card_cpu:.1e}; MASTER worst band "
+        f"{err_s.max():.4f} (<w^2> {w2_bias.max():.4f}), EE "
+        f"{err_e.max():.4f}, BB/EE {bb_ee_m:.1e} (raw {raw_bb_ee:.1e}); "
+        f"cached SkyNamaster {seconds['skynamaster_cl_cached']:.3f} s; "
+        f"peak {max(peaks.values()):.2f} GB")
+    result = {"phase_seconds": phase_s, "seconds": seconds,
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peaks, **out}
+    log("# full_sky " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -5420,8 +6087,11 @@ def main() -> None:
     moving = phase_moving_lens(dev, args.seed, so_cat,
                                mapping.pop("halo_velocities"), kappa_map,
                                out_gr)
-    del out_gr, mom_gr, kappa_map, so_cat
+    del mom_gr, kappa_map, so_cat
     mg = phase_mg_master_inference(dev, args.seed)
+    full_sky = phase_full_sky(dev, args.seed, out_gr,
+                              lightcone["shells_flushes"])
+    del out_gr
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -5541,6 +6211,11 @@ def main() -> None:
     # evolutions and their P(k); K1, K3 and K4 launch 0 times there
     for row in kernels:
         row["mg_master_inference_launches"] = mg["launches_total"].get(
+            row["name"], 0)
+    # the full-sky phase: K1 deposits the Born map's HEALPix shells; K2-K4
+    # launch 0 times there
+    for row in kernels:
+        row["full_sky_launches"] = full_sky["launches_total"].get(
             row["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -2190,3 +2190,129 @@ def test_new_entry_points_put_numpy_on_the_card(cuda):
         v, rng.integers(0, 100, (20, 100)))[0], TAN.percentiles(v),
         TAN.pca(v)[0]]
     assert all(o.device.type == "cuda" for o in outs)
+
+
+# ------------------------------------------------- spherical harmonics
+def _sht_inputs(nside, lmax, seed=0):
+    """A map pair and E/B alm sets (float32, [l, m], zero above the
+    triangle, below l = 2 for the spin-2 ones)."""
+    rng = np.random.default_rng(seed)
+    npix = 12 * nside * nside
+    lg = np.arange(lmax + 1)[:, None]
+    mg = np.arange(lmax + 1)[None, :]
+
+    def alms(lmin):
+        valid = (mg <= lg) & (lg >= lmin)
+        re = (rng.standard_normal((lmax + 1,) * 2) * valid).astype(np.float32)
+        im = (rng.standard_normal((lmax + 1,) * 2) * valid
+              * (mg > 0)).astype(np.float32)
+        return re, im
+
+    maps = tuple(rng.standard_normal(npix).astype(np.float32)
+                 for _ in range(2))
+    return maps, alms(0), alms(2) + alms(2)
+
+
+def _sht_runs(dev, nside, lmax, maps, scalar, spin):
+    """Every transform of both backends on `dev` (numpy input placed
+    there): synthesis and Jacobi analysis (niter 3), scalar and spin-2."""
+    from astrild_tpu_torch.ops import sht, sht_large, sht_spin, sht_spin_large
+
+    out = []
+    if lmax <= 2 * nside:
+        out += [sht.synthesize(*scalar, nside, lmax, device=dev),
+                *sht.analyze(maps[0], nside, lmax, device=dev),
+                *sht_spin.synthesize_spin2(*spin, nside, lmax, device=dev),
+                *sht_spin.analyze_spin2(*maps, nside, lmax, device=dev)]
+    out += [sht_large.synthesize_large(*scalar, nside, lmax, device=dev),
+            *sht_large.analyze_large(maps[0], nside, lmax, device=dev),
+            *sht_spin_large.synthesize_spin2_large(*spin, nside, lmax,
+                                                   device=dev),
+            *sht_spin_large.analyze_spin2_large(*maps, nside, lmax,
+                                                device=dev)]
+    return out
+
+
+@pytest.mark.parametrize("lmax", [128, 191])
+def test_sht_transforms_on_the_card_match_the_cpu(cuda, lmax):
+    """At nside 64: the table and scan paths (lmax 128), and the scan
+    path's alias fold and CG analysis (lmax 191, method 'auto'), scalar
+    and spin-2, on the card within 1e-5 of the CPU's max."""
+    nside = 64
+    maps, scalar, spin = _sht_inputs(nside, lmax)
+    card = _sht_runs(cuda, nside, lmax, maps, scalar, spin)
+    cpu = _sht_runs("cpu", nside, lmax, maps, scalar, spin)
+    assert len(card) == (18 if lmax <= 2 * nside else 9)
+    for c, w in zip(card, cpu):
+        assert c.device.type == "cuda"
+        scale = float(w.abs().max())
+        assert float((c.cpu() - w).abs().max()) <= 1e-5 * scale
+
+
+def test_analyze_large_cg_on_the_card_matches_the_cpu(cuda):
+    """method='cg' at lmax = 3 nside - 1, scalar and spin-2, niter 3: the
+    stopping rule stays on the card; alms within 1e-5 of the CPU's max."""
+    from astrild_tpu_torch.ops import sht_large, sht_spin_large
+
+    nside, lmax = 64, 191
+    maps, _, _ = _sht_inputs(nside, lmax, seed=1)
+    card = (*sht_large.analyze_large(maps[0], nside, lmax, method="cg"),
+            *sht_spin_large.analyze_spin2_large(*maps, nside, lmax,
+                                                method="cg"))
+    cpu = (*sht_large.analyze_large(maps[0], nside, lmax, method="cg",
+                                    device="cpu"),
+           *sht_spin_large.analyze_spin2_large(*maps, nside, lmax,
+                                               method="cg", device="cpu"))
+    for c, w in zip(card, cpu):
+        assert c.device.type == "cuda"
+        assert float((c.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+def test_sht_transforms_hold_with_tf32_allowed(cuda):
+    """Every transform on both backends with TF32 allowed for float32
+    matmuls equals the run without: no contraction reaches a matrix
+    product (TF32 would move them by ~1e-3)."""
+    nside, lmax = 64, 128
+    maps, scalar, spin = _sht_inputs(nside, lmax, seed=2)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = _sht_runs(cuda, nside, lmax, maps, scalar, spin)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = _sht_runs(cuda, nside, lmax, maps, scalar, spin)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_skyhealpix_and_full_sky_master_on_the_card(cuda):
+    """SkyHealpix of a numpy map lands on the card; anafast, the shear
+    layers, their E/B spectra and a rotation equal the CPU facade's within
+    1e-5 of their max; SkyNamaster's full-sky compute_cl (cached coupling)
+    and compute_cl_spin2 on the card within 1e-5 of the CPU's."""
+    from astrild_tpu_torch.models import SkyHealpix, SkyNamaster
+    from astrild_tpu_torch.utils import healpix as TH
+
+    nside, lmax = 32, 64
+    maps, _, _ = _sht_inputs(nside, lmax, seed=3)
+    th, _ = TH.pix2ang_ring(nside, np.arange(12 * nside * nside))
+    mask = (np.abs(th - np.pi / 2) > 0.35).astype(np.float64)
+    out = {}
+    for dev in (None, "cpu"):
+        sky = SkyHealpix(maps[0], device=dev)
+        assert sky.device.type == ("cuda" if dev is None else "cpu")
+        res = [sky.anafast(lmax), *sky.shear_from_kappa(lmax=lmax),
+               *sky.shear_eb_spectra(lmax=lmax)[:1],
+               sky.rotate((10.0, 20.0, 5.0))]
+        sn = SkyNamaster.from_array(maps[0], device=dev)
+        sn.set_mask(mask)
+        first = sn.compute_cl(lmax=lmax, nbins=8)[1]
+        res += [first.cpu().numpy(),
+                sn.compute_cl(lmax=lmax, nbins=8)[1].cpu().numpy()]
+        res += [c.cpu().numpy() for c in sn.compute_cl_spin2(
+            *maps, lmax=lmax, nbins=8)[1:]]
+        out[dev] = res
+    for c, w in zip(out[None], out["cpu"]):
+        assert np.abs(c - w).max() <= 1e-5 * np.abs(w).max()

@@ -405,7 +405,10 @@ def test_angular_power_spectrum_flat_matches_jax(rng):
 def test_angular_power_to_flat_map_and_healpix_raise():
     """to_flat_map is cl_to_flat_map of a generator seeded with rnd_seed
     (another realization than the JAX key): its C_ell against the table
-    within the mode-count noise of 256^2 pixels."""
+    within the mode-count noise of 256^2 pixels. The full-sky half, once
+    a raise: from_healpix is the layer's anafast (the JAX package's within
+    1e-6 of its max), to_skyhealpix is SkyHealpix.from_Cl_array of the
+    same seed."""
     from astrild_tpu_torch.ops import angular_power as TAP
 
     ells = np.linspace(1.0, 20000.0, 512)
@@ -420,10 +423,23 @@ def test_angular_power_to_flat_map_and_healpix_raise():
                                                   device="cpu")
     ratio = cl / np.interp(ell, ells, cls)
     assert np.all(np.abs(ratio[2:] - 1.0) < 0.25)
-    for fn in (TPM.AngularPowerSpectrum.from_healpix,
-               TPM.AngularPowerSpectrum.to_skyhealpix):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(None, 8)
+    from astrild_tpu.models.skyhealpix import SkyHealpix as JSH
+    from astrild_tpu_torch.models import SkyHealpix as TSH
+
+    hmap = np.random.default_rng(5).standard_normal(768).astype(np.float32)
+    ell_t, cl_t = TPM.AngularPowerSpectrum.from_healpix(
+        TSH(hmap, device="cpu"), 16)
+    ell_j, cl_j = JPM.AngularPowerSpectrum.from_healpix(JSH(hmap), 16)
+    assert isinstance(cl_t, np.ndarray)
+    npt.assert_array_equal(ell_t, ell_j)
+    npt.assert_allclose(cl_t, cl_j, atol=1e-6 * np.abs(cl_j).max())
+    cl_in = 1e-2 / (1.0 + np.arange(17.0)) ** 2
+    sky = TPM.AngularPowerSpectrum.to_skyhealpix(cl_in, 8, rnd_seed=3,
+                                                 device="cpu")
+    want = TSH.from_Cl_array(cl_in, "kappa_2", 8, rnd_seed=3, device="cpu")
+    assert isinstance(sky, TSH) and sky.nside == 8
+    npt.assert_array_equal(sky.data["orig"].numpy(),
+                           want.data["orig"].numpy())
 
 
 # -------------------------------------------------------------- lightcone

@@ -2,7 +2,7 @@
 (`cl_flat_sky_masked`, `flat_sky_coupling_matrix`, `cl_flat_sky_master`,
 `flat_sky_spin2_coupling_matrices`, `cl_flat_sky_shear_master` of
 astrild_tpu_torch/ops/angular_power.py), `ops/sht.shape_binned_interp`,
-and the flat half of the `SkyNamaster` facade, mirroring
+and the `SkyNamaster` facade, mirroring
 tests/test_master.py's flat-sky tests.
 
 On the CPU the couplings are the JAX package's numpy code: equal bit for
@@ -23,6 +23,8 @@ import jax.numpy as jnp  # noqa: E402
 from astrild_tpu.models import SkyNamaster as JSkyNamaster  # noqa: E402
 from astrild_tpu.ops import angular_power as JA  # noqa: E402
 from astrild_tpu.ops import sht as JS  # noqa: E402
+from astrild_tpu.ops import sht_spin as JSS  # noqa: E402
+from astrild_tpu.utils import healpix as JH  # noqa: E402
 from astrild_tpu.ops.filters import gaussian as jgaussian  # noqa: E402
 from astrild_tpu_torch.models import SkyNamaster  # noqa: E402
 from astrild_tpu_torch.ops import angular_power as TA  # noqa: E402
@@ -343,19 +345,55 @@ def test_skynamaster_per_call_mask_not_stale():
 
 
 def test_skynamaster_full_sky_and_h5_raise(tmp_path):
-    """Every full-sky path and the .h5 file branch raise
-    NotImplementedError naming queue 1 item 6; a flat-sky spin-2 lmax is a
-    ValueError; a .npy file loads."""
-    full = SkyNamaster.from_array(np.zeros(12 * 16 * 16), device="cpu")
+    """The full-sky paths and the .h5 file branch, once raises naming
+    queue 1 item 6, against the JAX package's: compute_cl decoupled and
+    not, compute_cl_spin2 decoupled and not (band powers within 1e-5 of
+    their max), the stored coupling's cache key, a .h5 file's map (float32
+    rounding); a flat-sky spin-2 lmax and an unknown file type are
+    ValueErrors, a .npy file loads."""
+    nside, lmax = 16, 20
+    npix = 12 * nside * nside
+    ell = np.arange(lmax + 1, dtype=np.float64)
+    cl = np.zeros(lmax + 1, np.float32)
+    cl[2:] = 1.0 / ell[2:] ** 2
+    hmap = np.asarray(JS.synfast(jax.random.PRNGKey(6), cl, nside, lmax))
+    theta, _ = JH.pix2ang_ring(nside, np.arange(npix))
+    fmask = (theta < 1.9).astype(np.float64)
+    full = SkyNamaster.from_array(hmap, device="cpu")
+    jfull = JSkyNamaster.from_array(hmap)
     assert not full.flat and full.nside == 16
-    for call in (lambda: full.compute_cl(lmax=20, nbins=5),
-                 lambda: full.compute_cl(decouple=False),
-                 lambda: full.compute_cl_spin2(np.zeros(3072),
-                                               np.zeros(3072))):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SkyNamaster.from_file(str(tmp_path / "rays.h5"))
+    for sn in (full, jfull):
+        sn.set_mask(fmask)
+    for kw in ({"lmax": lmax, "nbins": 5}, {"decouple": False}):
+        (e_t, c_t), (e_j, c_j) = full.compute_cl(**kw), jfull.compute_cl(**kw)
+        npt.assert_array_equal(e_t.numpy(), np.asarray(e_j))
+        npt.assert_allclose(c_t.numpy(), np.asarray(c_j),
+                            atol=SPEC_TOL * np.abs(np.asarray(c_j)).max())
+    assert ("full", lmax, 3) in full._workspace
+    q, u = (np.asarray(a) for a in JSS.synfast_spin2(
+        jax.random.PRNGKey(0), cl, np.zeros_like(cl), nside, lmax))
+    for kw in ({"nbins": 5, "lmax": lmax}, {"decouple": False, "lmax": lmax}):
+        got = full.compute_cl_spin2(q, u, **kw)
+        want = jfull.compute_cl_spin2(q, u, **kw)
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            npt.assert_allclose(g.numpy(), w,
+                                atol=SPEC_TOL * np.abs(w).max())
+    assert ("full-spin2", lmax, 3) in full._workspace
+
+    from astrild_tpu_torch.io import columnar_h5 as TH5
+    from astrild_tpu_torch.utils.constants import C_LIGHT_KMS
+
+    th, ph = JH.pix2ang_ring(nside, np.arange(npix))
+    vals = np.random.default_rng(1).normal(0, 0.01, npix)
+    h5 = str(tmp_path / "rays.h5")
+    TH5.write_table(h5, {"the_co": th, "phi_co": ph,
+                         "isw_rs": vals * C_LIGHT_KMS ** 2})
+    got = SkyNamaster.from_file(h5, quantity="isw_rs", nside=nside,
+                                device="cpu")
+    want = JSkyNamaster.from_file(h5, quantity="isw_rs", nside=nside)
+    assert not got.flat and got.map_file == h5
+    npt.assert_allclose(got.data["orig"], want.data["orig"], rtol=1e-6)
     with pytest.raises(ValueError, match="unsupported"):
         SkyNamaster.from_file(str(tmp_path / "map.fits"))
     path = tmp_path / "map.npy"

@@ -229,7 +229,8 @@ def test_lpt_catalog_from_modes_matches_jax(rng, order, pass_growth):
                                              z_init, order=order,
                                              growth=growth)
     tcomps, tmom = TN.lpt_catalog_from_modes(dk, n, box, tc, z_init,
-                                             order=order, growth=growth)
+                                             order=order, growth=growth,
+                                             device="cpu")
     rel = 1e-5 if pass_growth else 5e-5
     for got, want in zip(tcomps, jcomps):
         d = np.abs(got.numpy() - np.asarray(want))
@@ -296,7 +297,7 @@ def test_pm_evolve_matches_jax(rng):
         jcomps, jmom = JN.lpt_catalog_from_modes(jnp.asarray(dk), n, box,
                                                  jc, 9.0, growth=growth)
         tcomps, tmom = TN.lpt_catalog_from_modes(dk, n, box, tc, 9.0,
-                                                 growth=growth)
+                                                 growth=growth, device="cpu")
         jout, jp = JN.pm_evolve(jcomps, jmom, jc, n, box, 0.1, 1.0, 4)
         tout, tp = TN.pm_evolve(tcomps, tmom, tc, n, box, 0.1, 1.0, 4)
         for got, want in zip(tout, jout):
@@ -338,7 +339,7 @@ def test_pm_growth_matches_jax_at_20_steps(rng):
     jcomps, jmom = JN.lpt_catalog_from_modes(jnp.asarray(dk), n, box, jc,
                                              z_i, growth=growth)
     tcomps, tmom = TN.lpt_catalog_from_modes(dk, n, box, tc, z_i,
-                                             growth=growth)
+                                             growth=growth, device="cpu")
     a0 = 1.0 / (1.0 + z_i)
     jout, _ = JN.pm_evolve(jcomps, jmom, jc, n, box, a0, 1.0, 20)
     tout, _ = TN.pm_evolve(tcomps, tmom, tc, n, box, a0, 1.0, 20)
@@ -353,7 +354,7 @@ def test_pm_evolve_leaves_inputs_untouched(rng):
     n, box = 8, 50.0
     tc = Cosmology(**COSMOS["lcdm"])
     comps, mom = TN.lpt_catalog_from_modes(_modes(rng, n, box), n, box, tc,
-                                           9.0)
+                                           9.0, device="cpu")
     before = [c.clone() for c in comps + mom]
     out, p = TN.pm_evolve(comps, mom, tc, n, box, 0.1, 0.5, 2)
     assert all(torch.equal(a, b) for a, b in zip(before, comps + mom))
