@@ -6,7 +6,8 @@ statistics: synthesis and analysis through ops/sht.py up to lmax 512 and
 through the table-free ops/sht_large.py above (that threshold picks the
 estimator as well as the speed: the scan path's analysis switches to CG
 above lmax 2*nside), spin-2 shear from convergence, its E/B spectra and
-curved-sky xi_pm.
+curved-sky xi_pm; the spherical multiplane ray trace of density shells and
+the lensing of a CMB map by the deflection of a convergence map.
 
 Layers are tensors on one device: numpy input goes to `device`, by
 default the CUDA card (it raises without one: pass device="cpu"); a tensor
@@ -16,11 +17,8 @@ numpy of utils/healpix.py; the gather runs on the layer's device. Random
 skies draw from a `torch.Generator` seeded with `rnd_seed` (another
 realization than the JAX package's key of the same seed).
 
-Not ported yet: CMB lensing by deflection remapping (`lens_cmb_from_kappa`,
-`lens_cmb_by_deflection`) and the spherical multiplane ray trace
-(`from_multiplane_shells`) wait for the spin-1 transforms, ROADMAP queue 1
-item 6b; the m-sharded transforms (`mesh=`) wait for the distributed
-layer, item 9.
+Not ported yet: the m-sharded transforms (`mesh=`) wait for the
+distributed layer, ROADMAP queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -38,8 +36,6 @@ __all__ = ["SkyHealpix"]
 # impractical; dispatch to the table-free ops/sht_large.py path instead.
 _TABLE_LMAX_LIMIT = 512
 
-_ITEM_6B = ("is not ported yet: it needs the spin-1 transforms and the "
-            "deflection remap, ROADMAP.md queue 1 item 6b")
 _ITEM_9 = ("SkyHealpix: mesh= (the m-sharded transforms) is not ported "
            "yet: it waits for the distributed layer, ROADMAP.md queue 1 "
            "item 9")
@@ -190,10 +186,32 @@ class SkyHealpix:
         return cls(kappa, quantity)
 
     @classmethod
-    def from_multiplane_shells(cls, *args, **kwargs):
-        """Full-sky post-Born ray tracing through HEALPix shells."""
-        raise NotImplementedError(
-            f"SkyHealpix.from_multiplane_shells {_ITEM_6B}")
+    def from_multiplane_shells(cls, shells, chis, dchis, chi_s, omega_m,
+                               lmax: Optional[int] = None,
+                               scale_factors=None,
+                               quantity: str = "kappa_2",
+                               device=None) -> "SkyHealpix":
+        """Full-sky post-Born ray tracing through HEALPix density shells
+        (ops.lightcone_sphere.multiplane_raytrace_healpix) on the shells'
+        device: the traced kappa is the map, gamma1 / gamma2 / omega (the
+        image rotation) land in .data. Takes one scalar chi_s; for
+        tomography call the function with the chi_s array."""
+        from ..ops import lightcone_sphere as lcs
+
+        if np.ndim(_host(chi_s)) != 0:
+            raise ValueError(
+                "from_multiplane_shells builds ONE SkyHealpix and takes "
+                "a scalar chi_s; for tomography call "
+                "ops.lightcone_sphere.multiplane_raytrace_healpix with "
+                "the chi_s array (leading nsrc axis on its outputs) and "
+                "wrap each source's maps yourself")
+        out = lcs.multiplane_raytrace_healpix(
+            shells, chis, dchis, chi_s, omega_m, lmax=lmax,
+            scale_factors=scale_factors, device=device)
+        sky = cls(out["kappa"], quantity)
+        for k in ("gamma1", "gamma2", "omega"):
+            sky.data[k] = out[k]
+        return sky
 
     # ------------------------------------------------------------- geometry
     def _interp(self, layer: torch.Tensor, theta, phi) -> torch.Tensor:
@@ -358,11 +376,67 @@ class SkyHealpix:
         return _host(out)
 
     # ---------------------------------------------------------- CMB lensing
-    def lens_cmb_from_kappa(self, *args, **kwargs):
-        """Lens a CMB map by the deflection field of a convergence map."""
-        raise NotImplementedError(f"SkyHealpix.lens_cmb_from_kappa {_ITEM_6B}")
+    def lens_cmb_from_kappa(self, cmb_map, kappa_map,
+                            lmax: Optional[int] = None) -> np.ndarray:
+        """Lens a CMB map by the deflection field of a convergence map:
+        kappa -> alm -> the spin-1 gradient synthesis of psi -> the
+        bilinear remap (`lens_cmb_by_deflection`), on the map's device.
 
-    def lens_cmb_by_deflection(self, *args, **kwargs):
-        """Lens a CMB map by remapping with a deflection field."""
-        raise NotImplementedError(
-            f"SkyHealpix.lens_cmb_by_deflection {_ITEM_6B}")
+        lmax defaults to 2*nside. The kappa analysis is the plain adjoint
+        (niter 0, unbiased at L <= 2*nside) on the table path up to lmax
+        512 and on the scan path above; beyond 2*nside it is the scan
+        path's CG solve (Jacobi overshoots there, and the plain adjoint
+        leaves the deflection biased at ell > 2*nside). The deflection
+        synthesis takes the table path up to lmax 512, the scan path
+        above."""
+        from ..ops import sht, sht_large, sht_spin, sht_spin_large
+
+        L = 2 * self.nside if lmax is None else lmax
+        kappa_map = as_tensor(kappa_map, self.device)
+        if L <= 2 * self.nside:
+            if L <= _TABLE_LMAX_LIMIT:
+                kr, ki = sht.analyze(kappa_map, self.nside, L, niter=0)
+            else:
+                kr, ki = sht_large.analyze_large(kappa_map, self.nside, L,
+                                                 niter=0)
+        else:
+            kr, ki = sht_large.analyze_large(kappa_map, self.nside, L,
+                                             niter=3, method="auto")
+        if L <= _TABLE_LMAX_LIMIT:
+            a_t, a_p = sht_spin.deflection_from_kappa_alm(kr, ki,
+                                                          self.nside, L)
+        else:
+            a_t, a_p = sht_spin_large.deflection_from_kappa_alm_large(
+                kr, ki, self.nside, L)
+        return self.lens_cmb_by_deflection(cmb_map, a_t, a_p)
+
+    def lens_cmb_by_deflection(self, cmb_map, alpha_theta, alpha_phi
+                               ) -> np.ndarray:
+        """Lens a CMB map by remapping with a deflection field: the
+        unlensed map sampled at the source-plane positions of every pixel
+        centre (utils.healpix_torch.remap_by_deflection), stored as
+        'cmb_lensed' and returned as numpy.
+
+        The remap is float32: the monopole is split off in float64 first,
+        so an absolute-units map (T ~ 2.7 K plus uK fluctuations) keeps its
+        fluctuations' precision. Every source position carries the JAX
+        package's 1e-3-pixel tie nudge (+0.5 nudge in theta, +nudge in
+        phi, nudge = 1e-3 * 2 pi / (4 nside)), which shifts each sampled
+        value by ~1e-3 of its pixel-to-pixel difference. Its bias on the
+        lensed spectrum against an un-nudged remap, at nside 1024 / lmax
+        2048 by an N-body kappa, is 1.0e-4 at most in 8 log bands over 10
+        <= l <= 1536 (chip_smoke.py phase 19 (c) on an NVIDIA H100 80GB
+        HBM3 at 700 W)."""
+        from ..utils import healpix_torch as hpt
+
+        if isinstance(cmb_map, torch.Tensor):
+            cmb = cmb_map.to(torch.float64)
+        else:
+            cmb = torch.from_numpy(np.asarray(cmb_map, np.float64)).to(
+                self.device)
+        mono = cmb.mean()
+        lensed = mono + hpt.remap_by_deflection(
+            (cmb - mono).to(torch.float32), alpha_theta, alpha_phi,
+            self.nside).to(torch.float64)
+        self.data["cmb_lensed"] = lensed
+        return _host(lensed)

@@ -170,7 +170,13 @@ class SkyNamaster:
         the E -> B leakage it makes; the couplings cache per stored mask
         like compute_cl's. decouple=False returns the <w^2>-normalized
         pseudo E/B spectra. Shear tensors keep their device; numpy goes
-        where compute_cl runs."""
+        where compute_cl runs.
+
+        On the full sky with decouple=False and lmax above 512 the pseudo
+        spectra take the scan path (sht_spin_large) where the JAX package
+        builds the spin-2 table: they differ from its result by the gap of
+        the float32 scan recursion to the table, which grows with lmax
+        (ROADMAP.md section 3)."""
         from ..ops import angular_power as AP
 
         if not self.flat:

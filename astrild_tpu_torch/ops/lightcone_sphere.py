@@ -1,11 +1,17 @@
 """Full-sky lightcone lensing: HEALPix density shells from particle
-snapshots and Born convergence on the sphere.
+snapshots, Born convergence on the sphere, and spherical multi-plane ray
+tracing through the spherical harmonic transforms.
 
-Port of `shell_counts_healpix`, `shell_overdensity`,
-`density_shells_healpix` and `born_convergence_healpix` of
-astrild_tpu/ops/lightcone_sphere.py: particles -> spherical density shells
-(a deposit over (shell, pixel) keys: the kernel K1,
-`paint_cuda.deposit_flat`, on a CUDA tensor) -> Born kappa.
+Port of astrild_tpu/ops/lightcone_sphere.py: particles -> spherical
+density shells (a deposit over (shell, pixel) keys: the kernel K1,
+`paint_cuda.deposit_flat`, on a CUDA tensor) -> Born kappa, or the
+post-Born multiplane tracer (`multiplane_raytrace_healpix`): per shell one
+analysis of its effective convergence, then the band-limited kappa, the
+spin-1 deflection and the spin-2 shear of the same alms, sampled at the
+deflected rays with the tensor HEALPix stencil (utils/healpix_torch.py);
+between shells x' = x + d dchi, at a shell d' = d - alpha and the
+distortion D' = D - (U / chi) A with U = [[kap + g1, g2], [g2, kap - g1]]
+(ops/raytrace.py's recursion on the sphere, in each ray's tangent frame).
 
 Each periodic image of the box is painted in turn. The particles of an
 image that fall into a shell are selected first (a mask and `nonzero`)
@@ -15,12 +21,15 @@ keys are gathered into groups that share one deposit; a group
 is flushed when the next image's keys would pass the card's room for them
 (`lens_planes._entry_budget`).
 
-Not ported yet: `multiplane_raytrace_healpix` (it needs the spin-1
-transforms and the torch HEALPix interpolation stencil, ROADMAP.md queue 1
-item 6b).
+The tracer keeps no stencils: the JAX package returns them from its scan
+only to keep an XLA fusion consistent. Its 2x2 distortion products are
+elementwise products and sums (no matrix product, so a caller's TF32
+setting cannot reach them). Profiler spans: `multiplane.fields` (the
+shells' transforms) and `multiplane.transport` (the ray recursion).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -262,16 +271,207 @@ def born_convergence_healpix(delta_shells, chis, dchis, chi_s, omega_m,
     return out
 
 
+def _plane_fields_healpix(kap_maps, tabs, lmax: int):
+    """Per-shell (alpha_theta, alpha_phi, kap_bl, g1, g2) maps, (nshell,
+    5, npix), from the effective shell convergences on the table path, all
+    from one adjoint analysis a shell (niter 0 is unbiased for lmax <= 2
+    nside). kap_bl is the band-limited kappa the transforms see: the
+    single-shell limit is exact against it."""
+    from .sht import _adjoint_impl, _synth_impl
+    from .sht_spin import (_synth_spin1_impl, _synth_spin2_impl,
+                           deflection_E_factor, kappa_alm_to_shear_alm)
+
+    tab0, tab1, tab2 = tabs
+    inv = deflection_E_factor(lmax, kap_maps.device)
+    out = []
+    for kap in kap_maps:
+        kr, ki = _adjoint_impl(kap, tab0)
+        z = torch.zeros_like(kr)
+        a_t, a_p = _synth_spin1_impl(kr * inv, ki * inv, z, z, tab1)
+        er, ei = kappa_alm_to_shear_alm(kr, ki)
+        g1, g2 = _synth_spin2_impl(er, ei, z, z, tab2)
+        out.append(torch.stack([a_t, a_p, _synth_impl(kr, ki, tab0), g1,
+                                g2]))
+    return torch.stack(out)
+
+
+def _plane_fields_healpix_scan(kap_maps, tabs, nside: int, lmax: int):
+    """`_plane_fields_healpix` on the table-free scan backends (sht_large,
+    sht_spin_large): O(lmax * nring) memory instead of O(lmax^2 * nring)
+    tables, the production route at nside 512 and above."""
+    from . import sht_large as sl
+    from . import sht_spin_large as ssl
+    from .sht_spin import deflection_E_factor, kappa_alm_to_shear_alm
+
+    stab, s1tab, s2tab = tabs
+    inv = deflection_E_factor(lmax, kap_maps.device)
+    out = []
+    for kap in kap_maps:
+        kr, ki = sl._adjoint_large_impl(kap, stab, nside, lmax)
+        z = torch.zeros_like(kr)
+        a_t, a_p = ssl._synth_spin1_large_impl(kr * inv, ki * inv, z, z,
+                                               s1tab, nside, lmax)
+        er, ei = kappa_alm_to_shear_alm(kr, ki)
+        g1, g2 = ssl._synth_spin2_large_impl(er, ei, z, z, s2tab, nside,
+                                             lmax)
+        out.append(torch.stack([
+            a_t, a_p, sl._synth_large_impl(kr, ki, stab, nside, lmax), g1,
+            g2]))
+    return torch.stack(out)
+
+
+def _trace_one(fields, chis, chi_src, t0, p0, sin_t0, nside: int):
+    """The ray recursion for one source distance: (nshell, 5, npix) shell
+    fields -> the lensing maps at the (t0, p0) ray grid."""
+    # a deterministic 0.02-pixel nudge of the sampling positions: with the
+    # ray grid at the shells' nside every undeflected ray sits exactly on
+    # a stencil boundary, where the last bit of the position decides the
+    # pixel; 2% of a pixel biases a smooth band-limited field by < nudge *
+    # its gradient (~1e-3 of the signal)
+    nudge = 0.02 * float(np.sqrt(np.pi / 3.0)) / nside
+    n = t0.shape[0]
+    x = torch.zeros((2, n), device=t0.device)
+    d = torch.zeros_like(x)
+    # the comoving distortion A starts at 0 and its derivative D at the
+    # identity (A = chi I without lensing)
+    amat = torch.zeros((2, 2, n), device=t0.device)
+    dmat = torch.zeros_like(amat)
+    dmat[0, 0] = 1.0
+    dmat[1, 1] = 1.0
+    chi_prev = torch.zeros((), device=t0.device)
+    for f, chi in zip(fields, chis):
+        dchi_seg = chi - chi_prev
+        chi_prev = chi
+        x = x + d * dchi_seg
+        amat = amat + dmat * dchi_seg
+        w = (chi <= chi_src).to(x.dtype)
+        # the ray's angular position: fiducial + comoving offset / chi in
+        # its local (theta, phi) tangent basis
+        th = torch.clamp(t0 + x[0] / chi + nudge, 0.0, math.pi)
+        ph = p0 + x[1] / chi / sin_t0 + nudge
+        pix, wgt = hpt.get_interp_weights(nside, th, ph)
+        idx = pix.reshape(-1).long()
+        samp = torch.stack([(m[idx].reshape(pix.shape) * wgt).sum(0)
+                            for m in f])
+        alpha = samp[:2] * w
+        u = torch.stack([torch.stack([samp[2] + samp[3], samp[4]]),
+                         torch.stack([samp[4], samp[2] - samp[3]])]) * w
+        d = d - alpha
+        # dmat -= (u @ amat) / chi, per ray, as products and sums
+        ua = torch.stack([torch.stack([
+            u[i, 0] * amat[0, k] + u[i, 1] * amat[1, k] for k in range(2)])
+            for i in range(2)])
+        dmat = dmat - ua / chi
+    x = x + d * (chi_src - chis[-1])
+    amat = amat + dmat * (chi_src - chis[-1])
+    ahat = amat / chi_src
+    return {"kappa": 1.0 - 0.5 * (ahat[0, 0] + ahat[1, 1]),
+            "gamma1": -0.5 * (ahat[0, 0] - ahat[1, 1]),
+            "gamma2": -0.5 * (ahat[0, 1] + ahat[1, 0]),
+            "omega": 0.5 * (ahat[0, 1] - ahat[1, 0]),
+            "beta_theta": t0 + x[0] / chi_src,
+            "beta_phi": p0 + x[1] / chi_src / sin_t0}
+
+
+def _trace_multiplane(fields, chis, chi_s, t0, p0, nside: int):
+    """Ray-transport tail of the multiplane tracer: per-shell field maps
+    -> lensing observables at the (t0, p0) ray grid; an array chi_s puts
+    a leading source axis on each output (each source traced on its
+    own)."""
+    sin_t0 = torch.clamp_min(hpt._sin64(t0), 1e-6)
+    if chi_s.ndim == 0:
+        return _trace_one(fields, chis, chi_s, t0, p0, sin_t0, nside)
+    runs = [_trace_one(fields, chis, c, t0, p0, sin_t0, nside)
+            for c in chi_s]
+    return {k: torch.stack([r[k] for r in runs]) for k in runs[0]}
+
+
+def _multiplane_impl(delta_shells, chis, dchis, chi_s, omega_m,
+                     scale_factors, t0, p0, tabs, nside: int, lmax: int,
+                     scan_path: bool = False):
+    kaps = effective_plane_kappa(delta_shells, chis[:, None],
+                                 dchis[:, None], scale_factors[:, None],
+                                 omega_m)
+    with _span("multiplane.fields"):
+        if scan_path:
+            fields = _plane_fields_healpix_scan(kaps, tabs, nside, lmax)
+        else:
+            fields = _plane_fields_healpix(kaps, tabs, lmax)
+    with _span("multiplane.transport"):
+        return _trace_multiplane(fields, chis, chi_s, t0, p0, nside)
+
+
+def _multiplane_tabs(nside: int, lmax: int, method: str, device):
+    """The one home of the tracer's SHT-backend selection: (tabs,
+    use_scan). 'auto' takes the table-free scan backends once the scalar,
+    spin-1 and two spin-2 tables would pass 256 MB (4 nlm nring floats)."""
+    if method not in ("auto", "tables", "scan"):
+        raise ValueError(f"method must be auto/tables/scan, got {method!r}")
+    if method == "auto":
+        nring = 4 * nside - 1
+        nlm = (lmax + 1) * (lmax + 2) // 2
+        use_scan = 4 * nlm * nring * 4 > (1 << 28)  # scalar+sp1+2*sp2
+    else:
+        use_scan = method == "scan"
+    if use_scan:
+        from .sht_large import sht_large_tables
+        from .sht_spin_large import spin1_large_tables, spin2_large_tables
+        tabs = (sht_large_tables(nside, lmax, device),
+                spin1_large_tables(nside, lmax, device),
+                spin2_large_tables(nside, lmax, device))
+    else:
+        from .sht import sht_tables
+        from .sht_spin import spin1_tables, spin2_tables
+        tabs = (sht_tables(nside, lmax, device),
+                spin1_tables(nside, lmax, device),
+                spin2_tables(nside, lmax, device))
+    return tabs, use_scan
+
+
 def multiplane_raytrace_healpix(delta_shells, chis, dchis, chi_s, omega_m,
                                 lmax: Optional[int] = None,
                                 scale_factors=None,
                                 nside_out: Optional[int] = None,
-                                method: str = "auto"):
-    """Full-sky post-Born ray tracing through HEALPix density shells: not
-    ported yet."""
-    raise NotImplementedError(
-        "multiplane_raytrace_healpix needs the spin-1 spherical harmonic "
-        "transforms (ops/sht_spin.py, sht_spin_large.py) and the torch "
-        "HEALPix interpolation stencil, which are not ported yet "
-        "(ROADMAP.md queue 1 item 6b); born_convergence_healpix gives the "
-        "Born-level kappa")
+                                method: str = "auto", device=None):
+    """Full-sky post-Born ray tracing through HEALPix density shells.
+
+    Args:
+      delta_shells: (nshell, npix) density contrast, increasing chi. A
+        tensor stays on its device and the maps come out there; numpy input
+        goes to `device`, by default the CUDA card (it raises without one:
+        pass device="cpu").
+      chis, dchis: (nshell,) shell comoving distances / widths [Mpc/h].
+      chi_s: source distance(s) [Mpc/h]; an array for tomography (a
+        leading nsrc axis on the outputs, shells beyond each source
+        masked).
+      lmax: band limit of the per-shell potentials (default 2*nside, the
+        unbiased-adjoint regime).
+      nside_out: ray grid resolution (default: the shell nside).
+      method: SHT backend of the per-shell fields: 'tables' (O(lmax^2
+        nring) tables, practical to nside ~256), 'scan' (the table-free
+        backends, production nside 512+), 'auto' ('scan' once the table
+        sets would pass 256 MB).
+
+    Returns a dict of (npix_out,) maps: kappa, gamma1, gamma2, omega (the
+    post-Born rotation), beta_theta / beta_phi (source-plane positions).
+    The single-shell limit reproduces Born (band-limited); omega is a pure
+    lens-lens signal.
+    """
+    delta_shells = as_tensor(delta_shells, device)
+    dev = delta_shells.device
+    nside = hpx.npix2nside(delta_shells.shape[-1])
+    L = 2 * nside if lmax is None else lmax
+
+    def vec(v):
+        return as_tensor(v, dev).to(torch.float32)
+
+    chis, dchis = vec(chis), vec(dchis)
+    scale_factors = (torch.ones_like(chis) if scale_factors is None
+                     else vec(scale_factors))
+    n_out = nside_out or nside
+    t0, p0 = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in
+              hpx.pix2ang_ring(n_out, np.arange(hpx.nside2npix(n_out))))
+    tabs, use_scan = _multiplane_tabs(nside, L, method, dev)
+    return _multiplane_impl(delta_shells, chis, dchis, vec(chi_s), omega_m,
+                            scale_factors, t0, p0, tabs, nside, L,
+                            scan_path=use_scan)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import as_tensor
 from .._options import port_spelling
 
 __all__ = [
@@ -135,7 +136,8 @@ def _paint_one(pos_flat, ngrid, boxsize, weights, window, deposit):
 
 
 def paint(pos, ngrid: int, boxsize, weights=None, window: str = "cic",
-          interlaced: bool = False, deposit: str | None = None):
+          interlaced: bool = False, deposit: str | None = None,
+          device=None):
     """Deposit particles onto an n^3 grid.
 
     Args:
@@ -152,10 +154,24 @@ def paint(pos, ngrid: int, boxsize, weights=None, window: str = "cic",
         CUDA deposit K1, CIC/TSC through the windowed CUDA painter K2;
         CUDA tensors only; the JAX package's spelling 'pallas' means the
         same).
+      device: where numpy input goes (default: the CUDA card, raising
+        without one); tensors keep their device.
     """
-    # one layout for every route: x, y and z concatenated (one copy)
+    # numpy input goes to `device`; tensors stay as they are
     if isinstance(pos, (tuple, list)):
-        pos_flat = torch.cat([torch.as_tensor(c).reshape(-1) for c in pos])
+        first = pos[0] if isinstance(pos[0], torch.Tensor) \
+            else as_tensor(pos[0], device)
+        pos = tuple(c if isinstance(c, torch.Tensor)
+                    else as_tensor(c, first.device) for c in pos)
+    elif not isinstance(pos, torch.Tensor):
+        first = pos = as_tensor(pos, device)
+    else:
+        first = pos
+    if weights is not None and not isinstance(weights, torch.Tensor):
+        weights = as_tensor(weights, first.device)
+    # one layout for every route: x, y and z concatenated (one copy)
+    if isinstance(pos, tuple):
+        pos_flat = torch.cat([c.reshape(-1) for c in pos])
     else:
         pos_flat = pos.t().reshape(-1)
     g = _paint_one(pos_flat, ngrid, boxsize, weights, window, deposit)

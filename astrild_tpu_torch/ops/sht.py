@@ -432,7 +432,10 @@ def anafast_masked(hpmap, mask, lmax: int, niter: int = 3,
     Exact mode decoupling is not attempted: the <w^2> normalization is
     unbiased for spectra smooth on the mask's coupling scale (the
     flat-sky twin is ops/angular_power.cl_flat_sky_masked). Beyond lmax
-    512 the analysis takes the scan path, as anafast_master's does."""
+    512 the analysis takes the scan path, as anafast_master's does, where
+    the JAX package builds the table: the result then differs from its
+    by the gap of the float32 scan recursion to the table, which grows
+    with lmax (ROADMAP.md section 3)."""
     hpmap = _map(hpmap, device, tables)
     mask = as_tensor(mask, hpmap.device)
     w2 = torch.mean(mask ** 2)

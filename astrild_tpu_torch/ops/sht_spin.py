@@ -1,9 +1,10 @@
-"""Spin-2 spherical-harmonic transforms on the table path: full-sky shear
-E/B synthesis and analysis (healpy alm2map_spin / map2alm_spin parity),
-the full-sky spin-2 MASTER estimator, and the Wigner d-function rows of
-the curved-sky two-point sums.
+"""Spin-weighted spherical-harmonic transforms on the table path: full-sky
+shear E/B synthesis and analysis (healpy alm2map_spin / map2alm_spin
+parity), the spin-1 gradient / curl transforms of lensing deflections, the
+full-sky spin-2 MASTER estimator, and the Wigner d-function rows of the
+curved-sky two-point sums.
 
-Port of the spin-2 half of astrild_tpu/ops/sht_spin.py. Spin-weighted
+Port of astrild_tpu/ops/sht_spin.py. Spin-weighted
 harmonics come from Wigner small-d functions, with the convention pinned
 to the scalar transforms of ops/sht.py:
 
@@ -19,8 +20,11 @@ adjoint is the exact transpose of the synthesis, written out (the JAX
 package takes it from jax.vjp), with 4pi/npix weights and Jacobi
 refinement.
 
-The spin-1 half (deflection fields: `Spin1Tables` ..
-`kappa_omega_alm_from_deflection`) waits for ROADMAP queue 1 item 6b.
+The spin-1 channel (alpha_theta + i alpha_phi = (d/dtheta + i csc(theta)
+d/dphi) psi) takes the plus branch s_m norm d^l_{-1,m} (s_0 = -1) and the
+folded branch -norm d^l_{+1,m}, pinned in the JAX package against
+finite-difference gradients; its adjoint is written out the same way and
+valid for l >= 1.
 """
 from __future__ import annotations
 
@@ -43,7 +47,10 @@ __all__ = ["Spin2Tables", "spin2_tables", "wigner_d_column",
            "synthesize_spin2", "analyze_spin2", "anafast_spin2",
            "synfast_spin2", "synfast_spin2_from_white",
            "kappa_alm_to_shear_alm", "spin2_coupling_matrices_from_mask_cl",
-           "anafast_spin2_master", "_wigner_d_l_rows"]
+           "anafast_spin2_master", "_wigner_d_l_rows",
+           "Spin1Tables", "spin1_tables", "synthesize_spin1",
+           "analyze_spin1", "deflection_E_factor",
+           "deflection_from_kappa_alm", "kappa_omega_alm_from_deflection"]
 
 
 def wigner_d_column(lmax: int, costheta: np.ndarray, m1: int) -> np.ndarray:
@@ -137,19 +144,10 @@ def _m_positive(lmax: int, device) -> torch.Tensor:
     return p
 
 
-def _synth_spin2_impl(e_re, e_im, b_re, b_im, tab: Spin2Tables):
-    """(E, B) alms -> (Q, U) RING maps; Q+iU = -sum (E+iB) 2Y_lm."""
-    def A(a):   # m >= 0 branch: contraction with 2lambda
-        return _legendre_sum(tab.lam_p, a)
-
-    def M(a):   # m < 0 branch folded to m > 0 via reality + symmetry
-        return _legendre_sum(tab.lam_m2, a)
-
-    gp_re = -(A(e_re) - A(b_im))
-    gp_im = -(A(e_im) + A(b_re))
-    gm_re = -(M(e_re) + M(b_im))
-    gm_im = M(e_im) - M(b_re)
-    p = _m_positive(e_re.shape[1] - 1, e_re.device)
+def _synth_from_branches(gp_re, gp_im, gm_re, gm_im, tab):
+    """(gp, gm) ring coefficients -> the two real RING maps of the spin
+    field, gp multiplying e^{+im phi}, gm e^{-im phi} (m > 0)."""
+    p = _m_positive(gp_re.shape[0] - 1, gp_re.device)
     qc = gp_re + p * gm_re
     qs = -gp_im + p * gm_im
     uc = gp_im + p * gm_im
@@ -158,6 +156,19 @@ def _synth_spin2_impl(e_re, e_im, b_re, b_im, tab: Spin2Tables):
     u_pad = _phase_sum(uc, tab.cosmphi) + _phase_sum(us, tab.sinmphi)
     return (q_pad.reshape(-1)[tab.flat_idx],
             u_pad.reshape(-1)[tab.flat_idx])
+
+
+def _synth_spin2_impl(e_re, e_im, b_re, b_im, tab: Spin2Tables):
+    """(E, B) alms -> (Q, U) RING maps; Q+iU = -sum (E+iB) 2Y_lm."""
+    def A(a):   # m >= 0 branch: contraction with 2lambda
+        return _legendre_sum(tab.lam_p, a)
+
+    def M(a):   # m < 0 branch folded to m > 0 via reality + symmetry
+        return _legendre_sum(tab.lam_m2, a)
+
+    return _synth_from_branches(-(A(e_re) - A(b_im)), -(A(e_im) + A(b_re)),
+                                -(M(e_re) + M(b_im)), M(e_im) - M(b_re),
+                                tab)
 
 
 def _alms4(alms, device, tables):
@@ -214,9 +225,10 @@ def _branch_transpose(Ar, Ai, Mr, Mi):
     return -(Ar + Mr), -Ai + Mi, -(Ai + Mi), Ar - Mr
 
 
-def _adjoint_spin2(q, u, tab: Spin2Tables):
-    """Exact transpose of the synthesis with 4pi/npix weights."""
-    npix = q.shape[0]
+def _branch_sums_t(q, u, tab, lam_m):
+    """Transpose of the tail shared by both spins: maps -> the Legendre
+    sums (Ar, Ai) of the plus branch and (Mr, Mi) of the folded one, whose
+    table `lam_m` is Spin2Tables.lam_m2 or Spin1Tables.lam_m."""
     L = tab.lam_p.shape[0] - 1
     shape = tab.cosmphi.shape[1:]
     qp = (q[tab.pad_idx] * tab.pad_valid).reshape(shape)
@@ -225,11 +237,16 @@ def _adjoint_spin2(q, u, tab: Spin2Tables):
     dgp_re, dgp_im, dgm_re, dgm_im = _fold_transpose(
         _phase_sum_t(qp, tab.cosmphi), _phase_sum_t(qp, tab.sinmphi),
         _phase_sum_t(up, tab.cosmphi), _phase_sum_t(up, tab.sinmphi), p)
-    der, dei, dbr, dbi = _branch_transpose(
-        _legendre_sum_t(tab.lam_p, dgp_re), _legendre_sum_t(tab.lam_p, dgp_im),
-        _legendre_sum_t(tab.lam_m2, dgm_re),
-        _legendre_sum_t(tab.lam_m2, dgm_im))
-    vre, vim = _alm_masks(L, npix, q.device)
+    return (_legendre_sum_t(tab.lam_p, dgp_re),
+            _legendre_sum_t(tab.lam_p, dgp_im),
+            _legendre_sum_t(lam_m, dgm_re), _legendre_sum_t(lam_m, dgm_im))
+
+
+def _adjoint_spin2(q, u, tab: Spin2Tables):
+    """Exact transpose of the synthesis with 4pi/npix weights."""
+    der, dei, dbr, dbi = _branch_transpose(*_branch_sums_t(q, u, tab,
+                                                                tab.lam_m2))
+    vre, vim = _alm_masks(tab.lam_p.shape[0] - 1, q.shape[0], q.device)
     return der * vre, dei * vim, dbr * vre, dbi * vim
 
 
@@ -437,3 +454,141 @@ def anafast_spin2_master(q, u, mask, lmax: int, nbins: int = 16,
     return (torch.from_numpy(ell_eff).to(dev),
             torch.from_numpy(sol[:nbins]).to(dev),
             torch.from_numpy(sol[nbins:]).to(dev))
+
+
+# --------------------------------------------------------------------
+# spin-1: gradient / curl (deflection) transforms
+# --------------------------------------------------------------------
+
+class Spin1Tables(NamedTuple):
+    """Device tables for the spin-1 channel (the scalar ring phases)."""
+    lam_p: torch.Tensor     # (L+1, L+1, nring) plus-branch 1lambda_lm
+    lam_m: torch.Tensor     # (L+1, L+1, nring) the folded m < 0 branch
+    cosmphi: torch.Tensor
+    sinmphi: torch.Tensor
+    flat_idx: torch.Tensor
+    pad_idx: torch.Tensor
+    pad_valid: torch.Tensor
+
+
+@lru_cache(maxsize=4)
+def _spin1_tables(nside: int, lmax: int, dev) -> Spin1Tables:
+    geo = ring_geometry(nside)
+    x = np.cos(geo.theta)
+    norm = np.sqrt((2.0 * np.arange(lmax + 1) + 1.0)
+                   / (4.0 * np.pi))[:, None, None]
+    lam_p = norm * wigner_d_column(lmax, x, -1)
+    lam_p[:, 0, :] *= -1.0
+    lam_p = _upload(lam_p, dev)
+    lam_m = _upload(-norm * wigner_d_column(lmax, x, 1), dev)
+    scal = sht_tables(nside, lmax, dev)
+    return Spin1Tables(lam_p, lam_m, scal.cosmphi, scal.sinmphi,
+                       scal.flat_idx, scal.pad_idx, scal.pad_valid)
+
+
+def spin1_tables(nside: int, lmax: int, device=None) -> Spin1Tables:
+    """Tables such that for a real scalar psi with this package's alms
+
+        alpha_theta + i alpha_phi = (d/dtheta + i csc(theta) d/dphi) psi
+          = sum_{m>=0} E_lm lam_p e^{im phi}
+            + sum_{m>0} conj(E_lm) lam_m e^{-im phi},   E_lm = g_l psi_lm
+
+    with g_l = sqrt(l(l+1)): lam_p = s_m norm d^l_{-1,m} (s_0 = -1, s_m =
+    +1 above) and lam_m = -norm d^l_{+1,m}. Cached per device."""
+    return _spin1_tables(nside, lmax, _device_key(device))
+
+
+def _synth_spin1_impl(e_re, e_im, b_re, b_im, tab: Spin1Tables):
+    """(E, B) spin-1 alms -> (alpha_theta, alpha_phi) RING maps.
+
+    E is the gradient channel (E_lm = g_l psi_lm for alpha = grad psi),
+    B the curl channel (alpha_curl = n x grad omega): F = G(psi) +
+    i G(omega) with G the gradient operator of `spin1_tables`."""
+    def A(a):   # m >= 0 branch
+        return _legendre_sum(tab.lam_p, a)
+
+    def M(a):   # m < 0 branch folded to m > 0
+        return _legendre_sum(tab.lam_m, a)
+
+    return _synth_from_branches(A(e_re) - A(b_im), A(e_im) + A(b_re),
+                                M(e_re) + M(b_im), M(b_re) - M(e_im), tab)
+
+
+def synthesize_spin1(e_re, e_im, b_re, b_im, nside: int, lmax: int,
+                     tables: Optional[Spin1Tables] = None, device=None):
+    """Spin-1 synthesis: (E, B) alms -> (alpha_theta, alpha_phi) maps.
+
+    For a pure-gradient deflection alpha = grad psi pass E_lm =
+    sqrt(l(l+1)) psi_lm, B = 0 (see deflection_from_kappa_alm)."""
+    alms = _alms4((e_re, e_im, b_re, b_im), device, tables)
+    tab = tables if tables is not None else spin1_tables(nside, lmax,
+                                                         alms[0].device)
+    return _synth_spin1_impl(*alms, tab)
+
+
+def _adjoint_spin1(a_t, a_p, tab: Spin1Tables):
+    """Exact transpose of the spin-1 synthesis with 4pi/npix weights and
+    the m > 0 halves, valid for l >= 1 (the JAX package takes it from
+    jax.vjp)."""
+    Ar, Ai, Mr, Mi = _branch_sums_t(a_t, a_p, tab, tab.lam_m)
+    vre, vim = _alm_masks(tab.lam_p.shape[0] - 1, a_t.shape[0], a_t.device,
+                          lmin=1)
+    return ((Ar + Mr) * vre, (Ai - Mi) * vim, (Ai + Mi) * vre,
+            (Mr - Ar) * vim)
+
+
+def analyze_spin1(a_t, a_p, nside: int, lmax: int, niter: int = 3,
+                  tables: Optional[Spin1Tables] = None, device=None):
+    """(alpha_theta, alpha_phi) maps -> (E_re, E_im, B_re, B_im), with
+    `niter` Jacobi refinements."""
+    a_t, a_p = _maps2(a_t, a_p, device, tables)
+    tab = tables if tables is not None else spin1_tables(nside, lmax,
+                                                         a_t.device)
+    alm = _adjoint_spin1(a_t, a_p, tab)
+    for _ in range(niter):
+        st, sp = _synth_spin1_impl(*alm, tab)
+        d = _adjoint_spin1(a_t - st, a_p - sp, tab)
+        alm = tuple(a + da for a, da in zip(alm, d))
+    return alm
+
+
+def _g_ell(lmax: int, device=None):
+    ell = torch.arange(lmax + 1, dtype=torch.float32, device=device)
+    return torch.sqrt(ell * (ell + 1.0))
+
+
+def deflection_E_factor(lmax: int, device=None):
+    """(lmax+1, 1) factor turning kappa alms into the spin-1 gradient
+    channel of the deflection: E_lm = -(2/g_l) kappa_lm, from the lensing
+    convention lap(psi) = 2 kappa (psi_lm = -2 kappa_lm / (l(l+1)), E = g
+    psi). The one home of this sign and normalization (the deflections
+    here and the spherical multiplane tracer's shell fields)."""
+    g = _g_ell(lmax, device)
+    return torch.where(g > 0, g.new_tensor(-2.0) / torch.clamp_min(g, 1e-30),
+                       0.0)[:, None]
+
+
+def deflection_from_kappa_alm(k_re, k_im, nside: int, lmax: int,
+                              tables: Optional[Spin1Tables] = None,
+                              device=None):
+    """kappa alms -> deflection maps (alpha_theta, alpha_phi), the
+    convention of ops.lensing.kappa_to_alpha (deflection_E_factor)."""
+    k_re, k_im = _alms4((k_re, k_im), device, tables)
+    inv = deflection_E_factor(lmax, k_re.device)
+    z = torch.zeros_like(k_re)
+    return synthesize_spin1(k_re * inv, k_im * inv, z, z, nside, lmax,
+                            tables=tables)
+
+
+def kappa_omega_alm_from_deflection(a_t, a_p, nside: int, lmax: int,
+                                    niter: int = 3,
+                                    tables: Optional[Spin1Tables] = None,
+                                    device=None):
+    """Deflection maps -> (kappa, omega) alms: the effective convergence
+    and the post-Born rotation of a traced deflection field. kappa =
+    -(1/2) div(alpha): kappa_lm = -(g_l/2) E_lm, and the curl channel
+    omega_lm = -(g_l/2) B_lm (zero for a single-gradient deflection)."""
+    er, ei, br, bi = analyze_spin1(a_t, a_p, nside, lmax, niter=niter,
+                                   tables=tables, device=device)
+    fac = -0.5 * _g_ell(lmax, er.device)[:, None]
+    return er * fac, ei * fac, br * fac, bi * fac

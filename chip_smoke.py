@@ -271,6 +271,9 @@ exits non-zero before the final line:
  18. the full sky (after phase 17, on phase 7's GR z=0 snapshot kept
      for it): see phase_full_sky's docstring; K1 launches once a flush of
      phase 9's shells, K2-K4 0 times.
+ 19. CMB lensing (after phase 18, on the same snapshot, freed after its
+     shells): see phase_cmb_lensing's docstring; K1 launches once a
+     flush of the shells, K2-K4 0 times.
 
 The last lines are a JSON object describing each kernel (launches on its
 main path, error, times, and the least time the card could take for the
@@ -480,6 +483,51 @@ FS_MASTER_MAPS, FS_MASTER_SPIN_MAPS, FS_MASTER_PULL, FS_MASTER_BB = 8, 16, \
 FS_REPEAT_TOL = 1e-6
 FS_EXAMPLE, FS_COLUMNS, FS_PROJ = (32, 64, 0.05), 10 ** 7, (2048, 10.0)
 FS_BEAM_ARCMIN, FS_BEAM_TOL = 10.0, 0.05
+# the CMB-lensing phase: (b) the traced sources [Mpc/h] (one, and the
+# tomographic pair), 8 log bands over FS_ELL_RANGE, the traced / Born
+# (band-limited) pixel correlation floor and C_l ratio bar, omega's power
+# over kappa's and the traced shear's BB / EE, the near source against its
+# own run (relative to kappa's max), one shell against w kap_bl; (c) the
+# CMB's damping multipole, the zero-kappa shift (relative to the CMB's
+# max), lensed - unlensed against alpha . grad T (correlation floor, rms
+# ratio bar), the nudge's C_l bias against the un-nudged remap; (d) the
+# QE's lmax_filter and lmax_out, 6 log bands over 30 <= L <= 1000 and the
+# cross-ratio bar; (e) the flat patches (side, field [deg], count), the
+# filter band, the TT cross-ratio bar on 4 bands over 100 <= L <= 1000,
+# the unlensed auto / N0 bar, the EB null and pure-mode bars; (f) the card
+# / CPU bar, the transforms' and the stencil's at nside 64
+CL_CHI_S, CL_TOMO = 700.0, (450.0, 700.0)
+CL_BANDS, CL_CORR, CL_RATIO_TOL = 8, 0.999, 0.05
+# the traced / Born-bl gap, split: the tracer reads its fields CL_NUDGE
+# pixel widths (sqrt(pi/3) / nside) off the pixel centres, a smoothing
+# that is first order in the field and shows alone on the Born map read
+# there; the rest is post-Born and shrinks with the field. At CL_WEAK of
+# the shells the traced map against CL_WEAK times that read Born map is
+# held to CL_WEAK times the bars above: a fault linear in the field (the
+# float32 scan's gap, a wrong table) keeps its size there
+CL_NUDGE, CL_WEAK = 0.02, 0.1
+CL_OMEGA, CL_BB, CL_SOURCE_TOL = 1e-3, 1e-3, 1e-6
+# one shell: the smoothed farthest shell (FWHM in arcmin: b_l = 1/e at l ~
+# 700, the JAX test's band share) within the JAX test's 2% of max; the raw
+# N-body shell, whose pixel-scale power the tracer's 0.02-pixel nudge
+# samples, within 1.5 times the JAX package's reach at nside 256
+CL_SMOOTH_ARCMIN, CL_ONE_SHELL_TOL, CL_RAW_SHELL_TOL = 16.5, 0.02, 0.037
+CL_ELL_D, CL_SHIFT_TOL, CL_FIRST_CORR, CL_FIRST_RMS = 1500.0, 2e-3, 0.65, \
+    0.06
+CL_NUDGE_TOL = 1e-3
+CL_QE_LMAX_OUT, CL_QE_RANGE, CL_QE_BANDS, CL_QE_TOL = 1024, (30, 1000), \
+    6, 0.35
+CL_FLAT = (1024, 10.0, 8)
+CL_FLAT_BAND, CL_FLAT_EB_BAND, CL_FLAT_TOL, CL_N0_TOL = (40, 3000), \
+    (40, 1500), 0.15, 0.2
+CL_EB_NULL, CL_EB_TOL = 0.05, 0.12
+CL_CPU_TOL, CL_CPU_NSIDE, CL_CPU_LMAX, CL_STENCIL_SHARE = 2e-5, 64, 128, \
+    0.999
+# the stencil's weights on the pixels both devices pick: a weight is a
+# position in ring-pixel units, phi 4 nside / 2pi, so one float32 ulp of
+# phi near 2pi (the card's contracted multiply-adds) moves it by
+# ulp(2pi) 4 nside / 2pi = 1.9e-5 at nside 64; held to 2.5 such ulps
+CL_STENCIL_WEIGHT_TOL = 5e-5
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -5984,6 +6032,742 @@ def phase_full_sky(dev, seed: int, out_gr, shell_flushes: int) -> dict:
     return result
 
 
+# ---------------------------------------------------------- CMB lensing
+def _cross_cl(ar, ai, br, bi) -> np.ndarray:
+    """Cross C_l of two alm sets [l, m]: (ab_l0 + 2 sum_{m>0} Re(a b*)) /
+    (2l+1), float64 on the host."""
+    ar, ai, br, bi = (x.double() for x in (ar, ai, br, bi))
+    L = ar.shape[0] - 1
+    w = torch.full((L + 1,), 2.0, dtype=torch.float64, device=ar.device)
+    w[0] = 1.0
+    p = torch.tril(ar * br + ai * bi) * w[None, :]
+    ell = torch.arange(L + 1, dtype=torch.float64, device=ar.device)
+    return (p.sum(1) / (2 * ell + 1)).cpu().numpy()
+
+
+def _band_ratios(a, b, edges) -> np.ndarray:
+    return _band_sums(a, edges) / _band_sums(b, edges)
+
+
+def _flat_grf(gen, cl: np.ndarray, n: int, fov: float, dev):
+    """A Gaussian flat patch of spectrum cl (n^2 over fov [rad]) from a
+    torch generator: the JAX tests' numpy recipe on the card."""
+    lf = 2 * np.pi / fov
+    f = np.fft.fftfreq(n) * n * lf
+    lm = np.hypot(f[:, None], f[None, :])
+    amp = torch.from_numpy(np.sqrt(np.interp(
+        lm, np.arange(cl.size), cl, left=0, right=0)).astype(
+            np.float32)).to(dev)
+    w = torch.randn((n, n), generator=gen, device=dev)
+    return torch.fft.ifft2(torch.fft.fft2(w) * amp).real / (fov / n)
+
+
+def _pure_e(gen, cl: np.ndarray, n: int, fov: float, dev):
+    """Pure-E Stokes patches (B identically zero) of spectrum cl."""
+    lf = 2 * np.pi / fov
+    f = np.fft.fftfreq(n) * n * lf
+    lx, ly = f[:, None], f[None, :]
+    l2 = lx ** 2 + ly ** 2
+    safe = np.where(l2 == 0, 1, l2)
+    c2 = np.where(l2 == 0, 1, (lx ** 2 - ly ** 2) / safe)
+    s2 = np.where(l2 == 0, 0, 2 * lx * ly / safe)
+    amp = np.sqrt(np.interp(np.sqrt(l2), np.arange(cl.size), cl, left=0,
+                            right=0))
+    ek = torch.fft.fft2(torch.randn((n, n), generator=gen, device=dev)) \
+        * torch.from_numpy((amp / (fov / n)).astype(np.float32)).to(dev)
+    return tuple(torch.fft.ifft2(ek * torch.from_numpy(
+        t.astype(np.float32)).to(dev)).real for t in (c2, s2))
+
+
+def _cmb_loop_stages(dev, stage, inputs):
+    """examples/cmb_lensing_loop.py at its own parameters on `dev`, each
+    stage from `inputs` (the previous stage's card output where given, so
+    that the CPU run compares stage by stage): (1) the Born kappa of its
+    HEALPix shells, (2) the CMB of given white draws lensed by a kappa, (3)
+    the flat-patch QE over 8 patches with its cross ratio, (4) the
+    curved-sky QE of a lensed map."""
+    from astrild_tpu_torch.models import SkyHealpix
+    from astrild_tpu_torch.ops import cmb_lensing as cml
+    from astrild_tpu_torch.ops import lightcone_sphere as lcs
+    from astrild_tpu_torch.ops import sht
+
+    box, nside = 400.0, 32
+    lmax = 2 * nside
+    out = {}
+
+    def born():
+        pos = tuple(torch.from_numpy(c).to(dev) for c in inputs["pos"])
+        delta, chis, dchis = lcs.density_shells_healpix(
+            pos, np.linspace(150.0, 550.0, 6), nside, box)
+        return delta, lcs.born_convergence_healpix(delta, chis, dchis, 700.0,
+                                                   0.31)
+
+    out["delta"], out["kappa"] = stage("loop_born", born)
+    ell = np.arange(lmax + 1, dtype=np.float64)
+    cl_tt = np.zeros(lmax + 1)
+    cl_tt[2:] = 1e-10 / (ell[2:] * (ell[2:] + 1.0))
+
+    def lens():
+        cmb = sht.synfast_from_white(*inputs["white"], cl_tt, nside, lmax,
+                                     device=dev)
+        kap = inputs.get("kappa", out["kappa"]).to(dev)
+        sky = SkyHealpix(torch.zeros_like(cmb))
+        return cmb, sky.lens_cmb_from_kappa(cmb, kap, lmax=lmax)
+
+    out["cmb"], out["lensed"] = stage("loop_lens_cmb", lens)
+    n, fov, lmax_flat = 128, np.deg2rad(10.0), 2000
+    ellf = np.arange(lmax_flat + 1, dtype=np.float64)
+    cl_f = np.zeros(lmax_flat + 1)
+    cl_f[2:] = 1e-10 / (ellf[2:] * (ellf[2:] + 1.0)) \
+        * np.exp(-(ellf[2:] / 1500.0) ** 2)
+    pix = fov / n
+    f = np.fft.fftfreq(n) * n * 2 * np.pi / fov
+    lm = np.hypot(f[:, None], f[None, :])
+    band = (lm > 100) & (lm < 500)
+
+    def flat():
+        R = cml.qe_tt_response(n, fov, cl_f, lmin=40, lmax_filter=1200,
+                               device=dev)
+        cx = ca = 0.0
+        khats = []
+        for t, kap in inputs["patches"]:
+            t, kap = torch.from_numpy(t).to(dev), torch.from_numpy(kap).to(
+                dev)
+            tl = cml.lens_cmb_map_flat(t, kap, fov)
+            khat = cml.qe_tt_kappa(tl, fov, cl_f, lmin=40, lmax_filter=1200,
+                                   response=R)[0].cpu().numpy()
+            khats.append(np.fft.fft2(khat))
+            fa = pix ** 2 * np.fft.fft2(khat)
+            fb = pix ** 2 * np.fft.fft2(kap.cpu().numpy())
+            cx += np.real(fa * np.conj(fb))[band].mean()
+            ca += (np.abs(fb) ** 2)[band].mean()
+        return np.stack(khats), cx / ca, R.cpu().numpy()
+
+    out["khat_modes"], out["flat_ratio"], out["R"] = stage("loop_flat_qe",
+                                                           flat)
+    lensed = inputs.get("lensed", out["lensed"])
+    out["qe"] = stage("loop_curved_qe", lambda: cml.qe_tt_kappa_healpix(
+        torch.from_numpy(np.asarray(lensed, np.float32)).to(dev), cl_tt,
+        lmin=8, lmax_filter=lmax, lmax_out=lmax // 2))
+    return out
+
+
+def _full_sky_lightcone_stage(dev, stage, pos, delta=None):
+    """examples/full_pipeline.py's full-sky lightcone stage at its own
+    parameters on `dev` (shells at nside 32 over 150-650 Mpc/h ->
+    SkyHealpix.from_multiplane_shells -> Born -> shear E/B spectra), the
+    transforms from `delta` where given."""
+    from astrild_tpu_torch.models import SkyHealpix
+    from astrild_tpu_torch.ops import lightcone_sphere as lcs
+
+    nside, chi_s = 32, 700.0
+    edges = np.linspace(150.0, 650.0, 6)
+
+    def run():
+        if delta is None:
+            p = pos.to(dev)
+            d, _, _ = lcs.density_shells_healpix(
+                (p[:, 0], p[:, 1], p[:, 2]), edges, nside, 250.0)
+        else:
+            d = delta.to(dev)
+        chis = (0.5 * (edges[1:] + edges[:-1])).astype(np.float32)
+        dchis = np.diff(edges).astype(np.float32)
+        sky = SkyHealpix.from_multiplane_shells(d, chis, dchis, chi_s, 0.31,
+                                                lmax=2 * nside)
+        born = lcs.born_convergence_healpix(d, chis, dchis, chi_s, 0.31)
+        ee, bb, _ = sky.shear_eb_spectra(lmax=2 * nside)
+        return {"delta": d, "kappa": sky.data["orig"],
+                "omega": sky.data["omega"], "born": born, "ee": ee,
+                "bb": bb}
+
+    return stage("full_pipeline_lightcone", run)
+
+
+def _spin1_card_vs_cpu(dev, gen) -> dict:
+    """Every spin-1 transform at nside CL_CPU_NSIDE, lmax CL_CPU_LMAX on
+    the card against the CPU from the same inputs (relative to each
+    output's max), the stencil's pixel share and weights, and the
+    remap."""
+    from astrild_tpu_torch.ops import sht_spin, sht_spin_large
+    from astrild_tpu_torch.utils import healpix_torch as hpt
+
+    nside, lmax = CL_CPU_NSIDE, CL_CPU_LMAX
+    npix = 12 * nside ** 2
+    alms = tuple(torch.randn((lmax + 1, lmax + 1), generator=gen,
+                             device=dev).tril() for _ in range(4))
+    maps = tuple(torch.randn(npix, generator=gen, device=dev)
+                 for _ in range(2))
+    calls = {
+        "synthesize_spin1": lambda a, m: sht_spin.synthesize_spin1(
+            *a, nside, lmax),
+        "analyze_spin1": lambda a, m: sht_spin.analyze_spin1(
+            *m, nside, lmax, niter=3),
+        "deflection_from_kappa_alm": lambda a, m:
+            sht_spin.deflection_from_kappa_alm(a[0], a[1], nside, lmax),
+        "kappa_omega_alm_from_deflection": lambda a, m:
+            sht_spin.kappa_omega_alm_from_deflection(*m, nside, lmax),
+        "synthesize_spin1_large": lambda a, m:
+            sht_spin_large.synthesize_spin1_large(*a, nside, lmax),
+        "analyze_spin1_large_jacobi": lambda a, m:
+            sht_spin_large.analyze_spin1_large(*m, nside, lmax, niter=3,
+                                               method="jacobi"),
+        "analyze_spin1_large_cg": lambda a, m:
+            sht_spin_large.analyze_spin1_large(*m, nside, 3 * nside - 1,
+                                               niter=3, method="cg"),
+        "deflection_from_kappa_alm_large": lambda a, m:
+            sht_spin_large.deflection_from_kappa_alm_large(a[0], a[1],
+                                                           nside, lmax),
+    }
+    errs = {}
+    for name, fn in calls.items():
+        card = fn(alms, maps)
+        cpu = fn(tuple(a.cpu() for a in alms), tuple(m.cpu() for m in maps))
+        errs[name] = max(float((c.cpu() - h).abs().max()
+                               / max(float(h.abs().max()), 1e-30))
+                         for c, h in zip(card, cpu))
+    theta = torch.arccos(2 * torch.rand(1 << 20, generator=gen, device=dev)
+                         - 1)
+    phi = 2 * np.pi * torch.rand(1 << 20, generator=gen, device=dev)
+    pix, wgt = hpt.get_interp_weights(nside, theta, phi)
+    hpix, hwgt = hpt.get_interp_weights(nside, theta.cpu(), phi.cpu())
+    same = (pix.cpu() == hpix).all(0)
+    share = float(same.double().mean())
+    w_err = float((wgt.cpu() - hwgt)[:, same].abs().max())
+    a_t, a_p = (1e-3 * m for m in maps)
+    hmap = maps[0]
+    rc = hpt.remap_by_deflection(hmap, a_t, a_p, nside)
+    rh = hpt.remap_by_deflection(hmap.cpu(), a_t.cpu(), a_p.cpu(), nside)
+    remap_share = float(((rc.cpu() - rh).abs()
+                         < 2e-3 * float(hmap.abs().max())).double().mean())
+    return {"transforms": errs, "stencil_share": share,
+            "stencil_weight_err": w_err, "remap_share": remap_share}
+
+
+def phase_cmb_lensing(dev, seed: int, snapshot: list,
+                      shell_flushes: int) -> dict:
+    """CMB lensing at full width, each stage on the host clock,
+    synchronized, with its K1-K4 launches held to its own count and its
+    peak memory; the checks raise. (a) the HEALPix shells of phase 7's GR
+    z=0 snapshot at nside 1024 through K1 (phase 9's flushes), then the
+    snapshot freed; (b) multiplane_raytrace_healpix at nside 1024, lmax
+    2048 ('auto': the scan path) for chi_s = 700 and the tomographic pair
+    (450, 700): the traced kappa against the band-limited Born map (pixel
+    correlation, C_l ratio in 8 log bands over 10 <= l <= 1536) and that
+    gap split into the tracer's 0.02-pixel nudge (the Born map read at the
+    nudged ray grid) and the post-Born rest, which at a tenth of the
+    shells must keep within a tenth of the bars; omega's
+    power over kappa's, the traced shear's BB/EE, the near source against
+    SkyHealpix.from_multiplane_shells' own run of it, the far one against
+    the scalar run, the farthest shell alone against w kap_bl (smoothed
+    over 16.5': within 2% of its max; raw: within 3.7%); (c)
+    SkyHealpix.lens_cmb_from_kappa of a synthesize_large CMB (C_l =
+    1e-10 / (l(l+1)) exp(-(l / 1500)^2)) by (b)'s kappa: a zero
+    kappa returns the map within the nudge's shift, lensed - unlensed
+    against alpha . grad T from the spin-1 synthesis of g_l T_lm, the
+    nudge's C_l bias against an un-nudged remap built from pix2ang_ring +
+    get_interp_weights; (d) qe_tt_kappa_healpix of the lensed and the
+    unlensed map (lmax_filter 2048, lmax_out 1024, 'auto': the scan path):
+    the cross spectrum of their difference with the input kappa over its
+    auto spectrum in 6 log bands over 30 <= L <= 1000, N0 finite and
+    positive there; (e) the flat sky on 8 patches of 1024^2 over 10 deg:
+    lens_cmb_map_flat, qe_tt_kappa with its response (cross ratio in 4
+    bands over 100 <= L <= 1000, the unlensed auto against N0), qe_eb_kappa
+    (the unlensed null, the pure-mode response); (f)
+    examples/cmb_lensing_loop.py whole and full_pipeline.py's full-sky
+    lightcone stage at their own parameters on the card against the port
+    on the CPU, stage by stage, and at nside 64 every spin-1 transform,
+    the stencil's pixel share and weights and the remap against the CPU;
+    (g) one
+    synthesize_spin1_large and one analyze_spin1_large(niter=0) at nside
+    1024, lmax 2048 under the profiler (seconds, CUDA kernels, the shares
+    of sht.legendre / sht.caps / sht.belt_fft, peak memory), and the
+    tracer's split between its shells' fields and its transport on the
+    host clock. The CL_* bars come from tools/cmb_lensing_jax_bars.py
+    (the JAX package on the CPU at nside 128 and 256 with the same
+    ratios; PERF.md). Returns the numbers printed in `# cmb_lensing`.
+    """
+    from astrild_tpu_torch.models import SkyHealpix
+    from astrild_tpu_torch.ops import (cmb_lensing as cml, lightcone_sphere
+                                       as lcs, paint_cuda, pairwise_cuda,
+                                       sht, sht_large, sht_spin_large)
+    from astrild_tpu_torch.ops.raytrace import effective_plane_kappa
+    from astrild_tpu_torch.utils import healpix as hpx
+    from astrild_tpu_torch.utils import healpix_torch as hpt
+
+    seconds, launches, peaks, out = {}, {}, {}, {}
+    run = _stage_runner(seconds, launches)
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run(name, fn)
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"#   cmb_lensing stage {name}: {seconds[name]:.3f} s, launches "
+            f"{launches[name]}, peak {peaks[name]:.2f} GB")
+        return res
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"cmb_lensing: {msg}")
+
+    def rel(got, want) -> float:
+        got = got.double() if isinstance(got, torch.Tensor) else \
+            torch.from_numpy(np.asarray(got, np.float64))
+        want = want.double() if isinstance(want, torch.Tensor) else \
+            torch.from_numpy(np.asarray(want, np.float64))
+        got, want = got.cpu(), want.cpu()
+        return float((got - want).abs().max()
+                     / max(float(want.abs().max()), 1e-300))
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    nside, lmax = LC_NSIDE, 2 * LC_NSIDE
+
+    # ---- (a) the shells through K1, then the snapshot freed
+    pos = snapshot.pop()
+    delta, chis, dchis = stage("shells", lambda: lcs.density_shells_healpix(
+        pos, np.linspace(*LC_EDGES), nside, BOX))
+    del pos
+    check(launches["shells"] == {"deposit_sorted": shell_flushes},
+          f"shells launched {launches['shells']}, expected "
+          f"{shell_flushes} K1 flushes")
+    check(bool(torch.isfinite(delta).all()), "shells not finite")
+
+    # ---- (b) the multiplane tracer at nside 1024, lmax 2048
+    traced = stage("multiplane_700", lambda: lcs.multiplane_raytrace_healpix(
+        delta, chis, dchis, CL_CHI_S, 0.3, lmax=lmax))
+    kappa = traced["kappa"]
+
+    def born_bl():
+        born = lcs.born_convergence_healpix(delta, chis, dchis, CL_CHI_S,
+                                            0.3)
+        br, bi = sht_large.analyze_large(born, nside, lmax, niter=0)
+        return sht_large.synthesize_large(br, bi, nside, lmax)
+
+    bl = stage("born_band_limited", born_bl)
+    corr = _corr(kappa, bl)
+    bands = _log_bands(*FS_ELL_RANGE, CL_BANDS)
+    c_k, c_b, c_w = (sht_large.anafast_large(m, lmax, niter=0).cpu().numpy()
+                     for m in (kappa, bl, traced["omega"]))
+    ratio = _band_ratios(c_k, c_b, bands)
+    omega_power = float(c_w[2:].sum() / c_k[2:].sum())
+
+    def born_read():
+        nudge = CL_NUDGE * math.sqrt(math.pi / 3.0) / nside
+        t0, p0 = (torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                  for a in hpx.pix2ang_ring(nside, np.arange(12 * nside ** 2)))
+        return hpt.get_interp_val(bl, torch.clamp(t0 + nudge, 0.0, math.pi),
+                                  p0 + nudge)
+
+    bl_read = stage("born_read_at_nudge", born_read)
+    c_r = sht_large.anafast_large(bl_read, lmax, niter=0).cpu().numpy()
+    weak = stage("multiplane_700_weak", lambda:
+                 lcs.multiplane_raytrace_healpix(
+                     CL_WEAK * delta, chis, dchis, CL_CHI_S, 0.3,
+                     lmax=lmax))["kappa"]
+    weak_corr = _corr(weak, bl_read)
+    weak_ratio = _band_ratios(sht_large.anafast_large(
+        weak, lmax, niter=0).cpu().numpy(), CL_WEAK ** 2 * c_r, bands)
+    del weak
+    split = {"nudge_cl_ratio_bands": _band_ratios(c_r, c_b, bands).tolist(),
+             "post_born_cl_ratio_bands": _band_ratios(c_k, c_r,
+                                                      bands).tolist(),
+             "post_born_corr": _corr(kappa, bl_read),
+             "weak_cl_ratio_bands": weak_ratio.tolist(),
+             "weak_corr": weak_corr}
+    del bl_read
+    sky_t = SkyHealpix(kappa)
+    sky_t.data["gamma1"], sky_t.data["gamma2"] = (traced["gamma1"],
+                                                  traced["gamma2"])
+    ee, bb, _ = stage("traced_shear_eb", lambda: sky_t.shear_eb_spectra(
+        lmax=lmax, niter=0))
+    bb_ee = float(bb[2:].sum() / ee[2:].sum())
+    tomo = stage("multiplane_tomographic", lambda:
+                 lcs.multiplane_raytrace_healpix(delta, chis, dchis,
+                                                 np.array(CL_TOMO), 0.3,
+                                                 lmax=lmax))
+    near = stage("skyhealpix_multiplane_near", lambda:
+                 SkyHealpix.from_multiplane_shells(delta, chis, dchis,
+                                                   CL_TOMO[0], 0.3,
+                                                   lmax=lmax))
+    kmax = float(kappa.abs().max())
+    near_err = float((tomo["kappa"][0] - near.data["orig"]).abs().max()
+                     ) / kmax
+    far_err = float((tomo["kappa"][1] - kappa).abs().max()) / kmax
+    del tomo, near, sky_t
+
+    def one_shell(shell):
+        return lambda: lcs.multiplane_raytrace_healpix(
+            shell[None], chis[-1:], dchis[-1:], CL_CHI_S, 0.3, lmax=lmax)
+
+    def one_shell_err(shell, name):
+        one = stage(name, one_shell(shell))
+        ke = effective_plane_kappa(shell, chis[-1], dchis[-1], 1.0, 0.3)
+        r, i = sht_large.analyze_large(ke, nside, lmax, niter=0)
+        w_bl = (1 - chis[-1] / CL_CHI_S) * sht_large.synthesize_large(
+            r, i, nside, lmax)
+        return rel(one["kappa"], w_bl)
+
+    smooth = sht_large.smoothing_large(
+        delta[-1], np.deg2rad(CL_SMOOTH_ARCMIN / 60.0), lmax, niter=0)
+    one_err = one_shell_err(smooth, "multiplane_one_shell")
+    raw_err = one_shell_err(delta[-1], "multiplane_one_raw_shell")
+    check(corr > CL_CORR, f"traced / Born-bl correlation {corr}")
+    check(bool(np.all(np.abs(ratio - 1) < CL_RATIO_TOL)),
+          f"traced / Born-bl C_l off by {np.abs(ratio - 1).max():.4f}")
+    check(bool(np.all(np.abs(weak_ratio - 1) < CL_WEAK * CL_RATIO_TOL))
+          and 1 - weak_corr < CL_WEAK * (1 - CL_CORR),
+          f"at {CL_WEAK} of the shells, traced / read Born-bl {split}")
+    check(omega_power < CL_OMEGA, f"omega / kappa power {omega_power}")
+    check(bb_ee < CL_BB, f"traced shear BB/EE {bb_ee}")
+    check(near_err <= CL_SOURCE_TOL and far_err <= CL_SOURCE_TOL,
+          f"tomographic sources off their own runs by {near_err}, "
+          f"{far_err}")
+    check(one_err < CL_ONE_SHELL_TOL and raw_err < CL_RAW_SHELL_TOL,
+          f"one shell vs w kap_bl: smoothed {one_err}, raw {raw_err}")
+    out["tracer"] = {"corr_traced_born_bl": corr,
+                     "cl_ratio_bands": ratio.tolist(),
+                     "gap_split": split,
+                     "omega_over_kappa_power": omega_power,
+                     "shear_bb_over_ee": bb_ee,
+                     "near_source_vs_own_run": near_err,
+                     "far_source_vs_scalar_run": far_err,
+                     "one_shell_vs_w_kap_bl": one_err,
+                     "one_raw_shell_vs_w_kap_bl": raw_err,
+                     "kappa_rms": float(kappa.double().std())}
+
+    # ---- (c) a CMB lensed by the traced kappa
+    ell = np.arange(lmax + 1, dtype=np.float64)
+    cl_tt = np.zeros(lmax + 1)
+    cl_tt[2:] = 1e-10 / (ell[2:] * (ell[2:] + 1.0)) \
+        * np.exp(-(ell[2:] / CL_ELL_D) ** 2)
+    t_re, t_im = sht._gaussian_alms(
+        *(torch.randn((lmax + 1, lmax + 1), generator=gen, device=dev)
+          for _ in range(2)), torch.from_numpy(cl_tt.astype(
+              np.float32)).to(dev), lmax)
+    cmb = stage("cmb_synthesis", lambda: sht_large.synthesize_large(
+        t_re, t_im, nside, lmax))
+    sky = SkyHealpix(torch.zeros_like(cmb))
+    stage("lens_cmb_from_kappa", lambda: sky.lens_cmb_from_kappa(
+        cmb, kappa, lmax=lmax))
+    lensed = sky.data["cmb_lensed"]
+    stage("lens_cmb_zero_kappa", lambda: sky.lens_cmb_from_kappa(
+        cmb, torch.zeros_like(kappa), lmax=lmax))
+    still = sky.data["cmb_lensed"]
+    cmax = float(cmb.abs().max())
+    shift = float((still - cmb.double()).abs().max()) / cmax
+    del still
+
+    def first_order():
+        kr, ki = sht_large.analyze_large(kappa, nside, lmax, niter=0)
+        a_t, a_p = sht_spin_large.deflection_from_kappa_alm_large(
+            kr, ki, nside, lmax)
+        g = torch.sqrt(torch.from_numpy(ell * (ell + 1.0)).to(dev)).to(
+            torch.float32)[:, None]
+        z = torch.zeros_like(t_re)
+        g_t, g_p = sht_spin_large.synthesize_spin1_large(
+            t_re * g, t_im * g, z, z, nside, lmax)
+        return a_t, a_p, a_t.double() * g_t + a_p.double() * g_p
+
+    a_t, a_p, first = stage("alpha_grad_t", first_order)
+    diff = lensed - cmb.double()
+    first_corr = _corr(diff, first)
+    first_rms = float(diff.std() / first.std())
+    del first, diff
+
+    def un_nudged():
+        theta, phi = hpt.pix2ang_ring(nside, torch.arange(
+            12 * nside ** 2, dtype=torch.int32, device=dev))
+        ts = torch.clamp(theta + a_t, 0.0, math.pi)
+        ps = phi + a_p / torch.clamp_min(torch.sin(theta), 1e-6)
+        pix, wgt = hpt.get_interp_weights(nside, ts, ps)
+        mono = cmb.double().mean()
+        flat = (cmb.double() - mono).to(torch.float32)
+        return mono + (flat[pix.long()] * wgt).sum(0).double()
+
+    un = stage("un_nudged_remap", un_nudged)
+    c_n, c_u = (sht_large.anafast_large(m.float(), lmax, niter=0).cpu()
+                .numpy() for m in (lensed, un))
+    nudge_bias = float(np.abs(_band_ratios(c_n, c_u, bands) - 1).max())
+    del un, a_t, a_p
+    check(shift < CL_SHIFT_TOL, f"zero-kappa remap shift {shift}")
+    check(first_corr > CL_FIRST_CORR and abs(first_rms - 1) < CL_FIRST_RMS,
+          f"lensed - unlensed against alpha.grad T: corr {first_corr}, rms "
+          f"ratio {first_rms}")
+    check(nudge_bias < CL_NUDGE_TOL, f"nudge C_l bias {nudge_bias}")
+    out["lens_cmb"] = {"zero_kappa_shift_over_max": shift,
+                       "first_order_corr": first_corr,
+                       "first_order_rms_ratio": first_rms,
+                       "nudge_cl_bias_max": nudge_bias,
+                       "imprint_over_cmb_rms": float(
+                           (lensed - cmb.double()).std()
+                           / cmb.double().std())}
+
+    # ---- (d) the curved-sky TT QE
+    q1 = stage("qe_healpix_lensed", lambda: cml.qe_tt_kappa_healpix(
+        lensed.float(), cl_tt, lmin=2, lmax_filter=lmax,
+        lmax_out=CL_QE_LMAX_OUT))
+    q0 = stage("qe_healpix_unlensed", lambda: cml.qe_tt_kappa_healpix(
+        cmb, cl_tt, lmin=2, lmax_filter=lmax, lmax_out=CL_QE_LMAX_OUT))
+    kr_o, ki_o = sht_large.analyze_large(kappa, nside, CL_QE_LMAX_OUT,
+                                         niter=0)
+    qbands = _log_bands(*CL_QE_RANGE, CL_QE_BANDS)
+    cx = _cross_cl(q1[0] - q0[0], q1[1] - q0[1], kr_o, ki_o)
+    ca = _cross_cl(kr_o, ki_o, kr_o, ki_o)
+    qe_ratio = _band_ratios(cx, ca, qbands)
+    n0 = q1[2].cpu().numpy()[qbands[0]:qbands[-1]]
+    check(bool(np.all(np.abs(qe_ratio - 1) < CL_QE_TOL)),
+          f"curved QE cross ratio off by {np.abs(qe_ratio - 1).max():.3f}")
+    check(bool(np.all(np.isfinite(n0)) and np.all(n0 > 0)), "QE N0")
+    out["qe_healpix"] = {"cross_ratio_bands": qe_ratio.tolist(),
+                         "n0_range": [float(n0.min()), float(n0.max())]}
+    del q1, q0, lensed, sky
+
+    # ---- (e) the flat sky on 1024^2 patches over 10 deg
+    n, fov_deg, npatch = CL_FLAT
+    fov = np.deg2rad(fov_deg)
+    lf = 2 * np.pi / fov
+    lmax_flat = 9000
+    ellf = np.arange(lmax_flat + 1, dtype=np.float64)
+    cl_f = np.zeros(lmax_flat + 1)
+    cl_f[2:] = 1e-10 / (ellf[2:] * (ellf[2:] + 1.0)) \
+        * np.exp(-(ellf[2:] / 2000.0) ** 2)
+    cl_kk = np.zeros(lmax_flat + 1)
+    cl_kk[2:] = 3e-7 / (1 + ellf[2:] / 300.0) ** 2
+    lo, hi = CL_FLAT_BAND
+    f = np.fft.fftfreq(n) * n * lf
+    lm = np.hypot(f[:, None], f[None, :])
+    fedges = np.linspace(100, 1000, 5)
+    fidx = torch.from_numpy(np.digitize(lm.ravel(), fedges) - 1).to(dev)
+    auto_band = torch.from_numpy(((lm > 4 * lf) & (lm < 18 * lf)).ravel()
+                                 ).to(dev)
+
+    def flat_tt():
+        R = cml.qe_tt_response(n, fov, cl_f, lmin=lo, lmax_filter=hi,
+                               device=dev)
+        n0 = cml.qe_tt_n0_kappa(n, fov, cl_f, lmin=lo, lmax_filter=hi,
+                                device=dev).reshape(-1)
+        cx = torch.zeros(4, dtype=torch.float64, device=dev)
+        ca = torch.zeros_like(cx)
+        auto = 0.0
+        for _ in range(npatch):
+            t = _flat_grf(gen, cl_f, n, fov, dev)
+            kf = _flat_grf(gen, cl_kk, n, fov, dev)
+            tl = cml.lens_cmb_map_flat(t, kf, fov)
+            kh = cml.qe_tt_kappa(tl, fov, cl_f, lmin=lo, lmax_filter=hi,
+                                 response=R)[0]
+            k0 = cml.qe_tt_kappa(t, fov, cl_f, lmin=lo, lmax_filter=hi,
+                                 response=R)[0]
+            fa = torch.fft.fft2(kh.double()).reshape(-1)
+            fk = torch.fft.fft2(kf.double()).reshape(-1)
+            for b in range(4):
+                sel = fidx == b
+                cx[b] += (fa[sel] * fk[sel].conj()).real.mean()
+                ca[b] += (fk[sel].abs() ** 2).mean()
+            p0 = (torch.fft.fft2(k0.double()).reshape(-1).abs() ** 2
+                  * (fov / n) ** 4 / fov ** 2)
+            auto += float(p0[auto_band].mean())
+        return (cx / ca).cpu().numpy(), auto / npatch / float(
+            n0[auto_band].double().mean())
+
+    flat_ratio, auto_n0 = stage("flat_tt_qe", flat_tt)
+    cl_ee = 0.4 * cl_f
+    elo, ehi = CL_FLAT_EB_BAND
+    x = torch.arange(n, dtype=torch.float32, device=dev) * (fov / n)
+    A, L0 = 3e-3, 6 * lf
+    kap_mode = (A * torch.cos(L0 * x))[:, None].expand(n, n).contiguous()
+
+    def flat_eb():
+        acc = torch.zeros((n, n), dtype=torch.float64, device=dev)
+        nulls, lens_std = [], []
+        for _ in range(npatch):
+            q, u = _pure_e(gen, cl_ee, n, fov, dev)
+            ql = cml.lens_cmb_map_flat(q, kap_mode, fov)
+            ul = cml.lens_cmb_map_flat(u, kap_mode, fov)
+            k1 = cml.qe_eb_kappa(ql, ul, fov, cl_ee, lmin=elo,
+                                 lmax_filter=ehi)[0]
+            k0 = cml.qe_eb_kappa(q, u, fov, cl_ee, lmin=elo,
+                                 lmax_filter=ehi)[0]
+            acc += (k1 - k0).double()
+            nulls.append(float(k0.std()))
+            lens_std.append(float(k1.std()))
+        proj = float(2 * (acc / npatch * torch.cos(L0 * x.double())[:, None]
+                          ).mean() / A)
+        return float(np.mean(nulls) / np.mean(lens_std)), proj
+
+    eb_null, eb_proj = stage("flat_eb_qe", flat_eb)
+    check(bool(np.all(np.abs(flat_ratio - 1) < CL_FLAT_TOL)),
+          f"flat TT cross ratio {flat_ratio}")
+    check(abs(auto_n0 - 1) < CL_N0_TOL, f"flat unlensed auto / N0 {auto_n0}")
+    check(eb_null < CL_EB_NULL, f"EB null / lensed {eb_null}")
+    check(abs(eb_proj - 1) < CL_EB_TOL, f"EB pure-mode response {eb_proj}")
+    out["flat"] = {"tt_cross_ratio_bands": flat_ratio.tolist(),
+                   "tt_unlensed_auto_over_n0": auto_n0,
+                   "eb_null_over_lensed": eb_null,
+                   "eb_pure_mode_response": eb_proj}
+
+    # ---- (f) the examples on the card against the CPU; nside-64 transforms
+    rng = np.random.default_rng(5)
+    loop_in = {"pos": tuple(rng.uniform(0, 400.0, 400_000).astype(
+        np.float32) for _ in range(3)),
+               "white": tuple(rng.standard_normal((65, 65)).astype(
+                   np.float32) for _ in range(2))}
+    lf_ex = 2 * np.pi / np.deg2rad(10.0)
+    ellf = np.arange(2001, dtype=np.float64)
+    cl_fe = np.zeros(2001)
+    cl_fe[2:] = 1e-10 / (ellf[2:] * (ellf[2:] + 1.0)) \
+        * np.exp(-(ellf[2:] / 1500.0) ** 2)
+    cl_ke = np.zeros(2001)
+    cl_ke[2:] = 3e-7 / (1 + ellf[2:] / 300.0) ** 2
+
+    def grf(seed_, cl):
+        w = np.random.default_rng(seed_).standard_normal((128, 128))
+        f_ = np.fft.fftfreq(128) * 128 * lf_ex
+        c = np.interp(np.hypot(f_[:, None], f_[None, :]), np.arange(cl.size),
+                      cl, left=0, right=0)
+        return (np.real(np.fft.ifft2(np.fft.fft2(w) * np.sqrt(c)))
+                / (np.deg2rad(10.0) / 128)).astype(np.float32)
+
+    loop_in["patches"] = [(grf(10 + r, cl_fe), grf(90 + r, cl_ke))
+                          for r in range(8)]
+    card = _cmb_loop_stages(dev, stage, loop_in)
+    cpu_in = dict(loop_in, kappa=card["kappa"].cpu(),
+                  lensed=card["lensed"])
+    cpu_seconds = {}
+    cpu = _cmb_loop_stages(torch.device("cpu"),
+                           _stage_runner_cpu(cpu_seconds), cpu_in)
+    # the card's float32 pixel decisions can move a particle between
+    # neighbours: half the summed |delta| difference over the expected
+    # count bounds the particles moved
+    moved = float((card["delta"].cpu() - cpu["delta"]).abs().sum()
+                  / card["delta"].numel())
+    qe_scale = float(cpu["qe"][0].abs().max())
+    # the flat estimator on the modes its response supports (R above 1e-3
+    # of its max; the rest divide float32 roundoff by a response near 0)
+    ok = cpu["R"] > 1e-3 * cpu["R"].max()
+    loop_err = {
+        "delta_mean_abs_diff": moved,
+        "lensed": float(np.abs(card["lensed"] - cpu["lensed"]).max()
+                        / np.abs(cpu["cmb"].numpy()).max()),
+        "flat_khat_modes": float(
+            np.abs(card["khat_modes"] - cpu["khat_modes"])[:, ok].max()
+            / np.abs(cpu["khat_modes"][:, ok]).max()),
+        "flat_ratio": abs(card["flat_ratio"] - cpu["flat_ratio"]),
+        "curved_qe": max(float((c.cpu() - h).abs().max()) / qe_scale
+                         for c, h in zip(card["qe"][:2], cpu["qe"][:2]))}
+    gen_ex = torch.Generator(device=dev).manual_seed(9)
+    pos_ex = _synthetic_particles(gen_ex, 64 ** 3, 250.0, dev)
+    fp_card = _full_sky_lightcone_stage(dev, stage, pos_ex)
+    fp_cpu = _full_sky_lightcone_stage(
+        torch.device("cpu"), _stage_runner_cpu(cpu_seconds), pos_ex.cpu(),
+        delta=fp_card["delta"].cpu())
+    # the traced maps are differences of float32 distortions near 1: held
+    # in absolute terms (4 ulp of 1), the rest relative to their max
+    fp_err = {k: rel(fp_card[k], fp_cpu[k]) for k in ("born", "ee")}
+    for k in ("kappa", "omega"):
+        fp_err[f"{k}_abs"] = float((fp_card[k].cpu() - fp_cpu[k]).abs().max())
+    fp_err["bb_over_ee_max"] = float(np.abs(np.asarray(fp_card["bb"])
+                                            - np.asarray(fp_cpu["bb"])).max()
+                                     / np.abs(np.asarray(fp_cpu["ee"])).max())
+    spin1 = stage("spin1_card_vs_cpu", lambda: _spin1_card_vs_cpu(dev, gen))
+    # a moved particle changes two pixels' delta by 1/expected: the mean
+    # |delta| difference is twice the share of particles moved (<= 0.1%)
+    check(moved < 2e-3, f"loop shells moved {moved}")
+    check(max(v for k, v in loop_err.items() if k != "delta_mean_abs_diff")
+          < CL_CPU_TOL * 5, f"cmb_lensing_loop card vs CPU {loop_err}")
+    check(fp_err["kappa_abs"] < 5e-7 and fp_err["omega_abs"] < 5e-7
+          and fp_err["born"] < CL_CPU_TOL and fp_err["ee"] < CL_CPU_TOL * 5
+          and fp_err["bb_over_ee_max"] < CL_CPU_TOL * 5,
+          f"full_pipeline lightcone card vs CPU {fp_err}")
+    check(max(spin1["transforms"].values()) < CL_CPU_TOL,
+          f"spin-1 transforms card vs CPU {spin1['transforms']}")
+    check(spin1["stencil_share"] >= CL_STENCIL_SHARE
+          and spin1["stencil_weight_err"] < CL_STENCIL_WEIGHT_TOL
+          and spin1["remap_share"] >= CL_STENCIL_SHARE,
+          f"stencil / remap card vs CPU {spin1}")
+    out["card_vs_cpu"] = {"cmb_lensing_loop": loop_err,
+                          "full_pipeline_lightcone": fp_err,
+                          "spin1_nside64": spin1,
+                          "cpu_seconds": cpu_seconds,
+                          "loop_flat_ratio": card["flat_ratio"]}
+    del card, cpu, fp_card, fp_cpu
+
+    # ---- (g) where the time goes at nside 1024, lmax 2048
+    alm2 = tuple(torch.randn((lmax + 1, lmax + 1), generator=gen,
+                             device=dev).tril() for _ in range(4))
+    g_t, g_p = traced["gamma1"], traced["gamma2"]
+    profiles = {
+        "synthesize_spin1_large": _sht_profile(
+            lambda: sht_spin_large.synthesize_spin1_large(*alm2, nside,
+                                                          lmax)),
+        "analyze_spin1_large_niter0": _sht_profile(
+            lambda: sht_spin_large.analyze_spin1_large(g_t, g_p, nside, lmax,
+                                                       niter=0)),
+    }
+    for name, p in profiles.items():
+        log(f"#   cmb_lensing profile {name}: {p['seconds']:.3f} s, "
+            f"{p['kernels']} CUDA kernels, device {p['device_ms']:.1f} ms, "
+            f"shares " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   p["span_share"].items())
+            + f", peak {p['peak_gb']:.2f} GB")
+    # the tracer's split for one shell (both halves are linear in the
+    # shells) on the host clock, synchronized: the shell's fields (one
+    # analysis and three syntheses) and the ray transport
+    kaps = effective_plane_kappa(smooth[None], chis[-1:, None],
+                                 dchis[-1:, None], 1.0, 0.3)
+    tabs, _ = lcs._multiplane_tabs(nside, lmax, "scan", dev)
+    t_pix = hpt.pix2ang_ring(nside, torch.arange(
+        12 * nside ** 2, dtype=torch.int32, device=dev))
+    # one untimed run first: the recursions' CUDA graphs of this shape may
+    # have left the graph cache since the tracer ran, and a capture runs
+    # the steps eagerly
+    lcs._plane_fields_healpix_scan(kaps, tabs, nside, lmax)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = lcs._plane_fields_healpix_scan(kaps, tabs, nside, lmax)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lcs._trace_multiplane(fields, chis[-1:], chis.new_tensor(CL_CHI_S),
+                          *t_pix, nside)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    profiles["multiplane_split_one_shell"] = {
+        "fields_s": t1 - t0, "transport_s": t2 - t1,
+        "fields_share": (t1 - t0) / (t2 - t0)}
+    log(f"#   cmb_lensing profile multiplane_split_one_shell: fields "
+        f"{t1 - t0:.3f} s, transport {t2 - t1:.3f} s")
+    out["profiles"] = profiles
+    del alm2, g_t, g_p, traced, kappa, delta, smooth, kaps, fields, t_pix
+
+    # K1 deposits the phase's shells in phase 9's flushes, and the two
+    # examples' shells in one flush each (all their images' keys fit the
+    # card's room at once)
+    predicted = {name: {} for name in seconds}
+    predicted["shells"] = {"deposit_sorted": shell_flushes}
+    predicted["loop_born"] = {"deposit_sorted": 1}
+    predicted["full_pipeline_lightcone"] = {"deposit_sorted": 1}
+    total = _held_launches("cmb_lensing", predicted, launches)
+    phase_s = time.perf_counter() - t_phase
+    log(f"# phase cmb_lensing: {phase_s:.1f} s; launches {total}; traced / "
+        f"Born-bl corr {corr:.5f}, C_l max dev "
+        f"{np.abs(ratio - 1).max():.4f}; omega/kappa {omega_power:.1e}; "
+        f"BB/EE {bb_ee:.1e}; one shell {one_err:.1e}; zero-kappa shift "
+        f"{shift:.1e}; first order corr {first_corr:.4f} rms "
+        f"{first_rms:.4f}; nudge bias {nudge_bias:.1e}; curved QE max dev "
+        f"{np.abs(qe_ratio - 1).max():.3f}; flat TT max dev "
+        f"{np.abs(flat_ratio - 1).max():.3f}, auto/N0 {auto_n0:.3f}, EB "
+        f"null {eb_null:.1e} response {eb_proj:.3f}; peak "
+        f"{max(peaks.values()):.2f} GB")
+    result = {"phase_seconds": phase_s, "seconds": seconds,
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peaks, **out}
+    log("# cmb_lensing " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -6091,7 +6875,10 @@ def main() -> None:
     mg = phase_mg_master_inference(dev, args.seed)
     full_sky = phase_full_sky(dev, args.seed, out_gr,
                               lightcone["shells_flushes"])
+    snapshot = [out_gr]
     del out_gr
+    cmb_lensing = phase_cmb_lensing(dev, args.seed, snapshot,
+                                    lightcone["shells_flushes"])
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -6216,6 +7003,11 @@ def main() -> None:
     # launch 0 times there
     for row in kernels:
         row["full_sky_launches"] = full_sky["launches_total"].get(
+            row["name"], 0)
+    # the CMB-lensing phase: K1 deposits its HEALPix shells; K2-K4 launch
+    # 0 times there
+    for row in kernels:
+        row["cmb_lensing_launches"] = cmb_lensing["launches_total"].get(
             row["name"], 0)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -2316,3 +2316,317 @@ def test_skyhealpix_and_full_sky_master_on_the_card(cuda):
         out[dev] = res
     for c, w in zip(out[None], out["cpu"]):
         assert np.abs(c - w).max() <= 1e-5 * np.abs(w).max()
+
+
+# ------------------------------------------- spin-1, the stencil, CMB lensing
+def _spin1_inputs(nside, lmax, seed=0):
+    rng = np.random.default_rng(seed)
+    npix = 12 * nside * nside
+    lg, mg = np.arange(lmax + 1)[:, None], np.arange(lmax + 1)[None, :]
+    alms = tuple((rng.standard_normal((lmax + 1,) * 2) * (mg <= lg)
+                  * (lg >= 1) * ((mg > 0) | (k % 2 == 0))).astype(np.float32)
+                 for k in range(4))
+    maps = tuple(rng.standard_normal(npix).astype(np.float32)
+                 for _ in range(2))
+    return alms, maps
+
+
+def _spin1_runs(dev, nside, lmax, alms, maps):
+    """Every spin-1 transform of both backends on `dev` (numpy in)."""
+    from astrild_tpu_torch.ops import sht_spin, sht_spin_large
+
+    out = []
+    if lmax <= 2 * nside:
+        out += [*sht_spin.synthesize_spin1(*alms, nside, lmax, device=dev),
+                *sht_spin.analyze_spin1(*maps, nside, lmax, device=dev),
+                *sht_spin.deflection_from_kappa_alm(alms[0], alms[1], nside,
+                                                    lmax, device=dev),
+                *sht_spin.kappa_omega_alm_from_deflection(
+                    *maps, nside, lmax, device=dev)]
+    out += [*sht_spin_large.synthesize_spin1_large(*alms, nside, lmax,
+                                                   device=dev),
+            *sht_spin_large.analyze_spin1_large(*maps, nside, lmax,
+                                                device=dev),
+            *sht_spin_large.deflection_from_kappa_alm_large(
+                alms[0], alms[1], nside, lmax, device=dev)]
+    return out
+
+
+@pytest.mark.parametrize("lmax", [128, 191])
+def test_spin1_transforms_on_the_card_match_the_cpu(cuda, lmax):
+    """At nside 64: the spin-1 transforms of the table and scan paths
+    (lmax 128), and the scan path's alias fold and CG analysis (lmax 191,
+    method 'auto'), on the card within 2e-5 of the CPU's max."""
+    nside = 64
+    alms, maps = _spin1_inputs(nside, lmax)
+    card = _spin1_runs(cuda, nside, lmax, alms, maps)
+    cpu = _spin1_runs("cpu", nside, lmax, alms, maps)
+    assert len(card) == (20 if lmax <= 2 * nside else 8)
+    for c, w in zip(card, cpu):
+        assert c.device.type == "cuda"
+        assert float((c.cpu() - w).abs().max()) <= 2e-5 * float(
+            w.abs().max())
+
+
+def _stencil_runs(dev, nside, theta, phi, hmap, a_t, a_p):
+    from astrild_tpu_torch.utils import healpix_torch as hpt
+
+    pix, wgt = hpt.get_interp_weights(nside, theta, phi, device=dev)
+    th, ph = hpt.pix2ang_ring(nside, np.arange(12 * nside * nside),
+                              device=dev)
+    return (pix, wgt, th, ph,
+            hpt.ang2pix_ring(nside, theta, phi, device=dev),
+            hpt.get_interp_val(hmap, theta, phi, device=dev),
+            hpt.remap_by_deflection(hmap, a_t, a_p, nside, device=dev))
+
+
+def test_stencil_and_remap_on_the_card_match_the_cpu(cuda):
+    """The tensor HEALPix routines at nside 256 on the card against the
+    CPU: >= 99.9% of the stencils, ang2pix pixels and remap samples equal
+    (a float32 decision can flip a neighbour), pix2ang within 4 ulp."""
+    nside = 256
+    rng = np.random.default_rng(4)
+    theta = np.arccos(rng.uniform(-1, 1, 1 << 18)).astype(np.float32)
+    phi = rng.uniform(0, 2 * np.pi, 1 << 18).astype(np.float32)
+    npix = 12 * nside * nside
+    hmap = rng.standard_normal(npix).astype(np.float32)
+    a_t = (1e-3 * rng.standard_normal(npix)).astype(np.float32)
+    a_p = (1e-3 * rng.standard_normal(npix)).astype(np.float32)
+    card = _stencil_runs(cuda, nside, theta, phi, hmap, a_t, a_p)
+    cpu = _stencil_runs("cpu", nside, theta, phi, hmap, a_t, a_p)
+    assert all(c.device.type == "cuda" for c in card)
+    card = [c.cpu() for c in card]
+    same = (card[0] == cpu[0]).all(0)
+    assert float(same.double().mean()) >= 0.999
+    assert float((card[1] - cpu[1])[:, same].abs().max()) <= 2e-4
+    np.testing.assert_array_max_ulp(card[2].numpy(), cpu[2].numpy(),
+                                    maxulp=4)
+    np.testing.assert_array_max_ulp(card[3].numpy(), cpu[3].numpy(),
+                                    maxulp=4)
+    assert float((card[4] == cpu[4]).double().mean()) >= 0.999
+    for c, w in zip(card[5:], cpu[5:]):
+        assert float(((c - w).abs() < 2e-3 * float(w.abs().max()))
+                     .double().mean()) >= 0.999
+
+
+def _tracer_runs(dev, delta, chis, dchis):
+    out = TLS.multiplane_raytrace_healpix(delta, chis, dchis, 900.0, 0.3,
+                                          method="tables", device=dev)
+    scan = TLS.multiplane_raytrace_healpix(
+        delta, chis, dchis, np.array([450.0, 900.0], np.float32), 0.3,
+        method="scan", device=dev)
+    return [out[k] for k in ("kappa", "gamma1", "gamma2", "omega")] + [
+        scan[k] for k in ("kappa", "gamma1", "gamma2", "omega")]
+
+
+def test_multiplane_tracer_on_the_card_matches_the_cpu(cuda):
+    """The spherical ray trace at nside 32 (3 shells, the table path for
+    one source, the scan path for a tomographic pair) on the card against
+    the CPU within 5e-7 absolute: the maps are differences of float32
+    distortions near 1."""
+    rng = np.random.default_rng(5)
+    nside = 32
+    delta = rng.normal(0, 0.3, (3, 12 * nside ** 2)).astype(np.float32)
+    chis = np.array([300.0, 500.0, 700.0], np.float32)
+    dchis = np.full(3, 100.0, np.float32)
+    card = _tracer_runs(None, delta, chis, dchis)
+    cpu = _tracer_runs("cpu", delta, chis, dchis)
+    for c, w in zip(card, cpu):
+        assert c.device.type == "cuda"
+        assert float((c.cpu() - w).abs().max()) <= 5e-7
+
+
+def _qe_runs(dev, t, q, u, cmb, cl_flat, cl_hp):
+    from astrild_tpu_torch.ops import cmb_lensing as cml
+
+    fov = np.deg2rad(10.0)
+    R = cml.qe_tt_response(128, fov, cl_flat, lmin=40, lmax_filter=1200,
+                           device=dev)
+    tt = cml.qe_tt_kappa(t, fov, cl_flat, lmin=40, lmax_filter=1200,
+                         device=dev)
+    eb = cml.qe_eb_kappa(q, u, fov, cl_flat, nl_bb=np.full(
+        cl_flat.size, 1e-13), lmin=40, lmax_filter=600, device=dev)
+    lensed = cml.lens_cmb_map_flat(t, 1e-3 * t / np.abs(t).max(), fov,
+                                   device=dev)
+    hp = {m: cml.qe_tt_kappa_healpix(cmb, cl_hp, lmin=8, lmax_filter=64,
+                                     lmax_out=32, method=m, device=dev)
+          for m in ("tables", "scan")}
+    return R, tt, eb, lensed, hp
+
+
+def test_quadratic_estimators_on_the_card_match_the_cpu(cuda):
+    """Both flat QEs (on the modes each one's response supports, R above
+    1e-2 of its max), the flat remap and the curved-sky TT QE on both
+    backends at nside 32 on the card against the CPU: within 1e-4 of the
+    largest supported mode or alm; the TT N0 within 1e-4 relative, the EB
+    N0 within 5e-4, since its response is 1/2 - (cos4 cos4 + sin4 sin4)/2
+    of three FFT convolutions that cancel where the pair angle is small,
+    which raises cuFFT's and the CPU FFT's ~1e-7 difference more."""
+    rng = np.random.default_rng(6)
+    t, q, u = (rng.standard_normal((128, 128)).astype(np.float32)
+               for _ in range(3))
+    ell = np.arange(3001, dtype=np.float64)
+    cl_flat = np.zeros(3001)
+    cl_flat[2:] = 1e-10 / (ell[2:] * (ell[2:] + 1))
+    cl_hp = cl_flat[:65]
+    cmb = rng.standard_normal(12 * 32 ** 2).astype(np.float32)
+    from astrild_tpu_torch.ops import cmb_lensing as cml
+
+    card = _qe_runs(None, t, q, u, cmb, cl_flat, cl_hp)
+    cpu = _qe_runs("cpu", t, q, u, cmb, cl_flat, cl_hp)
+    # modes with R above 1e-2 of its max: cuFFT and the CPU FFT differ by
+    # ~1e-7, which phi_un / R raises by R_max / R
+    ok = (cpu[0] > 1e-2 * cpu[0].max()).numpy()
+    assert float((card[0].cpu() - cpu[0]).abs().max()) <= 1e-5 * float(
+        cpu[0].abs().max())
+    # the EB response of its filters (white band B filter of nl_bb)
+    lx, ly, lm = cml._l_grids(128, torch.tensor(np.deg2rad(10.0),
+                                                dtype=torch.float32))
+    cos2, sin2 = cml._trig2(128, "cpu")
+    C = cml._interp_cl(torch.from_numpy(cl_flat.astype(np.float32)), lm)
+    band = (lm >= 40) & (lm <= 600)
+    FE = torch.where(band & (C > 0), 1.0 / torch.where(C > 0, C, 1.0), 0.0)
+    FB = torch.where(band, 1e13, 0.0)
+    R_eb = cml._eb_quad_sum(128, lx, ly, C, FE, FB, cos2, sin2)
+    ok_eb = (R_eb > 1e-2 * R_eb.max()).numpy()
+    for (c, w), mask in (((card[1], cpu[1]), ok), ((card[2], cpu[2]), ok_eb)):
+        fc = np.fft.fft2(c[0].cpu().numpy().astype(np.float64))
+        fw = np.fft.fft2(w[0].numpy().astype(np.float64))
+        assert np.abs(fc - fw)[mask].max() <= 1e-4 * np.abs(fw[mask]).max()
+    np.testing.assert_allclose(card[1][1].cpu().numpy()[ok],
+                               cpu[1][1].numpy()[ok], rtol=1e-4)
+    np.testing.assert_allclose(card[2][1].cpu().numpy()[ok_eb],
+                               cpu[2][1].numpy()[ok_eb], rtol=5e-4)
+    assert float((card[3].cpu() - cpu[3]).abs().max()) <= 1e-5 * float(
+        cpu[3].abs().max())
+    for m in ("tables", "scan"):
+        scale = float(cpu[4][m][0].abs().max())
+        for c, w in zip(card[4][m][:2], cpu[4][m][:2]):
+            assert c.device.type == "cuda"
+            assert float((c.cpu() - w).abs().max()) <= 1e-4 * scale
+        np.testing.assert_array_equal(card[4][m][2].cpu().numpy(),
+                                      cpu[4][m][2].numpy())
+
+
+def test_skyhealpix_cmb_lensing_on_the_card_matches_the_cpu(cuda):
+    """lens_cmb_from_kappa at lmax 2 nside (the plain adjoint) and above
+    (the scan path's CG), lens_cmb_by_deflection and
+    from_multiplane_shells at nside 32 on the card against the CPU."""
+    from astrild_tpu_torch.models import SkyHealpix
+
+    rng = np.random.default_rng(7)
+    nside = 32
+    npix = 12 * nside ** 2
+    cmb = 2.7255 + 1e-5 * rng.standard_normal(npix)
+    kap = (1e-2 * rng.standard_normal(npix)).astype(np.float32)
+    shells = rng.normal(0, 0.3, (2, npix)).astype(np.float32)
+    out = {}
+    for dev in (None, "cpu"):
+        sky = SkyHealpix(np.zeros(npix), device=dev)
+        res = [sky.lens_cmb_from_kappa(cmb, kap, lmax=64),
+               sky.lens_cmb_from_kappa(cmb, kap, lmax=80)]
+        ms = SkyHealpix.from_multiplane_shells(
+            shells, np.array([300.0, 600.0]), np.array([150.0, 150.0]),
+            800.0, 0.3, lmax=64, device=dev)
+        assert ms.device.type == ("cuda" if dev is None else "cpu")
+        res += [ms.data[k].cpu().numpy() for k in ("orig", "omega")]
+        out[dev] = res
+    fluct = np.abs(cmb - cmb.mean()).max()
+    for c, w in zip(out[None][:2], out["cpu"][:2]):
+        assert np.quantile(np.abs(c - w), 0.999) <= 1e-4 * fluct
+    for c, w in zip(out[None][2:], out["cpu"][2:]):
+        assert np.abs(c - w).max() <= 5e-7
+
+
+def test_cmb_lensing_paths_hold_with_tf32_allowed(cuda):
+    """Every new path with TF32 allowed for float32 matmuls equals the run
+    without: the spin-1 transforms, the tracer, the remap and the QEs
+    reach no matrix product."""
+    rng = np.random.default_rng(8)
+    nside, lmax = 32, 64
+    alms, maps = _spin1_inputs(nside, lmax, seed=8)
+    delta = rng.normal(0, 0.3, (2, 12 * nside ** 2)).astype(np.float32)
+    chis = np.array([300.0, 600.0], np.float32)
+    dchis = np.full(2, 150.0, np.float32)
+    t = rng.standard_normal((128, 128)).astype(np.float32)
+    ell = np.arange(3001, dtype=np.float64)
+    cl = np.zeros(3001)
+    cl[2:] = 1e-10 / (ell[2:] * (ell[2:] + 1))
+
+    def runs():
+        from astrild_tpu_torch.models import SkyHealpix
+        from astrild_tpu_torch.ops import cmb_lensing as cml
+
+        out = _spin1_runs(cuda, nside, lmax, alms, maps)
+        out += _tracer_runs(None, delta, chis, dchis)
+        sky = SkyHealpix(maps[0], device=cuda)
+        sky.lens_cmb_from_kappa(maps[1], 1e-2 * maps[0], lmax=lmax)
+        out.append(sky.data["cmb_lensed"])
+        fov = np.deg2rad(10.0)
+        out += list(cml.qe_tt_kappa(t, fov, cl, lmin=40, lmax_filter=1200,
+                                    device=cuda))
+        out += list(cml.qe_eb_kappa(t, t.T.copy(), fov, cl, lmin=40,
+                                    lmax_filter=600, device=cuda))
+        out += list(cml.qe_tt_kappa_healpix(maps[0], cl[:lmax + 1], lmin=8,
+                                            lmax_filter=lmax,
+                                            lmax_out=lmax // 2,
+                                            device=cuda))
+        return out
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = runs()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = runs()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_cmb_lensing_slice_numpy_input_lands_on_the_card(cuda):
+    """The slice's new entry points and the two repaired ones
+    (paint.paint with numpy components, healpix_torch.ang2pix_ring) put
+    numpy input on the card."""
+    from astrild_tpu_torch.ops import cmb_lensing as cml
+    from astrild_tpu_torch.ops import sht_spin, sht_spin_large
+    from astrild_tpu_torch.utils import healpix_torch as hpt
+
+    rng = np.random.default_rng(9)
+    nside, lmax, npix = 8, 16, 768
+    alms, maps = _spin1_inputs(nside, lmax, seed=9)
+    th = np.arccos(rng.uniform(-1, 1, 50)).astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, 50).astype(np.float32)
+    patch = rng.standard_normal((16, 16)).astype(np.float32)
+    cl = np.linspace(1e-10, 1e-12, 3001)
+    pos = rng.uniform(0, BOX, (1000, 3)).astype(np.float32)
+    outs = [TP.paint(tuple(pos.T.copy()), 16, BOX),
+            hpt.ang2pix_ring(nside, th, ph),
+            *hpt.pix2ang_ring(nside, np.arange(npix)),
+            *hpt.get_interp_weights(nside, th, ph),
+            hpt.get_interp_val(maps[0], th, ph),
+            hpt.remap_by_deflection(maps[0], 1e-3 * maps[0],
+                                    1e-3 * maps[1], nside),
+            *sht_spin.synthesize_spin1(*alms, nside, lmax),
+            *sht_spin.analyze_spin1(*maps, nside, lmax),
+            *sht_spin.deflection_from_kappa_alm(alms[0], alms[1], nside,
+                                                lmax),
+            *sht_spin.kappa_omega_alm_from_deflection(*maps, nside, lmax),
+            *sht_spin_large.synthesize_spin1_large(*alms, nside, lmax),
+            *sht_spin_large.analyze_spin1_large(*maps, nside, lmax),
+            *sht_spin_large.deflection_from_kappa_alm_large(
+                alms[0], alms[1], nside, lmax),
+            *TLS.multiplane_raytrace_healpix(
+                0.1 * maps[0][None, :], [300.0], [100.0], 500.0, 0.3,
+                lmax=lmax).values(),
+            cml.lens_cmb_map_flat(patch, 1e-3 * patch, 0.03),
+            cml.qe_tt_response(16, 0.03, cl, lmax_filter=1500),
+            cml.qe_tt_n0_kappa(16, 0.03, cl, lmax_filter=1500),
+            *cml.qe_tt_kappa(patch, 0.03, cl, lmax_filter=1500),
+            *cml.qe_eb_kappa(patch, patch.T.copy(), 0.03, cl,
+                             lmax_filter=1500),
+            *cml.qe_tt_kappa_healpix(maps[0], cl[:lmax + 1],
+                                     lmax_filter=lmax)]
+    for t in outs:
+        assert t.device.type == "cuda"

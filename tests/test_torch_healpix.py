@@ -1,7 +1,9 @@
 """PyTorch port vs JAX package on the CPU: HEALPix pixelization (the numpy
-copy and the tensor `ang2pix_ring`) and the full-sky shell lane
+copy and the tensor `ang2pix_ring`, `pix2ang_ring`, the bilinear stencil
+and the deflection remap of utils/healpix_torch.py, mirroring
+tests/test_healpix_jax.py) and the full-sky shell lane
 (`shell_counts_healpix`, `density_shells_healpix`,
-`born_convergence_healpix`).
+`born_convergence_healpix`, `multiplane_raytrace_healpix`).
 
 Inputs are made with numpy from a seed and handed to both packages; the
 JAX shells run with `deposit="scatter"`. The float32 `ang2pix_ring` of
@@ -128,6 +130,170 @@ def test_ang2pix_torch_poles_and_phi_wrap():
     assert got.min() >= 0 and got.max() < thpx.nside2npix(nside)
     with pytest.raises(ValueError, match="nside"):
         thpt.ang2pix_ring(8192, torch.zeros(1), torch.zeros(1))
+
+
+# ------------------------------------------------ pix2ang and the stencil
+@pytest.mark.parametrize("nside", [4, 16, 64])
+def test_pix2ang_torch_parity(nside):
+    """Every pixel: phi bit for bit the JAX function's, theta within 4 ulp
+    of it (XLA's and torch's atan2 differ by an ulp or so), both within the
+    JAX test's tolerance of the float64 host routine."""
+    ipix = np.arange(thpx.nside2npix(nside))
+    th, ph = thpt.pix2ang_ring(nside, torch.from_numpy(ipix))
+    assert th.dtype == ph.dtype == torch.float32
+    jt, jp = (np.asarray(a) for a in jhpj.pix2ang_ring(nside, ipix))
+    npt.assert_array_equal(ph.numpy(), jp)
+    npt.assert_array_max_ulp(th.numpy(), jt, maxulp=4)
+    th_h, ph_h = thpx.pix2ang_ring(nside, ipix)
+    npt.assert_allclose(th.numpy(), th_h, atol=3e-6)
+    npt.assert_allclose(ph.numpy(), ph_h, atol=2e-5)
+
+
+def test_pix2ang_closed_form_boundaries_large_nside():
+    """nside 2048 (pixel indices far beyond float32's 2^24): every cap and
+    belt boundary pixel and strided samples land on the host angle to well
+    under a pixel, and on the JAX function's phi bit for bit."""
+    nside = 2048
+    npix = thpx.nside2npix(nside)
+    ncap = 2 * nside * (nside - 1)
+    idx = np.concatenate([
+        np.arange(0, ncap, 997), np.arange(ncap, npix - ncap, 99733),
+        np.arange(npix - ncap, npix, 997),
+        np.array([0, ncap - 1, ncap, npix - ncap - 1, npix - ncap,
+                  npix - 1])])
+    th_h, ph_h = thpx.pix2ang_ring(nside, idx)
+    th, ph = (a.numpy() for a in thpt.pix2ang_ring(
+        nside, torch.from_numpy(idx.astype(np.int32))))
+    assert np.abs(th - th_h).max() < 0.3 * np.pi / (4 * nside)
+    assert np.abs(ph - ph_h).max() < 1e-5
+    jt, jp = (np.asarray(a) for a in jhpj.pix2ang_ring(
+        nside, idx.astype(np.int32)))
+    npt.assert_array_equal(ph, jp)
+    npt.assert_array_max_ulp(th, jt, maxulp=4)
+
+
+@pytest.mark.parametrize("nside", [4, 64, 1024])
+def test_interp_weights_parity(rng, nside):
+    """2e4 random points: >= 99.9% of the stencils equal the JAX
+    function's (a float32 ring or phi boundary moves weight between
+    neighbours), sums one; the weights within 2e-4, or 1.3e-6 nside above
+    nside 154 (the theta blend divides an ulp of theta, 2.4e-7, by the
+    ring spacing ~pi / (4 nside)); against the float64 host stencil, at
+    the JAX test's sizes, its share and tolerance."""
+    theta, phi = _random_angles(rng, 20000)
+    t32, p32 = theta.astype(np.float32), phi.astype(np.float32)
+    pix, wgt = thpt.get_interp_weights(nside, torch.from_numpy(t32),
+                                       torch.from_numpy(p32))
+    assert pix.dtype == torch.int32 and wgt.dtype == torch.float32
+    pix, wgt = pix.numpy(), wgt.numpy()
+    npt.assert_allclose(wgt.sum(0), 1.0, atol=1e-5)
+    jpix, jwgt = (np.asarray(a) for a in jhpj.get_interp_weights(
+        nside, t32, p32))
+    same = np.all(pix == jpix, axis=0)
+    assert np.mean(same) >= 0.999
+    wtol = max(2e-4, 1.3e-6 * nside)
+    npt.assert_allclose(wgt[:, same], jwgt[:, same], atol=wtol)
+    if nside <= 64:
+        hpix, hwgt = thpx.get_interp_weights(nside, theta, phi)
+        hsame = np.all(pix == hpix, axis=0)
+        assert np.mean(hsame) > 0.99
+        npt.assert_allclose(wgt[:, hsame], hwgt[:, hsame], atol=2e-4)
+
+
+def test_interp_val_smooth_field(rng):
+    """A smooth field: the host interpolation, the JAX function's and the
+    analytic field itself (bilinear truncation)."""
+    nside = 64
+    tc, pc = thpx.pix2ang_ring(nside, np.arange(thpx.nside2npix(nside)))
+    fmap = (np.cos(tc) ** 2 + 0.3 * np.sin(tc) * np.cos(pc)
+            ).astype(np.float32)
+    theta, phi = _random_angles(rng, 4000)
+    t32, p32 = theta.astype(np.float32), phi.astype(np.float32)
+    got = thpt.get_interp_val(torch.from_numpy(fmap), torch.from_numpy(t32),
+                              torch.from_numpy(p32)).numpy()
+    host = thpx.get_interp_val(fmap.astype(np.float64), theta, phi)
+    npt.assert_allclose(got, host, atol=5e-5)
+    npt.assert_allclose(got, np.asarray(jhpj.get_interp_val(fmap, t32, p32)),
+                        atol=2e-6)
+    exact = np.cos(theta) ** 2 + 0.3 * np.sin(theta) * np.cos(phi)
+    assert np.max(np.abs(got - exact)) < 2e-3
+
+
+def test_interp_poles(rng):
+    """The polar fallbacks: points above ring 1 and below the last ring,
+    against the host routine and the JAX function."""
+    nside, n = 16, 200
+    theta = np.concatenate([rng.uniform(0, 1e-3, n),
+                            np.pi - rng.uniform(0, 1e-3, n)])
+    phi = rng.uniform(0, 2 * np.pi, 2 * n)
+    fmap = rng.standard_normal(thpx.nside2npix(nside)).astype(np.float32)
+    t32, p32 = theta.astype(np.float32), phi.astype(np.float32)
+    got = thpt.get_interp_val(torch.from_numpy(fmap), torch.from_numpy(t32),
+                              torch.from_numpy(p32)).numpy()
+    host = thpx.get_interp_val(fmap.astype(np.float64), theta, phi)
+    npt.assert_allclose(got, host, atol=1e-4)
+    npt.assert_allclose(got, np.asarray(jhpj.get_interp_val(fmap, t32, p32)),
+                        atol=1e-5)
+
+
+@pytest.mark.parametrize("nside", [16, 64])
+def test_remap_by_deflection_matches_jax_and_host_chain(rng, nside):
+    """The remap with its 1e-3-pixel tie nudge: >= 99.9% of its samples
+    within 2e-3 of the map's max of the JAX function's (an ulp of a
+    position moves a weight by up to ~1e-4; a float32 stencil decision
+    flips a neighbour, an O(1) change, at the rest); the same nudge on the
+    host pixel centres and the tensor interpolation within the JAX test's
+    quantile; a zero deflection samples the map at its own centres within
+    1e-5 of the JAX function."""
+    npix = thpx.nside2npix(nside)
+    hpmap = rng.normal(size=npix).astype(np.float32)
+    a_t = (rng.normal(size=npix) * 0.01).astype(np.float32)
+    a_p = (rng.normal(size=npix) * 0.01).astype(np.float32)
+    got = thpt.remap_by_deflection(*(torch.from_numpy(a) for a in
+                                     (hpmap, a_t, a_p)), nside).numpy()
+    want = np.asarray(jhpj.remap_by_deflection(hpmap, a_t, a_p, nside))
+    assert np.mean(np.abs(got - want) < 2e-3 * np.abs(hpmap).max()) >= 0.999
+    theta, phi = thpx.pix2ang_ring(nside, np.arange(npix))
+    nudge = 1.0e-3 * (2.0 * np.pi / (4.0 * nside))
+    ts = np.clip(theta + a_t + 0.5 * nudge, 0.0, np.pi)
+    ps = phi + a_p / np.maximum(np.sin(theta), 1e-6) + nudge
+    chain = thpt.get_interp_val(torch.from_numpy(hpmap),
+                                torch.from_numpy(ts.astype(np.float32)),
+                                torch.from_numpy(ps.astype(np.float32)))
+    assert np.quantile(np.abs(got - chain.numpy()), 0.999) < 1e-4
+    zero = torch.zeros(npix)
+    still = thpt.remap_by_deflection(torch.from_numpy(hpmap), zero, zero,
+                                     nside).numpy()
+    npt.assert_allclose(still, np.asarray(jhpj.remap_by_deflection(
+        hpmap, np.zeros(npix, np.float32), np.zeros(npix, np.float32),
+        nside)), atol=1e-5)
+
+
+def test_stencil_raises_and_numpy_input_placement(rng):
+    """Numpy input goes to `device` (the CUDA card by default, raising
+    without one); tensors keep their device."""
+    nside = 8
+    npix = thpx.nside2npix(nside)
+    theta, phi = (a.astype(np.float32) for a in _random_angles(rng, 50))
+    m = rng.standard_normal(npix).astype(np.float32)
+    z = np.zeros(npix, np.float32)
+    calls = (lambda **k: thpt.ang2pix_ring(nside, theta, phi, **k),
+             lambda **k: thpt.pix2ang_ring(nside, np.arange(npix), **k),
+             lambda **k: thpt.get_interp_weights(nside, theta, phi, **k),
+             lambda **k: thpt.get_interp_val(m, theta, phi, **k),
+             lambda **k: thpt.remap_by_deflection(m, z, z, nside, **k))
+    for call in calls:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        out = call(device="cpu")
+        for t in (out if isinstance(out, tuple) else (out,)):
+            assert t.device.type == "cpu"
+    for fn in (thpt.pix2ang_ring, thpt.get_interp_weights):
+        with pytest.raises(ValueError, match="nside"):
+            fn(8192, torch.zeros(1), torch.zeros(1)) \
+                if fn is thpt.get_interp_weights else \
+                fn(8192, torch.zeros(1, dtype=torch.int32))
 
 
 # ------------------------------------------------------------ shell counts
@@ -289,6 +455,19 @@ def test_born_convergence_healpix_matches_jax(rng, chi_s, with_a):
 
 
 def test_multiplane_raytrace_healpix_is_not_ported():
-    with pytest.raises(NotImplementedError, match="spherical harmonic"):
-        TLS.multiplane_raytrace_healpix(torch.zeros((2, 48)), [1.0, 2.0],
-                                        [1.0, 1.0], 3.0, 0.3)
+    """The spherical ray trace is ported: two shells at nside 8 on the
+    table path against the JAX function, each map within 1e-3 of its max
+    (tests/test_torch_lightcone_sphere.py holds it fully)."""
+    nside = 8
+    delta = rng_delta = np.random.default_rng(3).normal(
+        0.0, 0.3, (2, thpx.nside2npix(nside))).astype(np.float32)
+    chis = np.array([300.0, 600.0], np.float32)
+    dchis = np.full(2, 150.0, np.float32)
+    got = TLS.multiplane_raytrace_healpix(torch.from_numpy(rng_delta), chis,
+                                          dchis, 800.0, 0.3, lmax=16)
+    want = JLS.multiplane_raytrace_healpix(delta, chis, dchis, 800.0, 0.3,
+                                           lmax=16)
+    assert set(got) == set(want)
+    for k in want:
+        w = np.asarray(want[k])
+        npt.assert_allclose(got[k].numpy(), w, atol=1e-3 * np.abs(w).max())

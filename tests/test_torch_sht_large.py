@@ -102,6 +102,32 @@ def test_analyze_large_matches_jax(nside, lmax, method, niter):
         _close(g, w)
 
 
+# nside 64, lmax 128: the JAX package scans two m-blocks of 128 here
+# (_MBLOCK, astrild_tpu/ops/sht_large.py:50), which no smaller case
+# reaches. The float32 recursions' gap grows with lmax (port minus JAX
+# synthesis 9.7e-7 of the max at (16, 32), 4.4e-6 at (64, 128), 1.0e-5 at
+# (128, 256) on white-noise alms; this case's alms 4.8e-6, its analyses
+# 2.4e-6), so it is held to 1.5e-5, not the 1e-5 of the small ones.
+BLOCK_CASE, BLOCK_TOL = (64, 128), 1.5e-5
+
+
+@pytest.mark.parametrize("method,niter", [(None, None), ("jacobi", 0),
+                                          ("jacobi", 3)])
+def test_scan_matches_jax_across_m_blocks(method, niter):
+    nside, lmax = BLOCK_CASE
+    if method is None:
+        a_re, a_im = _random_alms(1, lmax)
+        _close(TL.synthesize_large(a_re, a_im, nside, lmax, device="cpu"),
+               JL.synthesize_large(a_re, a_im, nside, lmax), BLOCK_TOL)
+        return
+    m = _map(2, nside)
+    got = TL.analyze_large(m, nside, lmax, niter=niter, method=method,
+                           device="cpu")
+    want = JL.analyze_large(m, nside, lmax, niter=niter, method=method)
+    for g, w in zip(got, want):
+        _close(g, w, BLOCK_TOL)
+
+
 def test_auto_method_picks_cg_above_2nside():
     nside, lmax = 16, 47
     m = _map(3, nside)

@@ -266,6 +266,32 @@ def test_analyze_spin2_large_matches_jax(nside, lmax, method, niter):
         _close(g, w, SCAN_TOL)
 
 
+# nside 64, lmax 128: the JAX package scans two m-blocks of 128 here,
+# which no smaller case reaches; the float32 recursions' gap grows with
+# lmax (measured here: 1.4e-5 of the max in synthesis, 3.7e-6 in analysis,
+# against 4.5e-6 at nside 16, lmax 63), so this case is held to 3e-5, not
+# the 1.5e-5 of the small ones
+BLOCK_CASE, BLOCK_TOL = (64, 128), 3e-5
+
+
+@pytest.mark.parametrize("method,niter", [(None, None), ("jacobi", 0),
+                                          ("jacobi", 3)])
+def test_spin2_scan_matches_jax_across_m_blocks(method, niter):
+    nside, lmax = BLOCK_CASE
+    if method is None:
+        alms = _eb(5, lmax)
+        got = TSL.synthesize_spin2_large(*alms, nside, lmax, device="cpu")
+        want = JSL.synthesize_spin2_large(*alms, nside, lmax)
+    else:
+        q, u = _qu(6, nside)
+        got = TSL.analyze_spin2_large(q, u, nside, lmax, niter=niter,
+                                      method=method, device="cpu")
+        want = JSL.analyze_spin2_large(q, u, nside, lmax, niter=niter,
+                                       method=method)
+    for g, w in zip(got, want):
+        _close(g, w, BLOCK_TOL)
+
+
 @pytest.mark.parametrize("nside,lmax", [(16, 32), (32, 95)])
 def test_port_scan_path_matches_its_table_path(nside, lmax):
     """tests/test_sht_spin_large.py's bar: synthesis within 3e-5 of the
