@@ -67,6 +67,14 @@ _SIGNATURES = {
             ctypes.c_int),
         # pos, n, ngrid, box, h, order, tile_of, counts, n_tiles, keys,
         # frac (3, n), stream
+        # pos (3, n), weights, n, ngrid, box, h, order, grad_out (n^3),
+        # grad_pos (3, n) or null, grad_w (n,) or null, stream
+        "astrild_paint_windowed_adjoint": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p],
+            ctypes.c_int),
         "astrild_paint_windowed_bins": (
             [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
              ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

@@ -47,6 +47,22 @@
 // the weights of the lanes of a warp that share a base cell before it adds
 // (one atomic per group and cell instead of one per particle and cell).
 //
+// The adjoint (astrild_paint_windowed_adjoint) is the deposit's gradient,
+// which the TPU version had none of (the JAX package differentiated only
+// its XLA scatter, astrild_tpu/ops/field_infer.py:81-83). The transpose of
+// a scatter is a gather: one thread a particle recomputes its base cell
+// and fractions with the same arithmetic as the bin pass, reads the 8
+// (CIC) or 27 (TSC) cells of the incoming gradient grid around it
+// (wrapping periodically, the transpose of the fold) and writes
+//     dL/dw_p   = sum_c W_c g_c,
+//     dL/dx_p,a = w_p sum_c (dW_c / df_a) g_c / h,
+// with dW/df along an axis -1, +1 (CIC) or -(0.5 - d), -2d, 0.5 + d (TSC)
+// times the other two axes' weights. Bound: device-memory bandwidth, 12 B
+// of positions and 12 B of position gradient a particle (+8 B with
+// weights) and the gradient grid read once (4 B a cell); the cell reads
+// of neighbouring particles meet in L1 and L2 when the particles come in
+// particle-mesh order.
+//
 // Plain C interface (no PyTorch headers): loaded with ctypes by
 // astrild_tpu_torch/_ext.py and launched on the caller's stream.
 #include <cuda_runtime.h>
@@ -103,6 +119,17 @@ __device__ __forceinline__ float axis_weight(float f, int a) {
     if (a == 0) return 0.75f - f * f;
     const float t = 0.5f + static_cast<float>(a) * f;
     return 0.5f * t * t;
+  }
+}
+
+// d(axis_weight)/df
+template <int kOrder>
+__device__ __forceinline__ float axis_dweight(float f, int a) {
+  if constexpr (kOrder == 2) {
+    return a ? 1.0f : -1.0f;
+  } else {
+    if (a == 0) return -2.0f * f;
+    return static_cast<float>(a) * (0.5f + static_cast<float>(a) * f);
   }
 }
 
@@ -348,6 +375,65 @@ __global__ void __launch_bounds__(kDepositThreads<kOrder>)
   }
 }
 
+// 5. the adjoint: one thread per particle gathers the incoming gradient
+// grid g around its base cell (see the header)
+template <int kOrder>
+__global__ void __launch_bounds__(kThreads)
+    paint_windowed_adjoint(Geometry g, const float* __restrict__ weights,
+                           const float* __restrict__ grad_out,
+                           float* __restrict__ grad_pos,
+                           float* __restrict__ grad_w) {
+  constexpr int kLo = (kOrder == 2) ? 0 : -1;  // lowest cell offset
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= g.n_part) return;
+  float sw = 0.0f;
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  int b[3], raw[3];
+  float f[3];
+  // a particle without a base cell (non-finite input) deposited nothing
+  if (particle_cell<kOrder>(g, p, b, f, raw)) {
+    const int64_t n = g.n;
+    float w[3][kOrder], dw[3][kOrder];
+    int64_t cell[3][kOrder];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+#pragma unroll
+      for (int a = 0; a < kOrder; ++a) {
+        w[ax][a] = axis_weight<kOrder>(f[ax], kLo + a);
+        dw[ax][a] = axis_dweight<kOrder>(f[ax], kLo + a);
+        // b + kLo + a lies in [-1, n + 1): one periodic wrap
+        int c = b[ax] + kLo + a;
+        c = c < 0 ? c + g.n : (c >= g.n ? c - g.n : c);
+        cell[ax][a] = c;
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kOrder; ++a) {
+#pragma unroll
+      for (int c = 0; c < kOrder; ++c) {
+        const float* row = grad_out + (cell[0][a] * n + cell[1][c]) * n;
+#pragma unroll
+        for (int d = 0; d < kOrder; ++d) {
+          const float v = __ldg(row + cell[2][d]);
+          const float wyz = w[1][c] * w[2][d];
+          sw += w[0][a] * wyz * v;
+          s[0] += dw[0][a] * wyz * v;
+          s[1] += w[0][a] * dw[1][c] * w[2][d] * v;
+          s[2] += w[0][a] * w[1][c] * dw[2][d] * v;
+        }
+      }
+    }
+  }
+  if (grad_w != nullptr) grad_w[p] = sw;
+  if (grad_pos != nullptr) {
+    const float wp = weights != nullptr ? __ldg(weights + p) : 1.0f;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      grad_pos[ax * g.n_part + p] = __fdiv_rn(wp * s[ax], g.h);
+    }
+  }
+}
+
 int64_t tiles_along(int64_t n, int t) { return (n + t - 1) / t; }
 
 unsigned int particle_blocks(int64_t n_part) {
@@ -355,7 +441,7 @@ unsigned int particle_blocks(int64_t n_part) {
   return static_cast<unsigned int>(blocks > 0 ? blocks : 1);
 }
 
-int check_args(int64_t n_part, int64_t ngrid, int order, int64_t n_tiles) {
+int check_shape(int64_t n_part, int64_t ngrid, int order) {
   if (order != 2 && order != 3) return cudaErrorInvalidValue;
   if (n_part < 0 || n_part > 0x7fffffffLL || ngrid < 1) {
     return cudaErrorInvalidValue;
@@ -363,12 +449,15 @@ int check_args(int64_t n_part, int64_t ngrid, int order, int64_t n_tiles) {
   if ((ngrid + 2) * (ngrid + 2) * (ngrid + 2) > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
+  return cudaSuccess;
+}
+
+int check_args(int64_t n_part, int64_t ngrid, int order, int64_t n_tiles) {
+  const int bad = check_shape(n_part, ngrid, order);
+  if (bad != cudaSuccess) return bad;
   if (n_tiles != tiles_along(ngrid, kTX) * tiles_along(ngrid, kTY) *
                      tiles_along(ngrid, kTZ)) {
     return cudaErrorInvalidValue;  // the caller's tile shape differs
-  }
-  if ((n_part + kThreads - 1) / kThreads > 0x7fffffffLL) {
-    return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
@@ -462,6 +551,32 @@ extern "C" int astrild_paint_windowed_bins(const float* pos, int64_t n_part,
     launch_bin<2>(g, tile_of, counts, keys_out, frac_out, s);
   } else {
     launch_bin<3>(g, tile_of, counts, keys_out, frac_out, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The deposit's adjoint: given grad_out, the gradient of a loss with
+// respect to astrild_paint_windowed's (ngrid, ngrid, ngrid) output, writes
+// the loss's gradient with respect to the positions, grad_pos (3, n_part)
+// float32, and to the weights, grad_w (n_part,) float32; either may be
+// null to skip it. pos, weights, n_part, ngrid, box, h and order are the
+// deposit's own (weights null for unit weights). Returns the cudaError_t
+// of the launch (0 on success).
+extern "C" int astrild_paint_windowed_adjoint(
+    const float* pos, const float* weights, int64_t n_part, int64_t ngrid,
+    float box, float h, int order, const float* grad_out, float* grad_pos,
+    float* grad_w, void* stream) {
+  const int bad = check_shape(n_part, ngrid, order);
+  if (bad != cudaSuccess) return bad;
+  if (n_part == 0) return cudaSuccess;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const Geometry g = make_geometry(pos, n_part, ngrid, box, h);
+  if (order == 2) {
+    paint_windowed_adjoint<2><<<particle_blocks(n_part), kThreads, 0, s>>>(
+        g, weights, grad_out, grad_pos, grad_w);
+  } else {
+    paint_windowed_adjoint<3><<<particle_blocks(n_part), kThreads, 0, s>>>(
+        g, weights, grad_out, grad_pos, grad_w);
   }
   return static_cast<int>(cudaGetLastError());
 }

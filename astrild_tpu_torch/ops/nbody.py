@@ -28,13 +28,13 @@ Conventions (t in units of 1/H0, comoving lengths in Mpc/h):
 `pm_lightcone_planes` carries the evolution on to a lightcone: the
 snapshot is evolved to each lens plane's own redshift and painted there
 (`ops.lens_planes.density_planes_from_particles`, whose keys go through
-the windowed deposit K1 on the card).
-
-Not ported yet: `pm_evolve_checkpointed` and the `ckpt_dir` option of
-`pm_lightcone_planes` (both need core/checkpoint).
+the windowed deposit K1 on the card). `pm_evolve_checkpointed` and the
+lightcone's `ckpt_dir` save their state through `core.checkpoint`, in the
+JAX package's npz layout, and resume from it.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Callable
 
@@ -49,8 +49,9 @@ from .power import _mode_numbers
 from .power import delta_k as _delta_k
 from .recon import sample_displacement
 
-__all__ = ["lpt_displacements_from_modes", "lpt_catalog_from_modes",
-           "lpt_catalog", "lpt_growth", "pm_step_factors", "pm_evolve",
+__all__ = ["lpt_displacements", "lpt_displacements_from_modes",
+           "lpt_catalog_from_modes", "lpt_catalog", "lpt_growth",
+           "pm_step_factors", "pm_evolve", "pm_evolve_checkpointed",
            "pm_catalog", "velocities_kms", "pm_lightcone_planes",
            "pm_lightcone_planes_from_modes"]
 
@@ -132,6 +133,17 @@ def lpt_displacements_from_modes(delta_k_full, ngrid: int, boxsize):
     s2 = _second_order_source(delta_k_full, ngrid, boxsize)
     psi2 = _grad_invlap(torch.fft.fftn(s2), ngrid, boxsize, sign=+1.0)
     return psi1, psi2
+
+
+def lpt_displacements(generator: torch.Generator, ngrid: int, boxsize,
+                      pk_fn: Callable):
+    """(psi1, psi2) for a Gaussian realization of pk_fn (z=0
+    normalization) drawn from `generator`, on its device: the modes of
+    `mocks.linear_modes` (the same draw as `lpt_catalog`,
+    `mocks.zeldovich_catalog` and `mocks.gaussian_field` from a generator
+    in the same state)."""
+    dk = linear_modes(generator, ngrid, boxsize, pk_fn)
+    return lpt_displacements_from_modes(dk, ngrid, boxsize)
 
 
 def _lattice_comps(ngrid: int, boxsize, device=None):
@@ -341,18 +353,94 @@ def pm_evolve(comps, mom, cosmo, ngrid: int, boxsize, a_init: float,
     (per-step comoving scalaron mass^2 a^2 M^2(a) from the host, spectral
     Geff(k) in the Poisson solve); fR0 = 0 is exact GR.
     """
+    comps, mom = _flat_copies(comps, mom, device)
+    return _evolve_on_edges(comps, mom, cosmo, ngrid, boxsize,
+                            _a_edges(a_init, a_final, nsteps, spacing),
+                            window, spacing)
+
+
+def _flat_copies(comps, mom, device):
+    """Flat copies of the particle buffers that the KDK loop may update in
+    place (numpy components go to `device`; the momenta follow the
+    positions)."""
     comps = tuple(c.reshape(-1).clone() for c in as_points(tuple(comps),
                                                            device))
     dev = comps[0].device
-    mom = tuple(as_tensor(p, dev).reshape(-1).clone() for p in mom)
-    edges = _a_edges(a_init, a_final, nsteps, spacing)
-    factors = _factors_from_edges(cosmo, edges, spacing=spacing)
+    return comps, tuple(as_tensor(p, dev).reshape(-1).clone() for p in mom)
+
+
+def _am2_edges(cosmo, edges):
+    """a^2 M^2(a) of the scalaron at each edge (host float64); inf in GR."""
     if float(getattr(cosmo, "fR0", 0.0)) != 0.0:
-        am2 = edges ** 2 * np.asarray(cosmo.scalaron_mass2(edges), np.float64)
-    else:
-        am2 = np.full(nsteps + 1, np.inf)
-    return _pm_loop(comps, mom, factors.tolist(), am2.tolist(), ngrid,
-                    float(boxsize), float(cosmo.Om0), window)
+        return edges ** 2 * np.asarray(cosmo.scalaron_mass2(edges),
+                                       np.float64)
+    return np.full(len(edges), np.inf)
+
+
+def _evolve_on_edges(comps, mom, cosmo, ngrid: int, boxsize, edges,
+                     window: str, spacing: str):
+    """pm_evolve's body for an explicit edge grid, shared with
+    pm_evolve_checkpointed: updates the flat buffers comps/mom in place
+    and returns them."""
+    factors = _factors_from_edges(cosmo, edges, spacing=spacing)
+    return _pm_loop(comps, mom, factors.tolist(),
+                    _am2_edges(cosmo, edges).tolist(), ngrid, float(boxsize),
+                    float(cosmo.Om0), window)
+
+
+def pm_evolve_checkpointed(comps, mom, cosmo, ngrid: int, boxsize,
+                           a_init: float, a_final: float, nsteps: int,
+                           ckpt_dir, segment_steps: int = 8,
+                           window: str = "cic", spacing: str = "loga",
+                           device=None):
+    """Resume-safe pm_evolve: evolve in segments of segment_steps KDK
+    steps, atomically checkpointing (comps, mom) after each segment
+    (core.checkpoint.save_state: the completed-step count travels inside
+    the payload, so a crash mid-save keeps the previous complete state).
+    Rerunning with the same arguments and ckpt_dir resumes from the last
+    completed segment instead of restarting; a checkpoint of another
+    schedule raises ("different schedule").
+
+    Segment edge grids are exact contiguous slices of pm_evolve's edge
+    grid and the KDK factors are row-local, so the segmented run follows
+    the SAME schedule as pm_evolve. Each segment evaluates the force at
+    its start again, where pm_evolve reuses the last step's: on the CPU
+    the two agree bit for bit, on the card to the rounding of K2's float
+    atomics. The schedule record and the npz layout are the JAX
+    package's, so either package resumes the other's checkpoint. The
+    inputs are copied, not changed; numpy components go to `device`.
+    """
+    from ..core.checkpoint import (bind_schedule, checkpoint_exists,
+                                   restore_state, save_state)
+    if segment_steps < 1:
+        raise ValueError("segment_steps must be >= 1")
+    edges = _a_edges(a_init, a_final, nsteps, spacing)
+    comps, mom = _flat_copies(comps, mom, device)
+    bind_schedule(ckpt_dir, {
+        "kind": "pm_evolve", "a_init": float(a_init),
+        "a_final": float(a_final), "nsteps": int(nsteps),
+        "spacing": spacing, "ngrid": int(ngrid),
+        "boxsize": float(boxsize), "window": window,
+        "npart": int(comps[0].numel())})
+    done = 0
+    if checkpoint_exists(ckpt_dir):
+        (comps, mom), step = restore_state(ckpt_dir, (comps, mom),
+                                           with_step=True)
+        done = 0 if step is None else int(step)
+        if done > nsteps:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} records {done} completed "
+                f"steps but this schedule has only {nsteps} — the "
+                "checkpoint belongs to a different run; point ckpt_dir "
+                "somewhere fresh")
+    while done < nsteps:
+        k = min(segment_steps, nsteps - done)
+        comps, mom = _evolve_on_edges(comps, mom, cosmo, ngrid, boxsize,
+                                      edges[done:done + k + 1], window,
+                                      spacing)
+        done += k
+        save_state(ckpt_dir, (comps, mom), step=done)
+    return comps, mom
 
 
 def pm_catalog(generator: torch.Generator, cosmo, pk_fn: Callable,
@@ -374,13 +462,11 @@ def pm_catalog(generator: torch.Generator, cosmo, pk_fn: Callable,
 
 
 def _lightcone_geometry(cosmo, boxsize, nplanes: int, z_source: float,
-                        z_init: float, ckpt_dir):
+                        z_init: float, order: int):
     """(dchi, plane distances, plane redshifts, box repetitions along the
     line of sight) of `pm_lightcone_planes`, after its argument checks."""
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            "pm_lightcone_planes(ckpt_dir=...): checkpointing needs "
-            "core/checkpoint, which is not ported yet")
+    if order not in (1, 2):
+        raise ValueError("order must be 1 (Zel'dovich) or 2 (2LPT)")
     chi_s = float(cosmo.comoving_distance(z_source))
     dchi = chi_s / nplanes
     if dchi > boxsize:
@@ -396,6 +482,95 @@ def _lightcone_geometry(cosmo, boxsize, nplanes: int, z_source: float,
             f"z_init={z_init} must exceed the farthest plane redshift "
             f"{z_planes.max():.3f} (raise z_init or lower z_source)")
     return dchi, chis, z_planes, int(chis[-1] // boxsize) + 1
+
+
+def _generator_fingerprint(generator: torch.Generator) -> str:
+    """JSON-able identity of a generator's state (the JAX package's
+    `_key_fingerprint` of a PRNG key): a hash of `get_state()`."""
+    state = generator.get_state().numpy().tobytes()
+    return hashlib.sha256(state).hexdigest()
+
+
+def _lightcone(modes_fn: Callable, dev, source: dict, cosmo,
+               ngrid_part: int, boxsize, fov, npix: int, nplanes: int,
+               z_source: float, z_init: float, nsteps_init: int,
+               steps_per_plane: int, ngrid_force, order: int, window: str,
+               los: int, observer_xy, shifts, ckpt_dir, ckpt_every: int):
+    """The lightcone's plane loop on device `dev`. modes_fn() gives the
+    linear modes; it is not called when a checkpoint is resumed. source:
+    the schedule's record of where the modes and shifts come from."""
+    dchi, chis, z_planes, n_groups = _lightcone_geometry(
+        cosmo, boxsize, nplanes, z_source, z_init, order)
+    if ngrid_force is None:
+        ngrid_force = ngrid_part
+    if observer_xy is None:
+        observer_xy = (0.5 * boxsize, 0.5 * boxsize)
+    if shifts is None:
+        shifts = np.zeros((n_groups, 2))
+    shifts = np.asarray(shifts, np.float64)
+    if shifts.shape != (n_groups, 2):
+        raise ValueError(f"shifts must have shape ({n_groups}, 2), one row "
+                         f"per box repetition, got {shifts.shape}")
+    # far -> near: scale factors ascending; planes_buf[j] holds plane j of
+    # that ordering (reversed to near -> far at return)
+    a_targets = 1.0 / (1.0 + z_planes[::-1])
+    planes_buf = torch.zeros((nplanes, npix, npix), dtype=torch.float32,
+                             device=dev)
+    j_start = 0
+    resume = False
+    if ckpt_dir is not None:
+        from ..core.checkpoint import (bind_schedule, checkpoint_exists,
+                                       restore_state, save_state)
+        bind_schedule(ckpt_dir, {
+            "kind": "pm_lightcone", **source,
+            "ngrid_part": int(ngrid_part), "boxsize": float(boxsize),
+            "fov": float(fov), "npix": int(npix),
+            "nplanes": int(nplanes), "z_source": float(z_source),
+            "z_init": float(z_init), "nsteps_init": int(nsteps_init),
+            "steps_per_plane": int(steps_per_plane),
+            "ngrid_force": int(ngrid_force), "order": int(order),
+            "window": window, "los": int(los),
+            "observer_xy": [float(observer_xy[0]),
+                            float(observer_xy[1])]})
+        resume = checkpoint_exists(ckpt_dir)
+    if resume:
+        # the checkpoint carries the full evolved state: no 2LPT ICs (the
+        # restore template gives only shapes, dtypes and the device)
+        zc = tuple(torch.empty(int(ngrid_part) ** 3, dtype=torch.float32,
+                               device=dev) for _ in range(3))
+        (comps, mom, planes_buf), step = restore_state(
+            ckpt_dir, (zc, zc, planes_buf), with_step=True)
+        j_start = 0 if step is None else int(step)
+        if j_start > nplanes:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} records {j_start} planes "
+                f"but this lightcone has {nplanes} — stale "
+                "checkpoint; point ckpt_dir somewhere fresh")
+    else:
+        comps, mom = lpt_catalog_from_modes(modes_fn(), ngrid_part, boxsize,
+                                            cosmo, z_init, order=order)
+    a_now = (1.0 / (1.0 + z_init) if j_start == 0
+             else float(a_targets[j_start - 1]))
+    for j in range(j_start, nplanes):
+        a_t, chi_c = float(a_targets[j]), float(chis[::-1][j])
+        nst = nsteps_init if j == 0 else steps_per_plane
+        comps, mom = pm_evolve(comps, mom, cosmo, ngrid_force, boxsize,
+                               a_now, a_t, nst, window=window)
+        a_now = a_t
+        g = int(chi_c // boxsize)
+        oxy = ((observer_xy[0] + shifts[g, 0]) % boxsize,
+               (observer_xy[1] + shifts[g, 1]) % boxsize)
+        with _span("lightcone.plane"):
+            d, _ = density_planes_from_particles(
+                comps, boxsize, chi_c, dchi, 1, fov, npix, los=los,
+                observer_xy=oxy)
+            planes_buf[j] = d[0]
+        if ckpt_dir is not None and (
+                (j + 1 - j_start) % ckpt_every == 0 or j + 1 == nplanes):
+            save_state(ckpt_dir, (comps, mom, planes_buf), step=j + 1)
+    delta = planes_buf.flip(0)  # reorder near -> far
+    return delta, torch.as_tensor(chis, dtype=torch.float32,
+                                  device=delta.device), dchi
 
 
 def pm_lightcone_planes_from_modes(delta_k_full, cosmo, ngrid_part: int,
@@ -419,45 +594,21 @@ def pm_lightcone_planes_from_modes(delta_k_full, cosmo, ngrid_part: int,
       one row per box repetition along the line of sight
       (n_groups = floor(chi_far / boxsize) + 1); None keeps the observer
       fixed.
+    ckpt_dir, ckpt_every: as in `pm_lightcone_planes`; the schedule records
+      a hash of the modes and the shifts.
     """
-    dchi, chis, z_planes, n_groups = _lightcone_geometry(
-        cosmo, boxsize, nplanes, z_source, z_init, ckpt_dir)
-    if ngrid_force is None:
-        ngrid_force = ngrid_part
-    if observer_xy is None:
-        observer_xy = (0.5 * boxsize, 0.5 * boxsize)
-    if shifts is None:
-        shifts = np.zeros((n_groups, 2))
-    shifts = np.asarray(shifts, np.float64)
-    if shifts.shape != (n_groups, 2):
-        raise ValueError(f"shifts must have shape ({n_groups}, 2), one row "
-                         f"per box repetition, got {shifts.shape}")
     delta_k_full = as_tensor(delta_k_full, device)
-    comps, mom = lpt_catalog_from_modes(delta_k_full, ngrid_part, boxsize,
-                                        cosmo, z_init, order=order)
-    # far -> near: scale factors ascending; planes_buf[j] holds plane j of
-    # that ordering (reversed to near -> far at return)
-    a_targets = 1.0 / (1.0 + z_planes[::-1])
-    planes_buf = torch.zeros((nplanes, npix, npix), dtype=torch.float32,
-                             device=delta_k_full.device)
-    a_now = 1.0 / (1.0 + z_init)
-    for j in range(nplanes):
-        a_t, chi_c = float(a_targets[j]), float(chis[::-1][j])
-        nst = nsteps_init if j == 0 else steps_per_plane
-        comps, mom = pm_evolve(comps, mom, cosmo, ngrid_force, boxsize,
-                               a_now, a_t, nst, window=window)
-        a_now = a_t
-        g = int(chi_c // boxsize)
-        oxy = ((observer_xy[0] + shifts[g, 0]) % boxsize,
-               (observer_xy[1] + shifts[g, 1]) % boxsize)
-        with _span("lightcone.plane"):
-            d, _ = density_planes_from_particles(
-                comps, boxsize, chi_c, dchi, 1, fov, npix, los=los,
-                observer_xy=oxy)
-            planes_buf[j] = d[0]
-    delta = planes_buf.flip(0)  # reorder near -> far
-    return delta, torch.as_tensor(chis, dtype=torch.float32,
-                                  device=delta.device), dchi
+    source = {}
+    if ckpt_dir is not None:
+        modes = delta_k_full.detach().cpu().contiguous().numpy()
+        source = {"modes": hashlib.sha256(modes.tobytes()).hexdigest(),
+                  "shifts": None if shifts is None
+                  else np.asarray(shifts, np.float64).tolist()}
+    return _lightcone(lambda: delta_k_full, delta_k_full.device, source,
+                      cosmo, ngrid_part, boxsize, fov, npix, nplanes,
+                      z_source, z_init, nsteps_init, steps_per_plane,
+                      ngrid_force, order, window, los, observer_xy, shifts,
+                      ckpt_dir, ckpt_every)
 
 
 def pm_lightcone_planes(generator: torch.Generator, cosmo, pk_fn: Callable,
@@ -492,25 +643,35 @@ def pm_lightcone_planes(generator: torch.Generator, cosmo, pk_fn: Callable,
     (planes within one box depth keep their relative geometry), the
     standard single-box decorrelation (e.g. Petri+16).
 
-    ckpt_dir: not ported yet (raises NotImplementedError).
+    ckpt_dir: optional checkpoint directory. The per-plane loop saves
+    (comps, mom, planes-so-far) every ckpt_every completed planes
+    (atomic, step inside the payload: core.checkpoint.save_state);
+    rerunning the SAME call (generators in the same states) resumes at
+    the first unfinished plane, and a call of another schedule raises
+    ("different schedule"). A resumed call restores the evolved
+    particles instead of drawing the ICs: it leaves `generator` in the
+    state it had at entry, where a fresh call advances it by the modes'
+    draw; `randomize_generator` draws its shifts either way.
 
     Returns (delta (nplanes, npix, npix), chis (nplanes,), dchi):
     planes ordered near -> far, chi_i = (i + 0.5) * dchi,
     dchi = chi(z_source) / nplanes.
     """
-    if order not in (1, 2):
-        raise ValueError("order must be 1 (Zel'dovich) or 2 (2LPT)")
     n_groups = _lightcone_geometry(cosmo, boxsize, nplanes, z_source,
-                                   z_init, ckpt_dir)[3]
+                                   z_init, order)[3]
+    source = {}
+    if ckpt_dir is not None:
+        source = {"key": _generator_fingerprint(generator),
+                  "randomize": (None if randomize_generator is None
+                                else _generator_fingerprint(
+                                    randomize_generator))}
     shifts = None
     if randomize_generator is not None:
         shifts = (torch.rand((n_groups, 2), generator=randomize_generator,
                              device=randomize_generator.device)
                   * boxsize).cpu().numpy()
-    dk = linear_modes(generator, ngrid_part, boxsize, pk_fn)
-    return pm_lightcone_planes_from_modes(
-        dk, cosmo, ngrid_part, boxsize, fov, npix, nplanes,
-        z_source=z_source, z_init=z_init, nsteps_init=nsteps_init,
-        steps_per_plane=steps_per_plane, ngrid_force=ngrid_force,
-        order=order, window=window, los=los, observer_xy=observer_xy,
-        shifts=shifts, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+    return _lightcone(
+        lambda: linear_modes(generator, ngrid_part, boxsize, pk_fn),
+        generator.device, source, cosmo, ngrid_part, boxsize, fov, npix,
+        nplanes, z_source, z_init, nsteps_init, steps_per_plane, ngrid_force,
+        order, window, los, observer_xy, shifts, ckpt_dir, ckpt_every)

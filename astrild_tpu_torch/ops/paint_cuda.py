@@ -9,7 +9,9 @@ Port of astrild_tpu/ops/paint_pallas.py:
   window's entries accumulates in shared memory;
 - K2, the windowed CIC/TSC painter (`paint_windowed`), in
   csrc/paint_windowed.cu: particles binned by output tile with a counting
-  sort, one block per tile;
+  sort, one block per tile; with its adjoint (`paint_windowed_adjoint`,
+  one thread a particle gathering the gradient grid), which makes the
+  painter differentiable on the card in positions and weights;
 - K4, the chunk-sorted deposit (`deposit_flat_segmented`), in
   csrc/deposit_segmented.cu: one block per chunk of input keys, sorted in
   shared memory.
@@ -21,9 +23,12 @@ kernel fixes its own tiling.
 
 On a CPU tensor the wrappers run the plain PyTorch versions
 (`deposit_sorted_reference`, `paint_windowed_reference`,
-`deposit_flat_segmented_reference`); on a CUDA tensor they launch the
-kernel or raise. `LAUNCHES` counts kernel launches per wrapper, so a run
-can show that its main path went through the kernel.
+`deposit_flat_segmented_reference`, `paint_windowed_adjoint_reference`);
+on a CUDA tensor they launch the kernel or raise. `LAUNCHES` counts kernel
+launches per wrapper, so a run can show that its main path went through
+the kernel. K1 and K4 have no gradient, as their TPU twins have none: on
+a CUDA tensor they raise when grad mode is on and their weights require
+grad, rather than return a detached sum.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ from .. import _ext
 
 __all__ = ["deposit_sorted", "deposit_flat", "deposit_sorted_reference",
            "deposit_flat_segmented", "deposit_flat_segmented_reference",
-           "paint_windowed", "paint_windowed_reference", "LAUNCHES"]
+           "paint_windowed", "paint_windowed_reference",
+           "paint_windowed_adjoint", "paint_windowed_adjoint_reference",
+           "LAUNCHES"]
 
 LAUNCHES: Counter = Counter()
 
@@ -46,6 +53,19 @@ _MAX_CELLS = 1 << 31
 # (its per-window counters are 32-bit)
 _CHUNK = 1 << 15
 _MAX_KEYS = (1 << 32) - 1
+
+
+def _refuse_grad(what: str, *tensors) -> None:
+    """Raise where a kernel without a gradient would detach its output:
+    grad mode is on and one of `tensors` (None allowed) requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no gradient, and an input "
+            "requires grad; its output would be silently detached. Run it "
+            "under torch.no_grad(), detach the inputs, or take the "
+            "differentiable route (a CPU tensor's plain version, or "
+            "paint's CIC/TSC, whose kernel K2 has an adjoint)")
 
 
 def deposit_sorted_reference(keys_sorted: torch.Tensor,
@@ -95,6 +115,7 @@ def _launch_k1(entry: str, keys: torch.Tensor, vals: torch.Tensor | None,
     if keys.device.type != "cuda":
         raise ValueError(f"deposit_{entry}: no kernel for device "
                          f"{keys.device}")
+    _refuse_grad(f"deposit_{entry}", vals)
     _check_inputs(keys, vals, n_cells)
     lib = _ext.load("deposit_sorted")
     n = keys.shape[0]
@@ -227,6 +248,7 @@ def deposit_flat_segmented(flat_idx: torch.Tensor,
     if flat_idx.device.type != "cuda":
         raise ValueError(f"deposit_flat_segmented: no kernel for device "
                          f"{flat_idx.device}")
+    _refuse_grad("deposit_flat_segmented", weights)
     _check_segmented(flat_idx, weights, n_cells, n_seg)
     keys = flat_idx.reshape(-1).to(torch.int32).contiguous()
     vals = (None if weights is None
@@ -260,8 +282,9 @@ def _offsets(order: int):
 
 def _windowed_keys(pos_flat: torch.Tensor, ngrid: int, boxsize,
                    order: int):
-    """Padded base keys (n,) int32 and fractions (3, n) float32 of
-    `paint_windowed` (paint_pallas.py:672-714).
+    """Padded base keys (n,) int32 and fractions (3, n) of
+    `paint_windowed` (paint_pallas.py:672-714), in the positions' float
+    type (float32 as the kernel; float64 for a gradient check).
 
     Positions are wrapped first, so every base cell is in range and the
     fold of the padded grid supplies the periodic wrap of the offsets. CIC
@@ -274,20 +297,20 @@ def _windowed_keys(pos_flat: torch.Tensor, ngrid: int, boxsize,
     """
     n = pos_flat.shape[0] // 3
     npd = ngrid + 2
-    h = torch.tensor(boxsize / ngrid, dtype=torch.float32,
-                     device=pos_flat.device)
+    dtype = pos_flat.dtype
+    h = torch.tensor(boxsize / ngrid, dtype=dtype, device=pos_flat.device)
     ip, frac = [], []
     for c in pos_flat.reshape(3, n):
         c = torch.remainder(c, boxsize)
         if order == 2:
             u = c / h - 0.5
             i0 = torch.floor(u)
-            frac.append((u - i0).to(torch.float32))
+            frac.append(u - i0)
             ip.append(i0.to(torch.int32) + 1)
         else:
             u = c / h
             ic = torch.clamp(torch.floor(u).to(torch.int32), 0, ngrid - 1)
-            frac.append((u - ic.to(torch.float32) - 0.5).to(torch.float32))
+            frac.append(u - ic.to(dtype) - 0.5)
             ip.append(ic + 1)
     key = (ip[0] * npd + ip[1]) * npd + ip[2]
     return key, torch.stack(frac)
@@ -327,17 +350,21 @@ def paint_windowed_reference(pos_flat: torch.Tensor,
                              weights: torch.Tensor | None, ngrid: int,
                              boxsize, order: int = 3) -> torch.Tensor:
     """Plain version of `paint_windowed`: the same keys, clip and fold,
-    with one `index_add_` per offset on the padded grid (order-free)."""
+    with one `index_add_` per offset on the padded grid (order-free).
+    Differentiable in positions and weights by autograd. It computes in
+    float32 as the kernel does, or in float64 for float64 positions (a
+    gradient check)."""
     _check_windowed(pos_flat, weights, ngrid, order)
     npd = ngrid + 2
-    key, frac = _windowed_keys(pos_flat.to(torch.float32), ngrid, boxsize,
-                               order)
-    grid = torch.zeros(npd ** 3, dtype=torch.float32, device=pos_flat.device)
+    dtype = (torch.float64 if pos_flat.dtype == torch.float64
+             else torch.float32)
+    key, frac = _windowed_keys(pos_flat.to(dtype), ngrid, boxsize, order)
+    grid = torch.zeros(npd ** 3, dtype=dtype, device=pos_flat.device)
     for dx, dy, dz in _offsets(order):
         w = (_axis_weight(frac[0], dx, order) * _axis_weight(frac[1], dy, order)
              * _axis_weight(frac[2], dz, order))
         if weights is not None:
-            w = w * weights.to(torch.float32)
+            w = w * weights.to(dtype)
         grid.index_add_(0, (key + (dx * npd + dy) * npd + dz).long(), w)
     return _fold_pad(grid.view(npd, npd, npd), ngrid)
 
@@ -400,28 +427,9 @@ def windowed_bins(pos_flat: torch.Tensor, ngrid: int, boxsize,
     return tiles, counts, keys, frac
 
 
-def paint_windowed(pos_flat: torch.Tensor, weights: torch.Tensor | None,
-                   ngrid: int, boxsize, order: int = 3) -> torch.Tensor:
-    """CIC (order 2) or TSC (order 3) deposit of flat positions, periodic.
-
-    pos_flat: (3n,) float32, x, y and z concatenated; weights: (n,) or
-    None. Returns (ngrid, ngrid, ngrid) float32: the deposit of
-    `paint_cic` / `paint_tsc` up to the order of the float sums.
-
-    On a CUDA tensor K2 bins the particles by 16 x 16 x 32-cell output
-    tile (a counting sort of int32 ids, the keys computed in one pass) and
-    paints each tile in shared memory, straight into the periodic grid.
-    """
-    if pos_flat.device.type == "cpu":
-        return paint_windowed_reference(pos_flat, weights, ngrid, boxsize,
-                                        order)
-    if pos_flat.device.type != "cuda":
-        raise ValueError(f"paint_windowed: no kernel for device "
-                         f"{pos_flat.device}")
-    _check_windowed(pos_flat, weights, ngrid, order)
-    pos = pos_flat.to(torch.float32).contiguous()
-    w = (None if weights is None
-         else weights.to(torch.float32).contiguous())
+def _launch_k2(pos: torch.Tensor, w: torch.Tensor | None, ngrid: int,
+               boxsize, order: int) -> torch.Tensor:
+    """One K2 deposit on the card (four kernels on the current stream)."""
     n, n_tiles, box, h = _windowed_args(pos, ngrid, boxsize)
     dev = pos.device
     tile_of = torch.empty(n, dtype=torch.int32, device=dev)
@@ -438,3 +446,124 @@ def paint_windowed(pos_flat: torch.Tensor, weights: torch.Tensor | None,
     _ext.check(lib, rc, "paint_windowed")
     LAUNCHES["paint_windowed"] += 1
     return out
+
+
+class _PaintWindowed(torch.autograd.Function):
+    """K2 as an autograd node: the deposit forward, its hand-written
+    adjoint backward (positions (3n,) and weights (n,) float32,
+    contiguous, on the card)."""
+
+    @staticmethod
+    def forward(ctx, pos, w, ngrid, boxsize, order):
+        ctx.geometry = (ngrid, boxsize, order)
+        ctx.save_for_backward(pos, w)
+        return _launch_k2(pos, w, ngrid, boxsize, order)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_grid):
+        pos, w = ctx.saved_tensors
+        grad_pos, grad_w = _launch_adjoint(
+            pos, w, grad_grid, *ctx.geometry, ctx.needs_input_grad[0],
+            ctx.needs_input_grad[1])
+        return grad_pos, grad_w, None, None, None
+
+
+def paint_windowed(pos_flat: torch.Tensor, weights: torch.Tensor | None,
+                   ngrid: int, boxsize, order: int = 3) -> torch.Tensor:
+    """CIC (order 2) or TSC (order 3) deposit of flat positions, periodic.
+
+    pos_flat: (3n,) float32, x, y and z concatenated; weights: (n,) or
+    None. Returns (ngrid, ngrid, ngrid) float32: the deposit of
+    `paint_cic` / `paint_tsc` up to the order of the float sums.
+
+    On a CUDA tensor K2 bins the particles by 16 x 16 x 32-cell output
+    tile (a counting sort of int32 ids, the keys computed in one pass) and
+    paints each tile in shared memory, straight into the periodic grid.
+    The result is differentiable in the positions and weights on both
+    routes: the plain version through autograd, the kernel through its
+    adjoint (`paint_windowed_adjoint`), launched in the backward pass.
+    """
+    if pos_flat.device.type == "cpu":
+        return paint_windowed_reference(pos_flat, weights, ngrid, boxsize,
+                                        order)
+    if pos_flat.device.type != "cuda":
+        raise ValueError(f"paint_windowed: no kernel for device "
+                         f"{pos_flat.device}")
+    _check_windowed(pos_flat, weights, ngrid, order)
+    pos = pos_flat.to(torch.float32).contiguous()
+    w = (None if weights is None
+         else weights.to(torch.float32).contiguous())
+    return _PaintWindowed.apply(pos, w, ngrid, boxsize, order)
+
+
+def paint_windowed_adjoint_reference(pos_flat: torch.Tensor,
+                                     weights: torch.Tensor | None,
+                                     grad_grid: torch.Tensor, ngrid: int,
+                                     boxsize, order: int = 3):
+    """Plain version of `paint_windowed_adjoint`: autograd through
+    `paint_windowed_reference` (whose `index_add_` differentiates)."""
+    with torch.enable_grad():
+        p = pos_flat.detach().to(torch.float32).requires_grad_(True)
+        w = (None if weights is None else
+             weights.detach().to(torch.float32).requires_grad_(True))
+        out = paint_windowed_reference(p, w, ngrid, boxsize, order)
+        grads = torch.autograd.grad(out, (p,) if w is None else (p, w),
+                                    grad_grid)
+    return grads[0], (None if w is None else grads[1])
+
+
+def _launch_adjoint(pos, w, grad_grid, ngrid: int, boxsize, order: int,
+                    need_pos: bool = True, need_weights: bool = True):
+    """One adjoint launch on the card: (gradient of the positions (3n,) or
+    None, of the weights (n,) or None)."""
+    n = pos.shape[0] // 3
+    dev = pos.device
+    g = grad_grid.to(torch.float32).contiguous()
+    if g.shape != (ngrid, ngrid, ngrid) or g.device != dev:
+        raise ValueError(f"paint_windowed_adjoint: grad_grid must be "
+                         f"({ngrid},) * 3 on {dev}, got {tuple(g.shape)} on "
+                         f"{g.device}")
+    grad_pos = (torch.empty(3 * n, dtype=torch.float32, device=dev)
+                if need_pos else None)
+    grad_w = (torch.empty(n, dtype=torch.float32, device=dev)
+              if need_weights and w is not None else None)
+    _, _, box, h = _windowed_args(pos, ngrid, boxsize)
+    lib = _ext.load("paint_windowed")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.astrild_paint_windowed_adjoint(
+            pos.data_ptr(), None if w is None else w.data_ptr(), n, ngrid,
+            box, h, order, g.data_ptr(),
+            None if grad_pos is None else grad_pos.data_ptr(),
+            None if grad_w is None else grad_w.data_ptr(), stream)
+    _ext.check(lib, rc, "paint_windowed_adjoint")
+    LAUNCHES["paint_windowed_adjoint"] += 1
+    return grad_pos, grad_w
+
+
+def paint_windowed_adjoint(pos_flat: torch.Tensor,
+                           weights: torch.Tensor | None,
+                           grad_grid: torch.Tensor, ngrid: int, boxsize,
+                           order: int = 3):
+    """The gradient of `paint_windowed`: given grad_grid, the gradient of
+    a loss with respect to the painted (ngrid, ngrid, ngrid) grid, returns
+    (the gradient with respect to pos_flat (3n,), with respect to weights
+    (n,), None for unit weights).
+
+    On a CUDA tensor one thread a particle recomputes K2's base cell and
+    fractions (the same wrap, division by h and TSC clip) and gathers the
+    8 or 27 cells of grad_grid around it; on a CPU tensor it is the plain
+    version, autograd through `paint_windowed_reference`.
+    """
+    if pos_flat.device.type == "cpu":
+        return paint_windowed_adjoint_reference(pos_flat, weights, grad_grid,
+                                                ngrid, boxsize, order)
+    if pos_flat.device.type != "cuda":
+        raise ValueError(f"paint_windowed_adjoint: no kernel for device "
+                         f"{pos_flat.device}")
+    _check_windowed(pos_flat, weights, ngrid, order)
+    pos = pos_flat.detach().to(torch.float32).contiguous()
+    w = (None if weights is None
+         else weights.detach().to(torch.float32).contiguous())
+    return _launch_adjoint(pos, w, grad_grid, ngrid, boxsize, order)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import _ext
+from .paint_cuda import _refuse_grad
 
 __all__ = ["pairwise_accumulate", "pairwise_accumulate_reference",
            "s_max", "spatial_order", "boxes", "tile_pairs", "chunk_pairs",
@@ -335,6 +336,8 @@ def pairwise_accumulate(pos, vel, n_valid: int, binwidth: float,
     if pos.device.type != "cuda":
         raise ValueError(f"pairwise_accumulate: no kernel for device "
                          f"{pos.device}")
+    # like its TPU twin, the kernel has no gradient
+    _refuse_grad("pairwise_accumulate", pos, vel)
     n_valid = int(n_valid)
     binwidth = float(binwidth)
     lib = _ext.load("pairwise_accumulate")

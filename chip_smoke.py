@@ -8,7 +8,8 @@ exits non-zero before the final line:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels K1 (windowed deposit), K2 (tile-binned CIC/TSC
-     painter), K3 (pair tiles) and K4 (chunk-sorted deposit) from csrc/,
+     painter and its adjoint), K3 (pair tiles) and K4 (chunk-sorted
+     deposit) from csrc/,
      one nvcc each, all started together; print each kernel's registers,
      shared memory and spills;
   3. hold both entry points of K1 (`deposit_flat` on keys as they come,
@@ -274,11 +275,16 @@ exits non-zero before the final line:
  19. CMB lensing (after phase 18, on the same snapshot, freed after its
      shells): see phase_cmb_lensing's docstring; K1 launches once a
      flush of the shells, K2-K4 0 times.
+ 20. field-level inference through the PM simulator and the checkpointed
+     evolution and lightcone (after phase 19): see
+     phase_field_inference's docstring; K2 and its adjoint launch
+     nsteps + 2 times a gradient, K1 once a lightcone plane, K3-K4 0
+     times.
 
-The last lines are a JSON object describing each kernel (launches on its
-main path, error, times, and the least time the card could take for the
-same work), the card's name and power limit, and the `{"ok": true,
-"device": ...}` result line.
+The last lines are a JSON object describing each kernel (K1-K4 and K2's
+adjoint: launches on its main path, error, times, and the least time the
+card could take for the same work), the card's name and power limit, and
+the `{"ok": true, "device": ...}` result line.
 """
 from __future__ import annotations
 
@@ -306,6 +312,10 @@ K3_LARGE_N = 1 << 20  # tracers of the K3 run without a plain version
 K3_PLAIN_BLOCK = 2048  # tile rows of K3's plain version at the v12 size
 # K1/K2 sums: max|kernel - plain| <= WEIGHTED_TOL * max|plain|
 WEIGHTED_TOL = 2e-5
+# K2's adjoint against autograd of its plain version, each gradient
+# (positions, weights) relative to its max: the same float32 products
+# summed in another order, on the same stencil (the bin pass's decisions)
+K2_ADJ_TOL = 1e-5
 MASS_RTOL = 1e-5     # K2 total mass against N (or the summed weights)
 K3_RTOL, K3_MIN_PAIRS = 1e-4, 1000
 PK_RTOL = 1e-5       # P(k), kernel deposit vs scatter deposit
@@ -528,6 +538,46 @@ CL_CPU_TOL, CL_CPU_NSIDE, CL_CPU_LMAX, CL_STENCIL_SHARE = 2e-5, 64, 128, \
 # phi near 2pi (the card's contracted multiply-adds) moves it by
 # ulp(2pi) 4 nside / 2pi = 1.9e-5 at nside 64; held to 2.5 such ulps
 CL_STENCIL_WEIGHT_TOL = 5e-5
+# the field-inference and checkpointing phase: (a) examples/field_level_
+# inference.py at its own size (grid, box [Mpc/h], KDK steps, z_init,
+# noise variance), its two Adam stages (iterations, lr), its HMC (samples,
+# warm-up, leapfrogs) and mode-correlation bands (in fundamental modes);
+# the card / CPU comparison's Adam iterations and bar on the first loss
+# (relative, the same start; the rest within FI_GAP_FACTOR of the CPU's
+# own gap from a start moved by 1e-7); (b) full width: particles per side (= mesh), box, steps,
+# noise variance, Adam iterations and lr (at the 1.95 Mpc/h cell the chain
+# is deeply nonlinear: on the CPU at 64^3 in 125 Mpc/h, the same cell and
+# steps, 30 Adam iterations at lr 0.05 raise the loss 8x, at 0.01 lower it
+# 3.7x, at 0.003 5.4x: tools/field_sensitivity.py --part lr), the bars
+# on the K2 gradient against the
+# scatter route's, relative to the max and to the mean (three and 2.6
+# times the gaps measured on the H100: 6.7e-3 and 3.8e-4 in three runs,
+# where the scatter route from a start moved by 1e-7 of itself parts by
+# 6.1e-3 and 8.6e-5, and K2 from itself by 1.9e-3 and 2.2e-5), the bars
+# on it against the scatter route that divides by h as K2 does (measured
+# 3.6e-4 and 7.8e-6: K2's own gap from itself, with its 3.4e-3 max in
+# another run, so 1e-2 and 1e-4), and the steps of that comparison (the
+# scatter route's autograd does not fit the card at 10);
+# (c) the checkpointed
+# evolution's segment steps; the bar on the P(k) of the resumed run
+# against the plain one's (relative, every bin), and the factor over two
+# plain runs' own gap that the resumed run's gap may reach (positions
+# periodic, planes relative to their max), with the floor it may always
+# reach; (d) the checkpointed lightcone's depth cut (particles per side,
+# planes, pixels) and its planes between saves
+FI_EX = (32, 400.0, 4, 9.0, 1e-2)
+FI_ADAM, FI_HMC = ((400, 0.1), (400, 0.02)), (24, 24, 6)
+FI_BANDS = ((0.5, 4), (4, 8), (8, 12), (12, 16))
+FI_CPU_ITERS, FI_CPU_TOL = 12, 1e-5
+FI_FULL, FI_FULL_ADAM = (256, 500.0, 10, 1e-2), (50, 0.003)
+FI_GRAD_TOL, FI_GRAD_DIV_TOL = (2e-2, 1e-3), (1e-2, 1e-4)
+FI_CMP_STEPS = 4
+# (b)'s control: the scale error put into the adjoint's position gradient,
+# which the bars must catch (on the H100 it moves the gradient by 2.9e-2
+# of its max and of its mean)
+FI_CTL_SCALE = 1e-2
+FI_SEGMENT, FI_PK_TOL, FI_GAP_FACTOR, FI_GAP_FLOOR = 8, 1e-3, 4.0, 1e-5
+FI_LC, FI_LC_EVERY = (256, 8, 1024), 4
 KERNELS = ("deposit_sorted", "paint_windowed", "pairwise_accumulate",
            "deposit_segmented")
 SOURCES = {
@@ -537,6 +587,10 @@ SOURCES = {
                           "astrild_tpu/ops/paint_pallas.py:426"),
     "paint_windowed": ("astrild_tpu_torch/csrc/paint_windowed.cu",
                        "astrild_tpu/ops/paint_pallas.py:651"),
+    # K2's gradient: the TPU kernel had none (the JAX package
+    # differentiated only the XLA scatter)
+    "paint_windowed_adjoint": ("astrild_tpu_torch/csrc/paint_windowed.cu",
+                               "astrild_tpu/ops/paint_pallas.py:651"),
     "pairwise_accumulate": ("astrild_tpu_torch/csrc/pairwise_accumulate.cu",
                             "astrild_tpu/ops/pallas_pairwise.py:103"),
 }
@@ -997,6 +1051,30 @@ def compare_k2(pf, w, ngrid: int, box: float, order: int) -> float:
     return err
 
 
+def compare_k2_adjoint(pf, w, ngrid: int, box: float, order: int,
+                       gen) -> float:
+    """K2's adjoint vs its plain version (autograd through
+    paint_windowed_reference) on the same positions, weights and a normal
+    gradient grid; raises if a gradient is off by more than K2_ADJ_TOL of
+    its max, returns the larger of the two relative errors."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    g = torch.randn((ngrid,) * 3, generator=gen, device=pf.device)
+    got = paint_cuda.paint_windowed_adjoint(pf, w, g, ngrid, box, order)
+    want = paint_cuda.paint_windowed_adjoint_reference(pf, w, g, ngrid, box,
+                                                       order)
+    rel = 0.0
+    for what, a, b in zip(("positions", "weights"), got, want):
+        if b is None:
+            continue
+        rel = max(rel, float((a - b).abs().max() / b.abs().max()))
+        if rel > K2_ADJ_TOL:
+            raise AssertionError(f"K2's adjoint order {order}: the gradient "
+                                 f"of the {what} is off the plain one's by "
+                                 f"{rel} of its max > {K2_ADJ_TOL}")
+    return rel
+
+
 def phase_k2_check(dev, seed: int) -> None:
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
 
@@ -1052,6 +1130,13 @@ def phase_k2_check(dev, seed: int) -> None:
         torch.cuda.synchronize()
         log(f"# phase k2: {name}: max err " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items()))
+        adj = {f"{'cic' if order == 2 else 'tsc'}"
+               f"{'_w' if wt is not None else ''}":
+               compare_k2_adjoint(pf, wt, ngrid, BOX, order, gen)
+               for order in (2, 3) for wt in (None, w)}
+        torch.cuda.synchronize()
+        log(f"# phase k2: {name}: adjoint max err relative to the max "
+            + ", ".join(f"{k} {v:.3e}" for k, v in adj.items()))
     for order in (2, 3):
         bad = k2_key_mismatches(borders, ng_t, order)
         log(f"# phase k2: bin pass vs the plain keys on the tile borders, "
@@ -6768,6 +6853,660 @@ def phase_cmb_lensing(dev, seed: int, snapshot: list,
     return result
 
 
+class _Interrupted(Exception):
+    """The simulated crash of phase 20's checkpoint runs."""
+
+
+def _periodic_gap(a, b, box: float) -> tuple[float, float]:
+    """(max, mean) periodic distance between two position components."""
+    d = (a - b).abs()
+    d = torch.minimum(d, box - d)
+    return float(d.max()), float(d.double().mean())
+
+
+def _checkpoint_spy(ckpt, stats: dict):
+    """Replace ckpt.save_state / restore_state by timed versions (host
+    clock, synchronized; the npz's bytes after each save); a save raises
+    _Interrupted after writing while stats["arm"] is set (once). Returns
+    the originals, to be put back."""
+    real = (ckpt.save_state, ckpt.restore_state)
+
+    def save(path, state, step=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real[0](path, state, step=step)
+        stats["save_s"].append(time.perf_counter() - t0)
+        stats["bytes"].append((Path(path) / "state.npz").stat().st_size)
+        if stats["arm"]:
+            stats["arm"] = False
+            raise _Interrupted(f"after the save of step {step}")
+
+    def restore(path, template, with_step=False):
+        t0 = time.perf_counter()
+        out = real[1](path, template, with_step=with_step)
+        torch.cuda.synchronize()
+        stats["restore_s"].append(time.perf_counter() - t0)
+        return out
+
+    ckpt.save_state, ckpt.restore_state = save, restore
+    return real
+
+
+def _pair(v) -> str:
+    return f"{v[0]:.1e} / {v[1]:.1e}"
+
+
+def _adjoint_timing(pf, ngrid: int, box: float, gen) -> dict:
+    """K2's adjoint of pf (CIC, unit weights) onto ngrid^3 against its plain
+    version (autograd through paint_windowed_reference), in turns, on a
+    normal gradient grid, raising if the two differ by more than
+    K2_ADJ_TOL of the max; the byte bound of the function (positions read,
+    position gradient written: 24 B a particle, the grid read once: 4 B a
+    cell), and the bound with the kernel's 8 cell reads a particle."""
+    from astrild_tpu_torch.ops import paint_cuda
+
+    g = torch.randn((ngrid,) * 3, generator=gen, device=pf.device)
+    fns = {
+        "kernel": lambda: paint_cuda.paint_windowed_adjoint(pf, None, g,
+                                                            ngrid, box, 2),
+        "plain": lambda: paint_cuda.paint_windowed_adjoint_reference(
+            pf, None, g, ngrid, box, 2),
+    }
+    got, want = fns["kernel"]()[0], fns["plain"]()[0]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    del got, want
+    if err > K2_ADJ_TOL * scale:
+        raise AssertionError(f"K2's adjoint at {pf.shape[0] // 3} "
+                             f"particles onto {ngrid}^3 is off its plain "
+                             f"version by {err} > {K2_ADJ_TOL} * {scale}")
+    reps = {"kernel": 10, "plain": 3}
+    ms = {k: [] for k in fns}
+    for turn in (["plain", "kernel"], ["kernel", "plain"]):
+        for name in turn:
+            ms[name].append(_event_ms(fns[name], reps[name]))
+    n = pf.shape[0] // 3
+    bound = bound_ms(24 * n + 4 * ngrid ** 3, K2_ADJ_OPS[2] * n)
+    return {"n": n, "ngrid": ngrid, "order": 2, "weighted": False,
+            "max_abs_err": err, "rel_err": err / scale,
+            "mean": {k: sum(v) / len(v) for k, v in ms.items()}, "turns": ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_cell_reads_ms": bound_ms(24 * n + 4 * 8 * n, 0)[0]}
+
+
+def phase_field_inference(dev, seed: int) -> dict:
+    """Field-level inference through the PM simulator and the
+    checkpointed N-body, each stage on the host clock, synchronized, with
+    its K1-K4 and adjoint launches held to its own count and its peak
+    memory; the checks raise. (a) examples/field_level_inference.py at its
+    own size: 32^3 in 400 Mpc/h, 4 KDK steps from z = 9, mock data with
+    noise variance 1e-2, Adam 400 iterations at lr 0.1 from the prior mean
+    and 400 at 0.02 warm-started, HMC 24 + 24 samples of 6 leapfrogs from
+    the MAP: the recovered linear field's correlation with the truth's
+    (above the prior mean's 0), its four band correlations, the chain's
+    high-k / low-k width ratio (above 1: the data pin the low-k modes) and
+    accept rate (above 0); the same port on the CPU for 12 Adam iterations
+    at lr 0.02 from a prior draw (the prior mean puts the particles on the
+    CIC kinks, where the gradient's side is a rounding decision) against
+    the card's: the first loss (the same start) within FI_CPU_TOL, the
+    rest within FI_GAP_FACTOR of the CPU's own gap from a start moved by
+    1e-7 (Adam's first step is near sign(g), so coordinates whose gradient
+    is near 0 take either sign, and a trajectory through the kinks parts
+    by float32 rounding: at lr 0.1 a 1e-7 nudge grows to 3.2% in 20
+    iterations, at 0.02 to 1e-4, tools/field_sensitivity.py); (b) full
+    width: 256^3
+    particles on a 256^3 mesh in 500 Mpc/h, 10 steps: one value and
+    gradient of field_nll through K2 and its adjoint (nsteps + 2 K2 and
+    nsteps + 1 adjoint launches: the last force only kicks the momenta,
+    which the density does not read); the same at 4 steps against the
+    scatter route (whose autograd keeps its 8 offsets' keys and weights a
+    paint, and at 10 steps needs more than the card's 80 GB): the gap,
+    relative to the max and to the mean, within FI_GRAD_TOL (the kinks:
+    two routes' float32 positions differ by rounding, which the gradient
+    amplifies), printed beside the scatter route's own gap from a start
+    moved by 1e-7 and K2's against itself; K2's against the scatter route
+    with its positions divided by a card tensor h (as K2 divides) within
+    FI_GRAD_DIV_TOL; two broken gradients that fail both routes' bars (the
+    force paints detached, the fault this slice repairs, and the adjoint's
+    position gradient scaled by 1 + FI_CTL_SCALE); CUDA kernels and ms a
+    gradient; 50 Adam iterations, whose loss must fall; peak memory;
+    (c) pm_evolve_checkpointed on phase 7's GR ICs at the pm_catalog
+    defaults (512^3, 20 steps, segments of 8), stopped by a save that
+    raises after its first write and resumed: positions (periodic) within
+    FI_GAP_FACTOR times the gap of two plain pm_evolve runs (K2's float
+    atomics), P(k) within FI_PK_TOL; the save and restore seconds and the
+    checkpoint's bytes, under build/ and removed after; (d)
+    pm_lightcone_planes(ckpt_dir=, ckpt_every=4) at a depth cut (256^3
+    particles, 8 planes of 1024^2) stopped after its first save and
+    resumed, against
+    the same call without ckpt_dir by the same rule; the generator left in
+    its entry state; another schedule refused. Then K2's adjoint at (b)'s
+    shape against its plain version, outside the counts. Returns the
+    numbers printed in `# field_inference`."""
+    from astrild_tpu_torch.core import checkpoint as ckpt
+    from astrild_tpu_torch.ops import (field_infer, linear_power, mocks,
+                                       nbody, paint_cuda, pairwise_cuda,
+                                       power)
+    from astrild_tpu_torch.ops.paint import paint
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    seconds, launches, peaks, out = {}, {}, {}, {}
+    run = _stage_runner(seconds, launches)
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = run(name, fn)
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"#   field_inference stage {name}: {seconds[name]:.3f} s, "
+            f"launches {launches[name]}, peak {peaks[name]:.2f} GB")
+        return res
+
+    def check(ok, msg):
+        if not ok:
+            raise AssertionError(f"field_inference: {msg}")
+
+    def corr(a, b) -> float:
+        return float(np.corrcoef(a, b)[0, 1])
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+    predicted = {}
+
+    # a gradient paints nsteps + 1 force grids and the density, and runs
+    # the adjoint of all but the last force paint: that force's kick moves
+    # only the momenta, which the density does not read, so autograd
+    # skips its backward
+    def per_grad(nsteps: int, grads: int) -> dict:
+        return {"paint_windowed": grads * (nsteps + 2),
+                "paint_windowed_adjoint": grads * (nsteps + 1)}
+
+    # ---- (a) examples/field_level_inference.py at its own size
+    n, box, nsteps, z_init, noise = FI_EX
+    kw = dict(z_init=z_init, nsteps=nsteps, window="cic")
+    cosmo = Cosmology(Om0=0.3089, h=0.6774, sigma8=0.8159)
+    amp = linear_power.normalization(cosmo)
+
+    def pk(k):
+        return linear_power.linear_power(torch.clamp_min(k, 1e-4), cosmo,
+                                         0.0, amplitude=amp)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    truth = torch.randn((n,) * 3, generator=gen, device=dev)
+
+    def mock_data():
+        d = field_infer.simulate_density(truth, pk, cosmo, ngrid=n,
+                                         boxsize=box, **kw)
+        return d + math.sqrt(noise) * torch.randn(
+            d.shape, generator=gen, device=dev)
+
+    data = stage("example_data", mock_data)
+    predicted["example_data"] = {"paint_windowed": nsteps + 2}
+
+    def adam():
+        first = field_infer.infer_initial_field(
+            data, noise, pk, cosmo, boxsize=box, n_iter=FI_ADAM[0][0],
+            lr=FI_ADAM[0][1], **kw)
+        return first, field_infer.infer_initial_field(
+            data, noise, pk, cosmo, boxsize=box, n_iter=FI_ADAM[1][0],
+            lr=FI_ADAM[1][1], white0=first["white"], **kw)
+
+    first, res = stage("example_adam", adam)
+    predicted["example_adam"] = per_grad(nsteps, sum(i for i, _ in FI_ADAM))
+
+    def lin_field(w):
+        dk = mocks.modes_from_white(w, n, box, pk)
+        return torch.fft.ifftn(dk).real.double().cpu().numpy().ravel()
+
+    lin_truth = lin_field(truth)
+    r_first, r = corr(lin_field(first["white"]), lin_truth), corr(
+        lin_field(res["white"]), lin_truth)
+    # the prior mean's linear field is zero: it carries no correlation
+    check(r > 0.0, f"the recovered field's r = {r} does not improve on "
+          "the prior mean's 0")
+    losses = res["loss"].cpu().numpy()
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"the final Adam stage's loss {losses[0]} -> {losses[-1]}")
+    dk_r = np.fft.fftn(res["white"].cpu().numpy())
+    dk_t = np.fft.fftn(truth.cpu().numpy())
+    f = np.fft.fftfreq(n) * n
+    m = np.sqrt(f[:, None, None] ** 2 + f[None, :, None] ** 2
+                + f[None, None, :] ** 2)
+    bands = []
+    for lo, hi in FI_BANDS:
+        sel = (m >= lo) & (m < hi)
+        num = np.real(np.sum(dk_r[sel] * np.conj(dk_t[sel])))
+        bands.append(float(num / np.sqrt(np.sum(np.abs(dk_r[sel]) ** 2)
+                                         * np.sum(np.abs(dk_t[sel]) ** 2))))
+
+    samples, acc = stage("example_hmc", lambda: field_infer.sample_initial_field(
+        torch.Generator(device=dev).manual_seed(seed + 21), data, noise, pk,
+        cosmo, boxsize=box, n_samples=FI_HMC[0], n_warmup=FI_HMC[1],
+        n_leapfrog=FI_HMC[2], white0=res["white"], **kw))
+    predicted["example_hmc"] = per_grad(
+        nsteps, 1 + (FI_HMC[0] + FI_HMC[1]) * FI_HMC[2])
+    check(tuple(samples.shape) == (FI_HMC[0], n, n, n)
+          and bool(torch.isfinite(samples).all()) and 0.0 < acc <= 1.0,
+          f"HMC samples {tuple(samples.shape)}, accept {acc}")
+    dks = np.fft.fftn(samples.cpu().numpy(), axes=(1, 2, 3))
+    sd_rel = dks.real.std(axis=0) / np.sqrt(n ** 3 / 2.0)
+    lowk = float(sd_rel[(m > 0) & (m < 4)].mean())
+    highk = float(sd_rel[m > 12].mean())
+    check(highk > lowk, f"the chain's high-k width {highk} is not above "
+          f"its low-k width {lowk}")
+    del samples, dks
+
+    # the same port on the CPU from a prior draw, at the second stage's
+    # rate, and again from that draw moved by 1e-7 of itself: the
+    # trajectory's own sensitivity to float32 rounding, which bounds the
+    # card's gap
+    w_start = torch.randn((n,) * 3, generator=torch.Generator().manual_seed(
+        seed + 22))
+    nudged = w_start * (1.0 + 1e-7 * torch.randn(
+        (n,) * 3, generator=torch.Generator().manual_seed(seed + 25)))
+
+    def adam_cpu(w):
+        return field_infer.infer_initial_field(
+            data.cpu(), noise, pk, cosmo, boxsize=box, n_iter=FI_CPU_ITERS,
+            lr=FI_ADAM[1][1], white0=w, **kw)["loss"].double()
+
+    l_cpu = stage("example_cpu", lambda: adam_cpu(w_start))
+    l_nudged = stage("example_cpu_nudged", lambda: adam_cpu(nudged))
+    predicted["example_cpu"] = predicted["example_cpu_nudged"] = {}
+    l_card = stage("example_card", lambda: field_infer.infer_initial_field(
+        data, noise, pk, cosmo, boxsize=box, n_iter=FI_CPU_ITERS,
+        lr=FI_ADAM[1][1], white0=w_start.to(dev), **kw)["loss"])
+    predicted["example_card"] = per_grad(nsteps, FI_CPU_ITERS)
+    card_rel = ((l_card.double().cpu() - l_cpu).abs() / l_cpu.abs()).numpy()
+    self_rel = ((l_nudged - l_cpu).abs() / l_cpu.abs()).numpy()
+    check(card_rel[0] <= FI_CPU_TOL
+          and card_rel.max() <= FI_GAP_FACTOR * self_rel.max() + FI_CPU_TOL,
+          f"the card's Adam losses {card_rel.tolist()} off the CPU's "
+          f"(the CPU's own from a start moved by 1e-7: "
+          f"{self_rel.tolist()})")
+    out["example"] = {
+        "r_first_stage": r_first, "r": r, "band_corr": bands,
+        "loss_first_stage": [float(first["loss"][0]),
+                             float(first["loss"][-1])],
+        "loss_final_stage": [float(losses[0]), float(losses[-1])],
+        "hmc_accept": acc, "width_low_k": lowk, "width_high_k": highk,
+        "width_ratio": highk / lowk, "cpu_loss_rel": card_rel.tolist(),
+        "cpu_nudged_loss_rel": self_rel.tolist(),
+        "adam_ms_per_iteration": seconds["example_adam"]
+        / sum(i for i, _ in FI_ADAM) * 1e3,
+        "hmc_ms_per_gradient": seconds["example_hmc"] / (
+            1 + (FI_HMC[0] + FI_HMC[1]) * FI_HMC[2]) * 1e3}
+    del data, truth, first, res
+
+    # ---- (b) full width
+    n2, box2, nsteps2, noise2 = FI_FULL
+    kw2 = dict(z_init=Z_INIT, nsteps=nsteps2, window="cic")
+    gr = Cosmology(Om0=0.3, h=0.7)
+    amp_gr = linear_power.normalization(gr)
+
+    def pk_gr(k):
+        return linear_power.linear_power(k, gr, 0.0, amplitude=amp_gr)
+
+    gen2 = torch.Generator(device=dev).manual_seed(seed + 23)
+    truth2 = torch.randn((n2,) * 3, generator=gen2, device=dev)
+
+    def full_data():
+        with torch.no_grad():
+            d = field_infer.simulate_density(truth2, pk_gr, gr, ngrid=n2,
+                                             boxsize=box2, **kw2)
+        return d + math.sqrt(noise2) * torch.randn(
+            d.shape, generator=gen2, device=dev)
+
+    data2 = stage("full_data", full_data)
+    predicted["full_data"] = {"paint_windowed": nsteps2 + 2}
+    # off the lattice (see (a)): the gradients of both routes take the
+    # same side of every kink
+    w0 = 0.7 * truth2 + 0.3 * torch.randn((n2,) * 3, generator=gen2,
+                                          device=dev)
+
+    def value_and_grad(deposit, steps=nsteps2, start=None):
+        w = (w0 if start is None else start).clone().requires_grad_(True)
+        loss = field_infer.field_nll(w, data2, noise2, pk_gr, gr,
+                                     boxsize=box2, deposit=deposit,
+                                     **{**kw2, "nsteps": steps})
+        (g,) = torch.autograd.grad(loss, w)
+        return float(loss.detach()), g
+
+    loss_k = stage("full_grad_kernel", lambda: value_and_grad(None))[0]
+    predicted["full_grad_kernel"] = per_grad(nsteps2, 1)
+    # the scatter route's autograd keeps each paint's 8 offsets' keys and
+    # weights: at 10 steps its gradient needs more than the card's 80 GB,
+    # so the two routes are held against each other at FI_CMP_STEPS
+    loss_k4, g_k = stage("full_cmp_kernel",
+                         lambda: value_and_grad(None, FI_CMP_STEPS))
+    predicted["full_cmp_kernel"] = per_grad(FI_CMP_STEPS, 1)
+    loss_s, g_s = stage("full_cmp_scatter",
+                        lambda: value_and_grad("scatter", FI_CMP_STEPS))
+    predicted["full_cmp_scatter"] = {}
+    # the gradient's own sensitivity to float32 rounding, printed beside
+    # the bar: through the CIC kinks of 6 paints and gathers of 2^24
+    # particles whose positions differ by rounding between any two runs,
+    # the gradient parts by 5.3e-4 of its max already at 64^3 on the CPU
+    # (tools/field_sensitivity.py --part gradient).
+    # Two references: the scatter route from a start moved by 1e-7 of
+    # itself, and K2 again (its float atomics sum each cell in another
+    # order). The two routes differ by more: the scatter painter
+    # multiplies by 1/h where K2 divides, an ulp in every fraction of
+    # every paint
+    nudged = w0 * (1.0 + 1e-7 * torch.randn((n2,) * 3, generator=gen2,
+                                            device=dev))
+    _, g_n = stage("full_cmp_scatter_nudged", lambda: value_and_grad(
+        "scatter", FI_CMP_STEPS, nudged))
+    predicted["full_cmp_scatter_nudged"] = {}
+    _, g_k2 = stage("full_cmp_kernel_again",
+                    lambda: value_and_grad(None, FI_CMP_STEPS))
+    predicted["full_cmp_kernel_again"] = per_grad(FI_CMP_STEPS, 1)
+
+    def grad_gap(a, b):
+        d = (a - b).abs()
+        return (float(d.max() / b.abs().max()),
+                float(d.double().mean() / b.abs().double().mean()))
+
+    grad_rel = grad_gap(g_k, g_s)
+    out_cmp = {"scatter_nudged": grad_gap(g_n, g_s),
+               "kernel_again": grad_gap(g_k2, g_k)}
+    loss_rel = abs(loss_k4 - loss_s) / abs(loss_s)
+    check(all(k <= tol for k, tol in zip(grad_rel, FI_GRAD_TOL))
+          and loss_rel <= 1e-5,
+          f"K2's gradient {grad_rel} (max, mean) off the scatter route's "
+          f"(bars {FI_GRAD_TOL}; the scatter route's own from a start "
+          f"moved by 1e-7 and K2's against itself: {out_cmp}), loss "
+          f"{loss_rel}")
+    # the bar has to fail a broken adjoint: (1) the fault this slice
+    # repairs, the force paints' gradient dropped (each force paint
+    # detached, the density paint's kept); (2) the adjoint's position
+    # gradient scaled by 1 + FI_CTL_SCALE in every paint. And the routes'
+    # gap itself: the scatter route with its positions divided by h as a
+    # card tensor, as K2 divides, where a Python float h turns PyTorch's
+    # CUDA division into a multiply by its float32 reciprocal
+    from astrild_tpu_torch.ops import paint as paint_mod
+
+    def with_patch(obj, name, value, fn):
+        real = getattr(obj, name)
+        setattr(obj, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(obj, name, real)
+
+    _, g_c1 = stage("full_ctl_force_detached", lambda: with_patch(
+        nbody, "paint", lambda *a, **k: paint(*a, **k).detach(),
+        lambda: value_and_grad(None, FI_CMP_STEPS)))
+    predicted["full_ctl_force_detached"] = {
+        "paint_windowed": FI_CMP_STEPS + 2, "paint_windowed_adjoint": 1}
+    adjoint = paint_cuda._launch_adjoint
+
+    def scaled_adjoint(*a, **k):
+        gp, gw = adjoint(*a, **k)
+        return (None if gp is None else gp * (1.0 + FI_CTL_SCALE)), gw
+
+    _, g_c2 = stage("full_ctl_adjoint_scaled", lambda: with_patch(
+        paint_cuda, "_launch_adjoint", scaled_adjoint,
+        lambda: value_and_grad(None, FI_CMP_STEPS)))
+    predicted["full_ctl_adjoint_scaled"] = per_grad(FI_CMP_STEPS, 1)
+    cic = paint_mod.paint_cic
+    _, g_d = stage("full_cmp_scatter_dividing", lambda: with_patch(
+        paint_mod, "_PAINTERS", {**paint_mod._PAINTERS, "cic": (
+            lambda pos, ngrid, box, w=None: cic(
+                pos, ngrid, torch.tensor(float(box), device=pos.device), w))},
+        lambda: value_and_grad("scatter", FI_CMP_STEPS)))
+    predicted["full_cmp_scatter_dividing"] = {}
+    out_cmp["scatter_dividing"] = grad_gap(g_k, g_d)
+    check(all(k <= tol for k, tol in zip(out_cmp["scatter_dividing"],
+                                         FI_GRAD_DIV_TOL)),
+          f"K2's gradient {out_cmp['scatter_dividing']} (max, mean) off the "
+          f"scatter route's that divides by h (bars {FI_GRAD_DIV_TOL})")
+    # each broken gradient against each route, under that route's bars
+    controls = {}
+    for name, g_c in (("force_detached", g_c1), ("adjoint_scaled", g_c2)):
+        for route, ref, tol in (("scatter", g_s, FI_GRAD_TOL),
+                                ("scatter_dividing", g_d, FI_GRAD_DIV_TOL)):
+            gap = controls[f"{name}_vs_{route}"] = grad_gap(g_c, ref)
+            check(any(a > t for a, t in zip(gap, tol)),
+                  f"the broken gradient {name} passes the bars {tol} "
+                  f"against the {route} route: {gap}")
+    del g_k, g_s, g_n, g_k2, nudged, g_c1, g_c2, g_d
+    _, kernels_per_grad = stage("full_grad_profile", lambda: _kernel_launches(
+        lambda: value_and_grad(None)))
+    predicted["full_grad_profile"] = per_grad(nsteps2, 1)
+    stage("full_grad_timing", lambda: [value_and_grad(None)
+                                       for _ in range(3)])
+    predicted["full_grad_timing"] = per_grad(nsteps2, 3)
+    full = stage("full_adam", lambda: field_infer.infer_initial_field(
+        data2, noise2, pk_gr, gr, boxsize=box2, n_iter=FI_FULL_ADAM[0],
+        lr=FI_FULL_ADAM[1], white0=w0, **kw2))
+    predicted["full_adam"] = per_grad(nsteps2, FI_FULL_ADAM[0])
+    full_loss = full["loss"].cpu().numpy()
+    check(bool(np.isfinite(full_loss).all())
+          and full_loss[-1] < full_loss[0],
+          f"the full-width Adam loss {full_loss[0]} -> {full_loss[-1]}")
+    out["full"] = {
+        "particles": n2 ** 3, "ngrid": n2, "nsteps": nsteps2,
+        "grad_rel_err_vs_scatter": grad_rel,
+        "grad_rel_references": out_cmp, "grad_rel_controls": controls,
+        "control_scale": FI_CTL_SCALE, "loss_rel_vs_scatter": loss_rel,
+        "loss": loss_k, "cuda_kernels_per_gradient": kernels_per_grad,
+        "ms_per_gradient": seconds["full_grad_timing"] / 3 * 1e3,
+        "compare_nsteps": FI_CMP_STEPS,
+        "ms_per_gradient_compare": {
+            "kernel": seconds["full_cmp_kernel"] * 1e3,
+            "scatter": seconds["full_cmp_scatter"] * 1e3},
+        "peak_gb_compare": {"kernel": peaks["full_cmp_kernel"],
+                            "scatter": peaks["full_cmp_scatter"]},
+        "adam_ms_per_iteration": seconds["full_adam"] / FI_FULL_ADAM[0] * 1e3,
+        "adam_loss": [float(full_loss[0]), float(full_loss[9]),
+                      float(full_loss[-1])],
+        "peak_gb_gradient": peaks["full_grad_kernel"],
+        "peak_gb_adam": peaks["full_adam"]}
+    del data2, w0, full
+    torch.cuda.empty_cache()
+
+    # ---- (c) pm_evolve_checkpointed on phase 7's GR ICs
+    stats = {"save_s": [], "restore_s": [], "bytes": [], "arm": False}
+    ck_root = (Path(__file__).resolve().parent / "build"
+               / f"field_inference_{os.getpid()}")
+    ck_root.mkdir(parents=True, exist_ok=False)
+    real = _checkpoint_spy(ckpt, stats)
+    try:
+        comps, mom = stage("evolve_ics", lambda: nbody.lpt_catalog(
+            torch.Generator(device=dev).manual_seed(seed), PM_SIDE, BOX,
+            pk_gr, gr, Z_INIT))
+        predicted["evolve_ics"] = {}
+        a0 = 1.0 / (1.0 + Z_INIT)
+        ref = stage("evolve_plain", lambda: nbody.pm_evolve(
+            comps, mom, gr, PM_SIDE, BOX, a0, 1.0, PM_STEPS)[0])
+        again = stage("evolve_plain_again", lambda: nbody.pm_evolve(
+            comps, mom, gr, PM_SIDE, BOX, a0, 1.0, PM_STEPS)[0])
+        predicted["evolve_plain"] = {"paint_windowed": PM_STEPS + 1}
+        predicted["evolve_plain_again"] = {"paint_windowed": PM_STEPS + 1}
+
+        def interrupted(call):
+            stats["arm"] = True
+            try:
+                call()
+            except _Interrupted:
+                return True
+            return False
+
+        def evolve_ckpt():
+            return nbody.pm_evolve_checkpointed(
+                comps, mom, gr, PM_SIDE, BOX, a0, 1.0, PM_STEPS,
+                ck_root / "evolve", segment_steps=FI_SEGMENT)
+
+        check(stage("evolve_interrupted", lambda: interrupted(evolve_ckpt)),
+              "the checkpointed evolution did not stop at its first save")
+        predicted["evolve_interrupted"] = {"paint_windowed": FI_SEGMENT + 1}
+        resumed = stage("evolve_resumed", evolve_ckpt)[0]
+        rest = [min(FI_SEGMENT, PM_STEPS - s)
+                for s in range(FI_SEGMENT, PM_STEPS, FI_SEGMENT)]
+        predicted["evolve_resumed"] = {"paint_windowed": sum(
+            k + 1 for k in rest)}
+        del comps, mom
+        gap_plain = [_periodic_gap(a, b, BOX) for a, b in zip(again, ref)]
+        gap_ckpt = [_periodic_gap(a, b, BOX) for a, b in zip(resumed, ref)]
+        pk_of = {}
+
+        def spectra():
+            for name, pos in (("plain", ref), ("plain_again", again),
+                              ("resumed", resumed)):
+                res = power.auto_power(paint(pos, PM_SIDE, BOX,
+                                             window="cic"), BOX,
+                                       window="cic")
+                pk_of[name] = res.power[res.nmodes > 0]
+
+        stage("evolve_pk", spectra)
+        predicted["evolve_pk"] = {"paint_windowed": 3}
+        del ref, again, resumed
+        pk_rel = {name: float(((pk_of[name] - pk_of["plain"]).abs()
+                               / pk_of["plain"].abs()).max())
+                  for name in ("plain_again", "resumed")}
+        max_plain = max(g[0] for g in gap_plain)
+        max_ckpt = max(g[0] for g in gap_ckpt)
+        mean_plain = max(g[1] for g in gap_plain)
+        mean_ckpt = max(g[1] for g in gap_ckpt)
+        check(max_ckpt <= FI_GAP_FACTOR * max_plain + FI_GAP_FLOOR
+              and mean_ckpt <= FI_GAP_FACTOR * mean_plain + FI_GAP_FLOOR
+              and pk_rel["resumed"] <= FI_PK_TOL,
+              f"the resumed evolution: max / mean gap {max_ckpt} / "
+              f"{mean_ckpt} Mpc/h (two plain runs {max_plain} / "
+              f"{mean_plain}), P(k) {pk_rel['resumed']}")
+        out["evolve"] = {
+            "particles": PM_SIDE ** 3, "nsteps": PM_STEPS,
+            "segment_steps": FI_SEGMENT, "saves_s": list(stats["save_s"]),
+            "restores_s": list(stats["restore_s"]),
+            "checkpoint_bytes": stats["bytes"][0],
+            "gap_max_mpc": {"plain_vs_plain": max_plain,
+                            "resumed_vs_plain": max_ckpt},
+            "gap_mean_mpc": {"plain_vs_plain": mean_plain,
+                             "resumed_vs_plain": mean_ckpt},
+            "pk_rel": pk_rel}
+        for key in ("save_s", "restore_s", "bytes"):
+            stats[key].clear()
+
+        # ---- (d) pm_lightcone_planes(ckpt_dir=) at a depth cut
+        side, nplanes, npix = FI_LC
+        lc_args = (gr, pk_gr, side, BOX, LC_FOV, npix, nplanes)
+        lc_kw = dict(z_source=LC_Z_SOURCE, z_init=Z_INIT,
+                     nsteps_init=LC_STEPS_INIT,
+                     steps_per_plane=LC_STEPS_PLANE)
+        first = min(FI_LC_EVERY, nplanes)  # planes before the first save
+
+        def lc_gen():
+            return torch.Generator(device=dev).manual_seed(seed + 24)
+
+        def lightcone(**extra):
+            return nbody.pm_lightcone_planes(lc_gen(), *lc_args, **lc_kw,
+                                             **extra)[0]
+
+        whole = {"paint_windowed": LC_STEPS_INIT + 1
+                 + (nplanes - 1) * (LC_STEPS_PLANE + 1),
+                 "deposit_sorted": nplanes}
+        planes_ref = stage("lightcone_plain", lightcone)
+        planes_again = stage("lightcone_plain_again", lightcone)
+        predicted["lightcone_plain"] = whole
+        predicted["lightcone_plain_again"] = whole
+        lc_dir = ck_root / "lightcone"
+        check(stage("lightcone_interrupted", lambda: interrupted(
+            lambda: lightcone(ckpt_dir=lc_dir, ckpt_every=FI_LC_EVERY))),
+              "the checkpointed lightcone did not stop at its first save")
+        predicted["lightcone_interrupted"] = {
+            "paint_windowed": LC_STEPS_INIT + 1
+            + (first - 1) * (LC_STEPS_PLANE + 1), "deposit_sorted": first}
+        g_resume = lc_gen()
+        entry = g_resume.get_state()
+        planes = stage("lightcone_resumed", lambda: nbody.pm_lightcone_planes(
+            g_resume, *lc_args, ckpt_dir=lc_dir, ckpt_every=FI_LC_EVERY,
+            **lc_kw)[0])
+        predicted["lightcone_resumed"] = {
+            "paint_windowed": (nplanes - first) * (LC_STEPS_PLANE + 1),
+            "deposit_sorted": nplanes - first}
+        check(torch.equal(g_resume.get_state(), entry),
+              "the resumed lightcone drew from its generator")
+
+        def refused():
+            try:
+                nbody.pm_lightcone_planes(
+                    lc_gen(), gr, pk_gr, side, BOX, LC_FOV, npix,
+                    nplanes + 1, ckpt_dir=lc_dir, ckpt_every=FI_LC_EVERY,
+                    **lc_kw)
+            except ValueError as err:
+                return "different schedule" in str(err)
+            return False
+
+        check(stage("lightcone_other_schedule", refused),
+              "a lightcone of another schedule resumed the checkpoint")
+        predicted["lightcone_other_schedule"] = {}
+        scale = float(planes_ref.abs().max())
+        lc_plain = float((planes_again - planes_ref).abs().max()) / scale
+        lc_ckpt = float((planes - planes_ref).abs().max()) / scale
+        check(lc_ckpt <= FI_GAP_FACTOR * lc_plain + FI_GAP_FLOOR,
+              f"the resumed lightcone's planes {lc_ckpt} of the max off "
+              f"the plain run's (two plain runs {lc_plain})")
+        out["lightcone"] = {
+            "particles": side ** 3, "nplanes": nplanes, "npix": npix,
+            "planes_rel_gap": {"plain_vs_plain": lc_plain,
+                               "resumed_vs_plain": lc_ckpt},
+            "saves_s": list(stats["save_s"]),
+            "restores_s": list(stats["restore_s"]),
+            "checkpoint_bytes": stats["bytes"][0]}
+        del planes, planes_ref, planes_again
+    finally:
+        ckpt.save_state, ckpt.restore_state = real
+        shutil.rmtree(ck_root, ignore_errors=True)
+
+    total = _held_launches("field_inference", predicted, launches)
+    phase_s = time.perf_counter() - t_phase
+
+    # ---- K2's adjoint at (b)'s shape, outside the counts: the z = 0
+    # positions of the full-width truth
+    with torch.no_grad():
+        dk = mocks.modes_from_white(truth2, n2, box2, pk_gr)
+        c, p = nbody.lpt_catalog_from_modes(dk, n2, box2, gr, Z_INIT)
+        c, _ = nbody.pm_evolve(c, p, gr, n2, box2, 1.0 / (1.0 + Z_INIT),
+                               1.0, nsteps2)
+        pf = torch.cat(c)
+    del dk, c, p, truth2
+    out["adjoint_timing_ms"] = _adjoint_timing(pf, n2, box2, gen2)
+    del pf
+    result = {"phase_seconds": phase_s, "seconds": seconds,
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peaks, **out}
+    ex, fl, ev, lc = out["example"], out["full"], out["evolve"], out[
+        "lightcone"]
+    log(f"# phase field_inference: {phase_s:.1f} s; launches {total}; "
+        f"example r {ex['r']:.4f} (bands "
+        f"{', '.join(f'{b:.3f}' for b in ex['band_corr'])}), HMC accept "
+        f"{ex['hmc_accept']:.2f}, width ratio {ex['width_ratio']:.2f}, card "
+        f"/ CPU losses {max(ex['cpu_loss_rel']):.1e} (the CPU's own "
+        f"{max(ex['cpu_nudged_loss_rel']):.1e}); full width: gradient "
+        f"{fl['ms_per_gradient']:.1f} ms / {fl['cuda_kernels_per_gradient']}"
+        f" kernels, K2 vs scatter (max, mean) "
+        f"{_pair(fl['grad_rel_err_vs_scatter'])} (nudged scatter "
+        f"{_pair(fl['grad_rel_references']['scatter_nudged'])}, K2 again "
+        f"{_pair(fl['grad_rel_references']['kernel_again'])}, K2 vs the "
+        f"dividing scatter "
+        f"{_pair(fl['grad_rel_references']['scatter_dividing'])}; controls "
+        f"force detached "
+        f"{_pair(fl['grad_rel_controls']['force_detached_vs_scatter'])}"
+        f", adjoint x{1 + FI_CTL_SCALE:g} "
+        f"{_pair(fl['grad_rel_controls']['adjoint_scaled_vs_scatter'])}), "
+        f"peak {fl['peak_gb_adam']:.2f} GB; evolution resumed gap "
+        f"{ev['gap_max_mpc']['resumed_vs_plain']:.2e} Mpc/h (plain "
+        f"{ev['gap_max_mpc']['plain_vs_plain']:.2e}), save "
+        f"{ev['saves_s'][0]:.2f} s of {ev['checkpoint_bytes'] / 1e9:.2f} GB;"
+        f" lightcone resumed {lc['planes_rel_gap']['resumed_vs_plain']:.1e}"
+        f" (plain {lc['planes_rel_gap']['plain_vs_plain']:.1e})")
+    log("# field_inference " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -6777,6 +7516,10 @@ FP32_OPS_PER_S = 67e12
 # arithmetic (~6-7 a coordinate), the axis weights, their products and one
 # add per deposited cell (8 or 27)
 K2_OPS = {2: 44, 3: 111}
+# K2's adjoint's per particle: a cell read takes the weights' product and
+# four products summed (15), over 8 or 27 cells; the fractions, the axis
+# weights and their derivatives, the divisions by h (~30 / ~50)
+K2_ADJ_OPS = {2: 150, 3: 455}
 # K3's float32 operations per in-range pair, counted from the kernel's
 # add_pair and its caller: s (3 sub, 3 mul, 2 add) 8, sqrt 1, the division
 # 1, 1 / max(dist, 1e-12) 2, rhat 3, rhat.phat_i and rhat.phat_j 5 each,
@@ -6879,6 +7622,7 @@ def main() -> None:
     del out_gr
     cmb_lensing = phase_cmb_lensing(dev, args.seed, snapshot,
                                     lightcone["shells_flushes"])
+    field = phase_field_inference(dev, args.seed)
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -6911,6 +7655,15 @@ def main() -> None:
             k4["mean"]["plain"],
             bound_ms(4 * n_pm + 4 * 8 * LANE_NGRID ** 3, n_pm),
             k4["mean"]["index_add"]),
+        # K2's adjoint: its launches in phase 20's gradients, timed at the
+        # full-width gradient's shape (2^24 z = 0 particles, 256^3 CIC)
+        "paint_windowed_adjoint": (
+            field["launches_total"].get("paint_windowed_adjoint", 0),
+            field["adjoint_timing_ms"]["max_abs_err"],
+            field["adjoint_timing_ms"]["mean"]["kernel"],
+            field["adjoint_timing_ms"]["mean"]["plain"],
+            (field["adjoint_timing_ms"]["bound_ms"],
+             field["adjoint_timing_ms"]["bound_by"]), None),
     }
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": n,
@@ -7009,6 +7762,16 @@ def main() -> None:
     for row in kernels:
         row["cmb_lensing_launches"] = cmb_lensing["launches_total"].get(
             row["name"], 0)
+    # the field-inference phase: K2 and its adjoint in every gradient, K1
+    # in the lightcone's planes; K3 and K4 launch 0 times there
+    for row in kernels:
+        row["field_inference_launches"] = field["launches_total"].get(
+            row["name"], 0)
+    adj = field["adjoint_timing_ms"]
+    adj_row = next(k for k in kernels if k["name"] == "paint_windowed_adjoint")
+    adj_row.update({"n": adj["n"], "ngrid": adj["ngrid"],
+                    "plain": "autograd through paint_windowed_reference",
+                    "bound_cell_reads_ms": adj["bound_cell_reads_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -2630,3 +2630,249 @@ def test_cmb_lensing_slice_numpy_input_lands_on_the_card(cuda):
                                      lmax_filter=lmax)]
     for t in outs:
         assert t.device.type == "cuda"
+
+
+# ------------------------------------- K2's adjoint and field inference
+def _k2_adjoint_case(case, order, rng, n, ng, box):
+    """Positions of one adjoint case: uniform, on the cell edges where
+    the base cell changes (CIC at (k + 0.5) h, TSC at k h) and an ulp to
+    either side, or at x/h -> n and the box edges (TSC's clip)."""
+    pos = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    h = box / ng
+    if case == "cell_edges":
+        edge = (np.arange(-1, ng + 2) + (0.5 if order == 2 else 0.0)) * h
+        on = edge[rng.integers(0, len(edge), (n, 3))].astype(np.float32)
+        step = rng.integers(-1, 2, (n, 3))
+        pos = np.nextafter(on, np.where(step < 0, -np.inf, np.inf)
+                           ).astype(np.float32)
+        pos[step == 0] = on[step == 0]
+    if case == "box_edges":
+        pick = rng.choice(np.array([-1e-8, 0.0, -0.0, box, box - 1e-5,
+                                    1e-8], np.float32), (n // 2, 3))
+        pos[: n // 2] = pick
+    return np.concatenate(pos.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", ["uniform", "cell_edges", "box_edges"])
+def test_k2_adjoint_matches_plain_autograd(cuda, order, weighted, case):
+    """K2's adjoint against autograd of the plain version on the same
+    inputs on the card: the position and weight gradients within 1e-5 of
+    their max (the same float32 products summed in another order; the
+    bin decisions are the bin pass's, so a particle on a cell edge takes
+    the same stencil on both routes). One launch a call."""
+    rng = np.random.default_rng(21)
+    n, ng, box = 100003, 37, BOX
+    pf = torch.from_numpy(_k2_adjoint_case(case, order, rng, n, ng,
+                                           box)).to(cuda)
+    w = (torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+         .to(cuda) if weighted else None)
+    g = torch.randn((ng,) * 3, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    before = TPC.LAUNCHES["paint_windowed_adjoint"]
+    got_p, got_w = TPC.paint_windowed_adjoint(pf, w, g, ng, box, order)
+    assert TPC.LAUNCHES["paint_windowed_adjoint"] == before + 1
+    want_p, want_w = TPC.paint_windowed_adjoint_reference(pf, w, g, ng, box,
+                                                          order)
+    torch.cuda.synchronize()
+    assert float((got_p - want_p).abs().max()) <= 1e-5 * float(
+        want_p.abs().max())
+    if weighted:
+        assert float((got_w - want_w).abs().max()) <= 1e-5 * float(
+            want_w.abs().max())
+    else:
+        assert got_w is None and want_w is None
+
+
+def test_k2_plain_gradient_gradcheck_float64_on_the_card(cuda):
+    """The plain version's gradient on the card by torch's gradcheck in
+    float64 (directional and full), CIC and TSC, weighted."""
+    rng = np.random.default_rng(5)
+    n, ng, box = 24, 6, 50.0
+    for order in (2, 3):
+        pos = torch.tensor(np.concatenate(rng.uniform(-box, 2 * box,
+                                                      (n, 3)).T),
+                           dtype=torch.float64, device=cuda,
+                           requires_grad=True)
+        w = torch.tensor(rng.uniform(0.5, 2.0, n), dtype=torch.float64,
+                         device=cuda, requires_grad=True)
+
+        def f(p, ww):
+            return TPC.paint_windowed_reference(p, ww, ng, box, order)
+
+        assert torch.autograd.gradcheck(f, (pos, w), fast_mode=True)
+        assert torch.autograd.gradcheck(f, (pos, w))
+
+
+@pytest.mark.parametrize("window", ["cic", "tsc"])
+def test_paint_gradient_through_k2_matches_scatter(cuda, window):
+    """paint(...) of positions and weights that require grad, on the card:
+    the default route is K2 forward and its adjoint backward (one launch
+    each), and its gradients equal the scatter route's within 1e-5 of
+    their max."""
+    rng = np.random.default_rng(9)
+    n, ng = 200000, 32
+    pos = torch.from_numpy(rng.uniform(0, BOX, (n, 3)).astype(
+        np.float32)).to(cuda)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)).to(
+        cuda)
+    target = torch.randn((ng,) * 3, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    grads = {}
+    for route in (None, "scatter"):
+        comps = tuple(c.clone().requires_grad_(True) for c in pos.unbind(1))
+        ww = w.clone().requires_grad_(True)
+        before = dict(TPC.LAUNCHES)
+        grid = TP.paint(comps, ng, BOX, weights=ww, window=window,
+                        deposit=route)
+        loss = torch.sum((grid - target) ** 2)
+        loss.backward()
+        launched = {k: TPC.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("paint_windowed", "paint_windowed_adjoint")}
+        assert launched == ({"paint_windowed": 1, "paint_windowed_adjoint": 1}
+                            if route is None else
+                            {"paint_windowed": 0,
+                             "paint_windowed_adjoint": 0})
+        grads[route] = torch.cat([c.grad for c in comps] + [ww.grad])
+    torch.cuda.synchronize()
+    scale = float(grads["scatter"].abs().max())
+    assert float((grads[None] - grads["scatter"]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("wrapper", ["deposit_flat", "deposit_sorted",
+                                     "deposit_flat_segmented",
+                                     "pairwise_accumulate"])
+def test_kernels_without_a_gradient_refuse_to_detach(cuda, wrapper):
+    """K1's two entry points, K4 and K3 have no gradient (nor have their
+    TPU twins): on the card they raise when grad mode is on and an input
+    requires grad, and run under no_grad (or on detached inputs)."""
+    rng = np.random.default_rng(2)
+    n = 4096
+    keys = torch.from_numpy(np.sort(rng.integers(0, 1000, n)).astype(
+        np.int32)).to(cuda)
+    vals = torch.rand(n, device=cuda, requires_grad=True)
+    pos = (torch.rand(n, 3, device=cuda) * 50).requires_grad_(True)
+    vel = torch.randn(n, 3, device=cuda)
+    call = {
+        "deposit_flat": lambda v: TPC.deposit_flat(keys, v, 1000),
+        "deposit_sorted": lambda v: TPC.deposit_sorted(keys, v, 1000),
+        "deposit_flat_segmented": lambda v: TPC.deposit_flat_segmented(
+            keys, v, 1000),
+        "pairwise_accumulate": lambda v: TPWC.pairwise_accumulate(
+            pos if v is vals else pos.detach(), vel, n, 2.0, 16),
+    }[wrapper]
+    with pytest.raises(RuntimeError, match="no gradient"):
+        call(vals)
+    with torch.no_grad():
+        call(vals)
+    call(vals.detach())
+    torch.cuda.synchronize()
+
+
+def test_field_inference_on_the_card_matches_the_cpu(cuda):
+    """field_nll's value and gradient at 16^3 (3 steps) on the card, K2
+    in every paint (nsteps + 2 launches) and its adjoint in all but the
+    last force paint's backward (nsteps + 1), against the
+    same port on the CPU: the loss to rtol 1e-5, the gradient within 1e-4
+    of its max (K2's float atomics against index_add_); infer_initial_field
+    and sample_initial_field run there from numpy input and a CUDA
+    generator."""
+    from astrild_tpu_torch.ops import field_infer as TF
+
+    def pk(k):
+        return 2.0e3 * (k / 0.1) ** -1.5
+
+    n, kw = 16, dict(z_init=9.0, nsteps=3, window="cic")
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+    rng = np.random.default_rng(4)
+    truth = rng.standard_normal((n,) * 3).astype(np.float32)
+    w0 = (0.7 * truth + 0.3 * rng.standard_normal((n,) * 3)).astype(
+        np.float32)
+    data = TF.simulate_density(truth, pk, cosmo, ngrid=n, boxsize=BOX,
+                               device="cpu", **kw)
+    out = {}
+    for dev in ("cpu", cuda):
+        w = torch.from_numpy(w0).to(dev).requires_grad_(True)
+        before = dict(TPC.LAUNCHES)
+        loss = TF.field_nll(w, data.to(dev), 0.05, pk, cosmo, boxsize=BOX,
+                            **kw)
+        (g,) = torch.autograd.grad(loss, w)
+        launched = {k: TPC.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("paint_windowed", "paint_windowed_adjoint")}
+        out[str(dev)] = (float(loss.detach()), g.cpu(), launched)
+    (l_cpu, g_cpu, _), (l_card, g_card, launched) = out["cpu"], out[
+        str(cuda)]
+    # the last force only kicks the momenta, which the density does not
+    # read: autograd runs no adjoint for its paint
+    assert launched == {"paint_windowed": 5, "paint_windowed_adjoint": 4}
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert float((g_card - g_cpu).abs().max()) <= 1e-4 * float(
+        g_cpu.abs().max())
+    res = TF.infer_initial_field(data.numpy(), 0.05, pk, cosmo, boxsize=BOX,
+                                 n_iter=5, lr=0.05, white0=w0, **kw)
+    assert res["white"].device.type == "cuda" and res["loss"].shape == (5,)
+    samples, acc = TF.sample_initial_field(
+        torch.Generator(device=cuda).manual_seed(0), data.numpy(), 0.05, pk,
+        cosmo, boxsize=BOX, n_samples=2, n_warmup=1, n_leapfrog=2,
+        white0=res["white"], **kw)
+    assert samples.device.type == "cuda" and 0.0 <= acc <= 1.0
+
+
+def test_checkpointed_evolution_and_lightcone_on_the_card(cuda, tmp_path):
+    """pm_evolve_checkpointed and pm_lightcone_planes(ckpt_dir=) on the
+    card: a resumed run restores onto the card and ends within the gap of
+    two plain runs (K2's float atomics; bounded here by 1e-3 Mpc/h at 32^3
+    and 3 steps, planes by 1e-4 of their max)."""
+    from astrild_tpu_torch.core import checkpoint as ckpt
+
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+
+    def pk(k):
+        return 100.0 * torch.ones_like(k)
+
+    n, box = 32, 200.0
+    comps, mom = TN.lpt_catalog(torch.Generator(device=cuda).manual_seed(1),
+                                n, box, pk, cosmo, 9.0)
+    ref, _ = TN.pm_evolve(comps, mom, cosmo, n, box, 0.1, 1.0, 6)
+    real_save = ckpt.save_state
+    state = {"n": 0}
+
+    def crashy(path, st, step=None):
+        real_save(path, st, step=step)
+        state["n"] += 1
+        if state["n"] == 1:
+            raise RuntimeError("simulated crash")
+
+    ckpt.save_state = crashy
+    try:
+        with pytest.raises(RuntimeError, match="simulated crash"):
+            TN.pm_evolve_checkpointed(comps, mom, cosmo, n, box, 0.1, 1.0, 6,
+                                      tmp_path / "ev", segment_steps=4)
+    finally:
+        ckpt.save_state = real_save
+    got, _ = TN.pm_evolve_checkpointed(comps, mom, cosmo, n, box, 0.1, 1.0,
+                                       6, tmp_path / "ev", segment_steps=4)
+    assert got[0].device.type == "cuda"
+    for a, b in zip(got, ref):
+        d = (a - b).abs()
+        assert float(torch.minimum(d, box - d).max()) < 1e-3
+    args = (cosmo, pk, 16, 200.0, 0.05, 32, 6)
+    kw = dict(z_source=0.4, z_init=9.0, nsteps_init=4, steps_per_plane=1)
+    want = TN.pm_lightcone_planes(torch.Generator(device=cuda).manual_seed(2),
+                                  *args, **kw)[0]
+    ckpt.save_state = crashy
+    state["n"] = 0
+    try:
+        with pytest.raises(RuntimeError, match="simulated crash"):
+            TN.pm_lightcone_planes(
+                torch.Generator(device=cuda).manual_seed(2), *args,
+                ckpt_dir=tmp_path / "lc", **kw)
+    finally:
+        ckpt.save_state = real_save
+    planes = TN.pm_lightcone_planes(
+        torch.Generator(device=cuda).manual_seed(2), *args,
+        ckpt_dir=tmp_path / "lc", **kw)[0]
+    assert planes.device.type == "cuda"
+    assert float((planes - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())

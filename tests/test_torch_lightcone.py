@@ -610,13 +610,22 @@ def test_pm_lightcone_randomize_generator_moves_the_observer():
     assert not torch.equal(a, fixed)
 
 
-def test_pm_lightcone_bad_arguments():
+def test_pm_lightcone_bad_arguments(tmp_path):
     cosmo = Cosmology(Om0=0.3, h=0.7)
     gen = torch.Generator().manual_seed(0)
     pk = _pk_flat(100.0)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TN.pm_lightcone_planes(gen, cosmo, pk, 8, 200.0, 0.05, 8, 6,
-                               z_source=0.4, ckpt_dir="/nonexistent")
+    # ckpt_dir works: the call checkpoints every plane and returns the
+    # planes of the same call without it
+    args = (cosmo, pk, 8, 200.0, 0.05, 8, 6)
+    got = TN.pm_lightcone_planes(torch.Generator().manual_seed(0), *args,
+                                 z_source=0.4, nsteps_init=2,
+                                 ckpt_dir=tmp_path / "lc")[0]
+    want = TN.pm_lightcone_planes(torch.Generator().manual_seed(0), *args,
+                                  z_source=0.4, nsteps_init=2)[0]
+    assert torch.equal(got, want)
+    assert (tmp_path / "lc" / "state.npz").exists()
+    with pytest.raises(ValueError, match="order"):
+        TN.pm_lightcone_planes(gen, *args, z_source=0.4, order=3)
     with pytest.raises(ValueError, match="exceeds the box"):
         TN.pm_lightcone_planes(gen, cosmo, pk, 8, 200.0, 0.05, 8, 2,
                                z_source=0.4)
@@ -625,6 +634,98 @@ def test_pm_lightcone_bad_arguments():
         TN.pm_lightcone_planes_from_modes(
             torch.from_numpy(dk), cosmo, 8, 200.0, 0.05, 8, 6, z_source=0.4,
             shifts=np.zeros((1, 2)))
+
+
+def test_pm_lightcone_planes_checkpoint_resume(tmp_path, monkeypatch):
+    """Port of tests/test_nbody.py::test_pm_lightcone_planes_checkpoint_
+    resume: a call that crashes after its second save resumes at plane 2
+    and returns the uninterrupted call's planes (bit for bit on the CPU:
+    the restored state is the saved one, the JAX test's bar is 1e-4); a
+    rerun of the finished checkpoint returns the stored stack. A resumed
+    call leaves the generator in its entry state (it draws no modes),
+    where a fresh call advances it; another schedule raises."""
+    from astrild_tpu_torch.core import checkpoint as ckpt
+
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+    pk = _pk_flat(100.0)
+    rest = (cosmo, pk, 16, 200.0, 0.05, 32, 6)
+    kw = dict(z_source=0.4, z_init=9.0, nsteps_init=4, steps_per_plane=1)
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    ref, chis_ref, dchi_ref = TN.pm_lightcone_planes(gen(), *rest, **kw)
+    d = tmp_path / "lc"
+    real_save = ckpt.save_state
+    calls = {"n": 0}
+
+    def crashy(path, state, step=None):
+        real_save(path, state, step=step)
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise RuntimeError("simulated crash")
+
+    monkeypatch.setattr(ckpt, "save_state", crashy)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        TN.pm_lightcone_planes(gen(), *rest, ckpt_dir=d, **kw)
+    monkeypatch.setattr(ckpt, "save_state", real_save)
+    g = gen()
+    entry = g.get_state()
+    delta, chis, dchi = TN.pm_lightcone_planes(g, *rest, ckpt_dir=d, **kw)
+    assert torch.equal(g.get_state(), entry)
+    assert torch.equal(delta, ref)
+    assert torch.equal(chis, chis_ref) and dchi == dchi_ref
+    delta2, _, _ = TN.pm_lightcone_planes(gen(), *rest, ckpt_dir=d, **kw)
+    assert torch.equal(delta2, delta)
+    fresh = gen()
+    TN.pm_lightcone_planes(fresh, *rest, ckpt_dir=tmp_path / "lc2", **kw)
+    assert not torch.equal(fresh.get_state(), entry)
+    with pytest.raises(ValueError, match="different schedule"):
+        TN.pm_lightcone_planes(torch.Generator().manual_seed(1), *rest,
+                               ckpt_dir=d, **kw)
+    with pytest.raises(ValueError, match="different schedule"):
+        TN.pm_lightcone_planes(gen(), *rest, ckpt_dir=d,
+                               randomize_generator=gen(), **kw)
+
+
+@pytest.mark.parametrize("ckpt_every", [1, 4])
+def test_pm_lightcone_from_modes_checkpoint_resume(tmp_path, rng,
+                                                   monkeypatch, ckpt_every):
+    """The from-modes twin resumes too: its schedule records a hash of
+    the modes and the shifts, so other modes raise; a crash after the
+    first save resumes and returns the uninterrupted planes, with a save
+    every plane or every 4 (and at the last)."""
+    from astrild_tpu_torch.core import checkpoint as ckpt
+
+    n, box = 16, 200.0
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+    white = rng.standard_normal((n, n, n)).astype(np.float32)
+    dk = np.array(JM.modes_from_white(jnp.asarray(white), n, box,
+                                      _pk_flat(100.0)))
+    n_groups = TN._lightcone_geometry(cosmo, box, 6, 0.4, 9.0, 2)[3]
+    shifts = rng.uniform(0, box, (n_groups, 2))
+    rest = (cosmo, n, box, 0.05, 32, 6)
+    kw = dict(z_source=0.4, z_init=9.0, nsteps_init=4, steps_per_plane=1,
+              shifts=shifts, device="cpu", ckpt_every=ckpt_every)
+    ref = TN.pm_lightcone_planes_from_modes(dk, *rest, **kw)[0]
+    d = tmp_path / "lc"
+    real_save = ckpt.save_state
+
+    def crashy(path, state, step=None):
+        real_save(path, state, step=step)
+        raise RuntimeError("simulated crash")
+
+    monkeypatch.setattr(ckpt, "save_state", crashy)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        TN.pm_lightcone_planes_from_modes(dk, *rest, ckpt_dir=d, **kw)
+    monkeypatch.setattr(ckpt, "save_state", real_save)
+    assert ckpt.restore_state(
+        d, (torch.zeros(n ** 3),) * 6 + (torch.zeros(6, 32, 32),),
+        with_step=True)[1] == min(ckpt_every, 6)
+    got = TN.pm_lightcone_planes_from_modes(dk, *rest, ckpt_dir=d, **kw)[0]
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="different schedule"):
+        TN.pm_lightcone_planes_from_modes(dk * 1.01, *rest, ckpt_dir=d, **kw)
 
 
 def test_pm_lightcone_born_cl_tracks_halofit():

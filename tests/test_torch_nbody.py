@@ -454,3 +454,123 @@ def test_pm_linear_growth_lcdm_small():
                        / float((dk0.abs() ** 2)[sel].mean()))
     d_ratio = float(tc.growth_factor(0.0) / tc.growth_factor(z_i))
     assert abs(measured / d_ratio - 1.0) < 0.05, (measured, d_ratio)
+
+
+# ------------------------------------------------ keyed 2LPT, checkpoints
+def test_lpt_displacements_from_generator():
+    """`lpt_displacements(generator)` is `lpt_displacements_from_modes` of
+    `linear_modes` drawn from a generator in the same state, bit for bit;
+    another seed gives other grids."""
+    pk = _pk_flat(40.0)
+    got = TN.lpt_displacements(torch.Generator().manual_seed(5), 8, 80.0, pk)
+    dk = TM.linear_modes(torch.Generator().manual_seed(5), 8, 80.0, pk)
+    want = TN.lpt_displacements_from_modes(dk, 8, 80.0)
+    for g, w in zip(got, want):
+        assert g.shape == (3, 8, 8, 8) and torch.equal(g, w)
+    other = TN.lpt_displacements(torch.Generator().manual_seed(6), 8, 80.0,
+                                 pk)
+    assert not torch.equal(other[0], got[0])
+
+
+def _periodic_gap(a, b, box):
+    d = np.abs(np.asarray(a) - np.asarray(b))
+    return float(np.minimum(d, box - d).max())
+
+
+def test_pm_evolve_checkpointed_matches_and_resumes(tmp_path, monkeypatch):
+    """Port of tests/test_nbody.py::test_pm_evolve_checkpointed_matches_and_
+    resumes. On the CPU the segmented run re-evaluates the force at each
+    segment start from the same positions, so it equals pm_evolve bit for
+    bit (the JAX test's bars are 1e-3 Mpc/h and 1e-4 of the momenta);
+    a crash after the first segment's save resumes at step 2 and ends on
+    the same bits; another schedule raises."""
+    from astrild_tpu_torch.core import checkpoint as ckpt
+
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+    n, box = 16, 100.0
+    comps, mom = TN.lpt_catalog(torch.Generator().manual_seed(11), n, box,
+                                _pk_flat(40.0), cosmo, 5.0, order=2)
+    a0, a1 = 1.0 / 6.0, 1.0
+    ref_c, ref_m = TN.pm_evolve(comps, mom, cosmo, n, box, a0, a1, nsteps=6)
+
+    out_c, out_m = TN.pm_evolve_checkpointed(
+        comps, mom, cosmo, n, box, a0, a1, 6, tmp_path / "ck1",
+        segment_steps=2)
+    for r, o in zip(ref_c + ref_m, out_c + out_m):
+        assert torch.equal(r, o)
+
+    d2 = tmp_path / "ck2"
+    real_save = ckpt.save_state
+    calls = {"n": 0}
+
+    def crashy(path, state, step=None):
+        real_save(path, state, step=step)
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("simulated crash")
+
+    monkeypatch.setattr(ckpt, "save_state", crashy)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        TN.pm_evolve_checkpointed(comps, mom, cosmo, n, box, a0, a1, 6, d2,
+                                  segment_steps=2)
+    monkeypatch.setattr(ckpt, "save_state", real_save)
+    _, step = ckpt.restore_state(d2, (comps, mom), with_step=True)
+    assert step == 2
+    res_c, res_m = TN.pm_evolve_checkpointed(comps, mom, cosmo, n, box, a0,
+                                             a1, 6, d2, segment_steps=2)
+    for r, o in zip(ref_c + ref_m, res_c + res_m):
+        assert torch.equal(r, o)
+    # the inputs are copied, not changed
+    again = TN.lpt_catalog(torch.Generator().manual_seed(11), n, box,
+                           _pk_flat(40.0), cosmo, 5.0, order=2)
+    for a, b in zip(comps + mom, again[0] + again[1]):
+        assert torch.equal(a, b)
+    for kw in ({"nsteps": 8}, {"nsteps": 4}, {"a_final": 0.9}):
+        args = {"a_final": a1, "nsteps": 6, **kw}
+        with pytest.raises(ValueError, match="different schedule"):
+            TN.pm_evolve_checkpointed(comps, mom, cosmo, n, box, a0,
+                                      args["a_final"], args["nsteps"], d2,
+                                      segment_steps=2)
+    with pytest.raises(ValueError, match="segment_steps"):
+        TN.pm_evolve_checkpointed(comps, mom, cosmo, n, box, a0, a1, 6,
+                                  tmp_path / "ck3", segment_steps=0)
+
+
+def test_pm_evolve_checkpointed_resumes_a_jax_checkpoint(tmp_path, rng,
+                                                         monkeypatch):
+    """The two packages share the schedule record and the npz layout: a
+    JAX run (npz path, orbax patched off) that crashes after its first
+    segment is finished by the port, f(R) included. The end state holds
+    test_pm_evolve_matches_jax's bars against the JAX package's
+    uninterrupted run: 2e-3 Mpc/h, momenta 1e-3 of their max."""
+    from astrild_tpu.core import checkpoint as jck
+
+    monkeypatch.setattr(jck, "have_orbax", lambda: False)
+    n, box = 16, 100.0
+    dk = _modes(rng, n, box, amp=400.0)
+    jc, tc = _both(COSMOS["fofr"])
+    growth = (*TN.lpt_growth(tc, 9.0), float(tc.efunc(9.0)))
+    jcomps, jmom = JN.lpt_catalog_from_modes(jnp.asarray(dk), n, box, jc,
+                                             9.0, growth=growth)
+    ref_c, ref_m = JN.pm_evolve(jcomps, jmom, jc, n, box, 0.1, 1.0, 4)
+    real_save = jck.save_state
+
+    def crashy(path, state, step=None):
+        real_save(path, state, step=step)
+        raise RuntimeError("simulated crash")
+
+    monkeypatch.setattr(jck, "save_state", crashy)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        JN.pm_evolve_checkpointed(jcomps, jmom, jc, n, box, 0.1, 1.0, 4,
+                                  tmp_path / "ck", segment_steps=2)
+    tcomps, tmom = TN.lpt_catalog_from_modes(dk, n, box, tc, 9.0,
+                                             growth=growth, device="cpu")
+    out_c, out_m = TN.pm_evolve_checkpointed(tcomps, tmom, tc, n, box, 0.1,
+                                             1.0, 4, tmp_path / "ck",
+                                             segment_steps=2)
+    for got, want in zip(out_c, ref_c):
+        assert _periodic_gap(got.numpy(), want, box) < 2e-3
+    for got, want in zip(out_m, ref_m):
+        want = np.asarray(want)
+        npt.assert_allclose(got.numpy(), want,
+                            atol=1e-3 * np.abs(want).max())

@@ -151,7 +151,7 @@ def main() -> None:
     nplanes = int(math.ceil(float(cosmo.comoving_distance(Z_SOURCE))
                             / box)) + 3
     n_groups = _lightcone_geometry(cosmo, box, nplanes, Z_SOURCE, Z_INIT,
-                                   None)[3]
+                                   2)[3]
     rng = np.random.default_rng(args.seed)
     white = rng.standard_normal((args.npart,) * 3).astype(np.float32)
     shifts = rng.uniform(0.0, box, (n_groups, 2))
