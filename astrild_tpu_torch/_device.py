@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["default_device", "as_tensor", "as_theory_tensor", "as_points"]
+__all__ = ["default_device", "as_tensor", "as_theory_tensor", "as_points",
+           "as_x32", "as_host"]
 
 
 def default_device(device=None) -> torch.device:
@@ -58,3 +59,23 @@ def as_points(pos, device=None):
         first = as_tensor(pos[0], device)
         return tuple([first] + [as_tensor(c, first.device) for c in pos[1:]])
     return as_tensor(pos, device)
+
+
+# what jnp.asarray makes of 64-bit integer and complex input with x64 off
+_X32 = {torch.int64: torch.int32, torch.complex128: torch.complex64}
+
+
+def as_x32(arr, device=None) -> torch.Tensor:
+    """`as_tensor` with the JAX package's jnp.asarray dtypes (x64 off) for
+    the rest too: int64 as int32, complex128 as complex64."""
+    t = as_tensor(arr, device)
+    return t.to(_X32.get(t.dtype, t.dtype))
+
+
+def as_host(x, dtype=None) -> np.ndarray:
+    """A numpy array of `x`: a tensor's values copied to the host (its
+    dtype kept unless `dtype` is given), anything else as np.asarray
+    gives it."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)

@@ -1,4 +1,6 @@
-"""Containers of the port (the ported part of astrild_tpu/core)."""
+"""Containers of the port (astrild_tpu/core's twins)."""
+from .catalog import Catalog
 from .dataset import Dataset
+from .grid import Grid3D, SkyGrid
 
-__all__ = ["Dataset"]
+__all__ = ["Catalog", "Dataset", "Grid3D", "SkyGrid"]

@@ -18,7 +18,11 @@ either package restores in the other. Checkpoints that orbax wrote (a
 
 Flatten order is the JAX package's `jax.tree_util` order: the items of a
 tuple or list in order, the values of a dict by sorted key, None holding
-no leaf, anything else one leaf.
+no leaf, the containers as their pytrees flatten them (a `Grid3D` its
+`values`, a `SkyGrid` its layers and a `Catalog` its columns by sorted
+name, their static fields kept from the template), anything else one
+leaf. So a checkpoint of the containers written by either package
+restores in the other.
 """
 from __future__ import annotations
 
@@ -30,6 +34,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .catalog import Catalog
+from .grid import Grid3D, SkyGrid
+
 __all__ = ["save_state", "restore_state", "bind_schedule",
            "checkpoint_exists", "CheckpointedAccumulator"]
 
@@ -40,10 +47,37 @@ def _as_path(path) -> Path:
     return p
 
 
+def _container_items(tree):
+    """(names, leaves) of a container in its pytree order, or None for
+    anything else."""
+    if isinstance(tree, Grid3D):
+        return ("values",), (tree.values,)
+    if isinstance(tree, (SkyGrid, Catalog)):
+        d = tree.data if isinstance(tree, SkyGrid) else tree.columns
+        names = tuple(sorted(d))
+        return names, tuple(d[k] for k in names)
+    return None
+
+
+def _rebuilt_container(template, leaves):
+    """`template`'s container with `leaves` in its pytree order."""
+    names, old = _container_items(template)
+    new = [_unflatten(x, leaves) for x in old]
+    if isinstance(template, Grid3D):
+        return Grid3D(new[0], template.boxsize)
+    if isinstance(template, SkyGrid):
+        return SkyGrid(dict(zip(names, new)), template.opening_angle,
+                       template.quantity)
+    return Catalog(dict(zip(names, new)))
+
+
 def _flatten(tree) -> list:
     """The leaves of `tree` in flatten order (see the module docstring)."""
     if tree is None:
         return []
+    items = _container_items(tree)
+    if items is not None:
+        return [x for item in items[1] for x in _flatten(item)]
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _flatten(tree[k])]
     if isinstance(tree, (tuple, list)):
@@ -56,6 +90,8 @@ def _unflatten(template, leaves):
     iterator `leaves`."""
     if template is None:
         return None
+    if _container_items(template) is not None:
+        return _rebuilt_container(template, leaves)
     if isinstance(template, dict):
         return {k: _unflatten(template[k], leaves) for k in sorted(template)}
     if isinstance(template, (tuple, list)):
@@ -70,6 +106,10 @@ def _describe(tree) -> str:
     """The structure of `tree` with its leaves as '*' (for meta.json)."""
     if tree is None:
         return "None"
+    items = _container_items(tree)
+    if items is not None:
+        inner = ", ".join(f"{k!r}: {_describe(x)}" for k, x in zip(*items))
+        return f"{type(tree).__name__}({{{inner}}})"
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {_describe(tree[k])}"
                                for k in sorted(tree)) + "}"

@@ -1,24 +1,32 @@
-"""Ray-Ramses lightcone output: map assembly from ray columns.
+"""Ray-Ramses lightcone output handling: per-CPU merge and map assembly.
 
-numpy copy of `rays_to_map` and `SHEAR_CORRECTIONS` of
-astrild_tpu/io/rays.py (what `SkyArray.from_columns` needs): ray samples
-sorted by ray id, unit-corrected, and reshaped row-major to the (npix,
-npix) sky map. The per-CPU ASCII merge (`merge_ray_outputs`) is not ported
-yet.
+numpy copy of astrild_tpu/io/rays.py: per-CPU ASCII ray outputs are
+concatenated (`merge_ray_outputs`, what `RayRamses.compress_snapshot`
+reads), and ray samples are sorted by ray id, unit-corrected and reshaped
+row-major to the (npix, npix) sky map (`rays_to_map`, what
+`SkyArray.from_columns` needs).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ..ops.lensing import code_to_phy_units_factor
 
-__all__ = ["rays_to_map", "SHEAR_CORRECTIONS"]
+__all__ = ["merge_ray_outputs", "rays_to_map", "SHEAR_CORRECTIONS"]
 
 # Ray-Ramses wrote shear with swapped/negated components in some versions;
 # the reference fixes them at compress time.
 SHEAR_CORRECTIONS = {"shear_x": -1.0, "shear_y": -1.0}
+
+
+def merge_ray_outputs(paths: Sequence[str], column_names: Sequence[str],
+                      skiprows: int = 1) -> Dict[str, np.ndarray]:
+    """Concatenate per-CPU ascii ray files into one column dict."""
+    chunks = [np.loadtxt(p, skiprows=skiprows, ndmin=2) for p in paths]
+    data = np.concatenate([c for c in chunks if c.size], axis=0)
+    return {n: data[:, i] for i, n in enumerate(column_names)}
 
 
 def rays_to_map(values: np.ndarray, ray_ids: Optional[np.ndarray] = None,

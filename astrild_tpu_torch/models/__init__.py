@@ -7,6 +7,8 @@ from .peaks import Peaks
 from .power import (AngularPowerSpectrum, Bispectrum2D, Bispectrum3D,
                     LinearAngularPowerSpectrum, LinearPowerSpectrum,
                     PowerSpectrum3D, PowMes)
+from .simcoll import SimulationCollection
+from .siminfo import snapshot_info_table, write_snapshot_info
 from .simulation import Ecosmog, RayRamses, Simulation
 from .skyhealpix import SkyHealpix
 from .skymap import SkyArray, SkyMap
@@ -17,6 +19,8 @@ __all__ = ["Dipoles", "Halos", "Rockstar", "SubFind", "Peaks",
            "AngularPowerSpectrum", "PowerSpectrum3D", "Bispectrum3D",
            "Bispectrum2D", "LinearPowerSpectrum",
            "LinearAngularPowerSpectrum", "PowMes", "Simulation",
+           "SimulationCollection", "snapshot_info_table",
+           "write_snapshot_info",
            "Ecosmog", "RayRamses", "SkyArray", "SkyHealpix", "SkyMap",
            "SkyNamaster",
            "TunnelsFinder",

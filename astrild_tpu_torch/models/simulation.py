@@ -4,10 +4,11 @@ Port of astrild_tpu/models/simulation.py: the `Simulation` handle
 (directory/file discovery by glob + regex id extraction) and the `Ecosmog`
 particle-simulation handle, whose `density_fields` paints density and
 velocity grids on the tensors' device (the native stand-in for the
-reference astrild's DTFE shell-out) and whose `to_gadget` writes a Gadget
-binary snapshot. `Ecosmog.compress_snapshot` and `RayRamses` need the
-RAMSES and ray readers, which are not ported yet: they raise
-`NotImplementedError`.
+reference astrild's DTFE shell-out), whose `to_gadget` writes a Gadget
+binary snapshot and whose `compress_snapshot` transcribes RAMSES grav
+files to columnar tables; and the `RayRamses` lightcone handle, which
+merges per-CPU ray dumps, sums ray snapshots and builds halo lightcone
+catalogs. The file paths are numpy on the host, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .._device import default_device
+from .._device import as_host, default_device
 from ..utils.cosmology import Cosmology
 
 __all__ = ["Simulation", "Ecosmog", "RayRamses"]
@@ -250,19 +251,169 @@ class Ecosmog(Simulation):
                      snap_format=snap_format)
         return path
 
-    def compress_snapshot(self, *args, **kwargs):
-        """Transcribes grav_*.out????? RAMSES files to columnar h5 in the
-        JAX package; needs io/ramses, which is not ported yet."""
-        raise NotImplementedError(
-            "Ecosmog.compress_snapshot needs the RAMSES reader (io/ramses), "
-            "which astrild_tpu_torch does not port yet")
+    def compress_snapshot(self, amr_levels, domain_level, fields,
+                          snap_nrs=None, file_root: str = "grav",
+                          dir_out=None, save: bool = True):
+        """Transcribe grav_*.out????? F77 files of the numbered snapshot
+        directories -> {snap_nr: {field: column}} (ghost rows dropped,
+        lexicographic row order), each also written as a columnar h5
+        `<root>_out<snap_nr:05d>.h5` unless `save` is False."""
+        from ..io import columnar_h5, ramses
+
+        levelmin, levelmax = min(amr_levels), max(amr_levels)
+        results = {}
+        for snap_nr, snap_dir in zip(self.dir_nrs, self.dirs[self.dir_root]):
+            if snap_nrs is not None and snap_nr not in snap_nrs:
+                continue
+            files = glob.glob(
+                os.path.join(snap_dir, f"{file_root}_{snap_nr:05d}.out?????"))
+            if not files:
+                continue
+            data = ramses.read_grav_snapshot(files, fields, levelmin,
+                                             levelmax, self.dimensions)
+            if save:
+                fname = file_root.split("_")[0] + "_out%05d.h5" % snap_nr
+                columnar_h5.write_table(
+                    os.path.join(dir_out or self.dirs["sim"], fname), data)
+            results[int(snap_nr)] = data
+        return results
 
 
 class RayRamses(Simulation):
-    """Ray-Ramses lightcone handle: needs the ray readers (io/rays), which
-    are not ported yet."""
+    """Ray-Ramses lightcone handle: per-CPU ray dumps, their sums over
+    snapshots, and the halos inside the ray-tracing box."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RayRamses needs the ray readers (io/rays), which "
-            "astrild_tpu_torch does not port yet")
+    def __init__(self, config=None, dir_sim: str = ".", dir_out=None,
+                 file_dsc=None, dir_root: Optional[str] = None,
+                 opening_angle: float = 20.0, npix: int = 8192,
+                 cosmo: Optional[Cosmology] = None):
+        super().__init__(dir_sim, dir_out,
+                         file_dsc or {"root": None, "extension": None},
+                         dir_root)
+        self.config = config
+        self.opening_angle = opening_angle
+        self.npix = npix
+        self.cosmo = cosmo or Cosmology()
+
+    def compress_snapshot(self, columns, dir_out=None, save: bool = True):
+        """Merge per-CPU ray ascii outputs into one column dict per ray
+        snapshot, applying the shear sign corrections at compress time;
+        each is also written as a columnar h5 unless `save` is False.
+        Returns {snap_nr: {column: array}}."""
+        from ..io import columnar_h5
+        from ..io.rays import SHEAR_CORRECTIONS, merge_ray_outputs
+
+        results = {}
+        root = self.file_dsc["root"]
+        # group by the SNAPSHOT id = first number group in the name.
+        # self.file_nrs cannot be used here: __init__ extracts it with
+        # uniques='max', which on per-CPU outputs like
+        # Ray_maps_output00001.out00064 picks the CPU column (the
+        # reference re-extracts with uniques='min' before compressing)
+        snap_ids = sorted({int(re.findall(r"\d+", os.path.basename(p))[0])
+                           for p in self.files[root]})
+        for snap_nr in snap_ids:
+            paths = [p for p in self.files[root]
+                     if int(re.findall(r"\d+", os.path.basename(p))[0])
+                     == snap_nr]
+            data = merge_ray_outputs(paths, columns)
+            for col, fac in SHEAR_CORRECTIONS.items():
+                if col in data:
+                    data[col] = data[col] * fac
+            if save:
+                fname = f"Ray_maps_output{snap_nr:05d}.h5"
+                columnar_h5.write_table(
+                    os.path.join(dir_out or self.dirs["sim"], fname), data)
+            results[int(snap_nr)] = data
+        return results
+
+    def sum_snapshots(self, columns, snap_nrs=None, z_range=None,
+                      redshifts=None):
+        """Sum ray maps over selected snapshots.
+
+        Selection mirrors the reference's `_get_box_and_ray_nrs`:
+        `snap_nrs` restricts to specific ray
+        snapshot numbers; `z_range=(zmin, zmax)` keeps snapshots with
+        zmin < z < zmax (open interval, as the reference), where z comes
+        from `redshifts`, a {snap_nr: z} mapping (the reference read it
+        from ray_snapshot_info.h5). With neither, all snapshots sum
+        (complete lightcone). Box-spanning multi-dir sums live in
+        `SimulationCollection.sum_raytracing_snapshots`.
+        """
+        from ..io import columnar_h5
+
+        root = self.file_dsc["root"]
+        paths = list(self.files[root])
+        nrs = [int(n) for n in self.file_nrs] if self.file_nrs is not None \
+            else list(range(len(paths)))
+        if snap_nrs is not None:
+            keep = set(int(s) for s in as_host(snap_nrs).reshape(-1))
+            paths = [p for p, n in zip(paths, nrs) if n in keep]
+            nrs = [n for n in nrs if n in keep]
+        if z_range is not None:
+            if redshifts is None:
+                raise ValueError(
+                    "z_range selection needs `redshifts` ({snap_nr: z})")
+            zlo, zhi = min(z_range), max(z_range)
+            sel = [zlo < float(redshifts[n]) < zhi for n in nrs]
+            paths = [p for p, s in zip(paths, sel) if s]
+        if not paths:
+            raise ValueError("sum_snapshots: selection matched no "
+                             f"snapshots (snap_nrs={snap_nrs}, "
+                             f"z_range={z_range})")
+        total = None
+        for path in paths:
+            data = columnar_h5.read_table(path)
+            if total is None:
+                total = {c: np.array(data[c]) for c in columns}
+            else:
+                for c in columns:
+                    total[c] = total[c] + data[c]
+        return total
+
+    def Dc_to_redshift(self, dc):
+        """Comoving distance -> redshift (the handle's Cosmology)."""
+        return self.cosmo.redshift_at_comoving_distance(dc)
+
+    def find_halos_in_raytracing_box(self, ecosmog, snapdist, box_nr: int,
+                                     boxsize: float, halofinder: str =
+                                     "rockstar"):
+        """Halo lightcone catalog across this box's ray snapshots, via
+        models.lightcone (numpy columns)."""
+        from .halos import Halos
+        from .lightcone import (halo_lightcone_catalog,
+                                merge_lightcone_catalogs)
+
+        boxdist = snapdist[-1]
+        parts = []
+        ray_nrs = np.unique(self.file_nrs)[:-1]
+        for ray_nr in ray_nrs:
+            snap_nr = int(ray_nr)
+            if halofinder == "rockstar":
+                halos = Halos.from_rockstar(snap_nr, ecosmog)
+                cat = halos.data
+                if cat is None or not len(next(iter(cat.values()))):
+                    continue
+                pos = np.stack([cat["x"], cat["y"], cat["z"]], -1)
+                vel = np.stack([cat["vx"], cat["vy"], cat["vz"]], -1)
+                m200 = np.asarray(cat["m200c"])
+                r200 = np.asarray(cat["r200c"])
+                extra = {k: cat[k] for k in ("Rs",) if k in cat}
+            else:
+                halos = Halos.from_subfind(snap_nr, ecosmog)
+                cat = halos.data
+                if not cat.get("n_groups", 0):
+                    continue
+                pos = np.asarray(cat["GroupPos"])
+                vel = np.asarray(cat.get("GroupVel",
+                                         np.zeros_like(pos)))
+                m200 = np.asarray(cat["Group_M_Crit200"])
+                r200 = np.asarray(cat["Group_R_Crit200"])
+                extra = None
+            parts.append(halo_lightcone_catalog(
+                pos, vel, m200, r200, boxsize, boxdist,
+                (snapdist[ray_nr - 1], snapdist[ray_nr]),
+                self.opening_angle, self.npix, box_nr=box_nr,
+                snap_nr=snap_nr, ray_nr=int(ray_nr),
+                extra_columns=extra))
+        return merge_lightcone_catalogs(parts)

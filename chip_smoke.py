@@ -280,6 +280,11 @@ exits non-zero before the final line:
      phase_field_inference's docstring; K2 and its adjoint launch
      nsteps + 2 times a gradient, K1 once a lightcone plane, K3-K4 0
      times.
+ 21. the file path (after phase 20): ECOSMOG grav files and Ray-Ramses
+     ray dumps written, compressed and taken to the card, the native C++
+     oracle against K3 and kappa_to_alpha, the observability stages,
+     trace and checks: see phase_file_path's docstring; K2 and K3 launch
+     once each, K1, K4 and K2's adjoint 0 times.
 
 The last lines are a JSON object describing each kernel (K1-K4 and K2's
 adjoint: launches on its main path, error, times, and the least time the
@@ -294,6 +299,7 @@ import math
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -7507,6 +7513,537 @@ def phase_field_inference(dev, seed: int) -> dict:
     return result
 
 
+# the file path (phase 21), shapes: an ECOSMOG domain level of 2^FP_LEVEL
+# cells a side over FP_CPUS per-CPU grav files in a FP_BOX Mpc/h box (the
+# fields x, y, z, phi, f; each CPU also holds the first FP_GHOSTS octs of
+# the next as ghost rows) painted onto FP_GRID^3 and its P(k) in FP_PK_BINS
+# bins; FP_SNAPS Ray-Ramses snapshots of FP_NPIX^2 rays (the suite's map
+# width) over FP_RAY_CPUS per-CPU ASCII dumps in code units, over FP_FOV
+# deg, their kappa a Gaussian field smoothed over FP_RAY_SMOOTH pixels plus
+# halos; peaks and C_ell bins of the ray map; the native oracle's K3
+# tracers and bins and its kappa map (the central FP_ALPHA_NPIX^2 of the ray
+# map). Bars: K3 against the oracle (tests/test_native.py's rtol and atol
+# [km/s]), the deflections against the oracle's (its 3% of the largest),
+# the observability stage clocks against the phase's own (share), the card
+# sums and the translated map against the host's (relative to their max)
+FP_LEVEL, FP_CPUS, FP_GHOSTS, FP_BOX = 8, 64, 512, 500.0
+FP_GRID, FP_PK_BINS = 256, 64
+FP_NPIX, FP_RAY_CPUS, FP_SNAPS, FP_FOV, FP_RAY_SMOOTH = 2048, 64, 2, 10.0, 4.0
+FP_PEAKS, FP_CL_BINS = 512, 32
+FP_K3_N, FP_K3_BINS, FP_ALPHA_NPIX = 1 << 15, (0.0, 50.0, 25), 1024
+FP_K3_TOL, FP_ALPHA_TOL, FP_CLOCK_TOL, FP_MAP_TOL = (2e-3, 0.5), 0.03, 0.05, 1e-6
+FP_FIELDS = ("x", "y", "z", "phi", "f")
+FP_RAY_COLS = ("id", "kappa_2", "shear_x", "shear_y")
+# digits of the ray dumps' integer columns (ids; code-unit values: kappa c^2
+# is ~1e9 for kappa ~ 0.01, 1e12 would be kappa ~ 11, and one unit is
+# 1.1e-11 of kappa)
+FP_ID_DIGITS, FP_VALUE_DIGITS = 8, 12
+
+
+def _write_grav_files(directory: Path, snap: int, rng) -> dict:
+    """One ECOSMOG grav snapshot in the F77 layout of tests/test_io.py's
+    fixture, split over FP_CPUS files `grav_<snap>.out<cpu>`: the header
+    (ncpu, ndim, nlevelmax, nboundary), then for every CPU a (level,
+    ncache) block, empty but the file's own, which holds 8 sub-grids of
+    ncache float64 records a field. CPU c owns the octs of its slab of
+    oct planes along x, in (x, y, z) order, and repeats the first
+    FP_GHOSTS octs of CPU c + 1 as ghost rows. Returns the cell count and
+    the sum of phi over the cells (without ghosts)."""
+    n = 2 ** FP_LEVEL
+    side = n // 2
+    per = side ** 3 // FP_CPUS
+    o = np.arange(side)
+    ox, oy, oz = (a.ravel() for a in np.meshgrid(o, o, o, indexing="ij"))
+    dims = np.array([[d & 1, (d >> 1) & 1, (d >> 2) & 1] for d in range(8)])
+    # (field, sub-grid, oct): cell centres in box units, phi > 0, f
+    vals = np.empty((5, 8, side ** 3))
+    for a, oa in enumerate((ox, oy, oz)):
+        vals[a] = (2 * oa[None, :] + dims[:, a, None] + 0.5) / n
+    vals[3] = 1.0 + 0.1 * rng.standard_normal((8, side ** 3))
+    vals[4] = rng.standard_normal((8, side ** 3))
+    header = b"".join(struct.pack("iii", 4, v, 4)
+                      for v in (FP_CPUS, 3, FP_LEVEL, 0))
+    for c in range(FP_CPUS):
+        nxt = ((c + 1) % FP_CPUS) * per
+        idx = np.concatenate([np.arange(c * per, (c + 1) * per),
+                              np.arange(nxt, nxt + FP_GHOSTS)])
+        block = np.ascontiguousarray(vals[:, :, idx])
+        marker = struct.pack("i", 8 * len(idx))
+        parts = [header]
+        for ib in range(FP_CPUS):
+            parts.append(struct.pack("iii", 4, FP_LEVEL, 4))
+            parts.append(struct.pack("iii", 4, len(idx) if ib == c else 0, 4))
+        # this CPU's records after its block (ib = c): the blocks of the
+        # CPUs after it follow them
+        head = 12 * (4 + 2 * (c + 1))
+        body = [marker + block[fi, d].tobytes() + marker
+                for d in range(8) for fi in range(5)]
+        data = b"".join(parts)
+        with open(directory / f"grav_{snap:05d}.out{c + 1:05d}", "wb") as f:
+            f.write(data[:head] + b"".join(body) + data[head:])
+    return {"cells": n ** 3, "phi_sum": float(vals[3].sum())}
+
+
+def _ascii_int_rows(cols, digits) -> bytes:
+    """Integer columns as whitespace-separated ASCII rows, each value
+    written as ' ' or '-' and zero-padded digits (a multiple of 4; np.
+    loadtxt reads them back exactly), built with numpy four digits at a
+    time rather than with a Python loop a row."""
+    quads = np.frombuffer(b"".join(b"%04d" % q for q in range(10000)),
+                          np.uint8).reshape(10000, 4)
+    n = len(cols[0])
+    width = sum(d + 2 for d in digits) + 1  # and the newline
+    buf = np.full((n, width), ord(" "), np.uint8)
+    at = 0
+    for col, d in zip(cols, digits):
+        col = np.asarray(col, np.int64)
+        mag = np.abs(col)
+        if d % 4 or mag.max(initial=0) >= 10 ** d:
+            raise ValueError(f"{d} digits: not a multiple of 4, or short")
+        buf[:, at + 1] = np.where(col < 0, ord("-"), ord(" "))
+        for k in range(d // 4):
+            group = (mag // 10 ** (d - 4 * (k + 1))) % 10000
+            buf[:, at + 2 + 4 * k:at + 6 + 4 * k] = quads[group]
+        at += d + 2
+    buf[:, -1] = ord("\n")
+    return buf.tobytes()
+
+
+def _ray_fields(rng) -> dict:
+    """kappa (a Gaussian field of rms 0.02 smoothed over FP_RAY_SMOOTH
+    pixels, plus 64 Gaussian halos of 0.05-0.2) and its shear (Kaiser-
+    Squires) on FP_NPIX^2 pixels, float64 on the host."""
+    n = FP_NPIX
+    k1 = np.fft.fftfreq(n)[:, None]
+    k2 = np.fft.rfftfreq(n)[None, :]
+    ksq = k1 ** 2 + k2 ** 2
+    field = np.fft.irfft2(np.fft.rfft2(rng.standard_normal((n, n)))
+                          * np.exp(-0.5 * ksq * (2 * np.pi * FP_RAY_SMOOTH)
+                                   ** 2), s=(n, n))
+    kappa = 0.02 * field / field.std()
+    e = np.arange(n)
+    for r, c, a, s in zip(rng.uniform(64, n - 64, 64), rng.uniform(
+            64, n - 64, 64), rng.uniform(0.05, 0.2, 64), rng.uniform(
+            3, 12, 64)):
+        kappa += a * np.outer(np.exp(-0.5 * ((e - r) / s) ** 2),
+                              np.exp(-0.5 * ((e - c) / s) ** 2))
+    kft = np.fft.rfft2(kappa)
+    ksq[0, 0] = 1.0
+    return {"kappa_2": kappa,
+            "shear_x": np.fft.irfft2((k1 ** 2 - k2 ** 2) / ksq * kft,
+                                     s=(n, n)),
+            "shear_y": np.fft.irfft2(2 * k1 * k2 / ksq * kft, s=(n, n))}
+
+
+def _write_ray_files(directory: Path, rng) -> dict:
+    """FP_SNAPS Ray-Ramses snapshots, each over FP_RAY_CPUS per-CPU ASCII
+    dumps `Ray_maps_output<snap>.out<cpu>` with a header line and the
+    columns id, kappa_2, shear_x, shear_y in code units (x c^2, as
+    integers), the shear with the sign Ray-Ramses wrote (compress_snapshot
+    flips it). The rays are dealt to the CPUs in one random order, the
+    same in every snapshot. Returns {snap: {column: code-unit integers in
+    ray-id order}} and the physical maps."""
+    from astrild_tpu_torch.utils.constants import C_LIGHT_KMS
+
+    n_rays = FP_NPIX ** 2
+    order = rng.permutation(n_rays)
+    chunks = np.array_split(order, FP_RAY_CPUS)
+    header = ("# " + " ".join(FP_RAY_COLS) + "\n").encode()
+    out = {}
+    for snap in range(1, FP_SNAPS + 1):
+        maps = _ray_fields(rng)
+        code = {k: np.rint(v.ravel() * C_LIGHT_KMS ** 2).astype(np.int64)
+                for k, v in maps.items()}
+        dumped = {"kappa_2": code["kappa_2"], "shear_x": -code["shear_x"],
+                  "shear_y": -code["shear_y"]}
+        for c, ids in enumerate(chunks):
+            rows = _ascii_int_rows(
+                [ids] + [dumped[k][ids] for k in FP_RAY_COLS[1:]],
+                [FP_ID_DIGITS] + [FP_VALUE_DIGITS] * 3)
+            path = directory / f"Ray_maps_output{snap:05d}.out{c + 1:05d}"
+            with open(path, "wb") as f:
+                f.write(header + rows)
+        out[snap] = {"code": code, "maps": maps}
+    return out
+
+
+def _k3_oracle_tracers(rng, n: int, side: float = 200.0, lo: float = 500.0):
+    """n tracers in a cube of `side` Mpc/h at `lo` from the observer at the
+    origin: half in 256 clumps (3 Mpc/h) falling in at 30 km/s per Mpc/h,
+    half uniform, all with 100 km/s noise (tests/test_torch_cuda.py's
+    K3-against-oracle tracers)."""
+    nc = n // 2
+    centres = lo + rng.uniform(0, side, (256, 3))
+    off = rng.normal(0, 3.0, (nc, 3))
+    pos = np.concatenate([centres[rng.integers(0, 256, nc)] + off,
+                          lo + rng.uniform(0, side, (n - nc, 3))])
+    vel = np.concatenate([-30.0 * off, np.zeros((n - nc, 3))]) \
+        + rng.normal(0, 100.0, (n, 3))
+    return pos, vel
+
+
+def _rel_max(got, want) -> float:
+    got = got.detach().cpu().double().numpy() if isinstance(
+        got, torch.Tensor) else np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def phase_file_path(dev, seed: int, card: str) -> dict:
+    """The file path (queue 1 item 8) on the card. The synthetic files
+    are written first, under build/file_path_<pid>/ (removed after), and
+    their seconds printed apart. Then three stages, each inside
+    observability.stage with sync= its card output and on the phase's own
+    synchronized host clock (the two within FP_CLOCK_TOL), with K1-K4
+    launches held to each stage's count: (1) `grav`: Ecosmog.compress_
+    snapshot(save=False) of the 64 grav files of a 256^3 domain level
+    (np.unique's dedup must leave exactly 256^3 rows, the cell centres in
+    lexicographic order, phi summing as written), the columns to the card
+    as a Catalog, their positions painted through K2 weighted by phi into a
+    Grid3D (its total the phi sum, rtol 1e-5), its density_contrast (mean
+    0) and P(k) (finite); (2) `rays`: RayRamses.compress_snapshot(save=
+    False) of two snapshots of 2048^2 rays over 64 ASCII dumps each (the
+    shear signs flipped, the ray ids sorting to 0 .. 2048^2 - 1, every
+    column equal to the integers written), rays_to_map (equal to the
+    written map within one code unit), a SkyArray on the card, peaks.
+    find_peaks and cl_flat_sky of both, the two snapshots' summed columns
+    as one map on the card against the sum of the two card maps (within
+    FP_MAP_TOL of the max), SimulationCollection._translate_redshift of
+    the card map against its float64 host value (FP_MAP_TOL); (3)
+    `native`: the native C++ oracle built with g++ (its seconds), K3 on
+    2^15 clustered tracers against its float64 OpenMP pair sum (FP_K3_TOL
+    where both are finite), lensing.kappa_to_alpha on the card against
+    its kappa_to_alphas on the central 1024^2 of the first ray map
+    (FP_ALPHA_TOL of the largest deflection). Then the card half of stage 2
+    again under observability.trace: its Chrome trace must exist and name
+    a cuFFT, K1 or K2 kernel; check_finite of every card output;
+    stack_for_devices of the two card maps, one (2, 2048, 2048) card
+    tensor. The stages of the JAX package's file path that read or write
+    HDF5 (h5py) or draw figures (matplotlib) are not in this phase: those
+    packages are not on the card's machine (PERF.md §4); the CPU tests
+    hold them. Returns the numbers printed in `# file_path`."""
+    from astrild_tpu_torch import native
+    from astrild_tpu_torch.core import Catalog, Grid3D
+    from astrild_tpu_torch.io.rays import rays_to_map
+    from astrild_tpu_torch.models import (Ecosmog, RayRamses,
+                                          SimulationCollection, SkyArray)
+    from astrild_tpu_torch.ops import (angular_power, lensing, paint,
+                                       paint_cuda, pairwise, pairwise_cuda,
+                                       peaks, power)
+    from astrild_tpu_torch.utils import observability as obs
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 21)
+    root = Path(__file__).resolve().parent / "build" / \
+        f"file_path_{os.getpid()}"
+    grav_dir, ray_dir = root / "output_00001", root / "rays"
+    grav_dir.mkdir(parents=True)
+    ray_dir.mkdir()
+    try:
+        generation = {}
+        t0 = time.perf_counter()
+        written = _write_grav_files(grav_dir, 1, rng)
+        generation["grav_files_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rays = _write_ray_files(ray_dir, rng)
+        generation["ray_files_s"] = time.perf_counter() - t0
+        generation["bytes"] = sum(p.stat().st_size for p in root.rglob("*")
+                                  if p.is_file())
+        log(f"#   file_path generation: grav {generation['grav_files_s']:.2f}"
+            f" s, rays {generation['ray_files_s']:.2f} s, "
+            f"{generation['bytes'] / 1e9:.2f} GB")
+
+        paint_cuda.LAUNCHES.clear()
+        pairwise_cuda.LAUNCHES.clear()
+        times = obs.StageTimes()
+        seconds, launches, clock_gap = {}, {}, {}
+
+        def stage(name, fn):
+            """fn() inside observability.stage (sync= its card outputs)
+            and on the phase's synchronized host clock, with its kernel
+            launches."""
+            torch.cuda.synchronize()
+            before = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+            t0 = time.perf_counter()
+            with obs.stage(f"file_path.{name}", collector=times,
+                           log=False) as holder:
+                res, card_out = fn()
+                holder["sync"] = card_out
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            staged = times.times[f"file_path.{name}"]
+            clock_gap[name] = abs(staged - seconds[name]) / seconds[name]
+            after = {**paint_cuda.LAUNCHES, **pairwise_cuda.LAUNCHES}
+            launches[name] = {k: after[k] - before.get(k, 0) for k in after
+                              if after[k] != before.get(k, 0)}
+            log(f"#   file_path stage {name}: {seconds[name]:.3f} s "
+                f"(observability.stage {staged:.3f} s), launches "
+                f"{launches[name]}; {card}")
+            return res
+
+        out = {}
+
+        # (1) ECOSMOG grav files -> Catalog -> K2 -> Grid3D -> P(k)
+        def grav():
+            t0 = time.perf_counter()
+            eco = Ecosmog(dir_sim=str(root), dir_root="output",
+                          boxsize=FP_BOX, domain_level=2 ** FP_LEVEL)
+            data = eco.compress_snapshot([FP_LEVEL], FP_LEVEL,
+                                         list(FP_FIELDS), save=False)[1]
+            compress_s = time.perf_counter() - t0
+            n = 2 ** FP_LEVEL
+            if len(data["x"]) != written["cells"]:
+                raise AssertionError(f"grav dedup left {len(data['x'])} "
+                                     f"rows, not {written['cells']}")
+            c = (np.arange(n) + 0.5) / n
+            lattice = (np.array_equal(data["x"], np.repeat(c, n * n))
+                       and np.array_equal(data["y"],
+                                          np.tile(np.repeat(c, n), n))
+                       and np.array_equal(data["z"], np.tile(c, n * n)))
+            if not lattice:
+                raise AssertionError("grav rows are not the cell centres "
+                                     "in lexicographic order")
+            if not math.isclose(float(data["phi"].sum()), written["phi_sum"],
+                                rel_tol=1e-12):
+                raise AssertionError("grav phi does not sum as written")
+            t0 = time.perf_counter()
+            cat = Catalog.from_dict(data, device=dev)
+            pos = tuple(cat[k] * FP_BOX for k in ("x", "y", "z"))
+            grid = Grid3D(paint.paint(pos, FP_GRID, FP_BOX,
+                                      weights=cat["phi"], window="cic"),
+                          FP_BOX)
+            delta = grid.density_contrast()
+            pk = power.auto_power(grid.values, FP_BOX, nbins=FP_PK_BINS,
+                                  window="cic")
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            total = float(grid.values.double().sum())
+            mass_rel = abs(total - written["phi_sum"]) / written["phi_sum"]
+            if mass_rel > MASS_RTOL:
+                raise AssertionError(f"grav paint total off by {mass_rel}")
+            mean_delta = abs(float(delta.values.double().mean()))
+            if mean_delta > 1e-5 or not bool(
+                    torch.isfinite(pk.power).all()):
+                raise AssertionError("grav contrast or P(k) wrong")
+            out["grav"] = {"rows": len(data["x"]),
+                           "compress_s": compress_s, "card_s": card_s,
+                           "paint_total_rel": mass_rel,
+                           "mean_delta": mean_delta,
+                           "dtypes": sorted({str(v.dtype)
+                                             for v in cat.columns.values()}),
+                           "pk_low": float(pk.power[1])}
+            return (cat, grid, delta, pk), (grid.values, delta.values,
+                                            pk.power)
+
+        grav_out = stage("grav", grav)
+
+        # (2) Ray-Ramses dumps -> columns -> maps -> SkyArray -> statistics
+        def rays_card(snaps):
+            """The card half: each snapshot's map as a SkyArray, its
+            peaks and C_ell, and the sum of the two snapshots."""
+            skies = {s: SkyArray.from_array(m, FP_FOV, "kappa_2", device=dev)
+                     for s, m in snaps["maps"].items()}
+            stats = {}
+            for s, sky in skies.items():
+                img = sky.data["orig"]
+                cat = peaks.find_peaks(img, threshold=0.1,
+                                       max_peaks=FP_PEAKS, edge_pix=8)
+                ell, cl = angular_power.cl_flat_sky(img, FP_FOV,
+                                                    nbins=FP_CL_BINS)
+                stats[s] = (cat, ell, cl)
+            summed = SkyArray.from_array(snaps["summed"], FP_FOV, "kappa_2",
+                                         device=dev)
+            card_sum = sum(sky.data["orig"] for sky in skies.values())
+            return skies, stats, summed, card_sum
+
+        def rays_stage():
+            t0 = time.perf_counter()
+            rr = RayRamses(dir_sim=str(ray_dir),
+                           file_dsc={"root": "Ray_maps",
+                                     "extension": "out*"},
+                           opening_angle=FP_FOV, npix=FP_NPIX)
+            cols = rr.compress_snapshot(list(FP_RAY_COLS), save=False)
+            compress_s = time.perf_counter() - t0
+            if sorted(cols) != list(range(1, FP_SNAPS + 1)):
+                raise AssertionError(f"ray snapshots {sorted(cols)}")
+            maps, map_err = {}, 0.0
+            for s, d in cols.items():
+                ids = d["id"].astype(np.int64)
+                order = np.argsort(ids)
+                if not np.array_equal(ids[order], np.arange(FP_NPIX ** 2)):
+                    raise AssertionError("ray ids do not sort to a square")
+                for k in FP_RAY_COLS[1:]:
+                    if not np.array_equal(d[k][order], rays[s]["code"][k]):
+                        raise AssertionError(f"ray column {k} of snapshot "
+                                             f"{s} differs from the dump "
+                                             "(shear sign?)")
+                maps[s] = rays_to_map(d["kappa_2"], d["id"], "kappa_2")
+                map_err = max(map_err, float(np.abs(
+                    maps[s] - rays[s]["maps"]["kappa_2"]).max()))
+            if map_err > 1e-10:
+                raise AssertionError(f"ray map off by {map_err}")
+            same_ids = all(np.array_equal(cols[s]["id"], cols[1]["id"])
+                           for s in cols)
+            if not same_ids:
+                raise AssertionError("ray snapshots deal their rays "
+                                     "differently")
+            summed_cols = {k: sum(cols[s][k] for s in cols)
+                           for k in FP_RAY_COLS[1:]}
+            snaps = {"maps": maps, "summed": rays_to_map(
+                summed_cols["kappa_2"], cols[1]["id"], "kappa_2")}
+            t0 = time.perf_counter()
+            skies, stats, summed, card_sum = rays_card(snaps)
+            coll = SimulationCollection({}, {})
+            shifted = coll._translate_redshift(skies[1].data["orig"], 0.4,
+                                               0.5, 1.0, 2.0)
+            host_shifted = coll._translate_redshift(maps[1], 0.4, 0.5, 1.0,
+                                                    2.0)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            sum_rel = (summed.data["orig"] - card_sum).abs().max().item() \
+                / card_sum.abs().max().item()
+            shift_rel = _rel_max(shifted, host_shifted)
+            if sum_rel > FP_MAP_TOL or shift_rel > FP_MAP_TOL:
+                raise AssertionError(f"ray sums {sum_rel}, shift "
+                                     f"{shift_rel} above {FP_MAP_TOL}")
+            n_peaks = {s: int(torch.isfinite(st[0].values).sum())
+                       for s, st in stats.items()}
+            if min(n_peaks.values()) < 16:
+                raise AssertionError(f"too few peaks {n_peaks}")
+            out["rays"] = {"rays": FP_NPIX ** 2, "compress_s": compress_s,
+                           "card_s": card_s, "map_err": map_err,
+                           "sum_rel": sum_rel, "shift_rel": shift_rel,
+                           "peaks": n_peaks,
+                           "cl_low": {s: float(st[2][1])
+                                      for s, st in stats.items()}}
+            card_outs = [summed.data["orig"], card_sum, shifted] + [
+                t for st in stats.values() for t in (st[1], st[2])]
+            return (snaps, skies, stats, summed, card_sum, shifted), card_outs
+
+        ray_out = stage("rays", rays_stage)
+
+        # (3) the native oracle against K3 and kappa_to_alpha on the card
+        def native_stage():
+            t0 = time.perf_counter()
+            if not native.available():
+                raise AssertionError(f"the native oracle did not build at "
+                                     f"{native.library_path()}:\n"
+                                     f"{native.build_log}")
+            build_s = native.build_seconds
+            pos, vel = _k3_oracle_tracers(rng, FP_K3_N)
+            bins = np.linspace(*FP_K3_BINS)
+            t1 = time.perf_counter()
+            _, v_ref = native.pairwise_velocity(pos, vel, bins)
+            oracle_k3_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            _, v12 = pairwise.mean_pairwise_velocity(
+                torch.tensor(pos, dtype=torch.float32, device=dev),
+                torch.tensor(vel, dtype=torch.float32, device=dev), bins)
+            torch.cuda.synchronize()
+            k3_s = time.perf_counter() - t1
+            v12_h = v12.cpu().numpy()
+            good = np.isfinite(v_ref) & np.isfinite(v12_h)
+            rtol, atol = FP_K3_TOL
+            k3_share = float(np.max(np.abs(v12_h[good] - v_ref[good])
+                                    / (atol + rtol * np.abs(v_ref[good]))))
+            if good.sum() < 20 or k3_share > 1.0:
+                raise AssertionError(f"K3 against the native oracle: "
+                                     f"{k3_share} of the bar in "
+                                     f"{good.sum()} bins")
+            lo = (FP_NPIX - FP_ALPHA_NPIX) // 2
+            kappa = ray_out[0]["maps"][1][lo:lo + FP_ALPHA_NPIX,
+                                          lo:lo + FP_ALPHA_NPIX]
+            oa = math.radians(FP_FOV * FP_ALPHA_NPIX / FP_NPIX)
+            t1 = time.perf_counter()
+            a_ref = native.kappa_to_alphas(kappa, oa)
+            oracle_alpha_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            alpha = lensing.kappa_to_alpha(
+                torch.tensor(kappa, dtype=torch.float32, device=dev), oa,
+                padding_factor=4)
+            torch.cuda.synchronize()
+            alpha_s = time.perf_counter() - t1
+            alpha_rel = max(_rel_max(a, r) for a, r in zip(alpha, a_ref))
+            if alpha_rel > FP_ALPHA_TOL:
+                raise AssertionError(f"kappa_to_alpha against the native "
+                                     f"oracle: {alpha_rel} of the max")
+            out["native"] = {"build_s": build_s,
+                             "load_s": time.perf_counter() - t0,
+                             "k3_n": FP_K3_N, "k3_bar_share": k3_share,
+                             "k3_bins": int(good.sum()), "k3_s": k3_s,
+                             "oracle_k3_s": oracle_k3_s,
+                             "alpha_npix": FP_ALPHA_NPIX,
+                             "alpha_rel": alpha_rel, "alpha_s": alpha_s,
+                             "oracle_alpha_s": oracle_alpha_s}
+            return (v12, alpha), [v12, *alpha]
+
+        native_out = stage("native", native_stage)
+
+        predicted = {"grav": {"paint_windowed": 1}, "rays": {},
+                     "native": {"pairwise_accumulate": 1}}
+        total = _held_launches("file_path", predicted, launches)
+        gap = max(clock_gap.values())
+        if gap > FP_CLOCK_TOL:
+            raise AssertionError(f"observability.stage off the phase's "
+                                 f"clock by {clock_gap}")
+
+        # (4) plumbing: a trace of the card half of stage 2, check_finite,
+        # the device batch
+        trace_dir = root / "trace"
+        t0 = time.perf_counter()
+        with obs.trace(str(trace_dir)):
+            traced = rays_card(ray_out[0])
+        trace_s = time.perf_counter() - t0
+        files = sorted(trace_dir.glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"trace files {files}")
+        names = {str(e.get("name", "")) for e in json.load(
+            open(files[0]))["traceEvents"] if e.get("cat") == "kernel"}
+        fft = sorted(n for n in names if "fft" in n.lower())
+        ours = sorted(n for n in names
+                      if "deposit_" in n or "paint_windowed_" in n)
+        if not (fft or ours):
+            raise AssertionError(f"the trace names no cuFFT, K1 or K2 "
+                                 f"kernel among {len(names)} kernels")
+        grid_t = grav_out[1].values
+        obs.check_finite({"grav": (grid_t, grav_out[2].values,
+                                   grav_out[3].power),
+                          "rays": [s.data["orig"] for s in
+                                   ray_out[1].values()] + [ray_out[5]],
+                          "native": native_out,
+                          "traced": traced[3]}, name="file_path")
+        cards = {1: ray_out[1][1].data["orig"], 2: ray_out[1][2].data["orig"]}
+        batch = SimulationCollection({}, {"snap1": 1, "snap2": 2}) \
+            .stack_for_devices(lambda s: cards[s])
+        if (tuple(batch.shape) != (2, FP_NPIX, FP_NPIX)
+                or batch.device != cards[1].device
+                or not torch.equal(batch[1], cards[2])):
+            raise AssertionError("stack_for_devices of the card maps")
+        out["plumbing"] = {"clock_gap": clock_gap, "trace_s": trace_s,
+                           "trace_bytes": files[0].stat().st_size,
+                           "trace_kernels": len(names), "trace_fft": fft[:4],
+                           "trace_ours": ours, "batch": list(batch.shape),
+                           "observability_stages": times.times}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    result = {"phase_s": phase_s, "generation": generation,
+              "seconds": seconds, "launches": launches,
+              "launches_total": total, "card": card, **out}
+    g, r, nv = out["grav"], out["rays"], out["native"]
+    log(f"# phase file_path: {phase_s:.1f} s (files {generation['grav_files_s'] + generation['ray_files_s']:.1f} s apart); "
+        f"launches {total}; grav {g['rows']} rows, compress "
+        f"{g['compress_s']:.2f} s, paint total {g['paint_total_rel']:.1e}; "
+        f"rays compress {r['compress_s']:.2f} s for {FP_SNAPS} x "
+        f"{FP_NPIX}^2, sums {r['sum_rel']:.1e}, shift {r['shift_rel']:.1e},"
+        f" peaks {r['peaks']}; native build {nv['build_s']} s, K3 "
+        f"{nv['k3_bar_share']:.3f} of the bar, alpha {nv['alpha_rel']:.4f} "
+        f"of the max; stage clocks within {gap:.4f}; trace "
+        f"{len(names)} kernels; {card}")
+    log("# file_path " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -7623,6 +8160,7 @@ def main() -> None:
     cmb_lensing = phase_cmb_lensing(dev, args.seed, snapshot,
                                     lightcone["shells_flushes"])
     field = phase_field_inference(dev, args.seed)
+    file_path = phase_file_path(dev, args.seed, card)
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -7766,6 +8304,11 @@ def main() -> None:
     # in the lightcone's planes; K3 and K4 launch 0 times there
     for row in kernels:
         row["field_inference_launches"] = field["launches_total"].get(
+            row["name"], 0)
+    # the file path: K2 paints the grav cells, K3 meets the native oracle;
+    # K1, K4 and K2's adjoint launch 0 times there
+    for row in kernels:
+        row["file_path_launches"] = file_path["launches_total"].get(
             row["name"], 0)
     adj = field["adjoint_timing_ms"]
     adj_row = next(k for k in kernels if k["name"] == "paint_windowed_adjoint")

@@ -545,10 +545,11 @@ def test_full_pipeline_stages_1_to_4_match_jax():
 
 
 def test_new_modules_import_without_jax_yaml_h5py_sklearn():
-    """The slice's modules (and the moving-lens, SZ and ISW modules after
-    them) import no JAX, no module of the JAX package and none of PyYAML,
-    h5py, sklearn or scipy: those load inside the functions that need
-    them."""
+    """The slice's modules (and the moving-lens, SZ and ISW modules, the
+    file layer, the collection, the containers, observability, the native
+    bridge and the visual layer after them) import no JAX, no module of
+    the JAX package and none of PyYAML, h5py, sklearn or scipy: those load
+    inside the functions that need them."""
     import subprocess
     import sys
 
@@ -562,6 +563,13 @@ def test_new_modules_import_without_jax_yaml_h5py_sklearn():
         "    bispectrum, angular_power, linear_power)\n"
         "from astrild_tpu_torch.models import (Dipoles, Bispectrum2D,\n"
         "    LinearPowerSpectrum, LinearAngularPowerSpectrum)\n"
+        "from astrild_tpu_torch.io import (ramses, binary_formats, mmf,\n"
+        "    save, rays)\n"
+        "from astrild_tpu_torch.models import simcoll, SimulationCollection\n"
+        "from astrild_tpu_torch.core import grid, catalog, manifest\n"
+        "from astrild_tpu_torch.utils import observability\n"
+        "from astrild_tpu_torch import native, visual\n"
+        "from astrild_tpu_torch.visual import figures, maps\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'astrild_tpu', 'yaml', 'h5py', 'sklearn', 'scipy')]\n"
         "assert not bad, bad\n"

@@ -442,7 +442,41 @@ def test_ecosmog_to_gadget_matches_jax(tmp_path, rng):
 
 
 def test_unported_handles_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ramses"):
-        Ecosmog(dir_sim=str(tmp_path)).compress_snapshot([7, 8], 7, ["phi"])
-    with pytest.raises(NotImplementedError, match="rays"):
-        RayRamses(dir_sim=str(tmp_path))
+    """The two handles that raised before the RAMSES and ray readers were
+    ported (Ecosmog.compress_snapshot, RayRamses) now match the JAX
+    package's: the same columns from the same grav and ray files."""
+    import struct
+
+    from astrild_tpu.models import RayRamses as JRayRamses
+
+    rng = np.random.default_rng(3)
+    d = tmp_path / "output_00007"
+    d.mkdir()
+    vals = rng.standard_normal((8, 2, 4))  # (sub-grid, field, cell)
+    buf = b"".join(struct.pack("iii", 4, v, 4) for v in (1, 3, 7, 0, 7, 4))
+    for dim in range(8):
+        for fi in range(2):
+            buf += (struct.pack("i", 32) + vals[dim, fi].astype("<f8").tobytes()
+                    + struct.pack("i", 32))
+    (d / "grav_00007.out00001").write_bytes(buf)
+    kw = dict(dir_sim=str(tmp_path), dir_root="output")
+    got = Ecosmog(**kw).compress_snapshot([7], 7, ["phi", "f"], save=False)
+    want = JEcosmog(**kw).compress_snapshot([7], 7, ["phi", "f"], save=False)
+    assert list(got) == list(want) == [7]
+    for k in ("phi", "f"):
+        npt.assert_array_equal(got[7][k], want[7][k])
+    assert len(got[7]["phi"]) == 32
+    for cpu in (1, 2):
+        np.savetxt(tmp_path / f"Ray_maps_output00003.out{cpu:05d}",
+                   rng.standard_normal((3, 3)), header="id kappa_2 shear_x")
+    dsc = {"root": "Ray_maps", "extension": "out*"}
+    rr = RayRamses(dir_sim=str(tmp_path), file_dsc=dsc, npix=64)
+    jr = JRayRamses(dir_sim=str(tmp_path), file_dsc=dsc, npix=64)
+    assert rr.npix == jr.npix and rr.opening_angle == jr.opening_angle
+    npt.assert_array_equal(rr.file_nrs, jr.file_nrs)
+    cols = ["id", "kappa_2", "shear_x"]
+    a = rr.compress_snapshot(cols, save=False)
+    b = jr.compress_snapshot(cols, save=False)
+    assert list(a) == list(b) == [3]
+    for k in cols:
+        npt.assert_array_equal(a[3][k], b[3][k])
