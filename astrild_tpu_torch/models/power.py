@@ -44,6 +44,7 @@ class PowerSpectrum3D:
         self.sim_type = sim_type
         self.window = window
         self.device = device
+        self._dist_cache = {}
 
     def _t(self, arr) -> torch.Tensor:
         return as_tensor(arr, self.device)
@@ -74,13 +75,17 @@ class PowerSpectrum3D:
         method='fast' uses the folded fine-grid NGP estimator
         (ops.power.auto_power_fast, through the windowed deposit K1 on a
         card); 'window' paints with self.window (cic/tsc) and deconvolves.
-        mesh (the JAX package's distributed estimator) waits for the
-        distributed layer and raises NotImplementedError.
+
+        mesh: a mesh of parallel.make_mesh runs the distributed estimator
+        (parallel.power.make_distributed_auto_power_fast, K1 in the shard
+        body on a card) over this rank's block of the particles: (n, 3) or
+        a flat (x, y, z) component tuple, numpy input and tensors alike
+        put on the mesh's device. Only method='fast' distributes (the
+        factory is cached per (mesh, ngrid, boxsize, nbins)).
         """
         if mesh is not None:
-            raise NotImplementedError(
-                "power_from_points(mesh=...) needs the distributed P(k) "
-                "estimator, which astrild_tpu_torch does not port yet")
+            return self._power_on_mesh(pos, boxsize, ngrid, weights, nbins,
+                                       method, mesh)
         pos = self._t(pos)
         w = None if weights is None else self._t(weights).to(pos.device)
         if method == "fast":
@@ -103,6 +108,31 @@ class PowerSpectrum3D:
         res = power_ops.auto_power(g, boxsize, nbins=nbins,
                                    window=self.window, grid_shifted=g2,
                                    interlaced=interlaced, shotnoise=shot)
+        return _host(res.k), _host(res.power)
+
+    def _power_on_mesh(self, pos, boxsize, ngrid, weights, nbins, method,
+                       mesh):
+        if method != "fast":
+            raise ValueError("mesh= requires method='fast' (the "
+                             "distributed estimator is the folded "
+                             "fine-NGP path)")
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        missing = {"sim", "x", "y"} - set(names)
+        if missing:
+            raise ValueError(
+                "the distributed P(k) factory shards over the "
+                "('sim', 'x', 'y') axes; this mesh lacks "
+                f"{sorted(missing)} (axes: {names}) — "
+                "build it with parallel.make_mesh")
+        from ..parallel.power import make_distributed_auto_power_fast
+
+        key = (mesh, ngrid, float(boxsize), nbins or ngrid // 2)
+        fn = self._dist_cache.get(key)
+        if fn is None:
+            fn = make_distributed_auto_power_fast(mesh, ngrid, boxsize,
+                                                  nbins or ngrid // 2)
+            self._dist_cache[key] = fn
+        res = fn(pos, weights)  # the factory puts both on the mesh
         return _host(res.k), _host(res.power)
 
     def _as_grid(self, arr, boxsize: float, ngrid: int):

@@ -18,7 +18,7 @@ skies draw from a `torch.Generator` seeded with `rnd_seed` (another
 realization than the JAX package's key of the same seed).
 
 Not ported yet: the m-sharded transforms (`mesh=`) wait for the
-distributed layer, ROADMAP queue 1 item 9.
+distributed layer's part B, ROADMAP queue 1 item 9b.
 """
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ __all__ = ["SkyHealpix"]
 _TABLE_LMAX_LIMIT = 512
 
 _ITEM_9 = ("SkyHealpix: mesh= (the m-sharded transforms) is not ported "
-           "yet: it waits for the distributed layer, ROADMAP.md queue 1 "
-           "item 9")
+           "yet: it waits for the distributed layer's part B, ROADMAP.md "
+           "queue 1 item 9b")
 
 
 def _host(t) -> np.ndarray:

@@ -32,7 +32,7 @@ Every contraction is an elementwise product and a sum (no matrix product,
 so a caller's TF32 setting cannot reach it). State memory is
 O(lmax * nring): ~17 MB a (lmax+1, nh) array at nside 1024, lmax 2048.
 The `l_start` argument and the vma matching of the JAX package serve its
-distributed path (ROADMAP queue 1 item 9) and are not ported.
+distributed path (ROADMAP queue 1 item 9b) and are not ported.
 
 Profiler spans: `sht.legendre` (the recursion), `sht.caps` (the cap trig
 sums), `sht.belt_fft` (the belt FFTs with their phase rotations).

@@ -33,7 +33,7 @@ recursions accumulate the alm combinations the fold needs (two a branch,
 not four). Conventions are ops/sht_spin.py's: Q + iU = -sum (E+iB) 2Y_lm
 for spin 2; for spin 1 the plus branch s_m d_{-1,m} (s_0 = -1) and the
 fold -d_{+1,m}. The `l_start` argument and the vma matching of the JAX
-package serve its distributed path (ROADMAP queue 1 item 9) and are not
+package serve its distributed path (ROADMAP queue 1 item 9b) and are not
 ported.
 """
 from __future__ import annotations

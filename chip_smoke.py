@@ -256,8 +256,8 @@ exits non-zero before the final line:
      from CUDA generators: tests/test_inference.py's correlated Gaussian
      with its checks, its shear posterior (sigma8) with its checks against
      shear_fisher, a 3-bin (z 0.5, 1, 1.5) posterior in (Om0, sigma8)
-     over 16 ells (nchi 64, fsky 0.3, inv_mass from shear_fisher; 150
-     warm-up steps and 200 samples of 8 leapfrogs): means within 3
+     over 16 ells (nchi 64, fsky 0.3, inv_mass from shear_fisher; 100
+     warm-up steps and 100 samples of 8 leapfrogs): means within 3
      sigma_F, std / sigma_F in 0.5-2, acceptance > 0.5, ms and CUDA
      kernels per log-density gradient printed; the 3x2pt posterior
      at tests/test_inference.py's settings: |logp(truth)| < 1e-6, a
@@ -285,6 +285,13 @@ exits non-zero before the final line:
      oracle against K3 and kappa_to_alpha, the observability stages,
      trace and checks: see phase_file_path's docstring; K2 and K3 launch
      once each, K1, K4 and K2's adjoint 0 times.
+ 22. the distributed layer, part A (after phase 21), on a world of one
+     over NCCL at phase 6's width: the composed suite, the CIC P(k) and
+     multipoles, the pencil FFT, the sharded filter and PowerSpectrum3D's
+     mesh= against the single-device path, then a 4-rank gloo world on
+     the host CPU (this script's --gloo-worker ranks) against a world of
+     one: see phase_distributed's docstring; K1 launches 3 times, K2
+     twice, K3, K4 and K2's adjoint 0 times.
 
 The last lines are a JSON object describing each kernel (K1-K4 and K2's
 adjoint: launches on its main path, error, times, and the least time the
@@ -453,8 +460,12 @@ ML_MAP_TOL, ML_VT_TOL, ML_CPU_TOL = 2e-5, 1e-3, 1e-4
 # bars, the realizations averaged (a single map's two lowest bands scatter
 # by 2-10%: the few lowest modes hold most of a steep spectrum's power); (d) HMC (samples, warm-up, leapfrogs, step): the Gaussian of
 # tests/test_inference.py, its shear posterior, the wider 3-bin one (ells,
-# source redshifts, chi nodes; 200 samples, not 400: its chain took over
-# 90 s), fsky and prior box; (e) the lognormal
+# source redshifts, chi nodes), fsky and prior box; the chains cut in depth
+# to keep the script inside its time limit: the Gaussian to 1000 samples
+# after 250 warm-up steps (the test's 2000 / 500), the shear posterior to
+# 200 after 100 (400 / 150), the 3-bin one to 100 after 100 (it took 151 s
+# at 200 after 150 on an H100 whose host ran the launch-bound chains
+# slowly); (e) the lognormal
 # map's side and card / CPU bar; (f) bootstrap values and resamples (and
 # those compared with the CPU), PCA and covariance shapes, the bar
 MG_SIDE, MG_BOX, MG_PK, MG_STEPS, MG_FR0, MG_BINS = (512, 6400.0, 20.0, 16,
@@ -468,8 +479,8 @@ MA_NPIX, MA_FOV, MA_NBINS, MA_HOLES, MA_HOLE_ARCMIN = 2048, 10.0, 16, 256, 2.0
 MA_EDGE, MA_MIN_MODES, MA_TOL, MA_BB = 30 / 128, 10 ** 4, 0.05, 1e-2
 MA_CPU_NPIX, MA_COUP_TOL, MA_SPEC_TOL = 512, 1e-10, 1e-5
 MA_REALIZATIONS, MA_REPEAT_TOL = 16, 1e-4
-HMC_GAUSS, HMC_SHEAR, HMC_WIDE = (2000, 500, 12, 0.3), (400, 150, 8, 0.01), \
-    (200, 150, 8)
+HMC_GAUSS, HMC_SHEAR, HMC_WIDE = (1000, 250, 12, 0.3), (200, 100, 8, 0.01), \
+    (100, 100, 8)
 HMC_WIDE_ELLS, HMC_WIDE_Z, HMC_WIDE_NCHI = (100.0, 3000.0, 16), \
     (0.5, 1.0, 1.5), 64
 HMC_FSKY, HMC_BOUNDS = 0.3, {"sigma8": (0.6, 1.0), "Om0": (0.1, 0.6)}
@@ -572,7 +583,7 @@ CL_STENCIL_WEIGHT_TOL = 5e-5
 # reach; (d) the checkpointed lightcone's depth cut (particles per side,
 # planes, pixels) and its planes between saves
 FI_EX = (32, 400.0, 4, 9.0, 1e-2)
-FI_ADAM, FI_HMC = ((400, 0.1), (400, 0.02)), (24, 24, 6)
+FI_ADAM, FI_HMC = ((200, 0.1), (200, 0.02)), (24, 24, 6)
 FI_BANDS = ((0.5, 4), (4, 8), (8, 12), (12, 16))
 FI_CPU_ITERS, FI_CPU_TOL = 12, 1e-5
 FI_FULL, FI_FULL_ADAM = (256, 500.0, 10, 1e-2), (50, 0.003)
@@ -6946,8 +6957,10 @@ def phase_field_inference(dev, seed: int) -> dict:
     its K1-K4 and adjoint launches held to its own count and its peak
     memory; the checks raise. (a) examples/field_level_inference.py at its
     own size: 32^3 in 400 Mpc/h, 4 KDK steps from z = 9, mock data with
-    noise variance 1e-2, Adam 400 iterations at lr 0.1 from the prior mean
-    and 400 at 0.02 warm-started, HMC 24 + 24 samples of 6 leapfrogs from
+    noise variance 1e-2, Adam 200 iterations at lr 0.1 from the prior mean
+    and 200 at 0.02 warm-started (the example's 400 and 400, cut in depth
+    to keep the script inside its time limit: launch-bound at 32^3, they
+    took 80 s on a slow host), HMC 24 + 24 samples of 6 leapfrogs from
     the MAP: the recovered linear field's correlation with the truth's
     (above the prior mean's 0), its four band correlations, the chain's
     high-k / low-k width ratio (above 1: the data pin the low-k modes) and
@@ -8044,6 +8057,412 @@ def phase_file_path(dev, seed: int, card: str) -> dict:
     return result
 
 
+# the distributed phase (22), on a world of one over NCCL at phase 6's
+# width: the suite's bars against the single-device path on the same
+# particles. P(k) before its shot noise (the same V/N in both): rtol 1e-5
+# on every bin but the last, which holds one mode fewer on the pencil (the
+# single-device rfft storage counts the (0, 0, n/2) mode twice) and is held
+# to rtol 1e-4. B: rtol 1e-4 on closed triangles (the same shells from the
+# same coarse grid, c2c against r2c transforms); kappa and gamma: 1e-5 of
+# their max (the same planes, the mean summed in float64 against float32);
+# (b) CIC P(k) and multipoles through K2 within 1e-4 of the shot noise
+# (K2's float sums in a different order each call); (c) the pencil FFT and
+# (d) the sharded filter within 1e-5 of the max (three 1D passes against
+# one nD transform); the void counts equal
+DIST_PK_RTOL, DIST_PK_LAST_RTOL, DIST_BK_RTOL = 1e-5, 1e-4, 1e-4
+DIST_MAP_TOL, DIST_SHOT_TOL, DIST_FFT_TOL = 1e-5, 1e-4, 1e-5
+# the triangle counts: the same host tables at phase 6's shells (the
+# truncated body); float32 sums in the full body (the JAX test's bar)
+DIST_NTRI_RTOL = 1e-4
+DIST_FILTER_SIGMA = 2.0  # arcmin, on phase 6's 2048^2 / 0.35 rad maps
+# (g) the 4-rank gloo check on the host CPU: mesh, grid, particles, P(k)
+# bins, bispectrum shells (m_max 10 takes the full body: per-shell pencil
+# transposes), lens planes; bars of the 4-rank run against the world of one
+# as (a)-(c)'s, but B to rtol 1e-4 and ntri to 1e-5 (the same host tables
+# reached by other sums)
+GLOO_MESH, GLOO_NGRID, GLOO_N, GLOO_PK_BINS = (1, 2, 2), 32, 1 << 18, 16
+GLOO_BK, GLOO_PLANES, GLOO_TIMEOUT = (3, 2.0, 10.0), 8, 300
+
+
+def _gloo_worker(rank: int, world: int, port: str, out: str,
+                 seed: int) -> None:
+    """(g)'s rank: the distributed suite, the CIC P(k) and multipoles and
+    the pencil FFT at GLOO_NGRID on a gloo world of the host's CPU; rank
+    r's replicated outputs and the gathered FFTs into out/rank_r.npz."""
+    torch.set_num_threads(1)
+    from astrild_tpu_torch.parallel import make_mesh, multihost
+    from astrild_tpu_torch.parallel import power as dpower
+    from astrild_tpu_torch.parallel.mesh import shard, unshard
+    from astrild_tpu_torch.parallel.pfft import make_pfft3d
+    from astrild_tpu_torch.parallel.suite import make_distributed_z0_suite
+
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
+    mesh = make_mesh(*(GLOO_MESH if world > 1 else (1, 1, 1)),
+                     device="cpu")
+    rng = np.random.default_rng(seed + 22)
+    pos = torch.from_numpy(rng.uniform(0, BOX, (GLOO_N, 3))
+                           .astype(np.float32))
+    field = torch.from_numpy(rng.standard_normal(
+        (GLOO_NGRID,) * 3).astype(np.float32))
+    rows = shard(pos, mesh, (("sim", "x", "y"), None))
+    res = {}
+
+    def put(key, value):
+        for name, v in zip(value._fields, value):
+            if isinstance(v, tuple):
+                put(f"{key}.{name}", v)
+            else:
+                res[f"{key}.{name}"] = v.numpy()
+
+    nb, mmin, mmax = GLOO_BK
+    put("suite", make_distributed_z0_suite(
+        mesh, GLOO_NGRID, BOX, nbins_pk=GLOO_PK_BINS, nbins_bk=nb,
+        bk_m_min=mmin, bk_m_max=mmax, nplanes=GLOO_PLANES,
+        max_peaks=256, max_voids=64)(rows))
+    put("power", dpower.make_distributed_auto_power(
+        mesh, GLOO_NGRID, BOX, GLOO_PK_BINS, window="cic")(tuple(rows.t())))
+    put("multipoles", dpower.make_distributed_multipoles(
+        mesh, GLOO_NGRID, BOX, GLOO_PK_BINS, window="cic")(rows))
+    spec = make_pfft3d(mesh)(shard(field, mesh, ("x", "y", None)))
+    back = make_pfft3d(mesh, inverse=True)(spec).real
+    res["pfft"] = unshard(spec, mesh, (None, "x", "y")).numpy()
+    res["pfft_back"] = unshard(back.contiguous(), mesh,
+                               ("x", "y", None)).numpy()
+    res["field"] = field.numpy()
+    np.savez(os.path.join(out, f"rank_{rank}.npz"), **res)
+
+
+def _gloo_world(world: int, out: Path, seed: int) -> list:
+    """Start a gloo world of `world` worker processes of this script on the
+    host CPU (no card visible to them); returns the processes."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    out.mkdir(parents=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    return [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--gloo-worker",
+         str(r), str(world), port, str(out), "--seed", str(seed)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+
+
+def _gloo_check(seed: int) -> dict:
+    """(g): a 4-rank gloo world (mesh GLOO_MESH) and a world of one on the
+    host CPU through the suite, the CIC P(k), the multipoles and the pencil
+    FFT; the 4 ranks' replicated outputs must be equal, and the 4-rank run
+    hold to the world of one. A CPU check of the transposes and
+    reduce-scatters under this machine's torch; no card time."""
+    root = Path(__file__).resolve().parent / "build" / \
+        f"distributed_gloo_{os.getpid()}"
+    t0 = time.perf_counter()
+    try:
+        worlds = {w: _gloo_world(w, root / f"world_{w}", seed)
+                  for w in (GLOO_MESH[0] * GLOO_MESH[1] * GLOO_MESH[2], 1)}
+        logs = []
+        try:
+            for procs in worlds.values():
+                for p in procs:
+                    logs.append(p.communicate(timeout=GLOO_TIMEOUT)[0])
+        finally:
+            for procs in worlds.values():
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+        if any(p.returncode for procs in worlds.values() for p in procs):
+            raise AssertionError("distributed gloo (CPU check): a worker "
+                                 "failed:\n" + "\n---\n".join(
+                                     log_[-2000:] for log_ in logs))
+        n4 = GLOO_MESH[0] * GLOO_MESH[1] * GLOO_MESH[2]
+        ranks = [dict(np.load(root / f"world_{n4}" / f"rank_{r}.npz"))
+                 for r in range(n4)]
+        one = dict(np.load(root / "world_1" / "rank_0.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for r in ranks[1:]:
+        for k, v in r.items():
+            if not np.array_equal(v, ranks[0][k], equal_nan=True):
+                raise AssertionError(f"distributed gloo (CPU check): {k} "
+                                     "differs between ranks")
+    got = ranks[0]
+    shot = BOX ** 3 / GLOO_N
+    errs = {}
+
+    def hold(name, key, bar, scale=None, rtol=False):
+        a, b = got[key], one[key]
+        if rtol:
+            ok = np.isfinite(b)
+            err = float(np.max(np.abs(a[ok] - b[ok])
+                               / np.maximum(np.abs(b[ok]), 1e-30)))
+        else:
+            err = float(np.max(np.abs(a - b)) / scale)
+        errs[name] = err
+        if not err <= bar:
+            raise AssertionError(f"distributed gloo (CPU check): {name} "
+                                 f"4 ranks against 1: {err:.3e} > {bar}")
+
+    for key in ("suite.pk.nmodes", "power.nmodes", "multipoles.nmodes",
+                "suite.n_voids", "suite.n_void_candidates"):
+        if not np.array_equal(got[key], one[key]):
+            raise AssertionError(f"distributed gloo (CPU check): {key} "
+                                 f"{got[key]} against {one[key]}")
+    hold("suite P(k)", "suite.pk.power", DIST_SHOT_TOL, shot)
+    hold("suite B", "suite.bk.b", DIST_BK_RTOL, rtol=True)
+    hold("suite ntri", "suite.bk.ntri", 1e-5, rtol=True)
+    for m in ("kappa", "gamma1", "gamma2"):
+        hold(f"suite {m}", f"suite.{m}", DIST_MAP_TOL,
+             float(np.abs(one[f"suite.{m}"]).max()))
+    hold("CIC P(k)", "power.power", DIST_SHOT_TOL, shot)
+    hold("multipoles", "multipoles.p_ell", DIST_SHOT_TOL, shot)
+    hold("pfft", "pfft", DIST_FFT_TOL, float(np.abs(one["pfft"]).max()))
+    rt = float(np.abs(got["pfft_back"] - got["field"]).max()
+               / np.abs(got["field"]).max())
+    errs["pfft round trip"] = rt
+    if not rt <= DIST_FFT_TOL:
+        raise AssertionError(f"distributed gloo (CPU check): round trip "
+                             f"{rt:.3e}")
+    log(f"#   distributed gloo (CPU check): torch {torch.__version__}, "
+        f"mesh {GLOO_MESH} of gloo ranks on the host CPU against a world "
+        f"of one, {GLOO_NGRID}^3, {GLOO_N} particles, {seconds:.1f} s; "
+        f"voids {int(got['suite.n_voids'])}; "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return {"seconds": seconds, "errors": errs,
+            "n_voids": int(got["suite.n_voids"])}
+
+
+def phase_distributed(dev, seed: int, card: str) -> dict:
+    """The distributed layer, part A, on a world of one over NCCL
+    (`make_mesh(1, 1, 1, device="cuda")`) at phase 6's width: 512^3
+    particles (phase 6's, from the same seed), a 256^3 grid over 2^27 fine
+    cells, phase 6's P(k) bins, bispectrum shells and 64 lens planes.
+    (a) `make_distributed_z0_suite` against the single-device path on the
+    same particles: the fast body's coarse pencil grid equal bit for bit to
+    `auto_power_fast(return_coarse_grid=True)`'s (both through K1), P(k),
+    B(k) against `bispectrum_3d` on that grid, kappa / gamma / the voids
+    against `born_convergence`, `kappa_to_alpha` / `alpha_to_gamma`,
+    `find_peaks` / `find_tunnels` on the same contiguous-slab planes;
+    (b) `make_distributed_auto_power` (CIC through K2) and
+    `make_distributed_multipoles` against `auto_power` and
+    `auto_power_multipoles` of `paint` on the card; (c) `make_pfft3d`
+    forward against `torch.fft.fftn` of a 256^3 field and the inverse's
+    round trip; (d) `make_sharded_gaussian_filter` against
+    `filters.gaussian` on a 2048^2 map; (e) `PowerSpectrum3D().
+    power_from_points(mesh=)` of the positions as numpy, no `device`: one
+    K1 launch (so on the card), (a)'s P(k) bit for bit; (f) K1-K4 held to
+    the distributed calls' counts (K1 3: the suite, the fast body, the
+    facade; K2 2: (b)), each part's seconds, peak memory; (g) a 4-rank gloo
+    world on the host CPU (`_gloo_check`). Returns the numbers printed in
+    `# distributed`."""
+    import torch.distributed as dist
+
+    from astrild_tpu_torch import suite
+    from astrild_tpu_torch.models.power import PowerSpectrum3D
+    from astrild_tpu_torch.ops import (bispectrum, filters, lensing, paint,
+                                       paint_cuda, pairwise_cuda, peaks,
+                                       power, voids)
+    from astrild_tpu_torch.ops.profiles3d import _linspace_f32
+    from astrild_tpu_torch.parallel import make_mesh
+    from astrild_tpu_torch.parallel import maps as dmaps
+    from astrild_tpu_torch.parallel import power as dpower
+    from astrild_tpu_torch.parallel.pfft import make_pfft3d
+    from astrild_tpu_torch.parallel.suite import make_distributed_z0_suite
+
+    t_phase = time.perf_counter()
+    seconds, launches = {}, {}
+    stage = _stage_runner(seconds, launches)
+    mesh = make_mesh(1, 1, 1, device="cuda")
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError(f"distributed: a {dist.get_backend()} world on "
+                             f"{mesh.device_type}, not NCCL on the card")
+    n = N_SIDE ** 3
+    pos = suite.uniform_positions(N_SIDE, BOX, dev, seed=seed)
+    xyz = (pos[:n], pos[n:2 * n], pos[2 * n:])
+    shot = BOX ** 3 / n
+    nb_pk, nb_bk = suite.PK_BINS, suite.BISPEC_BINS
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    field = torch.randn((NGRID,) * 3, generator=gen, device=dev)
+    img = torch.randn((NPIX, NPIX), generator=gen, device=dev)
+    theta = math.degrees(suite.OPENING_ANGLE_RAD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the single-device references on the same inputs, before the counts
+    # are cleared (their launches are comparisons)
+    t0 = time.perf_counter()
+    res, grid = power.auto_power_fast(xyz, NGRID, BOX, nbins=nb_pk,
+                                      return_coarse_grid=True)
+    bk = bispectrum.bispectrum_3d(grid, BOX, nbins=nb_bk,
+                                  m_min=suite.BISPEC_M_MIN,
+                                  m_max=suite.BISPEC_M_MAX)
+    delta = grid / grid.mean() - 1.0
+    planes = delta.reshape(NGRID, NGRID, NPLANES,
+                           NGRID // NPLANES).sum(3).movedim(-1, 0)
+    del delta
+    chis = _linspace_f32(suite.CHI_NEAR, suite.CHI_FAR, NPLANES, dev)
+    dchis = torch.full((NPLANES,), BOX / NPLANES, device=dev)
+    kappa = lensing.born_convergence(planes, chis, dchis, suite.CHI_SOURCE,
+                                     suite.OMEGA_M)
+    a1, a2 = lensing.kappa_to_alpha(kappa, suite.OPENING_ANGLE_RAD,
+                                    padding_factor=2)
+    g1, g2 = lensing.alpha_to_gamma(a1, a2, suite.OPENING_ANGLE_RAD)
+    cat = peaks.find_peaks(kappa, threshold=kappa.std(correction=0),
+                           max_peaks=512, edge_pix=4)
+    vcat = voids.find_tunnels(cat.pos.to(torch.float32),
+                              cat.values > float("-inf"), NGRID,
+                              max_voids=128)
+    g = paint.paint(xyz, NGRID, BOX, window="cic")
+    cic_ref = power.auto_power(g, BOX, nbins=nb_pk, window="cic",
+                               shotnoise=shot)
+    mul_ref = power.auto_power_multipoles(g, BOX, nbins=nb_pk, window="cic",
+                                          shotnoise=shot)
+    del g, a1, a2, planes
+    fft_ref = torch.fft.fftn(field.to(torch.complex64))
+    filt_ref = filters.gaussian(img, theta, sigma_arcmin=DIST_FILTER_SIGMA)
+    pos_np = torch.stack(xyz, dim=1).cpu().numpy()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+    checks = {}
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    def of_max(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def check(name, err, bar):
+        checks[name] = err
+        if not err <= bar:
+            raise AssertionError(f"distributed: {name} {err:.3e} > {bar}")
+
+    # ---- (a) the composed suite against the single-device path
+    fn = make_distributed_z0_suite(
+        mesh, NGRID, BOX, nbins_pk=nb_pk, nbins_bk=nb_bk,
+        bk_m_min=suite.BISPEC_M_MIN, bk_m_max=suite.BISPEC_M_MAX,
+        nplanes=NPLANES, opening_angle_rad=suite.OPENING_ANGLE_RAD,
+        chi_s=suite.CHI_SOURCE, omega_m=suite.OMEGA_M, chi0=suite.CHI_NEAR,
+        chi1=suite.CHI_FAR)
+    got = stage("suite", lambda: fn(xyz))
+    body = stage("fast_body", lambda: dpower.fast_power_shard_body(
+        xyz, torch.ones(n, device=dev), mesh=mesh, ngrid=NGRID, boxsize=BOX,
+        nbins=nb_pk, fine_factor=2, return_coarse=True))
+    if not torch.equal(body[1], grid):
+        raise AssertionError("distributed: the fast body's coarse grid is "
+                             "not the single-device deposit's")
+    if not torch.equal(body[0].power, got.pk.power):
+        raise AssertionError("distributed: the suite's P(k) is not its fast "
+                             "body's")
+    nm_d, nm_s = got.pk.nmodes, res.nmodes
+    if not (torch.equal(nm_d[:-1], nm_s[:-1])
+            and float(nm_s[-1] - nm_d[-1]) == 1.0):
+        raise AssertionError(f"distributed: mode counts {nm_d.tolist()} "
+                             f"against {nm_s.tolist()}")
+    raw_d, raw_s = got.pk.power + shot, res.power + shot
+    check("P(k) raw, rel", rel(raw_d[:-1], raw_s[:-1]), DIST_PK_RTOL)
+    check("P(k) raw last bin, rel", rel(raw_d[-1:], raw_s[-1:]),
+          DIST_PK_LAST_RTOL)
+    closed = bk.ntri > 0
+    check("ntri closed, rel", rel(got.bk.ntri[closed], bk.ntri[closed]),
+          DIST_NTRI_RTOL)
+    check("B closed, rel", rel(got.bk.b[closed], bk.b[closed]), DIST_BK_RTOL)
+    if not torch.equal(torch.isnan(got.bk.b), torch.isnan(bk.b)):
+        raise AssertionError("distributed: B's open triangles differ")
+    for name, a, b in (("kappa", got.kappa, kappa),
+                       ("gamma1", got.gamma1, g1),
+                       ("gamma2", got.gamma2, g2)):
+        check(f"{name}, of max", of_max(a, b), DIST_MAP_TOL)
+    nv = int(vcat.n)
+    if (int(got.n_voids) != nv
+            or int(got.n_void_candidates) != int(vcat.n_candidates)):
+        raise AssertionError(f"distributed: voids {int(got.n_voids)} / "
+                             f"{int(got.n_void_candidates)} against {nv} / "
+                             f"{int(vcat.n_candidates)}")
+    check("void radii, rel", rel(got.void_radius[:nv], vcat.radius[:nv])
+          if nv else 0.0, 1e-4)
+    del body, grid, res, bk, kappa, g1, g2, vcat
+
+    # ---- (b) CIC P(k) and multipoles through K2
+    afn = dpower.make_distributed_auto_power(mesh, NGRID, BOX, nb_pk,
+                                             window="cic")
+    mfn = dpower.make_distributed_multipoles(mesh, NGRID, BOX, nb_pk,
+                                             window="cic")
+    cic = stage("auto_power", lambda: afn(xyz))
+    mul = stage("multipoles", lambda: mfn(xyz))
+    if not (torch.equal(cic.nmodes, cic_ref.nmodes)
+            and torch.equal(mul.nmodes, mul_ref.nmodes)):
+        raise AssertionError("distributed: CIC mode counts differ")
+    check("CIC P(k), of shot",
+          float((cic.power - cic_ref.power).abs().max()) / shot,
+          DIST_SHOT_TOL)
+    check("multipoles, of shot",
+          float((mul.p_ell - mul_ref.p_ell).abs().max()) / shot,
+          DIST_SHOT_TOL)
+
+    # ---- (c) the pencil FFT on a 256^3 field
+    fwd, inv = make_pfft3d(mesh), make_pfft3d(mesh, inverse=True)
+    spec = stage("pfft", lambda: fwd(field))
+    back = stage("pifft", lambda: inv(spec))
+    check("pfft, of max", of_max(spec, fft_ref), DIST_FFT_TOL)
+    check("pfft round trip, of max", of_max(back.real, field), DIST_FFT_TOL)
+    del field, spec, back, fft_ref
+
+    # ---- (d) the sharded Gaussian filter on a 2048^2 map
+    sfn = dmaps.make_sharded_gaussian_filter(mesh, NPIX, theta,
+                                             DIST_FILTER_SIGMA)
+    smooth = stage("gaussian_filter", lambda: sfn(img))
+    check("gaussian filter, of max", of_max(smooth, filt_ref), DIST_FFT_TOL)
+    del img, smooth, filt_ref
+
+    # ---- (e) the facade with numpy positions and no device
+    _, p_facade = stage("facade", lambda: PowerSpectrum3D().power_from_points(
+        pos_np, BOX, NGRID, nbins=nb_pk, method="fast", mesh=mesh))
+    del pos_np
+    if not np.array_equal(p_facade, got.pk.power.cpu().numpy()):
+        raise AssertionError("distributed: the facade's P(k) is not the "
+                             "suite's")
+
+    # ---- (f) launches, seconds, memory
+    predicted = {"suite": {"deposit_sorted": 1},
+                 "fast_body": {"deposit_sorted": 1},
+                 "auto_power": {"paint_windowed": 1},
+                 "multipoles": {"paint_windowed": 1},
+                 "pfft": {}, "pifft": {}, "gaussian_filter": {},
+                 "facade": {"deposit_sorted": 1}}
+    total = _held_launches("distributed", predicted, launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_s = time.perf_counter() - t_phase
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+
+    # ---- (g) 4 gloo ranks on the host CPU
+    gloo = _gloo_check(seed)
+    phase_s = time.perf_counter() - t_phase
+    result = {"phase_s": phase_s, "card_s": card_s,
+              "references_s": ref_s, "seconds": seconds,
+              "launches": launches, "launches_total": total,
+              "peak_mem_gb": peak_gb, "checks": checks,
+              "bars": {"pk_rtol": DIST_PK_RTOL,
+                       "pk_last_rtol": DIST_PK_LAST_RTOL,
+                       "bk_rtol": DIST_BK_RTOL, "ntri_rtol": DIST_NTRI_RTOL,
+                       "map": DIST_MAP_TOL,
+                       "shot": DIST_SHOT_TOL, "fft": DIST_FFT_TOL},
+              "n_voids": int(got.n_voids), "backend": backend,
+              "gloo_cpu_check": gloo, "card": card}
+    log(f"# phase distributed: {phase_s:.1f} s ({card_s:.1f} s on the card, "
+        f"{gloo['seconds']:.1f} s the gloo CPU check); {backend} world of "
+        f"one; "
+        f"launches {total}; peak {peak_gb:.2f} GB; "
+        + ", ".join(f"{k} {v:.2e}" for k, v in checks.items())
+        + f"; {int(got.n_voids)} voids; {card}")
+    log("# distributed " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -8078,7 +8497,7 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 def phase_k3_timing(pos, vel, binw: float, nbins: int, err: float,
                     in_range: int) -> dict:
     """K3 vs its plain version on the main path's tracers (2^17 drawn from
-    the GR snapshot), in turns; with the device time of K3's parts (the
+    the GR snapshot), in turns (plain, kernel, kernel); with the device time of K3's parts (the
     wrapper's ordering and boxes, the pair kernel with its walk, the
     reduction) in one traced call, and the tile pairs visited, the pairs
     they hold and the in-range pairs."""
@@ -8095,7 +8514,8 @@ def phase_k3_timing(pos, vel, binw: float, nbins: int, err: float,
     }
     reps = {"kernel": 10, "plain": 1}
     ms = {k: [] for k in fns}
-    for turn in (["plain", "kernel"], ["kernel", "plain"]):
+    # the plain version (15-21 s a call here) runs one turn, the kernel two
+    for turn in (["plain", "kernel"], ["kernel"]):
         for name in turn:
             ms[name].append(_event_ms(fns[name], reps[name]))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -8124,7 +8544,15 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=5,
                     help="timed runs of the suite after one warm-up")
+    ap.add_argument("--gloo-worker", nargs=4,
+                    metavar=("RANK", "WORLD", "PORT", "OUT"),
+                    help="run one rank of phase 22's gloo check on the CPU "
+                         "(started by phase 22 itself)")
     args = ap.parse_args()
+    if args.gloo_worker:
+        rank, world, port, out = args.gloo_worker
+        _gloo_worker(int(rank), int(world), port, out, args.seed)
+        return
 
     card = phase_device()
     dev = torch.device("cuda", 0)
@@ -8161,6 +8589,7 @@ def main() -> None:
                                     lightcone["shells_flushes"])
     field = phase_field_inference(dev, args.seed)
     file_path = phase_file_path(dev, args.seed, card)
+    distributed = phase_distributed(dev, args.seed, card)
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -8309,6 +8738,12 @@ def main() -> None:
     # K1, K4 and K2's adjoint launch 0 times there
     for row in kernels:
         row["file_path_launches"] = file_path["launches_total"].get(
+            row["name"], 0)
+    # the distributed phase: K1 in the fast body (the suite, the body alone,
+    # the facade), K2 in the CIC P(k) and multipoles; K3, K4 and K2's
+    # adjoint launch 0 times there
+    for row in kernels:
+        row["distributed_launches"] = distributed["launches_total"].get(
             row["name"], 0)
     adj = field["adjoint_timing_ms"]
     adj_row = next(k for k in kernels if k["name"] == "paint_windowed_adjoint")

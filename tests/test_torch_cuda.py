@@ -2914,3 +2914,39 @@ def test_k3_matches_native_oracle(cuda):
     good = np.isfinite(v_ref) & np.isfinite(v12)
     assert good.sum() >= 20
     np.testing.assert_allclose(v12[good], v_ref[good], rtol=2e-3, atol=0.5)
+
+
+def test_distributed_fast_power_on_a_world_of_one(cuda):
+    """parallel.power.make_distributed_auto_power_fast on a world of one
+    over NCCL: one K1 launch in the shard body, and P(k) against
+    auto_power_fast on the same particles. Before the shot noise (the same
+    V/N in both) every bin but the last to rtol 1e-5; the last holds one
+    mode fewer on the pencil (the rfft storage counts the (0, 0, n/2) mode
+    twice), its mode count one less and its P to rtol 1e-3."""
+    import torch.distributed as dist
+
+    from astrild_tpu_torch.parallel import make_mesh
+    from astrild_tpu_torch.parallel import power as DP
+
+    mesh = make_mesh(1, 1, 1, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        n, ngrid, nbins = 1 << 22, 128, 32
+        pos = torch.rand(n, 3, generator=gen, device=cuda) * BOX
+        fn = DP.make_distributed_auto_power_fast(mesh, ngrid, BOX, nbins)
+        TPC.LAUNCHES.clear()
+        got = fn(pos)
+        torch.cuda.synchronize()
+        assert dict(TPC.LAUNCHES) == {"deposit_sorted": 1}
+    finally:
+        dist.destroy_process_group()
+    ref = TPS.auto_power_fast(pos, ngrid, BOX, nbins=nbins)
+    shot = BOX ** 3 / n
+    raw, raw_ref = (got.power + shot).cpu().numpy(), \
+        (ref.power + shot).cpu().numpy()
+    np.testing.assert_allclose(raw[:-1], raw_ref[:-1], rtol=1e-5)
+    np.testing.assert_allclose(raw[-1], raw_ref[-1], rtol=1e-3)
+    nm, nm_ref = got.nmodes.cpu().numpy(), ref.nmodes.cpu().numpy()
+    np.testing.assert_array_equal(nm[:-1], nm_ref[:-1])
+    assert nm_ref[-1] - nm[-1] == 1.0

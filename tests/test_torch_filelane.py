@@ -165,7 +165,29 @@ def test_power_from_points_takes_tensors_and_device(rng):
     b = ps.power_from_points(torch.from_numpy(pos), BOX, 16, nbins=6,
                              method="fast")
     npt.assert_array_equal(a[1], b[1])
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # mesh=: the distributed estimator on a world of one. It holds one
+    # mode fewer in the last bin than the meshless estimator (whose rfft
+    # storage counts the z-Nyquist column twice), so the other bins hold
+    # to rtol 1e-5 and the last to the JAX test's rtol 5e-3; against the
+    # JAX facade's mesh= on one device, every bin to rtol 1e-5
+    from astrild_tpu.parallel import make_mesh as jmake_mesh
+    from astrild_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1, 1, device="cpu")
+    km, pm = ps.power_from_points(pos, BOX, 16, nbins=6, method="fast",
+                                  mesh=mesh)
+    assert isinstance(pm, np.ndarray) and pm.dtype == np.float32
+    npt.assert_allclose(km[:-1], a[0][:-1], rtol=1e-5)
+    npt.assert_allclose(pm[:-1], a[1][:-1], rtol=1e-5)
+    npt.assert_allclose(km[-1], a[0][-1], rtol=5e-3)
+    npt.assert_allclose(pm[-1], a[1][-1], rtol=5e-3)
+    kj, pj = JMP.PowerSpectrum3D().power_from_points(
+        pos, BOX, 16, nbins=6, method="fast", mesh=jmake_mesh(1, 1, 1))
+    npt.assert_allclose(km, kj, rtol=1e-6)
+    npt.assert_allclose(pm, pj, rtol=1e-5)
+    with pytest.raises(ValueError, match="fast"):
+        ps.power_from_points(pos, BOX, 16, mesh=mesh)
+    with pytest.raises(ValueError, match="lacks"):
         ps.power_from_points(pos, BOX, 16, method="fast", mesh=object())
 
 
