@@ -17,8 +17,10 @@ numpy of utils/healpix.py; the gather runs on the layer's device. Random
 skies draw from a `torch.Generator` seeded with `rnd_seed` (another
 realization than the JAX package's key of the same seed).
 
-Not ported yet: the m-sharded transforms (`mesh=`) wait for the
-distributed layer's part B, ROADMAP queue 1 item 9b.
+`mesh=` (a DeviceMesh of parallel/mesh.py) runs `anafast` and
+`shear_from_kappa` on the m-sharded scan-path transforms of
+parallel/sht_large.py, their factories cached on the class per (mesh,
+nside, lmax, axis, spin).
 """
 from __future__ import annotations
 
@@ -36,9 +38,6 @@ __all__ = ["SkyHealpix"]
 # impractical; dispatch to the table-free ops/sht_large.py path instead.
 _TABLE_LMAX_LIMIT = 512
 
-_ITEM_9 = ("SkyHealpix: mesh= (the m-sharded transforms) is not ported "
-           "yet: it waits for the distributed layer's part B, ROADMAP.md "
-           "queue 1 item 9b")
 
 
 def _host(t) -> np.ndarray:
@@ -62,13 +61,11 @@ def _sht_backend(nside: int, lmax: int):
             sht_large.smoothing_large)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_ITEM_9)
-
-
 class SkyHealpix:
     """Named full-sky layers at a fixed nside (RING)."""
+
+    # the m-sharded SHT factories, shared by every map of the class
+    _dist_sht: Dict[tuple, tuple] = {}
 
     def __init__(self, hpmap, quantity: str = "kappa_2", device=None):
         self.data: Dict[str, torch.Tensor] = {
@@ -298,12 +295,56 @@ class SkyHealpix:
         self.data[of + "_smooth"] = out
         return _host(out)
 
+    def _dist_factory(self, mesh, lmax: int, ax: str, spin2: bool = False):
+        """The cached m-sharded SHT factory of this nside (a class-level
+        cache keyed by the mesh, so repeated per-realization maps reuse
+        one build)."""
+        from ..parallel.mesh import AXES, axis_size
+
+        if ax not in AXES:
+            raise ValueError(
+                f"mesh has no axis {ax!r} to shard the SHT m-blocks over "
+                f"(axes: {AXES}); pass ax=<axis name>")
+        if axis_size(mesh, ax) == 1:
+            import warnings
+
+            warnings.warn(
+                f"SkyHealpix: mesh axis {ax!r} has size 1 - the SHT will "
+                "run replicated with no speedup; pass ax= a larger axis "
+                f"(mesh axes: {dict(zip(AXES, mesh.shape))})",
+                stacklevel=3)
+        key = (mesh, self.nside, lmax, ax, spin2)
+        fns = SkyHealpix._dist_sht.get(key)
+        if fns is None:
+            from ..parallel.sht_large import (
+                make_distributed_sht_large, make_distributed_sht_spin2_large)
+
+            make = (make_distributed_sht_spin2_large if spin2
+                    else make_distributed_sht_large)
+            fns = make(mesh, self.nside, lmax, ax=ax)
+            SkyHealpix._dist_sht[key] = fns
+        return fns
+
     def anafast(self, lmax: int, of: str = "orig", niter: int = 3,
                 mesh=None, ax: str = "x",
                 method: Optional[str] = None) -> np.ndarray:
-        """Angular power spectrum of a layer (native SHT analysis; `method`
-        applies to the m-sharded path only, which is not ported)."""
-        _no_mesh(mesh)
+        """Angular power spectrum of a layer (native SHT analysis).
+
+        mesh: a DeviceMesh runs the m-sharded scan-path analysis
+        (parallel.sht_large.make_distributed_sht_large) over mesh axis
+        `ax`. method defaults to 'jacobi' wherever the local call would
+        take the table backend (lmax <= 512, pure Jacobi), so mesh= does
+        not change the estimator in the 2*nside < lmax <= 512 band; pass
+        'auto' / 'cg' / 'jacobi' to choose the solver.
+        """
+        if mesh is not None:
+            from ..ops.sht import alm2cl
+
+            if method is None:
+                method = "jacobi" if lmax <= _TABLE_LMAX_LIMIT else "auto"
+            fns = self._dist_factory(mesh, lmax, ax)
+            a_re, a_im = fns[1](self._layer(of), niter=niter, method=method)
+            return _host(alm2cl(a_re, a_im))
         _, anafast, _ = _sht_backend(self.nside, lmax)
         return _host(anafast(self._layer(of), lmax, niter=niter))
 
@@ -313,20 +354,28 @@ class SkyHealpix:
         """Full-sky spherical Kaiser-Squires forward: store 'gamma1' /
         'gamma2' layers from a convergence layer by spin-2 synthesis of
         E_lm = sqrt((l+2)(l-1)/(l(l+1))) kappa_lm; the table paths up to
-        lmax 512, the scan paths above. Returns them as numpy."""
+        lmax 512, the scan paths above. mesh: the scalar analysis and the
+        spin-2 synthesis on the m-sharded scan paths (parallel/sht_large),
+        factories cached per (mesh, nside, lmax). Returns them as numpy."""
         from ..ops import sht, sht_large, sht_spin, sht_spin_large
 
-        _no_mesh(mesh)
         L = lmax if lmax is not None else min(2 * self.nside, 512)
         kappa = self._layer(of)
-        if L <= _TABLE_LMAX_LIMIT:
+        if mesh is not None:
+            fns = self._dist_factory(mesh, L, ax)
+            fns2 = self._dist_factory(mesh, L, ax, spin2=True)
+            method = "jacobi" if L <= _TABLE_LMAX_LIMIT else "auto"
+            k_re, k_im = fns[1](kappa, niter=niter, method=method)
+        elif L <= _TABLE_LMAX_LIMIT:
             k_re, k_im = sht.analyze(kappa, self.nside, L, niter=niter)
         else:
             k_re, k_im = sht_large.analyze_large(kappa, self.nside, L,
                                                  niter=niter)
         e_re, e_im = sht_spin.kappa_alm_to_shear_alm(k_re, k_im)
         z = torch.zeros_like(e_re)
-        if L <= _TABLE_LMAX_LIMIT:
+        if mesh is not None:
+            g1, g2 = fns2[0](e_re, e_im, z, z)
+        elif L <= _TABLE_LMAX_LIMIT:
             g1, g2 = sht_spin.synthesize_spin2(e_re, e_im, z, z,
                                                self.nside, L)
         else:

@@ -270,47 +270,100 @@ def pairwise_velocity_pdf(pos, vel, dist_bin: int, vel_bin: int,
     return counts.reshape(dist_bin, vel_bin)
 
 
-def _ksz_accumulate(pos, dT, n_valid, binnr: int, binwidth,
-                    block: int = 512):
-    """kSZ numerator and denominator over all pairs i < j < n_valid (the
-    JAX package's shared tile accumulator, kind='ksz'): nom = (dT_i -
-    dT_j) c_ij, den = c_ij^2, c_ij = rhat_ij.(phat_i + phat_j)/2, in bins
-    of uniform width (dropped at or beyond binnr * binwidth). The sums
-    accumulate in float32 tile by tile, as the JAX package's scan does."""
-    posp, nb = _pad_blocks(pos.to(torch.float32), block)
-    dTp, _ = _pad_blocks(dT.to(torch.float32).to(posp.device), block)
-    dev = posp.device
-    pnorm = torch.linalg.vector_norm(posp, dim=1, keepdim=True)
-    phat = posp / pnorm.clamp_min(1e-12)
-    nom = torch.zeros(binnr, dtype=torch.float32, device=dev)
-    den = torch.zeros(binnr, dtype=torch.float32, device=dev)
+def _pairwise_accumulate_tiles(pos_i, vel_i, hat_i, pos_j, vel_j, hat_j,
+                               ia0: int, jb0: int, nbins: int, binwidth,
+                               block: int = 256, n_valid_global=None,
+                               valid_i=None, valid_j=None,
+                               dedup: bool = True, triangular: bool = False,
+                               kind: str = "yasini"):
+    """Yasini (or kSZ) sums over all pairs between two chunks, the JAX
+    package's tile accumulator: (B x B) tiles in its scan order, float32
+    sums tile by tile.
+
+    kind='yasini': the v12 numerator and denominator (Eq. 6 weights).
+    kind='ksz': the Hand+12 estimator: vel_* column 0 carries dT, nom =
+    (dT_i - dT_j) c_ij, den = c_ij^2, c_ij = rhat_ij.(hat_i + hat_j)/2.
+    Both are i <-> j symmetric, so the half-ring schedule's full-cross
+    steps (dedup=False) count each unordered pair once.
+
+    ia0 / jb0 are the chunks' global row offsets: dedup=True counts a pair
+    only when its global i < global j (a ring's self and last steps),
+    dedup=False every (i, j). triangular=True skips the a > b tiles (the
+    self pairs, where i < j masks them whole). Padding: rows at and beyond
+    n_valid_global form no pairs (padding at the global tail only), or
+    per-row 0/1 masks valid_i / valid_j (per-shard padding, the multihost
+    striped loader). Chunk lengths must be multiples of `block`.
+    """
+    ni, nj = pos_i.shape[0], pos_j.shape[0]
+    if ni % block or nj % block:
+        raise ValueError("chunk sizes must be multiples of block (pad "
+                         "before sharding)")
+    dev = pos_i.device
+    nom = torch.zeros(nbins, dtype=torch.float32, device=dev)
+    den = torch.zeros(nbins, dtype=torch.float32, device=dev)
+    # a tensor divisor: true division, where a Python scalar divisor may be
+    # turned into a multiplication by its reciprocal on the card
     width = torch.tensor(binwidth, dtype=torch.float32, device=dev)
     ar = torch.arange(block, device=dev)
-    for a in range(nb):
-        for b in range(a, nb):
-            ia = a * block + ar
-            jb = b * block + ar
-            sa, sb = slice(a * block, (a + 1) * block), slice(
-                b * block, (b + 1) * block)
-            rij = posp[sa][:, None, :] - posp[sb][None, :, :]
-            rnorm = torch.sqrt(rij[..., 0] * rij[..., 0]
-                               + rij[..., 1] * rij[..., 1]
-                               + rij[..., 2] * rij[..., 2])
-            rhat = rij / rnorm.clamp_min(1e-12)[..., None]
-            cij = 0.5 * (_dot3(rhat, phat[sa][:, None, :])
-                         + _dot3(rhat, phat[sb][None, :, :]))
-            nom_ij = (dTp[sa][:, None] - dTp[sb][None, :]) * cij
-            mask = ((ia[:, None] < jb[None, :])
-                    & (ia[:, None] < n_valid) & (jb[None, :] < n_valid))
-            w = mask.to(torch.float32).reshape(-1)
-            bflat = torch.where(mask, _uniform_bins(rnorm, width, binnr),
-                                binnr).reshape(-1)
-            inc = masked_bin_reduce(
-                torch.stack([w * nom_ij.reshape(-1),
-                             w * (cij * cij).reshape(-1)]), bflat, binnr)
-            nom = nom + inc[0]
-            den = den + inc[1]
+    pairs = [(a, b) for a in range(ni // block) for b in range(nj // block)
+             if not triangular or a <= b]
+    for a, b in pairs:
+        sa, sb = slice(a * block, (a + 1) * block), slice(
+            b * block, (b + 1) * block)
+        hi, hj = hat_i[sa], hat_j[sb]
+        rij = pos_i[sa][:, None, :] - pos_j[sb][None, :, :]    # (B, B, 3)
+        rnorm = torch.sqrt(rij[..., 0] * rij[..., 0]
+                           + rij[..., 1] * rij[..., 1]
+                           + rij[..., 2] * rij[..., 2])
+        rhat = rij / rnorm.clamp_min(1e-12)[..., None]
+        di = _dot3(rhat, hi[:, None, :])
+        dj = _dot3(rhat, hj[None, :, :])
+        if kind == "ksz":
+            cij = 0.5 * (di + dj)
+            nom_ij = (vel_i[sa][:, 0][:, None] - vel_j[sb][:, 0][None, :]) \
+                * cij
+            den_ij = cij * cij
+        else:
+            q = (2.0 * rhat - hi[:, None, :] * di[..., None]
+                 - hj[None, :, :] * dj[..., None]) * 0.5
+            vij = vel_i[sa][:, None, :] - vel_j[sb][None, :, :]
+            nom_ij = _dot3(vij, q)
+            den_ij = _dot3(q, q)
+        ia = ia0 + a * block + ar
+        jb = jb0 + b * block + ar
+        mask = (ia[:, None] < jb[None, :]) if dedup else torch.ones(
+            (block, block), dtype=torch.bool, device=dev)
+        if n_valid_global is not None:
+            mask = (mask & (ia[:, None] < n_valid_global)
+                    & (jb[None, :] < n_valid_global))
+        if valid_i is not None:
+            mask = mask & (valid_i[sa] > 0)[:, None] & (valid_j[sb] > 0)[None]
+        w = mask.to(torch.float32).reshape(-1)
+        bflat = torch.where(mask, _uniform_bins(rnorm, width, nbins),
+                            nbins).reshape(-1)
+        inc = masked_bin_reduce(
+            torch.stack([w * nom_ij.reshape(-1), w * den_ij.reshape(-1)]),
+            bflat, nbins)
+        nom = nom + inc[0]
+        den = den + inc[1]
     return nom, den
+
+
+def _ksz_accumulate(pos, dT, n_valid, binnr: int, binwidth,
+                    block: int = 512):
+    """kSZ numerator and denominator over all pairs i < j < n_valid: the
+    shared tile accumulator with kind='ksz' on the catalog against itself,
+    in bins of uniform width (dropped at or beyond binnr * binwidth)."""
+    posp, _ = _pad_blocks(pos.to(torch.float32), block)
+    dTp, _ = _pad_blocks(dT.to(torch.float32).to(posp.device), block)
+    pnorm = torch.linalg.vector_norm(posp, dim=1, keepdim=True)
+    phat = posp / pnorm.clamp_min(1e-12)
+    velp = torch.stack([dTp, torch.zeros_like(dTp), torch.zeros_like(dTp)],
+                       dim=1)
+    return _pairwise_accumulate_tiles(posp, velp, phat, posp, velp, phat, 0,
+                                      0, binnr, binwidth, block,
+                                      n_valid_global=n_valid, dedup=True,
+                                      triangular=True, kind="ksz")
 
 
 def pairwise_ksz_momentum(pos_cart, dT, bins, n_valid=None,

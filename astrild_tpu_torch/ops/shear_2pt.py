@@ -796,18 +796,18 @@ def _min_image_1d(d, box):
 
 def _shear_pair_tiles(xi_, yi_, e1i, e2i, wi, xj_, yj_, e1j, e2j, wj,
                       edges, nbins: int, boxsize, block: int, dedup: bool,
-                      triangular: bool = False):
+                      triangular: bool = False, ia0: int = 0, jb0: int = 0):
     """Blocked O(N_i N_j) accumulation of the spin-2 pair channels.
 
     Per theta bin returns (sum w w' Re[e conj(e')],
     sum w w' Re[e e' exp(-4 i phi)], sum w w' e_t', sum w w' e_x',
     sum w w', npairs); phi is the separation angle from axis x toward y,
     and the t / x channels rotate only the j-side ellipticity. dedup masks
-    i < j; triangular skips a > b tiles (for i and j the same catalog).
-    The tile pairs run in the JAX package's scan order, with its float32
-    pair arithmetic and its Kahan-compensated bins. (The JAX package's
-    global index offsets serve its distributed ring schedule, which the
-    port does not have yet.)
+    global i < global j, ia0 / jb0 being the chunks' global row offsets
+    (the ring schedule of parallel/tpcf.py); triangular skips a > b tiles
+    (for i and j the same catalog). The tile pairs run in the JAX
+    package's scan order, with its float32 pair arithmetic and its
+    Kahan-compensated bins.
     """
     ni = xi_.shape[0]
     nj = xj_.shape[0]
@@ -840,8 +840,8 @@ def _shear_pair_tiles(xi_, yi_, e1i, e2i, wi, xj_, yj_, e1j, e2j, wj,
                              0, nbins - 1)
         mask = (r >= lo) & (r < hi)
         if dedup:
-            ia = a * block + ar
-            jb = b * block + ar
+            ia = ia0 + a * block + ar
+            jb = jb0 + b * block + ar
             mask = mask & (ia[:, None] < jb[None, :])
         ww = wi[sa][:, None] * wj[sb][None, :]
         mask = mask & (ww != 0.0)

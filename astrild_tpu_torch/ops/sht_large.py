@@ -31,14 +31,19 @@ Port of astrild_tpu/ops/sht_large.py, the libsharp-style path for nside
 Every contraction is an elementwise product and a sum (no matrix product,
 so a caller's TF32 setting cannot reach it). State memory is
 O(lmax * nring): ~17 MB a (lmax+1, nh) array at nside 1024, lmax 2048.
-The `l_start` argument and the vma matching of the JAX package serve its
-distributed path (ROADMAP queue 1 item 9b) and are not ported.
+The recursions take an optional sorted subset `ms` of the m rows: they
+then start at l = ms[0] and carry only those rows (each row's values are
+the full recursion's, bit for bit: every operation is elementwise in m).
+That is the JAX package's `l_start` and per-block m0, which serve the
+m-sharded transforms of parallel/sht_large.py; the unsharded call runs
+every row, graphed on the card as before.
 
 Profiler spans: `sht.legendre` (the recursion), `sht.caps` (the cap trig
 sums), `sht.belt_fft` (the belt FFTs with their phase rotations).
 """
 from __future__ import annotations
 
+from bisect import bisect_right
 from collections import OrderedDict
 from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
@@ -53,8 +58,9 @@ from .sht import (_CHUNK_ELEMS, _alm_pair, _beam_window, _chunks,
                   alm2cl, ring_geometry)
 
 __all__ = ["LargeSHTTables", "sht_large_tables", "synthesize_large",
-           "analyze_large", "synfast_large", "synfast_large_from_white",
-           "anafast_large", "smoothing_large"]
+           "analyze_large", "analyze_with", "recursion_rows",
+           "synfast_large", "synfast_large_from_white", "anafast_large",
+           "smoothing_large"]
 
 # Scaled-recursion bookkeeping: true lambda = frac * 2^(-60 s). frac is
 # re-scaled by 2^-60 whenever it exceeds 2^30, so any value still carrying
@@ -199,26 +205,62 @@ def _accumulate(out, inp, l: int, k: int, lam, synth: bool) -> None:
         out[:, l, :k] = (lam * inp[l & 1, :, :k]).sum(-1)
 
 
-def _legendre_steps(tab: LargeSHTTables, lmax: int, inp, synth: bool):
-    """The recursion over l for all m at once, on the north rings and the
-    equator (`_accumulate` gives the shapes)."""
+def _row_schedule(lmax: int, ms, first: int = 0):
+    """The rows a recursion carries: (first l, active rows at each l, the
+    row seeded at each l or -1). Rows are every m (ms None) or the sorted
+    m rows `ms`; a row is active from its seed on, l >= max(m, first)."""
+    L1 = lmax + 1
+    if ms is None:
+        return first, [l + 1 for l in range(L1)], list(range(L1))
+    ms = [int(m) for m in ms]
+    where = {m: j for j, m in enumerate(ms)}
+    active = [bisect_right(ms, l) for l in range(L1)]
+    return (max(first, ms[0]) if ms else L1, active,
+            [where.get(l, -1) for l in range(L1)])
+
+
+def _sub_rows(t: torch.Tensor, ms, dim: int) -> torch.Tensor:
+    """The rows `ms` of a per-m table along `dim` (t itself for None)."""
+    if ms is None:
+        return t
+    return t.index_select(dim, torch.as_tensor(ms, device=t.device))
+
+
+def recursion_rows(tab: LargeSHTTables, ms) -> LargeSHTTables:
+    """`tab` with its per-m recursion tables cut to the sorted m rows `ms`
+    (the input of the recursions' `ms` argument)."""
+    return tab._replace(rec_a=_sub_rows(tab.rec_a, ms, 1),
+                        rec_b=_sub_rows(tab.rec_b, ms, 1),
+                        seed_frac=_sub_rows(tab.seed_frac, ms, 0),
+                        seed_scale=_sub_rows(tab.seed_scale, ms, 0))
+
+
+def _legendre_steps(tab: LargeSHTTables, lmax: int, inp, synth: bool,
+                    ms=None):
+    """The recursion over l for all m at once (or for the rows `ms`, with
+    `tab` cut to them by `recursion_rows`), on the north rings and the
+    equator (`_accumulate` gives the shapes, with the m axis over the
+    rows carried)."""
     nh = _north(tab.x.shape[0])
     x = tab.x[:nh]
     L1 = lmax + 1
-    prev, curr, nxt = (torch.zeros((L1, nh), device=x.device)
+    nm = tab.seed_frac.shape[0]
+    prev, curr, nxt = (torch.zeros((nm, nh), device=x.device)
                        for _ in range(3))
     s = tab.seed_scale[:, :nh].clone()
     nch = inp.shape[0] if synth else inp.shape[1]
-    out = torch.zeros((2, nch, L1, nh) if synth else (nch, L1, L1),
+    out = torch.zeros((2, nch, nm, nh) if synth else (nch, L1, nm),
                       device=x.device)
-    for l in range(L1):
-        k = l + 1
+    first, active, seed = _row_schedule(lmax, ms)
+    for l in range(first, L1):
+        k = active[l]
         nk, ck, sk = nxt[:k], curr[:k], s[:k]
-        # p_next = a (x p_curr - b p_prev); row l takes its seed
+        # p_next = a (x p_curr - b p_prev); the row m = l takes its seed
         torch.mul(x, ck, out=nk)
         nk.addcmul_(tab.rec_b[l, :k, None], prev[:k], value=-1.0)
         nk.mul_(tab.rec_a[l, :k, None])
-        nk[l] = tab.seed_frac[l, :nh]
+        if seed[l] >= 0:
+            nk[seed[l]] = tab.seed_frac[seed[l], :nh]
         _accumulate(out, inp, l, k, _rescale_step(nk, ck, sk), synth)
         prev, curr, nxt = curr, nxt, prev
     return out
@@ -232,31 +274,32 @@ def _north(nring: int) -> int:
     return (nring + 1) // 2
 
 
-def _m_signs(lmax: int, device) -> torch.Tensor:
-    """(lmax+1, 1): (-1)^m."""
-    m = torch.arange(lmax + 1, device=device)[:, None]
+def _m_signs(lmax: int, device, ms=None) -> torch.Tensor:
+    """(lmax+1, 1), or (len(ms), 1) for the rows ms: (-1)^m."""
+    m = (torch.arange(lmax + 1, device=device) if ms is None
+         else torch.as_tensor(ms, device=device))[:, None]
     return torch.where(m % 2 == 0, 1.0, -1.0)
 
 
-def _unfold_south(acc, nring: int):
+def _unfold_south(acc, nring: int, ms=None):
     """Synthesis sums of the north recursion by the parity of l, acc (2,
-    C, lmax+1, nh) -> (north (C, lmax+1, nh), south (C, lmax+1, nring -
-    nh) in ring order): the mirror ring takes (-1)^(l+m), so south =
-    (-1)^m (even l - odd l)."""
+    C, rows, nh) -> (north (C, rows, nh), south (C, rows, nring - nh) in
+    ring order): the mirror ring takes (-1)^(l+m), so south = (-1)^m (even
+    l - odd l). Rows are every m or the rows `ms`."""
     nh = acc.shape[-1]
-    sign = _m_signs(acc.shape[-2] - 1, acc.device)
+    sign = _m_signs(acc.shape[-2] - 1, acc.device, ms)
     south = (sign * (acc[0] - acc[1]))[..., : nring - nh].flip(-1)
     return acc[0] + acc[1], south
 
 
-def _mirror_signed(q_south, nh: int):
-    """The mirror rings' analysis input q_south (C, lmax+1, nring - nh), in
-    ring order, on their north rings times (-1)^m: (C, lmax+1, nh), zero
-    on the equator. With the parity of l it gives the (-1)^(l+m) of the
+def _mirror_signed(q_south, nh: int, ms=None):
+    """The mirror rings' analysis input q_south (C, rows, nring - nh), in
+    ring order, on their north rings times (-1)^m: (C, rows, nh), zero on
+    the equator. With the parity of l it gives the (-1)^(l+m) of the
     mirror (`_parity_inputs`)."""
     mirrored = q_south.new_zeros(q_south.shape[:-1] + (nh,))
     mirrored[..., : q_south.shape[-1]] = q_south.flip(-1)
-    return _m_signs(q_south.shape[-2] - 1, q_south.device) * mirrored
+    return _m_signs(q_south.shape[-2] - 1, q_south.device, ms) * mirrored
 
 
 def _parity_inputs(own, signed):
@@ -303,7 +346,8 @@ def _graphed(key, keep, steps, inp):
     return out.clone()
 
 
-def _legendre_loop(tab: LargeSHTTables, lmax: int, alm=None, q=None):
+def _legendre_loop(tab: LargeSHTTables, lmax: int, alm=None, q=None,
+                   ms=None):
     """The scalar recursion on the north rings (`_legendre_steps`), the
     south rings from their mirrors.
 
@@ -311,22 +355,27 @@ def _legendre_loop(tab: LargeSHTTables, lmax: int, alm=None, q=None):
       (2, lmax+1, nring) c[m, r] = sum_l alm[l, m] lambda_lm(theta_r).
     analysis (q = (re, im), each (lmax+1, nring) [m, r]): returns
       (2, lmax+1, lmax+1) a[l, m] = sum_r lambda_lm(theta_r) q[m, r].
+    With the sorted m rows `ms` (and `tab` cut to them by
+    `recursion_rows`) only those m come out: (2, len(ms), nring) c and
+    (2, lmax+1, len(ms)) a, the full call's values bit for bit.
     """
     nring = tab.x.shape[0]
     nh = _north(nring)
     synth = alm is not None
     if synth:
-        inp = torch.stack(alm)
+        inp = _sub_rows(torch.stack(alm), ms, 2)
     else:
-        q = torch.stack(q)
-        signed = _mirror_signed(q[..., nh:], nh)
+        q = _sub_rows(torch.stack(q), ms, 1)
+        signed = _mirror_signed(q[..., nh:], nh, ms)
         inp = torch.stack([q[..., :nh] + signed, q[..., :nh] - signed])
+    rows = None if ms is None else tuple(int(m) for m in ms)
     with _span("sht.legendre"):
-        out = _graphed(("scalar", synth, id(tab)), tab,
-                       lambda z: _legendre_steps(tab, lmax, z, synth), inp)
+        out = _graphed(("scalar", synth, id(tab), rows), tab,
+                       lambda z: _legendre_steps(tab, lmax, z, synth, rows),
+                       inp)
     if not synth:
         return out
-    north, south = _unfold_south(out, nring)
+    north, south = _unfold_south(out, nring, ms)
     return torch.cat([north, south], dim=-1)
 
 
@@ -525,6 +574,38 @@ def _check_method(method: str) -> None:
                          f"{method!r}")
 
 
+def analyze_with(hpmap, nside: int, lmax: int, niter: int, method: str,
+                 synth, adjoint):
+    """The jacobi / cg analysis driver on given transforms: synth(a_re,
+    a_im) -> map and adjoint(map) -> (a_re, a_im) (the single-device ones
+    or the m-sharded ones of parallel/sht_large.py). method as in
+    `analyze_large`."""
+    _check_method(method)
+    if method == "auto":
+        method = "cg" if lmax > 2 * nside else "jacobi"
+    b = adjoint(hpmap)
+    if method == "cg" and niter > 0:
+        # the quadrature adjoint A omits the m>0 factor 2 that synthesis
+        # carries, so A∘S = D^-1 S^T S is not symmetric: the matvec
+        # restores the transpose with the m-weighting, D(A(S(a))) =
+        # S^T S a; x0 keeps A(m) as the initial guess
+        wm = _m_weights(lmax, hpmap.device)[:, 0][None, :]
+
+        def mul_w(t):
+            return t[0] * wm, t[1] * wm
+
+        def matvec(a):
+            return mul_w(adjoint(synth(a[0], a[1])))
+
+        return _cg(matvec, mul_w(b), b, niter)
+    a_re, a_im = b
+    for _ in range(niter):
+        resid = hpmap - synth(a_re, a_im)
+        d_re, d_im = adjoint(resid)
+        a_re, a_im = a_re + d_re, a_im + d_im
+    return a_re, a_im
+
+
 def analyze_large(hpmap, nside: int, lmax: int, niter: int = 3,
                   tables: Optional[LargeSHTTables] = None,
                   method: str = "auto", device=None):
@@ -541,31 +622,10 @@ def analyze_large(hpmap, nside: int, lmax: int, niter: int = 3,
     _check_lmax(nside, lmax)
     hpmap = _map(hpmap, device, tables)
     tab = _tables_for(hpmap, nside, lmax, tables)
-    if method == "auto":
-        method = "cg" if lmax > 2 * nside else "jacobi"
-    b = _adjoint_large_impl(hpmap, tab, nside, lmax)
-    if method == "cg" and niter > 0:
-        # the quadrature adjoint A omits the m>0 factor 2 that synthesis
-        # carries, so A∘S = D^-1 S^T S is not symmetric: the matvec
-        # restores the transpose with the m-weighting, D(A(S(a))) =
-        # S^T S a; x0 keeps A(m) as the initial guess
-        wm = _m_weights(lmax, hpmap.device)[:, 0][None, :]
-
-        def mul_w(t):
-            return t[0] * wm, t[1] * wm
-
-        def matvec(a):
-            return mul_w(_adjoint_large_impl(
-                _synth_large_impl(a[0], a[1], tab, nside, lmax), tab,
-                nside, lmax))
-
-        return _cg(matvec, mul_w(b), b, niter)
-    a_re, a_im = b
-    for _ in range(niter):
-        resid = hpmap - _synth_large_impl(a_re, a_im, tab, nside, lmax)
-        d_re, d_im = _adjoint_large_impl(resid, tab, nside, lmax)
-        a_re, a_im = a_re + d_re, a_im + d_im
-    return a_re, a_im
+    return analyze_with(
+        hpmap, nside, lmax, niter, method,
+        lambda a_re, a_im: _synth_large_impl(a_re, a_im, tab, nside, lmax),
+        lambda m: _adjoint_large_impl(m, tab, nside, lmax))
 
 
 def synfast_large_from_white(white_re, white_im, cl, nside: int,

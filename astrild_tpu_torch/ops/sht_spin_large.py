@@ -32,9 +32,11 @@ The cap trig sums and belt phase rotations are ops/sht_large's. The
 recursions accumulate the alm combinations the fold needs (two a branch,
 not four). Conventions are ops/sht_spin.py's: Q + iU = -sum (E+iB) 2Y_lm
 for spin 2; for spin 1 the plus branch s_m d_{-1,m} (s_0 = -1) and the
-fold -d_{+1,m}. The `l_start` argument and the vma matching of the JAX
-package serve its distributed path (ROADMAP queue 1 item 9b) and are not
-ported.
+fold -d_{+1,m}. As in sht_large, the recursions take an optional sorted
+subset `ms` of the m rows (the JAX package's `l_start` and per-block m0):
+the m-sharded transforms of parallel/sht_large.py run each rank's rows
+through the coefficient and adjoint-loop halves below, with the
+quadrature head and the FFT tail replicated.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ from .sht_large import (LargeSHTTables, _accumulate, _belt, _cap_core_apply,
                         _cg, _check_lmax, _check_method, _graphed,
                         _map_to_plane, _mirror_signed, _north,
                         _parity_inputs, _plane_to_map, _rescale_step,
-                        _rotate_phase, _unfold_south, sht_large_tables)
+                        _rotate_phase, _row_schedule, _sub_rows,
+                        _unfold_south, sht_large_tables)
 from .sht_spin import (_alm_masks, _alms4, _branch_transpose, _eb_spectra,
                        _fold_transpose, _m_positive, _maps2)
 
@@ -188,22 +191,39 @@ def spin2_large_tables(nside: int, lmax: int, device=None
     return _spin2_large_tables(nside, lmax, _device_key(device))
 
 
-def _spin_steps(tab, rec: SpinRecursion, lmax: int, inp, synth: bool):
-    """The Wigner-d recursion over l for all m at once, one spin column, on
-    the north rings and the equator (sht_large._accumulate gives the
-    shapes); norm_l = sqrt((2l+1)/4pi) included. It starts at l = s =
-    rec.spin, where the rows 0..s take their seeds."""
+def recursion_rows_spin(tab, ms):
+    """`tab` with both spin columns' per-m tables cut to the sorted m rows
+    `ms` (the input of the recursions' `ms` argument)."""
+    def cut(rec: SpinRecursion) -> SpinRecursion:
+        return rec._replace(seed_frac=_sub_rows(rec.seed_frac, ms, 0),
+                            seed_scale=_sub_rows(rec.seed_scale, ms, 0),
+                            alpha=_sub_rows(rec.alpha, ms, 1),
+                            beta=_sub_rows(rec.beta, ms, 1),
+                            gamma=_sub_rows(rec.gamma, ms, 1))
+
+    return tab._replace(rec_m=cut(tab.rec_m), rec_p=cut(tab.rec_p))
+
+
+def _spin_steps(tab, rec: SpinRecursion, lmax: int, inp, synth: bool,
+                ms=None):
+    """The Wigner-d recursion over l for all m at once (or the rows `ms`,
+    `rec` cut to them), one spin column, on the north rings and the
+    equator (sht_large._accumulate gives the shapes); norm_l =
+    sqrt((2l+1)/4pi) included. It starts at l = s = rec.spin, where the
+    rows 0..s take their seeds (or at the first row's m, if later)."""
     nh = _north(tab.base.x.shape[0])
     x = tab.base.x[:nh]
     L1 = lmax + 1
-    prev, curr, nxt = (torch.zeros((L1, nh), device=x.device)
+    nm = rec.seed_frac.shape[0]
+    prev, curr, nxt = (torch.zeros((nm, nh), device=x.device)
                        for _ in range(3))
     s = rec.seed_scale[:, :nh].clone()
     nch = inp.shape[0] if synth else inp.shape[1]
-    out = torch.zeros((2, nch, L1, nh) if synth else (nch, L1, L1),
+    out = torch.zeros((2, nch, nm, nh) if synth else (nch, L1, nm),
                       device=x.device)
-    for l in range(rec.spin, L1):
-        k = l + 1
+    first, active, seed = _row_schedule(lmax, ms, rec.spin)
+    for l in range(first, L1):
+        k = active[l]
         nk, ck, sk = nxt[:k], curr[:k], s[:k]
         # p_next = (alpha x + beta) p_curr + gamma p_prev; the rows whose
         # l0 = l take their seeds (rows 0..s at l = s)
@@ -213,45 +233,52 @@ def _spin_steps(tab, rec: SpinRecursion, lmax: int, inp, synth: bool):
         nk.addcmul_(rec.gamma[l, :k, None], prev[:k])
         if l == rec.spin:
             nk.copy_(rec.seed_frac[:k, :nh])
-        else:
-            nk[l] = rec.seed_frac[l, :nh]
+        elif seed[l] >= 0:
+            nk[seed[l]] = rec.seed_frac[seed[l], :nh]
         lam = _rescale_step(nk, ck, sk) * tab.norm[l]
         _accumulate(out, inp, l, k, lam, synth)
         prev, curr, nxt = curr, nxt, prev
     return out
 
 
-def _spin_loop(tab, rec: SpinRecursion, lmax: int, inp, synth: bool):
+def _spin_loop(tab, rec: SpinRecursion, lmax: int, inp, synth: bool,
+               ms=None):
     """`_spin_steps` of one spin column, graphed on the card."""
+    rows = None if ms is None else tuple(int(m) for m in ms)
     with _span("sht.legendre"):
-        return _graphed(("spin", synth, id(rec)), (tab, rec),
-                        lambda z: _spin_steps(tab, rec, lmax, z, synth),
-                        inp)
+        return _graphed(("spin", synth, id(rec), rows), (tab, rec),
+                        lambda z: _spin_steps(tab, rec, lmax, z, synth,
+                                              rows), inp)
 
 
-def _branch_sums(tab, lmax: int, rows_p, rows_m):
+def _branch_sums(tab, lmax: int, rows_p, rows_m, ms=None):
     """The two branches' ring sums, each (2, lmax+1, nring): sum_l rows_p
     [., l, m] d^l_{-s,m}(theta_r) and sum_l rows_m[., l, m] d^l_{s,m}. A
     ring's d_{-s,m} is (-1)^(l+m) its mirror ring's d_{s,m}: each north
     recursion sums its own branch's alm combinations for the north rings
-    and the other branch's for the south."""
+    and the other branch's for the south. With the rows `ms` (`tab` cut by
+    `recursion_rows_spin`) only those m come out."""
     nring = tab.base.x.shape[0]
+    rows_p, rows_m = _sub_rows(rows_p, ms, 2), _sub_rows(rows_m, ms, 2)
     north_m, south_m = _unfold_south(_spin_loop(
-        tab, tab.rec_m, lmax, torch.cat([rows_p, rows_m]), True), nring)
+        tab, tab.rec_m, lmax, torch.cat([rows_p, rows_m]), True, ms), nring,
+        ms)
     north_p, south_p = _unfold_south(_spin_loop(
-        tab, tab.rec_p, lmax, torch.cat([rows_m, rows_p]), True), nring)
+        tab, tab.rec_p, lmax, torch.cat([rows_m, rows_p]), True, ms), nring,
+        ms)
     return (torch.cat([north_m[:2], south_p[2:]], dim=-1),
             torch.cat([north_p[:2], south_m[2:]], dim=-1))
 
 
 def _fold_coeffs(tab: Spin2LargeTables, lmax: int, e_re, e_im, b_re,
-                 b_im):
+                 b_im, ms=None):
     """(gp_re, gp_im, gm_re, gm_im) ring coefficients, (lmax+1, nring):
     gp_m multiplies e^{+im phi}, gm_m e^{-im phi} (m > 0). gp = -A(E + iB)
-    through d_{-2,m}, gm = the fold through d_{2,m}."""
+    through d_{-2,m}, gm = the fold through d_{2,m}. With `ms`, the rows
+    ms of each."""
     gp, gm = _branch_sums(tab, lmax,
                           torch.stack([b_im - e_re, -(e_im + b_re)]),
-                          torch.stack([-(e_re + b_im), e_im - b_re]))
+                          torch.stack([-(e_re + b_im), e_im - b_re]), ms)
     return gp[0], gp[1], gm[0], gm[1]
 
 
@@ -329,35 +356,48 @@ def _synth_spin2_large_impl(e_re, e_im, b_re, b_im, tab, nside: int,
     return _synth_from_g(*g, tab, nside, lmax)
 
 
-def _branch_sums_t(q, u, tab, nside: int, lmax: int):
-    """Transpose of the quadrature head and the branches' recursions: (Q,
-    U) maps -> (Ar, Ai, Mr, Mi), each (lmax+1, lmax+1) [l, m], the plus
-    branch's (d_{-s,m}) and the folded branch's (d_{s,m}) Legendre sums of
-    the fold's quadrature channels."""
+def _branch_loops_t(dgs, tab, lmax: int, ms=None):
+    """The branches' recursions of the adjoint on the quadrature sums dgs =
+    (dgp_re, dgp_im, dgm_re, dgm_im), each (lmax+1, nring): (Ar, Ai, Mr,
+    Mi), each (lmax+1, lmax+1) [l, m] (or (lmax+1, len(ms)) for the rows
+    ms), the plus branch's (d_{-s,m}) and the folded branch's (d_{s,m})
+    Legendre sums."""
     nh = _north(tab.base.x.shape[0])
-    dgp_re, dgp_im, dgm_re, dgm_im = _spin_quadrature_sums(q, u, tab,
-                                                           nside, lmax)
     # each north recursion sums its own branch over the north rings and the
     # other branch over the south ones (see _branch_sums)
-    qp = torch.stack([dgp_re, dgp_im])
-    qm = torch.stack([dgm_re, dgm_im])
+    qp = _sub_rows(torch.stack(dgs[:2]), ms, 1)
+    qm = _sub_rows(torch.stack(dgs[2:]), ms, 1)
     out_m = _spin_loop(tab, tab.rec_m, lmax, _parity_inputs(
-        qp[..., :nh], _mirror_signed(qm[..., nh:], nh)), False)
+        qp[..., :nh], _mirror_signed(qm[..., nh:], nh, ms)), False, ms)
     out_p = _spin_loop(tab, tab.rec_p, lmax, _parity_inputs(
-        qm[..., :nh], _mirror_signed(qp[..., nh:], nh)), False)
+        qm[..., :nh], _mirror_signed(qp[..., nh:], nh, ms)), False, ms)
     a = out_m[:2] + out_p[2:]
     m = out_p[:2] + out_m[2:]
     return a[0], a[1], m[0], m[1]
+
+
+def _branch_sums_t(q, u, tab, nside: int, lmax: int):
+    """Transpose of the quadrature head and the branches' recursions: (Q,
+    U) maps -> (Ar, Ai, Mr, Mi) (`_branch_loops_t`)."""
+    return _branch_loops_t(_spin_quadrature_sums(q, u, tab, nside, lmax),
+                           tab, lmax)
+
+
+def _finish_adjoint_spin2(ar, ai, mr, mi, lmax: int, npix: int):
+    """The spin-2 adjoint from the branches' sums: the transpose of the
+    fold, with 4pi/npix and the m > 0 halves folded in
+    (sht_spin._adjoint_spin2's normalization)."""
+    der, dei, dbr, dbi = _branch_transpose(ar, ai, mr, mi)
+    vre, vim = _alm_masks(lmax, npix, ar.device)
+    return der * vre, dei * vim, dbr * vre, dbi * vim
 
 
 def _adjoint_spin2_large_impl(q, u, tab: Spin2LargeTables, nside: int,
                               lmax: int):
     """Quadrature adjoint: the exact transpose with 4pi/npix and the m > 0
     halves folded in (sht_spin._adjoint_spin2's normalization)."""
-    der, dei, dbr, dbi = _branch_transpose(*_branch_sums_t(q, u, tab, nside,
-                                                           lmax))
-    vre, vim = _alm_masks(lmax, q.shape[0], q.device)
-    return der * vre, dei * vim, dbr * vre, dbi * vim
+    return _finish_adjoint_spin2(*_branch_sums_t(q, u, tab, nside, lmax),
+                                 lmax, q.shape[0])
 
 
 def synthesize_spin2_large(e_re, e_im, b_re, b_im, nside: int, lmax: int,
@@ -462,28 +502,47 @@ def _m_sign_spin1(lmax: int, device) -> torch.Tensor:
     return 2.0 * _m_positive(lmax, device) - 1.0
 
 
+def _fold_coeffs_spin1(tab, lmax: int, e_re, e_im, b_re, b_im, ms=None):
+    """The spin-1 branches' ring sums (gp_re, gp_im, gm_re, gm_im) before
+    the plus branch's s_m: A(E + iB) through d_{-1,m} and the fold
+    -(conj(E) + i conj(B)) through d_{1,m}; the rows ms with `ms`."""
+    gp, gm = _branch_sums(tab, lmax,
+                          torch.stack([e_re - b_im, e_im + b_re]),
+                          torch.stack([-(e_re + b_im), e_im - b_re]), ms)
+    return gp[0], gp[1], gm[0], gm[1]
+
+
+def _synth_spin1_from_g(gp_re, gp_im, gm_re, gm_im, tab, nside: int,
+                        lmax: int):
+    """The spin-1 tail: s_m on the plus branch, then the spin-2 complex-FFT
+    and cap tail (F = alpha_theta + i alpha_phi)."""
+    sm = _m_sign_spin1(lmax, gp_re.device)
+    return _synth_from_g(sm * gp_re, sm * gp_im, gm_re, gm_im, tab, nside,
+                         lmax)
+
+
 def _synth_spin1_large_impl(e_re, e_im, b_re, b_im, tab, nside: int,
                             lmax: int):
     """(E, B) -> (alpha_theta, alpha_phi): the plus branch s_m A(E + iB)
-    through d_{-1,m}, the fold -(conj(E) + i conj(B)) through d_{1,m};
-    the complex-FFT and cap tail is the spin-2 one (F = alpha_theta + i
-    alpha_phi)."""
-    gp, gm = _branch_sums(tab, lmax,
-                          torch.stack([e_re - b_im, e_im + b_re]),
-                          torch.stack([-(e_re + b_im), e_im - b_re]))
-    sm = _m_sign_spin1(lmax, e_re.device)
-    return _synth_from_g(sm * gp[0], sm * gp[1], gm[0], gm[1], tab, nside,
-                         lmax)
+    through d_{-1,m}, the fold -(conj(E) + i conj(B)) through d_{1,m}."""
+    return _synth_spin1_from_g(*_fold_coeffs_spin1(
+        tab, lmax, e_re, e_im, b_re, b_im), tab, nside, lmax)
+
+
+def _finish_adjoint_spin1(ar, ai, mr, mi, lmax: int, npix: int):
+    """The spin-1 adjoint from the branches' sums (the transpose of its
+    fold), with 4pi/npix and the m > 0 halves; valid for l >= 1."""
+    sm = _m_sign_spin1(lmax, ar.device).T
+    vre, vim = _alm_masks(lmax, npix, ar.device, lmin=1)
+    return ((sm * ar - mr) * vre, (sm * ai + mi) * vim,
+            (sm * ai - mi) * vre, (-sm * ar - mr) * vim)
 
 
 def _adjoint_spin1_large_impl(a_t, a_p, tab, nside: int, lmax: int):
     """Quadrature adjoint of the spin-1 synthesis (the transpose of its
     fold), with 4pi/npix and the m > 0 halves; valid for l >= 1."""
-    Ar, Ai, Mr, Mi = _branch_sums_t(a_t, a_p, tab, nside, lmax)
-    sm = _m_sign_spin1(lmax, a_t.device).T
-    vre, vim = _alm_masks(lmax, a_t.shape[0], a_t.device, lmin=1)
-    return ((sm * Ar - Mr) * vre, (sm * Ai + Mi) * vim,
-            (sm * Ai - Mi) * vre, (-sm * Ar - Mr) * vim)
+    return _finish_adjoint_spin1(*_branch_sums_t(a_t, a_p, tab, nside,
+                                                 lmax), lmax, a_t.shape[0])
 
 
 def synthesize_spin1_large(e_re, e_im, b_re, b_im, nside: int, lmax: int,

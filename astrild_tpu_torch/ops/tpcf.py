@@ -78,26 +78,34 @@ def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
-def _s_mu_accumulate_tiles(comps, s_edges, ns: int, nmu: int, los: int,
-                           boxsize, block: int = 512, n_valid=None,
-                           coords: str = "s_mu", pi_max=None):
+def _s_mu_accumulate_tiles(pos_i, pos_j, ia0: int, jb0: int, s_edges,
+                           ns: int, nmu: int, los: int, boxsize,
+                           block: int = 512, n_valid_global=None,
+                           valid_i=None, valid_j=None, dedup: bool = True,
+                           triangular: bool = False, coords: str = "s_mu",
+                           pi_max=None):
     """DD(s, mu) (or, with coords='rp_pi', DD(rp, |pi|)) over all pairs
-    i < j of flat (x, y, z) components padded to a multiple of block; rows
-    at and beyond n_valid form no pairs. With coords='rp_pi', s_edges bin
-    rp and the nmu bins split [0, pi_max) linearly. (The JAX package's
-    accumulator also takes two chunks with global offsets and per-row
-    masks, for its ring schedules and multihost loader; the port has
-    neither yet.)
+    between two chunks of flat (x, y, z) components, each padded to a
+    multiple of block. With coords='rp_pi', s_edges bin rp and the nmu
+    bins split [0, pi_max) linearly.
+
+    ia0 / jb0 are the chunks' global row offsets, as in the JAX package's
+    accumulator: dedup=True counts a pair only when its global i < global
+    j, dedup=False every (i, j) (a half-ring schedule's full-cross steps,
+    parallel/tpcf.py); triangular=True skips the a > b tiles (a chunk
+    against itself). Rows at and beyond n_valid_global form no pairs
+    (padding at the global tail); valid_i / valid_j are per-row 0/1 masks
+    (per-shard padding, the multihost striped loader).
 
     The per-bin accumulation is Kahan-compensated float32, as the JAX
     package's: plain float32 adds stop counting once a bin's total passes
     ~2^24 times the tile increments.
     """
-    npad = comps[0].shape[0]
-    if npad % block:
+    ni, nj = pos_i[0].shape[0], pos_j[0].shape[0]
+    if ni % block or nj % block:
         raise ValueError("the components must be padded to a multiple of "
                          "block")
-    dev = comps[0].device
+    dev = pos_i[0].device
     s_edges = s_edges.to(torch.float32)
     smin, smax = s_edges[0], s_edges[-1]
     box = torch.tensor(float(boxsize), dtype=torch.float32, device=dev)
@@ -107,46 +115,49 @@ def _s_mu_accumulate_tiles(comps, s_edges, ns: int, nmu: int, los: int,
     counts = torch.zeros(nbt, dtype=torch.float32, device=dev)
     comp = torch.zeros(nbt, dtype=torch.float32, device=dev)
     ar = torch.arange(block, device=dev)
-    nb = npad // block
-    for a in range(nb):
-        for b in range(a, nb):
-            ia = a * block + ar
-            jb = b * block + ar
-            pi = torch.stack([c[a * block:(a + 1) * block] for c in comps],
-                             dim=-1)
-            pj = torch.stack([c[b * block:(b + 1) * block] for c in comps],
-                             dim=-1)
-            d = _min_image(pi[:, None, :] - pj[None, :, :], box)
-            # ((dx^2 + dy^2) + dz^2) in float32, the JAX package's norm
-            s = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
-                           + d[..., 2] * d[..., 2])
-            spar = torch.abs(d[..., los])
-            if coords == "rp_pi":
-                rp = torch.sqrt(torch.clamp_min(s ** 2 - spar ** 2, 0.0))
-                sep = rp
-                # clamp before the int cast (the JAX package clips after)
-                mubin = torch.clamp(spar / pimax * nmu, 0,
-                                    nmu - 1).to(torch.int64)
-                mask = (rp >= smin) & (rp < smax) & (spar < pimax)
-            else:
-                sep = s
-                mu = spar / torch.clamp_min(s, 1e-12)
-                mubin = torch.clamp(mu * nmu, 0, nmu - 1).to(torch.int64)
-                mask = (s >= smin) & (s < smax)
-            sbin = torch.clamp(
-                torch.searchsorted(s_edges, sep, right=True) - 1, 0, ns - 1)
+    pairs = [(a, b) for a in range(ni // block) for b in range(nj // block)
+             if not triangular or a <= b]
+    for a, b in pairs:
+        sa, sb = slice(a * block, (a + 1) * block), slice(
+            b * block, (b + 1) * block)
+        pi = torch.stack([c[sa] for c in pos_i], dim=-1)
+        pj = torch.stack([c[sb] for c in pos_j], dim=-1)
+        d = _min_image(pi[:, None, :] - pj[None, :, :], box)
+        # ((dx^2 + dy^2) + dz^2) in float32, the JAX package's norm
+        s = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                       + d[..., 2] * d[..., 2])
+        spar = torch.abs(d[..., los])
+        if coords == "rp_pi":
+            rp = torch.sqrt(torch.clamp_min(s ** 2 - spar ** 2, 0.0))
+            sep = rp
+            # clamp before the int cast (the JAX package clips after)
+            mubin = torch.clamp(spar / pimax * nmu, 0,
+                                nmu - 1).to(torch.int64)
+            mask = (rp >= smin) & (rp < smax) & (spar < pimax)
+        else:
+            sep = s
+            mu = spar / torch.clamp_min(s, 1e-12)
+            mubin = torch.clamp(mu * nmu, 0, nmu - 1).to(torch.int64)
+            mask = (s >= smin) & (s < smax)
+        sbin = torch.clamp(
+            torch.searchsorted(s_edges, sep, right=True) - 1, 0, ns - 1)
+        ia = ia0 + a * block + ar
+        jb = jb0 + b * block + ar
+        if dedup:
             mask = mask & (ia[:, None] < jb[None, :])
-            if n_valid is not None:
-                mask = (mask & (ia[:, None] < n_valid)
-                        & (jb[None, :] < n_valid))
-            flat = torch.where(mask, sbin * nmu + mubin, nbt)
-            inc = torch.bincount(flat.reshape(-1),
-                                 minlength=nbt + 1)[:nbt].to(torch.float32)
-            # Kahan step: the increment is exact (< 2^24)
-            y = inc - comp
-            t = counts + y
-            comp = (t - counts) - y
-            counts = t
+        if n_valid_global is not None:
+            mask = (mask & (ia[:, None] < n_valid_global)
+                    & (jb[None, :] < n_valid_global))
+        if valid_i is not None:
+            mask = mask & (valid_i[sa] > 0)[:, None] & (valid_j[sb] > 0)[None]
+        flat = torch.where(mask, sbin * nmu + mubin, nbt)
+        inc = torch.bincount(flat.reshape(-1),
+                             minlength=nbt + 1)[:nbt].to(torch.float32)
+        # Kahan step: the increment is exact (< 2^24)
+        y = inc - comp
+        t = counts + y
+        comp = (t - counts) - y
+        counts = t
     return counts
 
 
@@ -164,9 +175,10 @@ def pair_counts_s_mu(pos, boxsize, s_edges, ns: int, nmu: int = 20,
     dev = comps[0].device
     comps, n = _padded(comps, block)
     n_valid = n if n_valid is None else n_valid
-    counts = _s_mu_accumulate_tiles(comps, as_tensor(s_edges, dev), ns, nmu,
-                                    los, boxsize, block=block,
-                                    n_valid=n_valid)
+    counts = _s_mu_accumulate_tiles(comps, comps, 0, 0,
+                                    as_tensor(s_edges, dev), ns, nmu, los,
+                                    boxsize, block=block,
+                                    n_valid_global=n_valid, triangular=True)
     return counts.reshape(ns, nmu)
 
 
@@ -234,10 +246,11 @@ def pair_counts_rp_pi(pos, boxsize, rp_edges, ns: int, n_pi: int,
     dev = comps[0].device
     comps, n = _padded(comps, block)
     n_valid = n if n_valid is None else n_valid
-    counts = _s_mu_accumulate_tiles(comps, as_tensor(rp_edges, dev), ns,
-                                    n_pi, los, boxsize, block=block,
-                                    n_valid=n_valid, coords="rp_pi",
-                                    pi_max=pi_max)
+    counts = _s_mu_accumulate_tiles(comps, comps, 0, 0,
+                                    as_tensor(rp_edges, dev), ns, n_pi, los,
+                                    boxsize, block=block,
+                                    n_valid_global=n_valid, triangular=True,
+                                    coords="rp_pi", pi_max=pi_max)
     return counts.reshape(ns, n_pi)
 
 

@@ -8132,9 +8132,10 @@ def _gloo_worker(rank: int, world: int, port: str, out: str,
     np.savez(os.path.join(out, f"rank_{rank}.npz"), **res)
 
 
-def _gloo_world(world: int, out: Path, seed: int) -> list:
+def _gloo_world(world: int, out: Path, seed: int, part: str = "a") -> list:
     """Start a gloo world of `world` worker processes of this script on the
-    host CPU (no card visible to them); returns the processes."""
+    host CPU (no card visible to them), each running `part`'s worker (a:
+    phase 22's, b: phase 23's); returns the processes."""
     import socket
 
     with socket.socket() as s:
@@ -8144,7 +8145,8 @@ def _gloo_world(world: int, out: Path, seed: int) -> list:
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     return [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--gloo-worker",
-         str(r), str(world), port, str(out), "--seed", str(seed)],
+         str(r), str(world), port, str(out), "--seed", str(seed),
+         "--gloo-part", part],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
 
@@ -8463,6 +8465,615 @@ def phase_distributed(dev, seed: int, card: str) -> dict:
     return result
 
 
+# the distributed phase, part B (23), on a world of one over NCCL: (a) the
+# lens planes of (b)'s evolved particles (64 planes of 2048^2 from chi 200
+# Mpc/h, one box length deep in all, over the suite's 0.35 rad field) and
+# their HEALPix shells at nside 1024 (the lightcone lane's edges), both
+# through K1 against the single-device functions (K1 in both, float
+# atomics in both: WEIGHTED_TOL of the max); the suite and the ray trace
+# of those planes (source at DB_CHI_S) and the multiplane tracer of the
+# shells, painted again at DB_MP_NSIDE (the tracer's SHTs at nside 1024
+# take ~20 s a run: a cut), against the single-device calls on the same
+# inputs to DB_MAP_TOL of the max; (b) the distributed PM at the forward
+# path's width (phase 7's ICs) against two single-device runs: positions
+# within DB_GAP_FACTOR times the two runs' own gap (K2's float atomics;
+# floor DB_GAP_FLOOR Mpc/h) and P(k) on NGRID^3 to DB_PK_TOL; (c) field
+# inference at phase 20's chain width: the gradient against the
+# single-device one within FI_GRAD_TOL (max, mean), the loss to 1e-5; (d)
+# the m-sharded scalar and spin-2 transforms (DB_SHT: nside, lmax; cut
+# from step 5's nside 1024 / lmax 2048, where the two paths took 37 s of
+# a 74.5 s phase on an H100) against the unsharded scan path (one
+# synthesis, analyze(niter=3)) to DB_SHT_TOL of the max; (e) the five
+# rings at DB_RING_N tracers of (b)'s particles (the clustering lane's
+# tile rows, bins and edges) against the single-device estimators: xi,
+# wp, kSZ and shear xi to DB_RING_TOL (the same tiles), v12 against K3 at
+# K3's bar
+DB_CHI0, DB_CHI_S, DB_MP_NSIDE = 200.0, 800.0, 256
+DB_FOV = 0.35  # the suite's field of view (suite.OPENING_ANGLE_RAD) [rad]
+DB_MAP_TOL, DB_PK_TOL, DB_GAP_FACTOR, DB_GAP_FLOOR = 1e-5, 1e-3, 4.0, 1e-4
+DB_SHT, DB_SHT_TOL = (512, 1024), 1e-6
+DB_RING_N, DB_RING_TOL = 1 << 15, 1e-6
+DB_THETA = (2.0, 40.0, 9)  # the shear xi's edges (geometric) [Mpc/h]
+# (g) the 4-rank gloo check on the host CPU at the tests' small sizes
+GLOO_B_TIMEOUT = 300
+
+
+def _uncounted(fn):
+    """(fn(), the kernel launches it made), the launch counts left as they
+    were: the single-device reference runs of a phase."""
+    from astrild_tpu_torch.ops import paint_cuda, pairwise_cuda
+
+    saved = [(c, dict(c)) for c in (paint_cuda.LAUNCHES,
+                                    pairwise_cuda.LAUNCHES)]
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+        made = {}
+        for c, before in saved:
+            made.update({k: c[k] - before.get(k, 0) for k in c
+                         if c[k] != before.get(k, 0)})
+        return res, made
+    finally:
+        for c, before in saved:
+            c.clear()
+            c.update(before)
+
+
+def _gloo_worker_b(rank: int, world: int, port: str, out: str,
+                   seed: int) -> None:
+    """(g)'s rank of part B: the rings, lens planes, shells, the ring- and
+    m-sharded SHTs, the PM evolver and the field-inference gradient at the
+    tests' small sizes on a gloo world of the host's CPU (4 ranks: the
+    rings over 'sim' (4, 1, 1), the rest over (2, 2, 1) or (1, 2, 2); a
+    world of one: (1, 1, 1)); rank r's replicated and assembled outputs
+    into out/rank_r.npz."""
+    torch.set_num_threads(1)
+    from astrild_tpu_torch.parallel import field_infer as DF
+    from astrild_tpu_torch.parallel import lensing as DL
+    from astrild_tpu_torch.parallel import make_mesh, multihost
+    from astrild_tpu_torch.parallel import nbody as DN
+    from astrild_tpu_torch.parallel import pairwise as DPW
+    from astrild_tpu_torch.parallel import sht as DS
+    from astrild_tpu_torch.parallel import sht_large as DSL
+    from astrild_tpu_torch.parallel import tpcf as DT
+    from astrild_tpu_torch.parallel.mesh import shard, unshard
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
+    many = world > 1
+    ring = make_mesh(*((4, 1, 1) if many else (1, 1, 1)), device="cpu")
+    sims = make_mesh(*((2, 2, 1) if many else (1, 1, 1)), device="cpu")
+    pencil = make_mesh(*((1, 2, 2) if many else (1, 1, 1)), device="cpu")
+    rng = np.random.default_rng(seed + 23)
+    res = {}
+
+    def rows(x, mesh=ring, axis="sim"):
+        return shard(x, mesh, (axis,) + (None,) * (x.dim() - 1))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    pos = t(rng.uniform(400, 600, (1024, 3)).astype(np.float32))
+    vel = t(rng.normal(0, 100, (1024, 3)).astype(np.float32))
+    res["v12"] = torch.stack(DPW.make_distributed_pairwise(
+        ring, 16, 10.0, block=256)(rows(pos), rows(vel))).numpy()
+    res["ksz"] = torch.stack(DPW.make_distributed_ksz(
+        ring, 16, 10.0, block=256)(rows(pos), rows(vel[:, 0]))).numpy()
+    box = t(rng.uniform(0, BOX / 5, (1024, 3)).astype(np.float32))
+    res["xi"] = DT.make_distributed_tpcf_s_mu(
+        ring, BOX / 5, np.linspace(1.0, 9.0, 9), nmu=10, block=128)(
+        rows(box))[2].numpy()
+    res["wp"] = DT.make_distributed_projected_tpcf(
+        ring, BOX / 5, np.linspace(1.0, 6.0, 6), 8.0, n_pi=8, block=128)(
+        rows(box))[1].numpy()
+    e = t(rng.normal(0, 0.2, (2, 1024)).astype(np.float32))
+    res["shear"] = torch.stack(DT.make_distributed_shear_xi(
+        ring, np.geomspace(1.0, 9.0, 6), block=128, boxsize=BOX / 5)(
+        rows(box[:, 0]), rows(box[:, 1]), rows(e[0]), rows(e[1]))).numpy()
+    parts = t(rng.uniform(0, BOX, (4096, 3)).astype(np.float32))
+    comps = tuple(rows(parts[:, i], sims) for i in range(3))
+    res["planes"] = DL.make_distributed_lens_planes(
+        sims, BOX, DB_CHI0, BOX / 8, 8, DB_FOV, 32)(comps)[0] \
+        .numpy()
+    res["shells"] = DL.make_distributed_healpix_shells(
+        sims, np.linspace(*LC_EDGES), 8, BOX)(comps).numpy()
+    nside, lmax = 8, 12
+    tri = np.tril(np.ones((lmax + 1,) * 2, np.float32))
+    a = t((rng.standard_normal((2, lmax + 1, lmax + 1)) * tri).astype(
+        np.float32))
+    synth, analyze = DS.make_distributed_sht(pencil, nside, lmax)
+    plane = unshard(synth(a[0], a[1]), pencil, ("x", None))
+    res["table_synth"] = plane[: 4 * nside - 1].numpy()  # the real rings
+    res["table_analyze"] = torch.stack(analyze(plane, niter=2)).numpy()
+    nside, lmax = 64, 160
+    tri = np.tril(np.ones((lmax + 1,) * 2, np.float32))
+    a = t((rng.standard_normal((4, lmax + 1, lmax + 1)) * tri * 0.1).astype(
+        np.float32))
+    synth, analyze = DSL.make_distributed_sht_large(pencil, nside, lmax)
+    m = synth(a[0], a[1])
+    res["sht_synth"] = m.numpy()
+    res["sht_analyze"] = torch.stack(analyze(m, niter=1)).numpy()
+    res["spin2_synth"] = torch.stack(DSL.make_distributed_sht_spin2_large(
+        pencil, nside, lmax)[0](*a)).numpy()
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+    ng, allax = 16, (("sim", "x", "y"),)
+    pm = t(rng.uniform(0, BOX, (3, ng ** 3)).astype(np.float32))
+    c, _ = DN.make_distributed_pm_evolve(pencil, ng, BOX, cosmo, 2)(
+        tuple(shard(x, pencil, allax) for x in pm),
+        tuple(torch.zeros(ng ** 3 // world) for _ in range(3)), 0.2, 1.0)
+    res["pm"] = torch.stack([unshard(x, pencil, allax) for x in c]).numpy()
+    fac = DF.make_distributed_field_infer(
+        pencil, ng, BOX, lambda k: 2.0e3 * (k / 0.1) ** -1.5, cosmo,
+        z_init=9.0, nsteps=2, window="cic")
+    spec = ("x", "y", None)
+    white = t(rng.standard_normal((ng,) * 3).astype(np.float32))
+    data = unshard(fac.simulate(shard(white * 0.9, pencil, spec)), pencil,
+                   spec)
+    val, g = fac.value_and_grad(shard(white, pencil, spec),
+                                shard(data, pencil, spec), 0.05)
+    res["field_value"] = val.numpy()
+    res["field_grad"] = unshard(g, pencil, spec).numpy()
+    np.savez(os.path.join(out, f"rank_{rank}.npz"), **res)
+
+
+def _gloo_check_b(seed: int) -> dict:
+    """(g): a 4-rank gloo world and a world of one on the host CPU through
+    `_gloo_worker_b`: the 4 ranks' outputs equal, and the 4-rank run held
+    to the world of one (every ring hop, reduce-scatter, all-gather and
+    psum of several ranks a world of one skips). Bars: the pair counts
+    (xi, wp) and the m-sharded SHT (disjoint rows) equal; v12, kSZ and the
+    shear sums 1e-5 relative (float32 partial sums in another order);
+    planes, shells and the table SHT 1e-5 of the max; PM positions 1e-4
+    Mpc/h (periodic); the field gradient 1e-4 relative L2, its value
+    1e-6. A CPU check; no card time."""
+    root = Path(__file__).resolve().parent / "build" / \
+        f"distributed_b_gloo_{os.getpid()}"
+    t0 = time.perf_counter()
+    try:
+        worlds = {w: _gloo_world(w, root / f"world_{w}", seed, "b")
+                  for w in (4, 1)}
+        logs = []
+        try:
+            for procs in worlds.values():
+                for p in procs:
+                    logs.append(p.communicate(timeout=GLOO_B_TIMEOUT)[0])
+        finally:
+            for procs in worlds.values():
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+        if any(p.returncode for procs in worlds.values() for p in procs):
+            raise AssertionError("distributed_b gloo (CPU check): a worker "
+                                 "failed:\n" + "\n---\n".join(
+                                     log_[-2000:] for log_ in logs))
+        ranks = [dict(np.load(root / "world_4" / f"rank_{r}.npz"))
+                 for r in range(4)]
+        one = dict(np.load(root / "world_1" / "rank_0.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for r in ranks[1:]:
+        for k, v in r.items():
+            if not np.array_equal(v, ranks[0][k], equal_nan=True):
+                raise AssertionError(f"distributed_b gloo (CPU check): {k} "
+                                     "differs between ranks")
+    got, errs = ranks[0], {}
+
+    def hold(key, bar, how):
+        a, b = got[key], one[key]
+        if how == "equal":
+            err = 0.0 if np.array_equal(a, b, equal_nan=True) else np.inf
+        elif how == "rel":
+            ok = np.isfinite(b) & (b != 0)
+            err = float(np.max(np.abs(a[ok] - b[ok]) / np.abs(b[ok])))
+        elif how == "max":
+            err = float(np.max(np.abs(a - b)) / np.abs(b).max())
+        elif how == "l2":
+            err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        else:
+            d = np.abs((a - b + BOX / 2) % BOX - BOX / 2)
+            err = float(d.max())
+        errs[key] = err
+        if not err <= bar:
+            raise AssertionError(f"distributed_b gloo (CPU check): {key} "
+                                 f"4 ranks against 1: {err:.3e} > {bar}")
+
+    for key in ("xi", "wp", "sht_synth", "sht_analyze", "spin2_synth"):
+        hold(key, 0.0, "equal")
+    for key in ("v12", "ksz", "shear"):
+        hold(key, 1e-5, "rel")
+    for key in ("planes", "shells", "table_synth", "table_analyze"):
+        hold(key, 1e-5, "max")
+    hold("pm", 1e-4, "periodic")
+    hold("field_grad", 1e-4, "l2")
+    hold("field_value", 1e-6, "rel")
+    log(f"#   distributed_b gloo (CPU check): torch {torch.__version__}, 4 "
+        f"gloo ranks on the host CPU against a world of one, "
+        f"{seconds:.1f} s; " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in errs.items()))
+    return {"seconds": seconds, "errors": errs}
+
+
+def phase_distributed_b(dev, seed: int, card: str) -> dict:
+    """The distributed layer, part B, on a world of one over NCCL
+    (`make_mesh(1, 1, 1, device="cuda")`): (b) `make_distributed_pm_evolve`
+    at the forward path's 512^3 in 500 Mpc/h, 20 KDK steps, GR, through K2
+    (phase 7's ICs), against `nbody.pm_evolve`; (a) lens planes of its
+    particles (64 of 2048^2) and HEALPix shells at nside 1024 through K1,
+    against `density_planes_from_particles` and `density_shells_healpix`;
+    `make_distributed_lensing_suite` and `_raytrace` on those planes,
+    `_multiplane_healpix` on shells at DB_MP_NSIDE; (c)
+    `make_distributed_field_infer` at phase 20's chain width (256^3, 10
+    steps): one value_and_grad, K2 and its adjoint, against
+    ops.field_infer's gradient; (d) the m-sharded scalar and spin-2 SHTs
+    at DB_SHT (one synthesis, analyze(niter=3)) against the unsharded scan
+    path; (e) the five rings at 2^15 tracers against the single-device
+    estimators (v12 against K3); (f) each part's launches (K1 one a plane
+    or shell flush, K2 nsteps + 1 an evolution and nsteps + 2 and its
+    adjoint nsteps + 1 a gradient, K3 and K4 none), seconds and peak
+    memory; (g) a 4-rank gloo world on the host CPU (`_gloo_check_b`).
+
+    The port keeps the JAX guards (px > 1, py > 1): a world of one runs no
+    ring hop, reduce-scatter or all-gather, and its psums are copies; (g)
+    is this script's only run of them, on the CPU (one H100 cannot hold an
+    NCCL world of two). Returns the numbers printed in `# distributed_b`.
+    """
+    import torch.distributed as dist
+
+    from astrild_tpu_torch.ops import (field_infer, lens_planes, lensing,
+                                       lightcone_sphere, linear_power, nbody,
+                                       paint, paint_cuda, pairwise,
+                                       pairwise_cuda, peaks, power,
+                                       raytrace, shear_2pt, sht_large,
+                                       sht_spin_large, tpcf, voids)
+    from astrild_tpu_torch.parallel import field_infer as dfield
+    from astrild_tpu_torch.parallel import lensing as dlensing
+    from astrild_tpu_torch.parallel import make_mesh
+    from astrild_tpu_torch.parallel import nbody as dnbody
+    from astrild_tpu_torch.parallel import pairwise as dpairwise
+    from astrild_tpu_torch.parallel import sht_large as dsht
+    from astrild_tpu_torch.parallel import tpcf as dtpcf
+    from astrild_tpu_torch.utils.cosmology import Cosmology
+
+    t_phase = time.perf_counter()
+    seconds, launches, refs = {}, {}, {}
+    stage = _stage_runner(seconds, launches)
+    mesh = make_mesh(1, 1, 1, device="cuda")
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError(f"distributed_b: a {dist.get_backend()} world "
+                             f"on {mesh.device_type}, not NCCL on the card")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paint_cuda.LAUNCHES.clear()
+    pairwise_cuda.LAUNCHES.clear()
+    predicted, checks = {}, {}
+
+    def reference(name, fn):
+        t0 = time.perf_counter()
+        res, made = _uncounted(fn)
+        refs[name] = {"s": time.perf_counter() - t0, "launches": made}
+        return res
+
+    def check(name, err, bar):
+        checks[name] = err
+        if not err <= bar:
+            raise AssertionError(f"distributed_b: {name} {err:.3e} > {bar}")
+
+    def flushes(name):
+        """The K1 launches a part owes: its reference's flushes (the same
+        keys, the same entry budget)."""
+        return {"deposit_sorted": refs[name]["launches"].get(
+            "deposit_sorted", 0)}
+
+    def of_max(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def periodic(a, b, box):
+        return max(float(((x - y + box / 2) % box - box / 2).abs().max())
+                   for x, y in zip(a, b))
+
+    # ---- (b) the distributed PM at the forward path's width
+    gr = Cosmology(Om0=0.3, h=0.7)
+    amp = linear_power.normalization(gr)
+
+    def pk_fn(k):
+        return linear_power.linear_power(k, gr, 0.0, amplitude=amp)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    comps, mom = reference("pm_ics", lambda: nbody.lpt_catalog(
+        gen, PM_SIDE, BOX, pk_fn, gr, Z_INIT))
+    a0 = 1.0 / (1.0 + Z_INIT)
+    evolve = dnbody.make_distributed_pm_evolve(mesh, PM_SIDE, BOX, gr,
+                                               PM_STEPS)
+    dc, dm = stage("pm_evolve", lambda: evolve(comps, mom, a0, 1.0))
+    predicted["pm_evolve"] = {"paint_windowed": PM_STEPS + 1}
+    ref1 = reference("pm_evolve", lambda: nbody.pm_evolve(
+        comps, mom, gr, PM_SIDE, BOX, a0, 1.0, PM_STEPS)[0])
+    ref2 = reference("pm_evolve_again", lambda: nbody.pm_evolve(
+        comps, mom, gr, PM_SIDE, BOX, a0, 1.0, PM_STEPS)[0])
+    del comps, mom
+    own = periodic(ref2, ref1, BOX)
+    gap = periodic(dc, ref1, BOX)
+    checks["pm positions own gap, Mpc/h"] = own
+    check("pm positions, Mpc/h", gap, DB_GAP_FACTOR * own + DB_GAP_FLOOR)
+
+    def pk(c):
+        return power.auto_power(paint.paint(c, NGRID, BOX, window="cic"),
+                                BOX, window="cic").power
+
+    p_d, p_1 = reference("pm_pk", lambda: (pk(dc), pk(ref1)))
+    check("pm P(k), rel", float(((p_d - p_1).abs() / p_1.abs()).max()),
+          DB_PK_TOL)
+    del ref1, ref2
+
+    # ---- (a) lens planes and shells of (b)'s particles through K1
+    dchi = BOX / NPLANES
+    geo = (DB_CHI0, dchi, NPLANES, DB_FOV, NPIX)
+    pfn = dlensing.make_distributed_lens_planes(mesh, BOX, *geo, axis="sim")
+    delta, chis = stage("lens_planes", lambda: pfn(dc))
+    want = reference("lens_planes", lambda: lens_planes
+                     .density_planes_from_particles(dc, BOX, *geo)[0])
+    predicted["lens_planes"] = flushes("lens_planes")
+    check("lens planes, of max", of_max(delta, want), WEIGHTED_TOL)
+    edges = np.linspace(*LC_EDGES)
+    sfn = dlensing.make_distributed_healpix_shells(mesh, edges, LC_NSIDE,
+                                                   BOX, axis="sim")
+    shells = stage("shells", lambda: sfn(dc))
+    want = reference("shells", lambda: lightcone_sphere
+                     .density_shells_healpix(dc, edges, LC_NSIDE, BOX)[0])
+    predicted["shells"] = flushes("shells")
+    check("shells, of max", of_max(shells, want), WEIGHTED_TOL)
+    del shells, want
+    dchis = torch.full((NPLANES,), dchi, device=dev)
+    suite_fn = dlensing.make_distributed_lensing_suite(
+        mesh, NPIX, DB_FOV, DB_CHI_S, 0.3)
+    got = stage("lensing_suite", lambda: suite_fn(delta[None], chis, dchis))
+    predicted["lensing_suite"] = {}
+
+    def one_sim():
+        kap = lensing.born_convergence(delta, chis, dchis, DB_CHI_S, 0.3)
+        a1, a2 = lensing.kappa_to_alpha(kap, DB_FOV,
+                                        padding_factor=2)
+        g1, g2 = lensing.alpha_to_gamma(a1, a2, DB_FOV)
+        cat = peaks.find_peaks(kap, threshold=kap.std(correction=0),
+                               max_peaks=1024, edge_pix=4)
+        vc = voids.find_tunnels(cat.pos.to(torch.float32),
+                                cat.values > float("-inf"), NPIX,
+                                max_voids=128)
+        return kap, g1, g2, vc
+
+    kap, g1, g2, vc = reference("lensing_suite", one_sim)
+    for name, a, b in (("kappa", got.kappa[0], kap),
+                       ("gamma1", got.gamma1[0], g1),
+                       ("gamma2", got.gamma2[0], g2)):
+        check(f"suite {name}, of max", of_max(a, b), DB_MAP_TOL)
+    nv = int(vc.n)
+    if int(got.n_voids[0]) != nv:
+        raise AssertionError(f"distributed_b: {int(got.n_voids[0])} voids "
+                             f"against {nv}")
+    check("suite void radii, of max", of_max(got.void_radius[0][:nv],
+                                             vc.radius[:nv])
+          if nv else 0.0, DB_MAP_TOL)
+    n_voids = nv
+    del got, kap, g1, g2, vc
+    rfn = dlensing.make_distributed_raytrace(mesh, DB_CHI_S, 0.3,
+                                             DB_FOV)
+    got = stage("raytrace", lambda: rfn(delta[None], chis, dchis))
+    predicted["raytrace"] = {}
+    want = reference("raytrace", lambda: raytrace.multiplane_raytrace(
+        delta, chis, dchis, DB_CHI_S, 0.3, DB_FOV))
+    for name in ("kappa", "gamma1", "gamma2", "omega"):
+        check(f"raytrace {name}, of max", of_max(got[name][0], want[name]),
+              DB_MAP_TOL)
+    del got, want, delta
+    mp_fn = dlensing.make_distributed_multiplane_healpix(mesh, DB_MP_NSIDE,
+                                                         0.3)
+    shells_mp = stage("shells_mp", lambda: dlensing
+                      .make_distributed_healpix_shells(
+                          mesh, edges, DB_MP_NSIDE, BOX, axis="sim")(dc))
+    want = reference("shells_mp", lambda: lightcone_sphere
+                     .density_shells_healpix(dc, edges, DB_MP_NSIDE, BOX)[0])
+    predicted["shells_mp"] = flushes("shells_mp")
+    check("shells for the tracer, of max", of_max(shells_mp, want),
+          WEIGHTED_TOL)
+    s_chis = 0.5 * (edges[1:] + edges[:-1])
+    s_dchis = np.diff(edges)
+    got = stage("multiplane_healpix", lambda: mp_fn(
+        shells_mp, s_chis, s_dchis, LC_SHELL_SOURCE))
+    predicted["multiplane_healpix"] = {}
+    want = reference("multiplane_healpix", lambda: lightcone_sphere
+                     .multiplane_raytrace_healpix(shells_mp, s_chis, s_dchis,
+                                                  LC_SHELL_SOURCE, 0.3))
+    for name in ("kappa", "gamma1", "gamma2", "omega"):
+        check(f"multiplane {name}, of max", of_max(got[name], want[name]),
+              DB_MAP_TOL)
+    del got, want, shells_mp
+
+    # ---- (e) the rings at 2^15 tracers of (b)'s particles
+    sub = torch.randperm(PM_SIDE ** 3, generator=gen, device=dev)[:DB_RING_N]
+    tr = torch.stack([c[sub] for c in dc], dim=1)
+    tv = torch.stack([100.0 * p[sub] for p in dm], dim=1)
+    del dc, dm
+    e12 = torch.randn((2, DB_RING_N), generator=gen, device=dev) * 0.2
+    nb, bw = V12_BINS[2], (V12_BINS[1] - V12_BINS[0]) / (V12_BINS[2] - 1)
+    s_edges = np.linspace(*CL_S_EDGES)
+    rp_edges = np.linspace(*CL_RP_EDGES)
+    theta = np.geomspace(*DB_THETA)
+    blk = CL_BLOCK
+    rings = {
+        "v12": lambda: dpairwise.make_distributed_pairwise(
+            mesh, nb, bw, block=blk)(tr, tv),
+        "ksz": lambda: dpairwise.make_distributed_ksz(
+            mesh, nb, bw, block=blk)(tr, tv[:, 0].contiguous()),
+        "xi": lambda: dtpcf.make_distributed_tpcf_s_mu(
+            mesh, BOX, s_edges, nmu=CL_NMU, block=blk)(tr)[2],
+        "wp": lambda: dtpcf.make_distributed_projected_tpcf(
+            mesh, BOX, rp_edges, CL_PI_MAX, n_pi=CL_N_PI, block=blk)(tr)[1],
+        "shear": lambda: dtpcf.make_distributed_shear_xi(
+            mesh, theta, block=blk, boxsize=BOX)(
+            tr[:, 0].contiguous(), tr[:, 1].contiguous(), e12[0], e12[1])}
+    ring_out = {}
+    for name, fn in rings.items():
+        ring_out[name] = stage(f"ring_{name}", fn)
+        predicted[f"ring_{name}"] = {}
+    bins = np.arange(nb) * bw
+    nom_k, den_k = reference("ring_v12", lambda: pairwise_cuda
+                             .pairwise_accumulate(tr, tv, DB_RING_N, bw, nb))
+    counts = _pair_counts(tr, DB_RING_N, bw, nb)
+    full = counts >= K3_MIN_PAIRS
+    for what, g, w in zip(("nom", "den"), ring_out["v12"], (nom_k, den_k)):
+        diff = (g - w).abs()
+        bound = torch.where(full, K3_RTOL * w.abs() + 1e-6 * w.abs().max(),
+                            K3_RTOL * w.abs().max())
+        checks[f"ring v12 {what} against K3, of max"] = float(
+            diff.max() / w.abs().max())
+        if bool((diff > bound).any()):
+            raise AssertionError(f"distributed_b: the v12 ring's {what} "
+                                 f"against K3: {g.tolist()} {w.tolist()}")
+    p_ring = ring_out["ksz"][0] / ring_out["ksz"][1].clamp_min(1e-30)
+    want = reference("ring_ksz", lambda: pairwise.pairwise_ksz_momentum(
+        tr, tv[:, 0].contiguous(), bins, block=blk)[1])
+    ok = torch.isfinite(want)
+    check("ring ksz, rel", float(((p_ring - want).abs()
+                                  / want.abs().clamp_min(1e-30))[ok].max()),
+          DB_RING_TOL)
+    want = reference("ring_xi", lambda: tpcf.tpcf_s_mu(
+        tr, BOX, s_edges, nmu=CL_NMU, block=blk)[2])
+    ok = torch.isfinite(want)
+    check("ring xi, of max", of_max(ring_out["xi"][ok], want[ok]),
+          DB_RING_TOL)
+    want = reference("ring_wp", lambda: tpcf.projected_tpcf(
+        tr, BOX, rp_edges, CL_PI_MAX, n_pi=CL_N_PI, block=blk)[1])
+    check("ring wp, of max", of_max(ring_out["wp"], want), DB_RING_TOL)
+    want = reference("ring_shear", lambda: shear_2pt.xi_pm_catalog(
+        tr[:, 0], tr[:, 1], e12[0], e12[1], theta, boxsize=BOX, block=blk))
+    for k, name in enumerate(("xi_plus", "xi_minus", "npairs")):
+        check(f"ring shear {name}, of max",
+              of_max(ring_out["shear"][k], want[k]), DB_RING_TOL)
+    del tr, tv, e12, ring_out, want
+
+    # ---- (c) field inference at phase 20's chain width
+    n2, box2, nsteps2, noise2 = FI_FULL
+    kw2 = dict(z_init=Z_INIT, nsteps=nsteps2, window="cic")
+    gen2 = torch.Generator(device=dev).manual_seed(seed + 23)
+    truth2 = torch.randn((n2,) * 3, generator=gen2, device=dev)
+
+    def full_data():
+        with torch.no_grad():
+            d = field_infer.simulate_density(truth2, pk_fn, gr, ngrid=n2,
+                                             boxsize=box2, **kw2)
+        return d + math.sqrt(noise2) * torch.randn(
+            d.shape, generator=gen2, device=dev)
+
+    data2 = reference("field_data", full_data)
+    w0 = 0.7 * truth2 + 0.3 * torch.randn((n2,) * 3, generator=gen2,
+                                          device=dev)
+    del truth2
+    fac = dfield.make_distributed_field_infer(mesh, n2, box2, pk_fn, gr,
+                                              **kw2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    val_d, g_d = stage("field_grad", lambda: fac.value_and_grad(
+        w0, data2, noise2))
+    field_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    predicted["field_grad"] = {"paint_windowed": nsteps2 + 2,
+                               "paint_windowed_adjoint": nsteps2 + 1}
+
+    def single():
+        w = w0.clone().requires_grad_(True)
+        loss = field_infer.field_nll(w, data2, noise2, pk_fn, gr,
+                                     boxsize=box2, **kw2)
+        (g,) = torch.autograd.grad(loss, w)
+        return float(loss.detach()), g
+
+    val_1, g_1 = reference("field_grad", single)
+    _, g_2 = reference("field_grad_again", single)
+    del data2, w0
+
+    def grad_gap(a, b):
+        d = (a - b).abs()
+        return (float(d.max() / b.abs().max()),
+                float(d.double().mean() / b.abs().double().mean()))
+
+    own = grad_gap(g_2, g_1)
+    gap = grad_gap(g_d, g_1)
+    checks["field grad own gap (max, mean)"] = own
+    checks["field grad (max, mean)"] = gap
+    check("field loss, rel", abs(float(val_d) - val_1) / abs(val_1), 1e-5)
+    if not all(a <= t for a, t in zip(gap, FI_GRAD_TOL)):
+        raise AssertionError(f"distributed_b: the field gradient {gap} "
+                             f"(max, mean) off the single-device one (bars "
+                             f"{FI_GRAD_TOL}; its own gap {own})")
+    del g_d, g_1, g_2
+
+    # ---- (d) the m-sharded SHTs
+    nside, lmax = DB_SHT
+    lg = torch.arange(lmax + 1, device=dev)[:, None]
+    keep = torch.tril(torch.ones((lmax + 1,) * 2, device=dev))
+    alms = [torch.randn((lmax + 1,) * 2, generator=gen, device=dev) * keep
+            * 0.1 for _ in range(4)]
+    for a in (alms[1], alms[3]):
+        a[:, 0] = 0.0
+    eb_in = [a * (lg >= 2) for a in alms]
+    synth, analyze = dsht.make_distributed_sht_large(mesh, nside, lmax)
+    s2, a2 = dsht.make_distributed_sht_spin2_large(mesh, nside, lmax)
+    m = stage("sht_synth", lambda: synth(alms[0], alms[1]))
+    back = stage("sht_analyze", lambda: analyze(m, niter=3))
+    q, u = stage("sht_spin2_synth", lambda: s2(*eb_in))
+    eb = stage("sht_spin2_analyze", lambda: a2(q, u, niter=3))
+    for name in ("sht_synth", "sht_analyze", "sht_spin2_synth",
+                 "sht_spin2_analyze"):
+        predicted[name] = {}
+    # the unsharded scan path on the same inputs
+    for name, got, fn in (
+            ("sht_synth", (m,), lambda: (sht_large.synthesize_large(
+                alms[0], alms[1], nside, lmax),)),
+            ("sht_analyze", back, lambda: sht_large.analyze_large(
+                m, nside, lmax, niter=3)),
+            ("sht_spin2_synth", (q, u), lambda: sht_spin_large
+             .synthesize_spin2_large(*eb_in, nside, lmax)),
+            ("sht_spin2_analyze", eb, lambda: sht_spin_large
+             .analyze_spin2_large(q, u, nside, lmax, niter=3))):
+        want = reference(name, fn)
+        check(f"{name}, of max", max(of_max(a, b) for a, b in zip(got, want)),
+              DB_SHT_TOL)
+    del m, back, q, u, eb, want, alms, eb_in
+
+    # ---- (f) launches, seconds, memory
+    total = _held_launches("distributed_b", predicted, launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_s = time.perf_counter() - t_phase
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+
+    # ---- (g) 4 gloo ranks on the host CPU
+    gloo = _gloo_check_b(seed)
+    phase_s = time.perf_counter() - t_phase
+    result = {"phase_s": phase_s, "card_s": card_s, "seconds": seconds,
+              "references": refs, "launches": launches,
+              "launches_total": total, "peak_mem_gb": peak_gb,
+              "field_grad_peak_mem_gb": field_peak_gb, "checks": checks,
+              "bars": {"map": DB_MAP_TOL, "weighted": WEIGHTED_TOL,
+                       "pk": DB_PK_TOL, "gap_factor": DB_GAP_FACTOR,
+                       "gap_floor": DB_GAP_FLOOR, "grad": FI_GRAD_TOL,
+                       "sht": DB_SHT_TOL, "ring": DB_RING_TOL,
+                       "k3_rtol": K3_RTOL},
+              "sizes": {"pm": [PM_SIDE, PM_STEPS], "planes": [NPLANES, NPIX],
+                        "shells_nside": LC_NSIDE,
+                        "multiplane_nside": DB_MP_NSIDE,
+                        "field": list(FI_FULL), "sht": list(DB_SHT),
+                        "ring_tracers": DB_RING_N},
+              "n_voids": n_voids, "backend": backend,
+              "gloo_cpu_check": gloo, "card": card}
+    log(f"# phase distributed_b: {phase_s:.1f} s ({card_s:.1f} s on the "
+        f"card, {gloo['seconds']:.1f} s the gloo CPU check); {backend} world "
+        f"of one; launches {total}; peak {peak_gb:.2f} GB; "
+        + ", ".join(f"{k} {v}" for k, v in seconds.items()) + f"; {card}")
+    log("# distributed_b " + json.dumps(result))
+    return result
+
+
 # the least time of a kernel's work: its bytes over the card's memory rate,
 # its operations over float32 outside the tensor cores (H100 SXM, NVIDIA's
 # data sheet); the larger bounds it
@@ -8546,18 +9157,30 @@ def main() -> None:
                     help="timed runs of the suite after one warm-up")
     ap.add_argument("--gloo-worker", nargs=4,
                     metavar=("RANK", "WORLD", "PORT", "OUT"),
-                    help="run one rank of phase 22's gloo check on the CPU "
-                         "(started by phase 22 itself)")
+                    help="run one rank of phase 22's or 23's gloo check on "
+                         "the CPU (started by the phase itself)")
+    ap.add_argument("--gloo-part", choices=("a", "b"), default="a",
+                    help="the gloo check a rank runs: a phase 22's, b phase "
+                         "23's")
+    ap.add_argument("--only", choices=("distributed_b",),
+                    help="run the device check, the build and this phase "
+                         "alone (a first check of a new phase); no kernels "
+                         "line")
     args = ap.parse_args()
     if args.gloo_worker:
         rank, world, port, out = args.gloo_worker
-        _gloo_worker(int(rank), int(world), port, out, args.seed)
+        worker = _gloo_worker_b if args.gloo_part == "b" else _gloo_worker
+        worker(int(rank), int(world), port, out, args.seed)
         return
 
     card = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
+    if args.only:
+        phase_distributed_b(dev, args.seed, card)
+        log(card)
+        return
     phase_kernel_check(dev, args.seed)
     phase_k2_check(dev, args.seed)
     phase_k3_check(dev, args.seed)
@@ -8590,6 +9213,7 @@ def main() -> None:
     field = phase_field_inference(dev, args.seed)
     file_path = phase_file_path(dev, args.seed, card)
     distributed = phase_distributed(dev, args.seed, card)
+    distributed_b = phase_distributed_b(dev, args.seed, card)
     k4 = phase_k4_timing(*lane_keys)["file"]
     del lane_keys
     k3 = phase_k3_timing(*k3_inputs)
@@ -8744,6 +9368,13 @@ def main() -> None:
     # adjoint launch 0 times there
     for row in kernels:
         row["distributed_launches"] = distributed["launches_total"].get(
+            row["name"], 0)
+    # the distributed phase, part B: K1 once a plane and shell flush, K2
+    # nsteps + 1 in the PM evolution and nsteps + 2 in the field gradient,
+    # K2's adjoint nsteps + 1 there; K3 and K4 0 (the rings run the plain
+    # tiles)
+    for row in kernels:
+        row["distributed_b_launches"] = distributed_b["launches_total"].get(
             row["name"], 0)
     adj = field["adjoint_timing_ms"]
     adj_row = next(k for k in kernels if k["name"] == "paint_windowed_adjoint")

@@ -2950,3 +2950,177 @@ def test_distributed_fast_power_on_a_world_of_one(cuda):
     nm, nm_ref = got.nmodes.cpu().numpy(), ref.nmodes.cpu().numpy()
     np.testing.assert_array_equal(nm[:-1], nm_ref[:-1])
     assert nm_ref[-1] - nm[-1] == 1.0
+
+
+# ------------------------------------ the distributed layer, part B
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A world of one over NCCL, (1, 1, 1) on the card; the process group
+    is taken down after the test."""
+    import torch.distributed as dist
+
+    from astrild_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1, 1, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def test_distributed_lens_planes_and_shells_on_a_world_of_one(cuda,
+                                                              nccl_mesh):
+    """make_distributed_lens_planes and make_distributed_healpix_shells on
+    a world of one over NCCL: the shard bodies launch K1 once a flush (one
+    flush at this size, so one launch each) and match the single-device
+    functions on the card (which take the same deposit) within 1e-5 of the
+    field's max; deposit="scatter" stays accepted and launches nothing."""
+    from astrild_tpu_torch.parallel import lensing as DL
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    pos = tuple(torch.rand(1 << 20, generator=gen, device=cuda) * BOX
+                for _ in range(3))
+    geo = (200.0, 31.25, 8, 0.35, 256)
+    edges = np.array([20.0, 60.0, 110.0, 170.0])
+    for name, fn, ref in (
+            ("planes", DL.make_distributed_lens_planes(
+                nccl_mesh, BOX, *geo, axis="sim"),
+             lambda: TLP.density_planes_from_particles(pos, BOX, *geo)[0]),
+            ("shells", DL.make_distributed_healpix_shells(
+                nccl_mesh, edges, 64, BOX, axis="sim"),
+             lambda: TLS.density_shells_healpix(pos, edges, 64, BOX)[0])):
+        TPC.LAUNCHES.clear()
+        got = fn(pos)
+        got = got[0] if isinstance(got, tuple) else got
+        torch.cuda.synchronize()
+        assert dict(TPC.LAUNCHES) == {"deposit_sorted": 1}, name
+        want = ref()
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()), name
+    TPC.LAUNCHES.clear()
+    DL.make_distributed_lens_planes(nccl_mesh, BOX, *geo, axis="sim",
+                                    deposit="scatter")(pos)
+    assert not dict(TPC.LAUNCHES)
+
+
+def test_distributed_field_infer_on_a_world_of_one(cuda, nccl_mesh):
+    """make_distributed_field_infer's value_and_grad at 16^3 (3 steps) on a
+    world of one over NCCL: K2 in every paint (nsteps + 2 launches) and
+    its adjoint in all but the last force paint's backward (nsteps + 1),
+    the loss to rtol 1e-5 and the gradient within 1e-4 of its max of the
+    single-device chain on the card (c2c pencil FFTs against r2c ones, K2's
+    float atomics): not off by any factor; deposit="scatter" launches no
+    K2 and its loss is within 1e-4 (the scatter painter multiplies by
+    1/h where K2 divides)."""
+    from astrild_tpu_torch.ops import field_infer as TF
+    from astrild_tpu_torch.parallel import field_infer as DF
+
+    def pk(k):
+        return 2.0e3 * (k / 0.1) ** -1.5
+
+    n, kw = 16, dict(z_init=9.0, nsteps=3, window="cic")
+    cosmo = Cosmology(Om0=0.3, h=0.7)
+    rng = np.random.default_rng(4)
+    truth = rng.standard_normal((n,) * 3).astype(np.float32)
+    w0 = (0.7 * truth + 0.3 * rng.standard_normal((n,) * 3)).astype(
+        np.float32)
+    data = TF.simulate_density(truth, pk, cosmo, ngrid=n, boxsize=BOX, **kw)
+    fac = DF.make_distributed_field_infer(nccl_mesh, n, BOX, pk, cosmo, **kw)
+    TPC.LAUNCHES.clear()
+    val, g = fac.value_and_grad(w0, data, 0.05)
+    torch.cuda.synchronize()
+    assert {k: TPC.LAUNCHES[k] for k in ("paint_windowed",
+                                         "paint_windowed_adjoint")} == {
+        "paint_windowed": 5, "paint_windowed_adjoint": 4}
+    w = torch.from_numpy(w0).to(cuda).requires_grad_(True)
+    loss = TF.field_nll(w, data, 0.05, pk, cosmo, boxsize=BOX, **kw)
+    (g1,) = torch.autograd.grad(loss, w)
+    assert g.device.type == "cuda"
+    loss = float(loss.detach())
+    assert abs(float(val) - loss) <= 1e-5 * abs(loss)
+    assert float((g - g1).abs().max()) <= 1e-4 * float(g1.abs().max())
+    # deposit="scatter" stays accepted: the scatter painter, no K2
+    TPC.LAUNCHES.clear()
+    fac_s = DF.make_distributed_field_infer(nccl_mesh, n, BOX, pk, cosmo,
+                                            deposit="scatter", **kw)
+    val_s = fac_s.loss(w0, data, 0.05)
+    torch.cuda.synchronize()
+    assert not dict(TPC.LAUNCHES)
+    assert abs(float(val_s) - loss) <= 1e-4 * abs(loss)
+
+
+def test_distributed_rings_hold_with_tf32_allowed(cuda, nccl_mesh):
+    """The pair rings (v12, kSZ, xi(s, mu), wp, shear xi) on a world of
+    one with TF32 allowed for float32 matmuls equal the runs without to
+    1e-6 of each output's max: their tiles are elementwise products and
+    sums, not einsums."""
+    from astrild_tpu_torch.parallel import pairwise as DPW
+    from astrild_tpu_torch.parallel import tpcf as DT
+
+    rng = np.random.default_rng(8)
+    pos, vel = _clumpy(rng, 2048)
+    pos_t = torch.from_numpy(pos).to(cuda)
+    far = pos_t + 1000.0
+    vel_t = torch.from_numpy(vel).to(cuda)
+    e = torch.from_numpy(rng.normal(0, 0.2, (2, 2048)).astype(
+        np.float32)).to(cuda)
+
+    def runs():
+        return [
+            *DPW.make_distributed_pairwise(nccl_mesh, 16, 2.0,
+                                           block=256)(far, vel_t),
+            *DPW.make_distributed_ksz(nccl_mesh, 16, 2.0, block=256)(
+                far, vel_t[:, 0].contiguous()),
+            DT.make_distributed_tpcf_s_mu(nccl_mesh, BOX, np.linspace(
+                1.0, 40.0, 9), nmu=10, block=256)(pos_t)[2],
+            DT.make_distributed_projected_tpcf(
+                nccl_mesh, BOX, np.linspace(2.0, 30.0, 6), 40.0, n_pi=10,
+                block=256)(pos_t)[1],
+            *DT.make_distributed_shear_xi(nccl_mesh, np.geomspace(
+                2.0, 40.0, 9), block=256)(pos_t[:, 0].contiguous(),
+                                           pos_t[:, 1].contiguous(), e[0],
+                                           e[1])]
+
+    off, on = _tf32_on_and_off(runs)
+    for a, b in zip(off, on):
+        fin = torch.isfinite(a)
+        assert bool(fin.any()) and torch.equal(fin, torch.isfinite(b))
+        scale = float(a[fin].abs().max())
+        assert float((b[fin] - a[fin]).abs().max()) <= 1e-6 * scale
+
+
+def test_msharded_sht_holds_with_tf32_allowed(cuda, nccl_mesh):
+    """The m-sharded scalar and spin-2 transforms (synthesis, both
+    solvers) on a world of one with TF32 allowed for float32 matmuls equal
+    the runs without, bit for bit: the recursion's contractions are
+    elementwise products and sums; and they equal the unsharded scan
+    path on the card bit for bit (the same rows, one psum of a world of
+    one)."""
+    from astrild_tpu_torch.ops import sht_large as SL
+    from astrild_tpu_torch.ops import sht_spin_large as SSL
+    from astrild_tpu_torch.parallel import sht_large as DSL
+
+    nside, lmax = 64, 191
+    rng = np.random.default_rng(6)
+    valid = np.tril(np.ones((lmax + 1, lmax + 1), np.float32))
+    alms = [torch.from_numpy((rng.standard_normal((lmax + 1,) * 2)
+                              * valid * 0.1).astype(np.float32)).to(cuda)
+            for _ in range(4)]
+    s0, a0 = DSL.make_distributed_sht_large(nccl_mesh, nside, lmax)
+    s2, a2 = DSL.make_distributed_sht_spin2_large(nccl_mesh, nside, lmax)
+
+    def runs():
+        m = s0(alms[0], alms[1])
+        q, u = s2(*alms)
+        return [m, q, u, *a0(m, niter=2, method="jacobi"),
+                *a0(m, niter=2, method="cg"),
+                *a2(q, u, niter=2, method="jacobi")]
+
+    off, on = _tf32_on_and_off(runs)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    assert torch.equal(off[0], SL.synthesize_large(alms[0], alms[1], nside,
+                                                   lmax))
+    q1, u1 = SSL.synthesize_spin2_large(*alms, nside, lmax)
+    assert torch.equal(off[1], q1) and torch.equal(off[2], u1)

@@ -13,12 +13,7 @@ tolerance is stated where it is checked: the JAX test's own bar or
 tighter, equality for mode counts and for outputs that every rank must
 hold alike.
 """
-import os
-import socket
-import subprocess
-import sys
 import textwrap
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +37,9 @@ from astrild_tpu.parallel import power as JP  # noqa: E402
 from astrild_tpu.parallel.pfft import make_pfft3d as jmake_pfft3d  # noqa
 from astrild_tpu_torch.parallel import make_mesh  # noqa: E402
 from astrild_tpu_torch.parallel import power as TP  # noqa: E402
+from torch_gloo import replicated as _replicated  # noqa: E402
+from torch_gloo import run_world as _run_world  # noqa: E402
 
-REPO = Path(__file__).resolve().parents[1]
 BOX = 100.0
 NG = 16
 NRANKS = 8
@@ -169,38 +165,6 @@ _WORKER = textwrap.dedent('''
 ''')
 
 
-def _free_port() -> str:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return str(s.getsockname()[1])
-
-
-def _run_world(script: Path, nranks: int, work: Path, timeout: float):
-    """Run `script` as a gloo world of `nranks` processes; every rank must
-    print WORKER_OK. No process outlives the call."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": os.pathsep.join(
-               [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                              if p])}
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), str(r), str(nranks), port, str(work)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(nranks)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    if any(p.returncode for p in procs) or not all(
-            "WORKER_OK" in o for o in outs):
-        raise AssertionError("\n---\n".join(o[-3000:] for o in outs))
-
-
 def _inputs():
     rng = np.random.default_rng(42)
     pk = lambda k: 5e3 * jnp.exp(-((k / 0.1) ** 2))  # noqa: E731
@@ -246,13 +210,6 @@ def world(tmp_path_factory):
 
 def _tag(shape):
     return "x".join(map(str, shape)) + ":"
-
-
-def _replicated(outs, key):
-    """A P() output: every rank holds the same tensor, bit for bit."""
-    for o in outs[1:]:
-        npt.assert_array_equal(o[key], outs[0][key])
-    return outs[0][key]
 
 
 def _jax_shard_of_rank(arr, mesh, rank):

@@ -9,12 +9,7 @@ on the mesh (2, 2, 2) with the bispectrum's full body and on (1, 2, 4) with
 its truncated body, from (n, 3) rows, from component tuples, and with
 zero-weight padding rows. Each tolerance is stated where it is checked.
 """
-import os
-import socket
-import subprocess
-import sys
 import textwrap
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,8 +29,9 @@ from astrild_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
 from astrild_tpu.parallel.bispectrum import _coarse_size  # noqa: E402
 from astrild_tpu.parallel.suite import (  # noqa: E402
     make_distributed_z0_suite as jsuite)
+from torch_gloo import replicated as _replicated  # noqa: E402
+from torch_gloo import run_world as _run_world  # noqa: E402
 
-REPO = Path(__file__).resolve().parents[1]
 BOX = 500.0
 NG = 32
 NPLANES = 8
@@ -105,38 +101,6 @@ _WORKER = textwrap.dedent('''
 ''')
 
 
-def _free_port() -> str:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return str(s.getsockname()[1])
-
-
-def _run_world(script: Path, nranks: int, work: Path, timeout: float):
-    """Run `script` as a gloo world of `nranks` processes; every rank must
-    print WORKER_OK. No process outlives the call."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": os.pathsep.join(
-               [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                              if p])}
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), str(r), str(nranks), port, str(work)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(nranks)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    if any(p.returncode for p in procs) or not all(
-            "WORKER_OK" in o for o in outs):
-        raise AssertionError("\n---\n".join(o[-3000:] for o in outs))
-
-
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """(inputs, outputs of every rank): the 8-rank world run once."""
@@ -160,14 +124,6 @@ def world(tmp_path_factory):
     _run_world(script, NRANKS, work, timeout=300)
     return inp, [dict(np.load(work / f"out_{r}.npz"))
                  for r in range(NRANKS)]
-
-
-def _replicated(outs, key):
-    """Every output of the suite is replicated: the same on every rank,
-    bit for bit."""
-    for o in outs[1:]:
-        npt.assert_array_equal(o[key], outs[0][key])
-    return outs[0][key]
 
 
 def _single_device_chain(pos, m_max):

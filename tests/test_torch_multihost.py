@@ -11,10 +11,6 @@ emulated hosts and with real striped reads, and a world of 2 ranks, the
 twin of the JAX package's two-process test, which takes seconds here and
 is not marked slow. Each tolerance is stated where it is checked.
 """
-import os
-import socket
-import subprocess
-import sys
 import textwrap
 from pathlib import Path
 
@@ -29,6 +25,7 @@ h5py = pytest.importorskip("h5py")
 import torch.distributed as dist  # noqa: E402
 
 from astrild_tpu.io.gadget_hdf5 import GadgetSnapshot  # noqa: E402
+from astrild_tpu.ops import lens_planes as JLP  # noqa: E402
 from astrild_tpu.ops import paint as JPA  # noqa: E402
 from astrild_tpu.ops import power as JPS  # noqa: E402
 from astrild_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
@@ -37,8 +34,9 @@ from astrild_tpu.parallel.power import (  # noqa: E402
     make_distributed_auto_power as jauto_power)
 from astrild_tpu_torch.parallel import make_mesh  # noqa: E402
 from astrild_tpu_torch.parallel import multihost  # noqa: E402
+from torch_gloo import replicated as _replicated  # noqa: E402
+from torch_gloo import run_world as _run_world  # noqa: E402
 
-REPO = Path(__file__).resolve().parents[1]
 BOX = 100.0
 COUNTS = [37, 20, 11, 52]
 N_TOT = sum(COUNTS)
@@ -91,6 +89,7 @@ _WORKER = textwrap.dedent('''
     import torch
     torch.set_num_threads(1)
     from astrild_tpu_torch.parallel import make_mesh, multihost
+    from astrild_tpu_torch.parallel import lensing as DL
     from astrild_tpu_torch.parallel import power as DP
 
     AXES = ("sim", "x", "y")
@@ -124,42 +123,19 @@ _WORKER = textwrap.dedent('''
         out[tag + "fast"] = fast(pos, w).power.numpy()
         out[tag + "shot"] = DP._weighted_shotnoise(w, BOX, mesh,
                                                    AXES).numpy()
+        # lens planes from the same loader output, padding rows masked:
+        # the scatter path (the JAX test's) and the deposit route
+        for dep, key in (("scatter", "planes"), (None, "planes_deposit")):
+            lpf = DL.make_distributed_lens_planes(
+                mesh, BOX, 80.0, 20.0, 4, 0.5, 16, axis=AXES,
+                with_valid_mask=True, deposit=dep)
+            planes, chis = lpf(comps, w)
+            out[tag + key] = planes.numpy()
+        out[tag + "chis"] = chis.numpy()
     np.savez(work + "/out_%d_%d.npz" % (world, rank), **out)
     assert "jax" not in sys.modules, "a worker imported jax"
     print("WORKER_OK", rank)
 ''')
-
-
-def _free_port() -> str:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return str(s.getsockname()[1])
-
-
-def _run_world(script: Path, nranks: int, work: Path, timeout: float):
-    """Run `script` as a gloo world of `nranks` processes; every rank must
-    print WORKER_OK. No process outlives the call."""
-    env = {**os.environ, "OMP_NUM_THREADS": "1",
-           "PYTHONPATH": os.pathsep.join(
-               [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                              if p])}
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, str(script), str(r), str(nranks), port, str(work)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(nranks)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    if any(p.returncode for p in procs) or not all(
-            "WORKER_OK" in o for o in outs):
-        raise AssertionError("\n---\n".join(o[-3000:] for o in outs))
 
 
 def _tag(shape, hosts):
@@ -275,23 +251,35 @@ def test_two_process_distributed_power(worlds):
     the CIC P(k) matches the single-device estimator on the file rows
     (the JAX test's bar: counts equal, rtol 5e-3, atol 1e-3 shot); the
     ranks' rows are JAX's two-host global array bit for bit. The JAX
-    test's second factory, the lens planes, is parallel/lensing, which
-    the port has not ported yet."""
-    snapdir, _, outs = worlds
+    test's second factory: lens planes through the same loader output
+    with the padding rows masked (with_valid_mask=True), on the scatter
+    path and on the deposit route, match the JAX package's
+    single-process build (the JAX test's bar, rtol 1e-3, atol 1e-4) and
+    are alike on both ranks; on the meshes of the 8-rank world too."""
+    snapdir, outs8, outs = worlds
     tag = _tag((1, 2, 1), None)
     comps_j, w_j, _, _, _ = _jax_global(snapdir, (1, 2, 1), 2, 2)
     for i in range(3):
         npt.assert_array_equal(_rank_rows(outs, tag, "c%d" % i), comps_j[i])
     npt.assert_array_equal(_rank_rows(outs, tag, "w"), w_j)
     shot = BOX ** 3 / N_TOT
-    g = JPA.paint(jnp.asarray(_full_read(snapdir), jnp.float32), 16, BOX,
-                  window="cic")
+    full = _full_read(snapdir)
+    g = JPA.paint(jnp.asarray(full, jnp.float32), 16, BOX, window="cic")
     ref = JPS.auto_power(g, BOX, nbins=6, window="cic", shotnoise=shot)
     for o in outs:
         npt.assert_array_equal(o[tag + "power.nmodes"],
                                np.asarray(ref.nmodes))
         npt.assert_allclose(o[tag + "power.power"], np.asarray(ref.power),
                             rtol=5e-3, atol=1e-3 * shot)
+    want, chis = JLP.density_planes_from_particles(
+        tuple(jnp.asarray(full[:, i], jnp.float32) for i in range(3)),
+        BOX, 80.0, 20.0, 4, 0.5, 16)
+    for o_all, t in [(outs, tag)] + [(outs8, _tag(s, h)) for s, h in LOADS]:
+        for key in ("planes", "planes_deposit"):
+            got = _replicated(o_all, t + key)
+            npt.assert_allclose(got, np.asarray(want), rtol=1e-3, atol=1e-4)
+        npt.assert_array_equal(_replicated(o_all, t + "chis"),
+                               np.asarray(chis))
 
 
 def test_load_snapshot_sharded_missing_dir_clear_error(tmp_path):

@@ -345,13 +345,54 @@ def test_from_density_shells_matches_the_born_sum(rng):
 
 
 def test_unported_paths_raise():
-    """mesh= waits for item 9 (CMB lensing and the spherical ray trace are
-    ported: test_lens_cmb_by_deflection_matches_jax and its neighbours)."""
-    sky = SkyHealpix(np.zeros(TH.nside2npix(8)), device="cpu")
-    for call in (lambda: sky.anafast(16, mesh=object()),
-                 lambda: sky.shear_from_kappa(16, mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    """Once the item-9 raise of mesh=, now the parity check of
+    tests/test_distributed.py:478 on a world of one (gloo, this process):
+    SkyHealpix.anafast(mesh=) runs the m-sharded scan path within the JAX
+    test's 1e-7 of the local facade's Cl and of the JAX facade's, and
+    reuses its cached factory; shear_from_kappa(mesh=) within 1e-5 of the
+    shear's std of both; a missing axis raises; a size-1 axis (every axis
+    of a world of one) warns; the cache is shared across maps. The
+    multi-rank case is tests/test_torch_distributed_sht.py's."""
+    import torch.distributed as dist
+
+    from astrild_tpu_torch.parallel import make_mesh
+
+    started = not dist.is_initialized()
+    try:
+        mesh = make_mesh(1, 1, 1, device="cpu")
+        nside, lmax = 16, 31
+        cl = np.zeros(lmax + 1)
+        cl[2:] = 1.0 / np.arange(2, lmax + 1) ** 2
+        jsky = JSH.from_Cl_array(cl, "kappa_2", nside, lmax=lmax, rnd_seed=1)
+        sky = SkyHealpix(np.asarray(jsky.data["orig"]), device="cpu")
+        want = jsky.anafast(lmax, niter=2)
+        with pytest.warns(UserWarning, match="no speedup"):
+            got = sky.anafast(lmax, niter=2, mesh=mesh)
+        npt.assert_allclose(got, want, atol=1e-7)
+        npt.assert_allclose(got, sky.anafast(lmax, niter=2), atol=1e-7)
+        n_cached = len(SkyHealpix._dist_sht)
+        with pytest.warns(UserWarning, match="no speedup"):
+            sky.anafast(lmax, niter=2, mesh=mesh)
+        assert len(SkyHealpix._dist_sht) == n_cached
+        g1w, g2w = jsky.shear_from_kappa(lmax=lmax, niter=2)
+        with pytest.warns(UserWarning, match="no speedup"):
+            g1d, g2d = sky.shear_from_kappa(lmax=lmax, niter=2, mesh=mesh)
+        scale = max(float(np.std(g1w)), 1e-6)
+        npt.assert_allclose(g1d, g1w, atol=1e-5 * scale)
+        npt.assert_allclose(g2d, g2w, atol=1e-5 * scale)
+        g1l, g2l = sky.shear_from_kappa(lmax=lmax, niter=2)
+        npt.assert_allclose(g1d, g1l, atol=1e-5 * scale)
+        npt.assert_allclose(g2d, g2l, atol=1e-5 * scale)
+        with pytest.raises(ValueError, match="no axis 'rings'"):
+            sky.anafast(lmax, mesh=mesh, ax="rings")
+        n_cached = len(SkyHealpix._dist_sht)
+        sky_b = SkyHealpix(np.asarray(jsky.data["orig"]) * 2, device="cpu")
+        with pytest.warns(UserWarning, match="no speedup"):
+            sky_b.anafast(lmax, niter=2, mesh=mesh)
+        assert len(SkyHealpix._dist_sht) == n_cached  # shared across maps
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_lens_cmb_by_deflection_matches_jax():
