@@ -20,6 +20,7 @@ whole array.
 from __future__ import annotations
 
 import math
+import weakref
 from contextlib import contextmanager
 from typing import Optional
 
@@ -36,6 +37,10 @@ __all__ = ["AXES", "make_mesh", "sim_axis_mesh", "auto_mesh",
            "recording"]
 
 AXES = ("sim", "x", "y")
+
+
+# the meshes `make_mesh` made, for the exit hook (multihost._teardown)
+_MESHES: "weakref.WeakSet[DeviceMesh]" = weakref.WeakSet()
 
 
 def _world(device) -> tuple[int, torch.device]:
@@ -61,8 +66,10 @@ def make_mesh(n_sim: int = 1, n_x: int = 1, n_y: int = 1,
     if need != world:
         raise ValueError(f"mesh {n_sim}x{n_x}x{n_y} needs {need} devices, "
                          f"have {world}")
-    return init_device_mesh(dev.type, (n_sim, n_x, n_y),
+    mesh = init_device_mesh(dev.type, (n_sim, n_x, n_y),
                             mesh_dim_names=AXES)
+    _MESHES.add(mesh)
+    return mesh
 
 
 def sim_axis_mesh(device=None) -> DeviceMesh:

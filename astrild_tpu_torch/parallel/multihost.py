@@ -11,7 +11,10 @@ rank. Three layers, as in JAX:
     JAX_PROCESS_ID are read as aliases). It is idempotent; with nothing
     configured it starts a world of one, so pipelines can call it
     unconditionally. NCCL serves a CUDA device, gloo the CPU, and a
-    failed NCCL start raises.
+    failed NCCL start raises. A group it started is torn down at
+    interpreter exit (`_teardown`, one atexit hook a process), so a
+    torchrun script exits 0 without a teardown of its own, as the JAX
+    package's processes do.
   * `host_local_array(local, mesh, spec)` places this rank's chunk of a
     row-sharded global array; ragged per-rank chunks are padded to a
     common size with a validity weight vector (zero-weight rows are inert
@@ -27,6 +30,7 @@ the same either way.
 """
 from __future__ import annotations
 
+import atexit
 import os
 from typing import Optional, Sequence
 
@@ -35,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from .._device import default_device
+from . import mesh as _mesh
 from .mesh import AXES, mesh_device, shard, to_mesh
 
 __all__ = ["initialize", "is_distributed", "process_count", "process_index",
@@ -55,6 +60,46 @@ def _coordinator_from_env() -> Optional[str]:
         port = _env("MASTER_PORT")
         return f"{addr}:{port}" if port is not None else addr
     return _env("JAX_COORDINATOR_ADDRESS")
+
+
+# the default group `initialize` started, while it is up; the atexit hook
+# is registered with the first one
+_STARTED = None
+_HOOKED = False
+
+
+def _teardown() -> None:
+    """At exit, before the interpreter's own teardown: destroy the group
+    `initialize` started, if it is still the default group, with every
+    subgroup, and drop the references that keep their gloo backends alive
+    (`mesh._GROUPS`, and the groups a DeviceMesh of `make_mesh` holds in
+    newer torch), so the backends' destructors join their worker threads
+    here. A worker thread releases each finished work a moment after the
+    caller's wait returns; a release that frees a tensor's Python object
+    takes the GIL, and once the interpreter is finalizing that ends the
+    thread through a noexcept frame: std::terminate, an abort after the
+    rank's work. A group object the caller keeps in its own variables
+    keeps its backend's threads. A no-op when no group was started here,
+    or when the caller destroyed it."""
+    global _STARTED
+    started, _STARTED = _STARTED, None
+    _mesh._GROUPS.clear()
+    if started is None or not dist.is_initialized() \
+            or dist.group.WORLD is not started:
+        return
+    dist.destroy_process_group()
+    for m in list(_mesh._MESHES):
+        getattr(m, "_pg_registry", {}).clear()
+
+
+def _started(group) -> None:
+    """Record the default group `initialize` just started, and register
+    the exit hook once a process."""
+    global _STARTED, _HOOKED
+    _STARTED = group
+    if not _HOOKED:
+        atexit.register(_teardown)
+        _HOOKED = True
 
 
 def _cuda_index(rank: int, local_device_ids) -> int:
@@ -129,7 +174,10 @@ def initialize(coordinator_address: Optional[str] = None,
             init_method=(f"tcp://{coordinator_address}"
                          if coordinator_address is not None else "env://"),
             rank=rank, world_size=world)
+    before = dist.group.WORLD
     dist.init_process_group(**kwargs)
+    if dist.group.WORLD is not None and dist.group.WORLD is not before:
+        _started(dist.group.WORLD)
     return dev
 
 

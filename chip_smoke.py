@@ -8132,23 +8132,53 @@ def _gloo_worker(rank: int, world: int, port: str, out: str,
     np.savez(os.path.join(out, f"rank_{rank}.npz"), **res)
 
 
-def _gloo_world(world: int, out: Path, seed: int, part: str = "a") -> list:
-    """Start a gloo world of `world` worker processes of this script on the
-    host CPU (no card visible to them), each running `part`'s worker (a:
-    phase 22's, b: phase 23's); returns the processes."""
+def _gloo_worlds(sizes, root: Path, seed: int, part: str, timeout: float,
+                 what: str) -> None:
+    """Run a gloo world of each size in `sizes` at once, of this script's
+    worker processes on the host CPU (no card visible to them), each rank
+    running `part`'s worker (a: phase 22's, b: phase 23's) into
+    root/world_<size>. Each world's port is held from before its ranks
+    start until they end, by a socket bound with SO_REUSEADDR that never
+    listens (rank 0's store, which sets it too, listens there; no other
+    socket can take it). Raises, naming every rank's exit code beside its
+    output's tail, unless every rank exits 0. No process outlives the
+    call, and no world is retried."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = str(s.getsockname()[1])
-    out.mkdir(parents=True)
-    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
-    return [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--gloo-worker",
-         str(r), str(world), port, str(out), "--seed", str(seed),
-         "--gloo-part", part],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONFAULTHANDLER": "1"}
+    held, procs = [], []
+    try:
+        for world in sizes:
+            s = socket.socket()
+            held.append(s)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+            out = root / f"world_{world}"
+            out.mkdir(parents=True)
+            procs += [(world, r, subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--gloo-worker", str(r), str(world),
+                 str(s.getsockname()[1]), str(out), "--seed", str(seed),
+                 "--gloo-part", part],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)) for r in range(world)]
+        logs = [p.communicate(timeout=timeout)[0] for _, _, p in procs]
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        for s in held:
+            s.close()
+    if any(p.returncode or "terminate called" in log_
+           for (_, _, p), log_ in zip(procs, logs)):
+        raise AssertionError(
+            f"{what} (CPU check): a worker failed; exit codes "
+            f"{[(w, r, p.returncode) for w, r, p in procs]}\n"
+            + "\n---\n".join(
+                f"world {w} rank {r}, exit code {p.returncode}:\n"
+                f"{log_[-2000:]}" for (w, r, p), log_ in zip(procs, logs)))
 
 
 def _gloo_check(seed: int) -> dict:
@@ -8161,24 +8191,9 @@ def _gloo_check(seed: int) -> dict:
         f"distributed_gloo_{os.getpid()}"
     t0 = time.perf_counter()
     try:
-        worlds = {w: _gloo_world(w, root / f"world_{w}", seed)
-                  for w in (GLOO_MESH[0] * GLOO_MESH[1] * GLOO_MESH[2], 1)}
-        logs = []
-        try:
-            for procs in worlds.values():
-                for p in procs:
-                    logs.append(p.communicate(timeout=GLOO_TIMEOUT)[0])
-        finally:
-            for procs in worlds.values():
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.communicate()
-        if any(p.returncode for procs in worlds.values() for p in procs):
-            raise AssertionError("distributed gloo (CPU check): a worker "
-                                 "failed:\n" + "\n---\n".join(
-                                     log_[-2000:] for log_ in logs))
         n4 = GLOO_MESH[0] * GLOO_MESH[1] * GLOO_MESH[2]
+        _gloo_worlds((n4, 1), root, seed, "a", GLOO_TIMEOUT,
+                     "distributed gloo")
         ranks = [dict(np.load(root / f"world_{n4}" / f"rank_{r}.npz"))
                  for r in range(n4)]
         one = dict(np.load(root / "world_1" / "rank_0.npz"))
@@ -8630,23 +8645,8 @@ def _gloo_check_b(seed: int) -> dict:
         f"distributed_b_gloo_{os.getpid()}"
     t0 = time.perf_counter()
     try:
-        worlds = {w: _gloo_world(w, root / f"world_{w}", seed, "b")
-                  for w in (4, 1)}
-        logs = []
-        try:
-            for procs in worlds.values():
-                for p in procs:
-                    logs.append(p.communicate(timeout=GLOO_B_TIMEOUT)[0])
-        finally:
-            for procs in worlds.values():
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.communicate()
-        if any(p.returncode for procs in worlds.values() for p in procs):
-            raise AssertionError("distributed_b gloo (CPU check): a worker "
-                                 "failed:\n" + "\n---\n".join(
-                                     log_[-2000:] for log_ in logs))
+        _gloo_worlds((4, 1), root, seed, "b", GLOO_B_TIMEOUT,
+                     "distributed_b gloo")
         ranks = [dict(np.load(root / "world_4" / f"rank_{r}.npz"))
                  for r in range(4)]
         one = dict(np.load(root / "world_1" / "rank_0.npz"))

@@ -11,6 +11,9 @@ emulated hosts and with real striped reads, and a world of 2 ranks, the
 twin of the JAX package's two-process test, which takes seconds here and
 is not marked slow. Each tolerance is stated where it is checked.
 """
+import os
+import subprocess
+import sys
 import textwrap
 from pathlib import Path
 
@@ -33,7 +36,9 @@ from astrild_tpu.parallel import multihost as JMH  # noqa: E402
 from astrild_tpu.parallel.power import (  # noqa: E402
     make_distributed_auto_power as jauto_power)
 from astrild_tpu_torch.parallel import make_mesh  # noqa: E402
+from astrild_tpu_torch.parallel import mesh as M  # noqa: E402
 from astrild_tpu_torch.parallel import multihost  # noqa: E402
+from torch_gloo import REPO, run_ranks  # noqa: E402
 from torch_gloo import replicated as _replicated  # noqa: E402
 from torch_gloo import run_world as _run_world  # noqa: E402
 
@@ -328,6 +333,11 @@ def test_pad_to_shard_ragged_raises():
         multihost.pad_to_shard([a, b], nshards=2)
 
 
+_LAUNCHER = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+             "LOCAL_RANK", "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+             "JAX_PROCESS_ID")
+
+
 @pytest.fixture
 def no_group(monkeypatch):
     """No process group yet, and init_process_group recorded instead of
@@ -336,9 +346,7 @@ def no_group(monkeypatch):
     monkeypatch.setattr(dist, "is_initialized", lambda: False)
     monkeypatch.setattr(dist, "init_process_group",
                         lambda **kw: recorded.update(kw))
-    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
-                 "LOCAL_RANK", "JAX_COORDINATOR_ADDRESS",
-                 "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+    for name in _LAUNCHER:
         monkeypatch.delenv(name, raising=False)
     return recorded
 
@@ -401,3 +409,161 @@ def test_initialize_cuda_without_card_raises(no_group):
     with pytest.raises(RuntimeError, match="no card"):
         multihost.initialize(device="cuda")
     assert not no_group
+
+
+# ---- the exit hook: a group `initialize` started is torn down at exit
+
+# registered before `initialize`, so it runs after the package's hook
+# (atexit runs its handlers last in, first out): whether a group is up,
+# the joint groups cached, and the gloo threads still alive as the
+# interpreter's own teardown begins (a gloo worker thread that frees a
+# tensor's Python object after that point aborts the process)
+_AFTER_HOOK = textwrap.dedent('''
+    import atexit
+    import os
+    import torch.distributed as dist
+    from astrild_tpu_torch.parallel import mesh as M
+    from astrild_tpu_torch.parallel import multihost
+
+    def _after():
+        names = [open("/proc/self/task/%s/comm" % t).read()
+                 for t in os.listdir("/proc/self/task")]
+        print("AFTER", dist.is_initialized(), len(M._GROUPS),
+              sum("gloo" in n for n in names), flush=True)
+
+    atexit.register(_after)
+''')
+
+
+def _run_py(code: str, tmp_path) -> str:
+    """Run `code` in a fresh process (PYTHONPATH the repo, no launcher
+    variables); it must exit 0 with no abort's message. Returns its
+    output."""
+    script = tmp_path / "hook.py"
+    script.write_text(code)
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCHER}
+    res = subprocess.run(
+        [sys.executable, str(script)], capture_output=True, text=True,
+        timeout=120, env={**env, "OMP_NUM_THREADS": "1",
+                          "PYTHONPATH": str(REPO)})
+    out = res.stdout + res.stderr
+    assert res.returncode == 0 and "terminate called" not in out, out
+    return out
+
+
+def test_exit_hook_tears_down_world_of_one(tmp_path):
+    """`initialize` starts a world of one, a mesh and a joint group of two
+    of its axes (in mesh._GROUPS); at exit the hook leaves no group up,
+    _GROUPS empty and no gloo thread alive, and the process exits 0."""
+    out = _run_py(_AFTER_HOOK + textwrap.dedent('''
+        multihost.initialize(device="cpu")
+        m = M.make_mesh(1, 1, 1, device="cpu")
+        M._group(m, ("sim", "x"))
+        assert dist.is_initialized() and len(M._GROUPS) == 1
+        print("WORK_DONE", flush=True)
+    '''), tmp_path)
+    assert "WORK_DONE" in out and "AFTER False 0 0" in out, out
+
+
+def test_exit_hook_registered_once(tmp_path):
+    """However often `initialize` runs, and however many groups it starts
+    after the caller destroyed the last one, the hook is registered once,
+    and it tears down the group started last."""
+    out = _run_py(_AFTER_HOOK + textwrap.dedent('''
+        hooks = []
+        register = atexit.register
+        atexit.register = lambda f, *a: (hooks.append(f), register(f, *a))
+        multihost.initialize(device="cpu")
+        multihost.initialize(device="cpu")
+        dist.destroy_process_group()
+        multihost.initialize(device="cpu")
+        multihost.initialize(device="cpu")
+        assert hooks == [multihost._teardown], hooks
+        assert multihost._STARTED is dist.group.WORLD
+        print("ONCE", flush=True)
+    '''), tmp_path)
+    assert "ONCE" in out and "AFTER False 0 0" in out, out
+
+
+def test_exit_hook_noop_after_destroy(tmp_path):
+    """After the caller's own destroy_process_group the hook does nothing
+    (it runs, here and at exit, without raising); nor does it touch a
+    group the caller started after that by hand."""
+    out = _run_py(_AFTER_HOOK + textwrap.dedent('''
+        multihost.initialize(device="cpu")
+        dist.destroy_process_group()
+        multihost._teardown()
+        assert not dist.is_initialized()
+        multihost.initialize(device="cpu")
+        dist.destroy_process_group()
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        multihost.initialize(device="cpu")
+        print("DESTROYED", flush=True)
+    '''), tmp_path)
+    # the hand-started group is still up after the hook
+    assert "DESTROYED" in out and "AFTER True 0 " in out, out
+
+
+def test_exit_hook_noop_for_a_group_initialize_did_not_start(tmp_path):
+    """A group the caller started before `initialize` is theirs: no hook
+    is registered, and the group is up at exit."""
+    out = _run_py(_AFTER_HOOK + textwrap.dedent('''
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        multihost.initialize(device="cpu")
+        assert not multihost._HOOKED and multihost._STARTED is None
+        print("THEIRS", flush=True)
+    '''), tmp_path)
+    assert "THEIRS" in out and "AFTER True 0 " in out, out
+
+
+def test_exit_hook_noop_when_init_is_monkeypatched(no_group, monkeypatch):
+    """With init_process_group patched no group starts: `initialize`
+    records none for the hook, and the hook destroys nothing."""
+    started, destroyed = [], []
+    monkeypatch.setattr(multihost, "_started", started.append)
+    monkeypatch.setattr(multihost, "_STARTED", multihost._STARTED)
+    monkeypatch.setattr(dist, "destroy_process_group",
+                        lambda *a: destroyed.append(a))
+    monkeypatch.setattr(M, "_GROUPS", {})
+    multihost.initialize(device="cpu")
+    assert no_group["world_size"] == 1
+    assert not started
+    multihost._teardown()
+    assert not destroyed
+
+
+_HOOK_WORKER = textwrap.dedent('''
+    import sys
+    rank, world, port, work = (int(sys.argv[1]), int(sys.argv[2]),
+                               sys.argv[3], sys.argv[4])
+''') + _AFTER_HOOK + textwrap.dedent('''
+    import torch
+    torch.set_num_threads(1)
+    multihost.initialize("127.0.0.1:" + port, world, rank, device="cpu")
+    m = M.make_mesh(1, world, 1, device="cpu")
+    t = torch.full((4,), float(rank + 1))
+    dist.all_reduce(t, group=M._group(m, ("sim", "x")))
+    assert t.tolist() == [3.0] * 4
+    got = M.ppermute(torch.full((3,), float(rank)), m, "x",
+                     [(0, 1), (1, 0)])
+    assert got.tolist() == [float(1 - rank)] * 3
+    y = M.psum(torch.ones(2, requires_grad=True), m, "x")
+    y.sum().backward()
+    assert dist.is_initialized() and len(M._GROUPS) == 1
+    print("WORKER_OK", rank, flush=True)
+''')
+
+
+def test_exit_hook_ends_a_two_rank_gloo_world(tmp_path):
+    """Two gloo ranks end their work with the group, a DeviceMesh and a
+    cached joint group still up, and no teardown of their own: both exit
+    0 with no abort's message, and the hook has torn down every group and
+    joined every gloo thread before the interpreter's own teardown."""
+    script = tmp_path / "worker.py"
+    script.write_text(_HOOK_WORKER)
+    ranks = run_ranks(script, 2, tmp_path, timeout=120)
+    for code, out in ranks:
+        assert code == 0 and "terminate called" not in out, out
+        assert "WORKER_OK" in out and "AFTER False 0 0" in out, out
