@@ -352,11 +352,15 @@ def pm_evolve(comps, mom, cosmo, ngrid: int, boxsize, a_init: float,
     cosmo.fR0 != 0 turns on the linearized Hu-Sawicki fifth force
     (per-step comoving scalaron mass^2 a^2 M^2(a) from the host, spectral
     Geff(k) in the Poisson solve); fR0 = 0 is exact GR.
+
+    The whole simulation runs in the profiler span `pm.evolve`, around
+    the loop's spans (`_pm_loop`).
     """
-    comps, mom = _flat_copies(comps, mom, device)
-    return _evolve_on_edges(comps, mom, cosmo, ngrid, boxsize,
-                            _a_edges(a_init, a_final, nsteps, spacing),
-                            window, spacing)
+    with _span("pm.evolve"):
+        comps, mom = _flat_copies(comps, mom, device)
+        return _evolve_on_edges(comps, mom, cosmo, ngrid, boxsize,
+                                _a_edges(a_init, a_final, nsteps, spacing),
+                                window, spacing)
 
 
 def _flat_copies(comps, mom, device):

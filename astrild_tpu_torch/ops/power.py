@@ -27,6 +27,10 @@ from .paint_cuda import (deposit_flat, deposit_flat_segmented,
 # last auto-selected deposit path ('kernel' | 'scatter'); diagnostics only
 last_auto_deposit: Optional[str] = None
 
+# named profiler spans of the fast estimator's parts (a few microseconds
+# each when no profiler runs)
+_span = torch.profiler.record_function
+
 __all__ = [
     "PowerResult", "MultipoleResult", "mode_radius_rfft", "kmag_rfft",
     "hermitian_weights", "delta_k", "delta_k_parts", "shell_average",
@@ -393,10 +397,7 @@ def auto_power_fast(pos, ngrid: int, boxsize: float, nbins: int = 0,
 
 
 def _fast_keys(pos, boxsize, *, ngrid: int, fine_factor: int):
-    """Flat NGP cell keys (int32) on the fine grid, subgrid-major layout.
-
-    Shared by `_auto_power_fast_impl` and the suite's sub-stage timings.
-    """
+    """Flat NGP cell keys (int32) on the fine grid, subgrid-major layout."""
     nf = ngrid * fine_factor
     ff = fine_factor
     x, y, z = _components(pos)
@@ -414,28 +415,34 @@ def _fast_keys(pos, boxsize, *, ngrid: int, fine_factor: int):
 def _auto_power_fast_impl(pos, boxsize, weights, binning, *, ngrid: int,
                           fine_factor: int, return_coarse_grid: bool,
                           deposit: str):
+    """The keys, the deposit and the fold-FFT with its shells, each in a
+    profiler span: `power.keys`, `power.deposit` (whichever deposit runs)
+    and `power.fft_bin`."""
     x = pos[0]
     n_part = x.shape[0]
-    flat = _fast_keys(pos, boxsize, ngrid=ngrid, fine_factor=fine_factor)
-    w32 = None if weights is None else weights.to(torch.float32)
+    with _span("power.keys"):
+        flat = _fast_keys(pos, boxsize, ngrid=ngrid, fine_factor=fine_factor)
     n_cells = fine_factor ** 3 * ngrid ** 3
-    if deposit == "kernel":
-        dep = deposit_flat(flat, w32, n_cells)
-    elif deposit == "kernel_seg":
-        dep = deposit_flat_segmented(flat, w32, n_cells)
-    else:
-        dep = deposit_sorted_reference(flat, w32, n_cells)
-    # discrete-tracer shot noise: V * sum(w^2) / (sum w)^2, which reduces
-    # to V/N for unit weights
-    if weights is None:
-        total = float(n_part)
-        shot = boxsize ** 3 / n_part
-    else:
-        total = w32.sum()
-        shot = boxsize ** 3 * (w32 * w32).sum() / _nonzero(total) ** 2
-    return _fold_fft_bin(dep, total, shot, binning, boxsize, ngrid=ngrid,
-                         fine_factor=fine_factor,
-                         return_coarse_grid=return_coarse_grid)
+    with _span("power.deposit"):
+        w32 = None if weights is None else weights.to(torch.float32)
+        if deposit == "kernel":
+            dep = deposit_flat(flat, w32, n_cells)
+        elif deposit == "kernel_seg":
+            dep = deposit_flat_segmented(flat, w32, n_cells)
+        else:
+            dep = deposit_sorted_reference(flat, w32, n_cells)
+    with _span("power.fft_bin"):
+        # discrete-tracer shot noise: V * sum(w^2) / (sum w)^2, which
+        # reduces to V/N for unit weights
+        if weights is None:
+            total = float(n_part)
+            shot = boxsize ** 3 / n_part
+        else:
+            total = w32.sum()
+            shot = boxsize ** 3 * (w32 * w32).sum() / _nonzero(total) ** 2
+        return _fold_fft_bin(dep, total, shot, binning, boxsize,
+                             ngrid=ngrid, fine_factor=fine_factor,
+                             return_coarse_grid=return_coarse_grid)
 
 
 def _fold_fft_bin(dep_flat, total, shot, binning, boxsize, *, ngrid: int,

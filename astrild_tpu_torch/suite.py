@@ -10,17 +10,18 @@ Port of the four stages that bench.py times (`bench.py:53-119`):
               resize to npix^2 -> gamma by one spectral spin-2 rotation;
   voids       peak catalog of kappa -> tunnels void finder.
 
-`make_stages` returns a `run(pos)` callable with `run.stages`,
-`run.per_stage(pos)` and `run.matter_detail(pos)`, as bench.py does.
+`make_stages` returns a `run(pos)` callable with `run.stages`, as
+bench.py does. A pass runs in the profiler span `suite.pass`, each stage
+in `suite.<stage>`; `ops/power.py`, `ops/peaks.py` and `ops/voids.py`
+open spans for the stages' parts, so a `torch.profiler` trace of passes
+splits their device time by stage and part without a sync.
 """
 from __future__ import annotations
-
-import time
 
 import torch
 import torch.nn.functional as F
 
-from .ops import bispectrum, lensing, paint_cuda, peaks, power, voids
+from .ops import bispectrum, lensing, peaks, power, voids
 
 __all__ = ["make_stages", "uniform_positions", "PK_BINS", "BISPEC_BINS",
            "OPENING_ANGLE_RAD"]
@@ -47,9 +48,8 @@ def uniform_positions(n_side: int, boxsize: float, device,
                       dtype=torch.float32) * boxsize
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+# named profiler spans (a few microseconds each when no profiler runs)
+_span = torch.profiler.record_function
 
 
 def make_stages(n_side: int, ngrid: int, npix: int, boxsize: float,
@@ -72,112 +72,64 @@ def make_stages(n_side: int, ngrid: int, npix: int, boxsize: float,
                 pos_flat[2 * n_part:])
 
     def stage_matter(pos_flat):
-        res, grid = power.auto_power_fast(split(pos_flat), ngrid, boxsize,
-                                          nbins=PK_BINS,
-                                          fine_factor=FINE_FACTOR,
-                                          return_coarse_grid=True,
-                                          binning=binning)
-        return grid, res.power
+        with _span("suite.matter"):
+            res, grid = power.auto_power_fast(split(pos_flat), ngrid,
+                                              boxsize, nbins=PK_BINS,
+                                              fine_factor=FINE_FACTOR,
+                                              return_coarse_grid=True,
+                                              binning=binning)
+            return grid, res.power
 
     def stage_bispectrum(grid):
-        return bispectrum.bispectrum_3d(grid, boxsize, nbins=BISPEC_BINS,
-                                        m_min=BISPEC_M_MIN,
-                                        m_max=BISPEC_M_MAX).b
+        with _span("suite.bispectrum"):
+            return bispectrum.bispectrum_3d(grid, boxsize,
+                                            nbins=BISPEC_BINS,
+                                            m_min=BISPEC_M_MIN,
+                                            m_max=BISPEC_M_MAX).b
 
     def stage_lensing(grid):
-        delta = grid / grid.mean() - 1.0
-        # interleaved slabs: plane p sums the grid planes p, p + nplanes, ...
-        slabs = delta.reshape(ngrid // nplanes, nplanes, ngrid,
-                              ngrid).sum(0)
-        chis = torch.linspace(CHI_NEAR, CHI_FAR, nplanes, device=grid.device)
-        dchis = torch.full((nplanes,), boxsize / nplanes, device=grid.device)
-        # Born integration and resize are both linear, so integrating at
-        # grid resolution and upsampling once equals upsampling every plane
-        kappa_c = lensing.born_convergence(slabs, chis, dchis, CHI_SOURCE,
-                                           OMEGA_M)
-        kappa = F.interpolate(kappa_c[None, None], size=(npix, npix),
-                              mode="bilinear", align_corners=False)[0, 0]
-        g1, g2 = lensing.kappa_to_gamma(kappa, OPENING_ANGLE_RAD,
-                                        padding_factor=2)
-        return kappa, g1, g2
+        with _span("suite.lensing"):
+            delta = grid / grid.mean() - 1.0
+            # interleaved slabs: plane p sums the grid planes p,
+            # p + nplanes, ...
+            slabs = delta.reshape(ngrid // nplanes, nplanes, ngrid,
+                                  ngrid).sum(0)
+            chis = torch.linspace(CHI_NEAR, CHI_FAR, nplanes,
+                                  device=grid.device)
+            dchis = torch.full((nplanes,), boxsize / nplanes,
+                               device=grid.device)
+            # Born integration and resize are both linear, so integrating
+            # at grid resolution and upsampling once equals upsampling
+            # every plane
+            kappa_c = lensing.born_convergence(slabs, chis, dchis,
+                                               CHI_SOURCE, OMEGA_M)
+            kappa = F.interpolate(kappa_c[None, None], size=(npix, npix),
+                                  mode="bilinear",
+                                  align_corners=False)[0, 0]
+            g1, g2 = lensing.kappa_to_gamma(kappa, OPENING_ANGLE_RAD,
+                                            padding_factor=2)
+            return kappa, g1, g2
 
     def stage_voids(kappa):
-        cat = peaks.find_peaks(kappa, threshold=kappa.std(correction=0),
-                               max_peaks=MAX_PEAKS, edge_pix=PEAK_EDGE_PIX)
-        vcat = voids.find_tunnels(cat.pos.to(torch.float32),
-                                  cat.values > float("-inf"), npix,
-                                  max_voids=MAX_VOIDS)
-        return vcat.radius
+        with _span("suite.voids"):
+            cat = peaks.find_peaks(kappa,
+                                   threshold=kappa.std(correction=0),
+                                   max_peaks=MAX_PEAKS,
+                                   edge_pix=PEAK_EDGE_PIX)
+            vcat = voids.find_tunnels(cat.pos.to(torch.float32),
+                                      cat.values > float("-inf"), npix,
+                                      max_voids=MAX_VOIDS)
+            return vcat.radius
 
     def run(pos_flat):
-        grid, pk = stage_matter(pos_flat)
-        b = stage_bispectrum(grid)
-        kappa, g1, g2 = stage_lensing(grid)
-        rad = stage_voids(kappa)
-        return pk, b, kappa, g1, g2, rad
-
-    def run_per_stage(pos_flat):
-        """One pass with a device sync after each stage: {stage: seconds}."""
-        stage_s = {}
-        t0 = time.perf_counter()
-        grid, pk = stage_matter(pos_flat)
-        _sync(device)
-        stage_s["matter"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        stage_bispectrum(grid)
-        _sync(device)
-        stage_s["bispectrum"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        kappa, _, _ = stage_lensing(grid)
-        _sync(device)
-        stage_s["lensing"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        stage_voids(kappa)
-        _sync(device)
-        stage_s["voids"] = time.perf_counter() - t0
-        return stage_s
-
-    def matter_detail(pos_flat):
-        """Sub-stage seconds of the matter stage {keygen, deposit,
-        fft_bin} through the same helpers `auto_power_fast` calls (the
-        deposit: `paint_cuda.deposit_flat` on the keys as they come, or the
-        scatter), plus which deposit ran. Each sub-stage is run once
-        untimed first."""
-        n_cells = FINE_FACTOR ** 3 * ngrid ** 3
-        use_kernel = power.last_auto_deposit == "kernel"
-
-        def keygen(p):
-            return power._fast_keys(split(p), boxsize, ngrid=ngrid,
-                                    fine_factor=FINE_FACTOR)
-
-        def deposit(k):
-            if use_kernel:
-                return paint_cuda.deposit_flat(k, None, n_cells)
-            return paint_cuda.deposit_sorted_reference(k, None, n_cells)
-
-        def fft_bin(d):
-            return power._fold_fft_bin(d, float(n_part),
-                                       boxsize ** 3 / n_part, binning,
-                                       boxsize, ngrid=ngrid,
-                                       fine_factor=FINE_FACTOR,
-                                       return_coarse_grid=False).power
-
-        out = {"deposit_kind": "kernel" if use_kernel else "scatter"}
-        x = pos_flat
-        for name, fn in (("keygen", keygen), ("deposit", deposit),
-                         ("fft_bin", fft_bin)):
-            fn(x)
-            _sync(device)
-            t0 = time.perf_counter()
-            y = fn(x)
-            _sync(device)
-            out[name] = time.perf_counter() - t0
-            x = y
-        return out
+        with _span("suite.pass"):
+            grid, pk = stage_matter(pos_flat)
+            b = stage_bispectrum(grid)
+            kappa, g1, g2 = stage_lensing(grid)
+            rad = stage_voids(kappa)
+            return pk, b, kappa, g1, g2, rad
 
     run.stages = {"matter": stage_matter, "bispectrum": stage_bispectrum,
                   "lensing": stage_lensing, "voids": stage_voids}
-    run.per_stage = run_per_stage
-    run.matter_detail = matter_detail
     run.binning = binning
     return run

@@ -45,10 +45,12 @@ exits non-zero before the final line:
      one cell);
   6. drive the z=0 analysis suite at bench size (512^3 particles, a 256^3
      grid over 2^27 fine cells, 64 lens planes, 2048^2 maps): one warm-up
-     and N timed runs, the per-stage split and the matter sub-stages, then
-     check the outputs (finite, shapes, P(k) of the kernel deposit equal to
-     the scatter deposit's to rtol 1e-5, P(k) of uniform particles at the
-     shot-noise level, the deposit conserving the particle count);
+     and N timed runs, the per-stage split and the matter sub-stages (the
+     device time of the program's `suite.*` and `power.*` spans in one
+     profiled pass), then check the outputs (finite, shapes, P(k) of the
+     kernel deposit equal to the scatter deposit's to rtol 1e-5, P(k) of
+     uniform particles at the shot-noise level, the deposit conserving the
+     particle count);
   7. drive the forward model at the pm_catalog defaults: 512^3 particles
      on a 512^3 mesh in a 500 Mpc/h box, EH98 P(k), 2LPT at z=9, 20 log-a
      KDK steps to z=0 in GR and in f(R) (fR0=1e-5) from the same ICs, the
@@ -871,8 +873,23 @@ def phase_suite(dev, seed: int, runs: int) -> dict:
         raise AssertionError(f"the suite did not launch K1 once per run: "
                              f"{launches}")
 
-    stage_s = run.per_stage(pos)
-    detail = run.matter_detail(pos)
+    # stage and matter sub-stage device seconds of one pass, from the
+    # program's spans (suite.py, ops/power.py) in a profiler trace
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(pos)
+        torch.cuda.synchronize()
+    stages = ("matter", "bispectrum", "lensing", "voids")
+    parts = {"keygen": "power.keys", "deposit": "power.deposit",
+             "fft_bin": "power.fft_bin"}
+    spans = _span_ms(prof.key_averages(),
+                     tuple(f"suite.{k}" for k in stages)
+                     + tuple(parts.values()))
+    del prof
+    stage_s = {k: spans[f"suite.{k}"]["ms"] / 1e3 for k in stages}
+    detail = {"deposit_kind": power.last_auto_deposit,
+              **{k: spans[v]["ms"] / 1e3 for k, v in parts.items()}}
 
     # outputs: shapes and finiteness
     pk, b, kappa, g1, g2, rad = out

@@ -141,14 +141,27 @@ def test_suite_voids_stage(both):
 
 
 def test_suite_timings_and_deposit_choice(both, positions):
+    """A pass under the profiler opens each stage span and each matter
+    sub-stage span once, in its place; the CPU pass takes the scatter
+    deposit."""
+    from torch.profiler import ProfilerActivity, profile
+
     run = both[0]
     assert TPS.last_auto_deposit == "scatter"  # a CPU tensor
     pos = torch.from_numpy(positions.copy())
-    assert set(run.per_stage(pos)) == {"matter", "bispectrum", "lensing",
-                                       "voids"}
-    detail = run.matter_detail(pos)
-    assert detail["deposit_kind"] == "scatter"
-    assert {"keygen", "deposit", "fft_bin"} <= set(detail)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(pos)
+    rows = {e.key: e for e in prof.key_averages()}
+    stages = ("matter", "bispectrum", "lensing", "voids")
+    parts = ("power.keys", "power.deposit", "power.fft_bin")
+    for name in ("suite.pass", *(f"suite.{s}" for s in stages), *parts):
+        assert rows[name].count == 1, name
+    parent = {e.name: e.cpu_parent.name for e in prof.events()
+              if e.name in parts or e.name.startswith("suite.")
+              and e.name != "suite.pass"}
+    assert parent == {**{f"suite.{s}": "suite.pass" for s in stages},
+                      **{p: "suite.matter" for p in parts}}
+    assert TPS.last_auto_deposit == "scatter"
     with pytest.raises(ValueError, match="flat positions"):
         run(pos[:-3])
 
